@@ -6,24 +6,31 @@
 Phases, each of which must pass (else the script exits non-zero and prints
 no result):
   1. device: a CUDA card must be present; prints its name and power limit;
-  2. build: compiles both CUDA kernels from ``cross_attention_renderer_torch/
+  2. build: compiles every CUDA kernel from ``cross_attention_renderer_torch/
      csrc`` with one ``nvcc`` each, all at once;
-  3. main path: the flagship renderer (122M DPT-hybrid, bf16 compute, f32
+  3. V=2 main path: the flagship renderer (122M DPT-hybrid, bf16 compute, f32
      parameters from a seeded initialiser; the decoder's output layer is
      drawn at 1/64 of its scale, since an untrained decoder has no image
-     range to check against) encodes two 256x256 views and
-     renders the full 65,536-ray image in 8 blocks of 8,192 rays, with the
-     kernels' launch counters set to 0 just before and read just after
-     (16 attention launches and 8 epilogue launches per image); the image
-     must be finite with RGB in [-1, 1.5] and some valid rays; then the
-     encode and whole-image times and a profile of one image;
-  4. kernel checks: each kernel against its plain PyTorch version, on the
-     inputs of the main path's first ray block, with the tolerance stated
-     below, and the times of both beside the least time the card could
-     take (``bound_ms``);
-  5. small-input agreement: a narrow model renders a small scene with the
-     kernels in bf16 on the card and with the plain versions in f32 on the
-     CPU; the images must agree within the stated tolerance.
+     range to check against) encodes two 256x256 views and renders the full
+     65,536-ray image in 8 blocks of 8,192 rays, with the kernels' launch
+     counters set to 0 just before and read just after (16 attention
+     launches and 8 epilogue launches per image); the image must be finite
+     with RGB in [-1, 1.5] and some valid rays; then the encode and
+     whole-image times and a profile of one image;
+  4. V=2 kernel checks: each kernel against its plain PyTorch version, on
+     the inputs of the main path's first ray block, with the tolerance stated
+     below, and the times of both beside the least time the card could take
+     (``bound_ms``);
+  5. V=2 small-input agreement: a narrow model renders a small scene with
+     the kernels in bf16 on the card and with the plain versions in f32 on
+     the CPU; the images must agree within the stated tolerance;
+  6. V=3 default path (Path A): the same as phase 3 for three views at 48
+     samples (16 attention and 8 multi-stream epilogue launches per image),
+     then K3, and K1 at V*P = 144, against their plain versions;
+  7. V=3 reference-compatible path (Path B, ``reference_exchange_compat``
+     with the fused MLP): the same image checks (16 attention and 72 fused
+     MLP launches per image, 9 a block), then K9 against its plain version;
+  8. V=3 small-input agreement for both V=3 paths, as phase 5.
 Then it prints the ``kernels`` JSON line, the card line and, last, the
 result line.
 """
@@ -44,15 +51,20 @@ BF16_TENSOR_FLOPS = 989e12      # dense bf16 tensor cores, published
 F32_FLOPS = 67e12               # f32 outside the tensor cores, published
 # Tolerances, as fractions of max(1, max |plain|): the kernel and its plain
 # version read the same bf16 inputs and accumulate in f32 but round
-# intermediates at different places.
+# intermediates at different places (the plain versions round every
+# product's output to bf16, the kernels keep f32 until the next product's
+# input, and K3 sums the streams in f32 before it rounds once).
 K1_TOL = {'out': 2 ** -7, 'at_wt': 2 ** -8}
-K2_TOL = 2 ** -5
+K2_TOL = K3_TOL = K9_TOL = 2 ** -5
 SMALL_TOL = 0.1     # bf16 card render vs f32 CPU render of the same model
 # The decoder has no output squashing: at its initial scale random weights
 # put RGB near +-40. Its last layer is drawn this much smaller so that the
 # random image lies in an image's range and the range check below means
 # something.
 RGB_LAYER_SCALE = 1.0 / 64
+SMALL = dict(npoints=16, fusion_features=32, vit_width=64, vit_depth=2,
+             vit_heads=2, resnet_layers=(1, 1, 1))
+PATH_B = dict(reference_exchange_compat=True, fused_mlp=True)
 
 
 def log(msg: str) -> None:
@@ -82,6 +94,14 @@ def scale(want) -> float:
     return max(1.0, float(want.float().abs().max()))
 
 
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
 def attention_bound(q, k, v):
     """(bound_ms, bound_by) of one epipolar_attention call on these inputs."""
     B, V, R, P, D = q.shape
@@ -89,29 +109,184 @@ def attention_bound(q, k, v):
     nbytes = (q.numel() + k.numel() + v.numel() + B * R * C
               + B * V * R * P) * q.element_size()
     flops = B * R * V * P * (2 * D + 2 * C + 5)     # dots, sums, softmax
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else \
-        'operations'
+    return bound(nbytes, flops, F32_FLOPS)
 
 
-def epilogue_bound(tables, cells, aux_self, params):
-    """(bound_ms, bound_by) of one fused_exchange_epilogue call: the table
-    rows this call's cells reference, the cells, aux and weights read once,
-    the outputs written once; the tensor-core products of every sample."""
+def epilogue_bound(tables, cells, aux_list, params):
+    """(bound_ms, bound_by) of one exchange epilogue call with S =
+    len(aux_list) streams: the table rows this call's cells reference, the
+    cells, aux and weights read once, the outputs written once; the
+    tensor-core products of every sample."""
     import torch
-    M = aux_self.shape[0]
+    S, M = len(aux_list), aux_list[0].shape[0]
     w1, w2, k2 = params[0], params[2], params[8]
     F, H1, O, K = w1.shape[0] - 3, w1.shape[1], w2.shape[1], k2.shape[1]
     row_bytes = sum(int(torch.unique(c).numel()) * t.shape[-1]
                     * t.element_size() for t, c in zip(tables, cells))
     nbytes = (row_bytes + sum(c.numel() * 4 for c in cells)
-              + 2 * aux_self.numel() * aux_self.element_size()
+              + sum(a.numel() * a.element_size() for a in aux_list)
               + sum(p.numel() * 2 for p in params) + M * (O + K) * 2)
-    macs = M * (2 * (F * H1 + H1 * O) + 2 * O * O + 2 * O * K + K * K)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * macs / BF16_TENSOR_FLOPS
-    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else \
-        'operations'
+    macs = M * (S * (F * H1 + H1 * O) + S * O * O + S * O * K + K * K)
+    return bound(nbytes, 2 * macs, BF16_TENSOR_FLOPS)
+
+
+def mlp_bound(x1, x2, w1a, w1b, b1, w2, b2):
+    """(bound_ms, bound_by) of one fused_mlp2 call: x1, x2, the weights and
+    the output moved once; the products of every row."""
+    M, K1 = x1.shape
+    H, O = w1a.shape[1], w2.shape[1]
+    nbytes = (x1.numel() + x2.numel() + M * O) * 2 + 2 * (
+        w1a.numel() + w1b.numel() + w2.numel()) + 4 * (H + O)
+    return bound(nbytes, 2 * M * (K1 * H + 3 * H + H * O), BF16_TENSOR_FLOPS)
+
+
+def drive(label, model, scene, RM, counted, expected):
+    """Renders the full image through ``make_scan_renderer`` with the launch
+    counters of ``counted`` ({name in the renderer module: kernel wrapper})
+    set to 0 just before and read just after, and checks the image. Then
+    times encode and the whole image and profiles one image. Returns the
+    first ray block's arguments of every counted kernel and the launches."""
+    import torch
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_scan_renderer)
+    uv_full = scene['query']['uv']
+    render_image = make_scan_renderer(model, N_BLOCKS)
+    captured = {}
+
+    def capture(name, fn):
+        def wrapper(*args):
+            if name not in captured:
+                captured[name] = args
+            return fn(*args)
+        return wrapper
+
+    for name, fn in counted.items():
+        setattr(RM, name, capture(name, fn))
+        fn.launches = 0
+    with torch.inference_mode():
+        z = model.encode(scene)
+        rgb, valid = render_image(scene, z, uv_full)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    for name, fn in counted.items():
+        setattr(RM, name, fn)
+    log(f'{label} launches per image: {launches}')
+    if launches != expected:
+        raise RuntimeError(f'{label}: unexpected kernel launches {launches}, '
+                           f'expected {expected}')
+    rgb_f = rgb.float()
+    valid_frac = float(valid.float().mean())
+    if rgb.shape != (1, 1, H * W, 3) or not bool(torch.isfinite(rgb_f).all()):
+        raise RuntimeError(f'{label}: image is not finite or has the wrong '
+                           'shape')
+    lo, hi = float(rgb_f.min()), float(rgb_f.max())
+    if lo < -1.0 or hi > 1.5 or valid_frac <= 0.0:
+        raise RuntimeError(f'{label}: rgb range [{lo}, {hi}], valid '
+                           f'{valid_frac}')
+    log(f'{label} image: rgb in [{lo:.4f}, {hi:.4f}], valid fraction '
+        f'{valid_frac:.4f}')
+
+    V = scene['context']['rgb'].shape[1]
+    with torch.inference_mode():
+        encode_ms = cuda_ms(lambda: model.encode(scene), 5)
+        t0 = time.perf_counter()
+        n_img = 3
+        for _ in range(n_img):
+            render_image(scene, z, uv_full)
+        torch.cuda.synchronize()
+        image_s = (time.perf_counter() - t0) / n_img
+    log(f'{label} encode: {encode_ms:.3f} ms | image: {image_s * 1e3:.1f} ms '
+        f'| {H * W / image_s:.1f} rays/s ({H * W:,} rays, {N_BLOCKS} blocks, '
+        f'V={V}, '
+        f'{model.n_samples} samples, bf16)')
+
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_image(scene, z, uv_full)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, 'device_type', None) is not None
+              and str(e.device_type).endswith('CUDA')]
+    dev_us = sum(e.self_device_time_total for e in events)
+    log(f'{label} profile of one image: wall {wall_ms:.1f} ms, device busy '
+        f'{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}%)')
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f'  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  '
+            f'{e.key[:90]}')
+    return captured, launches
+
+
+def check_attention(label, EA, q, k, v):
+    """K1 against its plain version on (q, k, v); returns its numbers."""
+    out, wt = EA.epipolar_attention(q, k, v)
+    out_ref, wt_ref = EA.epipolar_attention_reference(q, k, v)
+    err_out, err_wt = max_err(out, out_ref), max_err(wt, wt_ref)
+    log(f'K1 epipolar_attention {label} {tuple(q.shape)} x '
+        f'{tuple(v.shape)}: max err out {err_out:.3e} (tol '
+        f'{K1_TOL["out"] * scale(out_ref):.3e}), at_wt {err_wt:.3e} (tol '
+        f'{K1_TOL["at_wt"]:.3e})')
+    if (err_out > K1_TOL['out'] * scale(out_ref)
+            or err_wt > K1_TOL['at_wt']):
+        raise RuntimeError(f'K1 disagrees with its plain version ({label})')
+    bound_ms, bound_by = attention_bound(q, k, v)
+    return {'max_abs_err': max(err_out, err_wt),
+            'ms': cuda_ms(lambda: EA.epipolar_attention(q, k, v), 20),
+            'plain_ms': cuda_ms(
+                lambda: EA.epipolar_attention_reference(q, k, v), 5),
+            'bound_ms': bound_ms, 'bound_by': bound_by}
+
+
+def check_epilogue(name, kernel, plain, args, aux_list, params, tol):
+    """An exchange epilogue (K2 or K3) against its plain version."""
+    jl, kv = kernel(*args)
+    jl_ref, kv_ref = plain(*args)
+    err_jl, err_kv = max_err(jl, jl_ref), max_err(kv, kv_ref)
+    log(f'{name} M={aux_list[0].shape[0]}: max err jl {err_jl:.3e} (tol '
+        f'{tol * scale(jl_ref):.3e}), kv {err_kv:.3e} (tol '
+        f'{tol * scale(kv_ref):.3e})')
+    if err_jl > tol * scale(jl_ref) or err_kv > tol * scale(kv_ref):
+        raise RuntimeError(f'{name} disagrees with its plain version')
+    del jl, kv, jl_ref, kv_ref
+    bound_ms, bound_by = epilogue_bound(args[0], args[1], aux_list, params)
+    return {'max_abs_err': max(err_jl, err_kv),
+            'ms': cuda_ms(lambda: kernel(*args), 10),
+            'plain_ms': cuda_ms(lambda: plain(*args), 3),
+            'bound_ms': bound_ms, 'bound_by': bound_by}
+
+
+def small_agreement(label, RM, make_scene, dev, **kw):
+    """A narrow model's bf16 render on the card against its f32 render on
+    the CPU, through the same entry point."""
+    import torch
+    n_view = kw.get('n_view', 2)
+    ref = RM.CrossAttentionRenderer(seed=1, device='cpu', **SMALL, **kw)
+    card_model = RM.CrossAttentionRenderer(dtype=torch.bfloat16, seed=1,
+                                           device=dev, **SMALL, **kw)
+    s_cpu = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512,
+                       device='cpu')
+    s_dev = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512, device=dev)
+    with torch.inference_mode():
+        want = ref(s_cpu)['rgb']
+        got = card_model(s_dev)['rgb'].float().cpu()
+    err = max_err(got, want)
+    log(f'small input {label}: bf16 card render vs f32 CPU render, max err '
+        f'{err:.3e} (tol {SMALL_TOL * scale(want):.3e})')
+    if not bool(torch.isfinite(got).all()) or err > SMALL_TOL * scale(want):
+        raise RuntimeError(f'small-input render ({label}) disagrees with the '
+                           'reference')
+
+
+def flagship(RM, dev, **kw):
+    """The 122M model in bf16 from seed 0, decoder output layer scaled."""
+    import torch
+    model = RM.CrossAttentionRenderer(dtype=torch.bfloat16, seed=0,
+                                      device=dev, **kw).eval()
+    with torch.no_grad():
+        model.phi.lin_out.weight.mul_(RGB_LAYER_SCALE)
+    return model
 
 
 def main() -> int:
@@ -130,10 +305,10 @@ def main() -> int:
     from cross_attention_renderer_torch.models import renderer as RM
     from cross_attention_renderer_torch.ops import _build
     from cross_attention_renderer_torch.ops import epipolar_attention as EA
+    from cross_attention_renderer_torch.ops import fused_mlp as FM
     from cross_attention_renderer_torch.ops import gather_epilogue as GE
-    from cross_attention_renderer_torch.train.evaluation import (
-        make_scan_renderer)
 
+    t_start = time.perf_counter()
     # -- 1. device ---------------------------------------------------------
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -149,149 +324,116 @@ def main() -> int:
         print(f'--- nvcc {name}\n{out}', file=sys.stderr)
     log(f'build: {time.perf_counter() - t0:.1f} s')
 
-    # -- 3. main path ------------------------------------------------------
-    model = RM.CrossAttentionRenderer(npoints=64, dtype=torch.bfloat16,
-                                      seed=0, device=dev).eval()
-    with torch.no_grad():
-        model.phi.lin_out.weight.mul_(RGB_LAYER_SCALE)
-    scene = make_scene(0, H=H, W=W, n_rays=H * W,
-                       full_image=True, device=dev)
-    uv_full = scene['query']['uv']
-    render_image = make_scan_renderer(model, N_BLOCKS)
+    attention = ('epipolar_attention', EA.epipolar_attention)
+    epilogue = ('fused_exchange_epilogue', GE.fused_exchange_epilogue)
+    epilogue_multi = ('fused_exchange_epilogue_multi',
+                      GE.fused_exchange_epilogue_multi)
+    mlp = ('fused_mlp2', FM.fused_mlp2)
+    by_path = {}        # launches per image of every kernel on every path
 
-    captured = {}       # the first ray block's kernel inputs, for phase 4
+    # -- 3. V=2 main path --------------------------------------------------
+    model = flagship(RM, dev, npoints=64)
+    scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
+                       device=dev)
+    captured, launches = drive(
+        'V=2', model, scene, RM, dict([attention, epilogue]),
+        {'epipolar_attention': 2 * N_BLOCKS,
+         'fused_exchange_epilogue': N_BLOCKS})
+    by_path['v2'] = launches
 
-    def capture(name, fn):
-        def wrapper(*args):
-            if name not in captured:
-                captured[name] = args
-            return fn(*args)
-        return wrapper
-
-    RM.epipolar_attention = capture('attention', EA.epipolar_attention)
-    RM.fused_exchange_epilogue = capture('epilogue',
-                                         GE.fused_exchange_epilogue)
-    EA.epipolar_attention.launches = 0
-    GE.fused_exchange_epilogue.launches = 0
-    with torch.inference_mode():
-        z = model.encode(scene)
-        rgb, valid = render_image(scene, z, uv_full)
-    torch.cuda.synchronize()
-    launches = {'epipolar_attention': EA.epipolar_attention.launches,
-                'fused_exchange_epilogue':
-                    GE.fused_exchange_epilogue.launches}
-    RM.epipolar_attention = EA.epipolar_attention
-    RM.fused_exchange_epilogue = GE.fused_exchange_epilogue
-    log(f'main path launches per image: {launches}')
-    if launches != {'epipolar_attention': 2 * N_BLOCKS,
-                    'fused_exchange_epilogue': N_BLOCKS}:
-        raise RuntimeError(f'unexpected kernel launches {launches}')
-    rgb_f = rgb.float()
-    valid_frac = float(valid.float().mean())
-    if rgb.shape != (1, 1, H * W, 3) or not bool(torch.isfinite(rgb_f).all()):
-        raise RuntimeError('image is not finite or has the wrong shape')
-    lo, hi = float(rgb_f.min()), float(rgb_f.max())
-    if lo < -1.0 or hi > 1.5 or valid_frac <= 0.0:
-        raise RuntimeError(f'rgb range [{lo}, {hi}], valid {valid_frac}')
-    log(f'image: rgb in [{lo:.4f}, {hi:.4f}], valid fraction {valid_frac:.4f}')
-
-    with torch.inference_mode():
-        encode_ms = cuda_ms(lambda: model.encode(scene), 5)
-        t0 = time.perf_counter()
-        n_img = 3
-        for _ in range(n_img):
-            rgb, _ = render_image(scene, z, uv_full)
-        torch.cuda.synchronize()
-        image_s = (time.perf_counter() - t0) / n_img
-    log(f'encode: {encode_ms:.3f} ms | image: {image_s * 1e3:.1f} ms | '
-        f'{H * W / image_s:.1f} rays/s (65,536 rays, 8 blocks, bf16)')
-
-    from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render_image(scene, z, uv_full)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, 'device_type', None) is not None
-              and str(e.device_type).endswith('CUDA')]
-    dev_us = sum(e.self_device_time_total for e in events)
-    log(f'profile of one image: wall {wall_ms:.1f} ms, device busy '
-        f'{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}%)')
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f'  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  '
-            f'{e.key[:90]}')
-
-    # -- 4. kernel checks on the first block's inputs ----------------------
-    kernels = []
+    # -- 4. V=2 kernel checks on the first block's inputs ------------------
     torch.set_grad_enabled(False)
-    q, k, v = captured['attention']
-    out, wt = EA.epipolar_attention(q, k, v)
-    out_ref, wt_ref = EA.epipolar_attention_reference(q, k, v)
-    err_out, err_wt = max_err(out, out_ref), max_err(wt, wt_ref)
-    log(f'K1 epipolar_attention {tuple(q.shape)} x {tuple(v.shape)}: '
-        f'max err out {err_out:.3e} (tol {K1_TOL["out"] * scale(out_ref):.3e})'
-        f', at_wt {err_wt:.3e} (tol {K1_TOL["at_wt"]:.3e})')
-    if (err_out > K1_TOL['out'] * scale(out_ref)
-            or err_wt > K1_TOL['at_wt']):
-        raise RuntimeError('K1 disagrees with its plain version')
-    bound, bound_by = attention_bound(q, k, v)
-    kernels.append({
-        'name': 'epipolar_attention', 'route': 'cuda',
-        'source': 'cross_attention_renderer_torch/csrc/epipolar_attention.cu',
-        'replaces': 'cross_attention_renderer_tpu/ops/epipolar_attention.py:118',
-        'launches': launches['epipolar_attention'],
-        'max_abs_err': max(err_out, err_wt),
-        'ms': cuda_ms(lambda: EA.epipolar_attention(q, k, v), 20),
-        'plain_ms': cuda_ms(
-            lambda: EA.epipolar_attention_reference(q, k, v), 5),
-        'bound_ms': bound, 'bound_by': bound_by, 'library_ms': None})
+    k1 = check_attention('V=2', EA, *captured['epipolar_attention'])
+    args = captured['fused_exchange_epilogue']
+    k2 = check_epilogue('K2 fused_exchange_epilogue',
+                        GE.fused_exchange_epilogue,
+                        GE.fused_exchange_epilogue_reference, args,
+                        args[2:4], args[4], K2_TOL)
+    del model, scene, captured, args
+    torch.cuda.empty_cache()
 
-    args = captured['epilogue']
-    jl, kv = GE.fused_exchange_epilogue(*args)
-    jl_ref, kv_ref = GE.fused_exchange_epilogue_reference(*args)
-    err_jl, err_kv = max_err(jl, jl_ref), max_err(kv, kv_ref)
-    log(f'K2 fused_exchange_epilogue M={args[2].shape[0]}: max err jl '
-        f'{err_jl:.3e} (tol {K2_TOL * scale(jl_ref):.3e}), kv {err_kv:.3e} '
-        f'(tol {K2_TOL * scale(kv_ref):.3e})')
-    if (err_jl > K2_TOL * scale(jl_ref) or err_kv > K2_TOL * scale(kv_ref)):
-        raise RuntimeError('K2 disagrees with its plain version')
-    del jl_ref, kv_ref
-    bound, bound_by = epilogue_bound(args[0], args[1], args[2], args[4])
-    kernels.append({
-        'name': 'fused_exchange_epilogue', 'route': 'cuda',
-        'source': 'cross_attention_renderer_torch/csrc/gather_epilogue.cu',
-        'replaces': 'cross_attention_renderer_tpu/ops/gather_epilogue.py:220',
-        'launches': launches['fused_exchange_epilogue'],
-        'max_abs_err': max(err_jl, err_kv),
-        'ms': cuda_ms(lambda: GE.fused_exchange_epilogue(*args), 10),
-        'plain_ms': cuda_ms(
-            lambda: GE.fused_exchange_epilogue_reference(*args), 3),
-        'bound_ms': bound, 'bound_by': bound_by, 'library_ms': None})
+    # -- 5. V=2 small input ------------------------------------------------
+    small_agreement('V=2', RM, make_scene, dev)
+
+    # -- 6. V=3 default path (Path A): K1 and K3 ---------------------------
+    model = flagship(RM, dev, n_view=3)
+    scene = make_scene(0, n_view=3, H=H, W=W, n_rays=H * W,
+                       full_image=True, device=dev)
+    captured, launches = drive(
+        'V=3 (Path A)', model, scene, RM, dict([attention, epilogue_multi]),
+        {'epipolar_attention': 2 * N_BLOCKS,
+         'fused_exchange_epilogue_multi': N_BLOCKS})
+    by_path['v3'] = launches
+    k1['at_v3'] = check_attention('V=3', EA, *captured['epipolar_attention'])
+    args = captured['fused_exchange_epilogue_multi']
+    k3 = check_epilogue('K3 fused_exchange_epilogue_multi',
+                        GE.fused_exchange_epilogue_multi,
+                        GE.fused_exchange_epilogue_multi_reference, args,
+                        args[2], args[3], K3_TOL)
+    del model, captured, args
+    torch.cuda.empty_cache()
+
+    # -- 7. V=3 reference-compatible path (Path B): K1 and K9 --------------
+    model = flagship(RM, dev, n_view=3, **PATH_B)
+    per_block = 3 * 3       # 3 self and 6 cross fuse calls per block
+    captured, launches = drive(
+        'V=3 compat (Path B)', model, scene, RM, dict([attention, mlp]),
+        {'epipolar_attention': 2 * N_BLOCKS,
+         'fused_mlp2': per_block * N_BLOCKS})
+    by_path['v3_compat'] = launches
+    args = captured['fused_mlp2']
+    out = FM.fused_mlp2(*args)
+    ref = FM.fused_mlp2_reference(*args)
+    err9 = max_err(out, ref)
+    log(f'K9 fused_mlp2 {tuple(args[0].shape)}: max err {err9:.3e} (tol '
+        f'{K9_TOL * scale(ref):.3e})')
+    if err9 > K9_TOL * scale(ref):
+        raise RuntimeError('K9 disagrees with its plain version')
+    del out, ref
+    x1, x2, w1a, w1b, b1, w2, b2 = args
+    dt = x1.dtype
+    w1a_, w1b_, w2_ = (w.to(dt) for w in (w1a, w1b, w2))
+
+    def two_matmuls():      # the same function as two torch.matmul calls
+        h = torch.relu(x1 @ w1a_ + x2 @ w1b_ + b1.to(dt))
+        return h @ w2_ + b2.to(dt)
+
+    bound_ms, bound_by = mlp_bound(*args)
+    k9 = {'max_abs_err': err9,
+          'ms': cuda_ms(lambda: FM.fused_mlp2(*args), 20),
+          'plain_ms': cuda_ms(lambda: FM.fused_mlp2_reference(*args), 10),
+          'bound_ms': bound_ms, 'bound_by': bound_by}
+    log(f'note: the torch.matmul chain relu(x1 @ W1a + x2 @ W1b + b1) @ W2 '
+        f'+ b2 on K9\'s inputs: {cuda_ms(two_matmuls, 10):.3f} ms')
+    del model, scene, captured, args, x1, x2
+    torch.cuda.empty_cache()
+
+    # -- 8. V=3 small inputs -----------------------------------------------
+    small_agreement('V=3 (Path A)', RM, make_scene, dev, n_view=3)
+    small_agreement('V=3 compat (Path B)', RM, make_scene, dev, n_view=3,
+                    **PATH_B)
+
+    kernels = []
+    for (name, _), numbers, source, replaces in (
+            (attention, k1, 'epipolar_attention.cu',
+             'ops/epipolar_attention.py:118'),
+            (epilogue, k2, 'gather_epilogue.cu', 'ops/gather_epilogue.py:220'),
+            (epilogue_multi, k3, 'gather_epilogue_multi.cu',
+             'ops/gather_epilogue.py:421'),
+            (mlp, k9, 'fused_mlp.cu', 'ops/experimental/fused_mlp.py:77')):
+        paths = {p: n[name] for p, n in by_path.items() if name in n}
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': f'cross_attention_renderer_torch/csrc/{source}',
+            'replaces': f'cross_attention_renderer_tpu/{replaces}',
+            'launches': sum(paths.values()), 'launches_by_path': paths,
+            **numbers, 'library_ms': None})
     for kern in kernels:
         log(f'{kern["name"]}: {kern["ms"]:.3f} ms, plain '
             f'{kern["plain_ms"]:.3f} ms, bound {kern["bound_ms"]:.3f} ms '
-            f'({kern["bound_by"]})')
-    captured.clear()
-
-    # -- 5. small input: card bf16 kernels vs CPU f32 plain versions -------
-    small = dict(npoints=16, fusion_features=32, vit_width=64, vit_depth=2,
-                 vit_heads=2, resnet_layers=(1, 1, 1))
-    ref = RM.CrossAttentionRenderer(seed=1, device='cpu', **small)
-    card_model = RM.CrossAttentionRenderer(dtype=torch.bfloat16, seed=1,
-                                           device=dev, **small)
-    s_cpu = make_scene(1, H=64, W=64, n_rays=512, device='cpu')
-    s_dev = make_scene(1, H=64, W=64, n_rays=512, device=dev)
-    with torch.inference_mode():
-        want = ref(s_cpu)['rgb']
-        got = card_model(s_dev)['rgb'].float().cpu()
-    err = max_err(got, want)
-    log(f'small input: bf16 card render vs f32 CPU render, max err '
-        f'{err:.3e} (tol {SMALL_TOL * scale(want):.3e})')
-    if not bool(torch.isfinite(got).all()) or err > SMALL_TOL * scale(want):
-        raise RuntimeError('small-input render disagrees with the reference')
-
+            f'({kern["bound_by"]}), launches per image '
+            f'{kern["launches_by_path"]}')
+    log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

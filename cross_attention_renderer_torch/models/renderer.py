@@ -1,18 +1,26 @@
-"""Cross-attention light-field renderer (the flagship model), V=2 path.
+"""Cross-attention light-field renderer (the flagship model), V=2 and V=3.
 
-Port of ``cross_attention_renderer_tpu/models/renderer.py``, its default V=2
-branch: the one that reaches the fused exchange epilogue and the fused
-epipolar attention (renderer.py:344-361, :436-528).
+Port of ``cross_attention_renderer_tpu/models/renderer.py`` along three of
+its branches (renderer.py:344-434):
+
+* V=2: the fused exchange epilogue (kernel K2, renderer.py:354-361);
+* V=3, default: the multi-stream fused epilogue (kernel K3,
+  renderer.py:389-401, :690-767);
+* V=3 with ``reference_exchange_compat`` or ``fused_epilogue=False``: the
+  unfused exchange (renderer.py:402-434, :1056-1112), whose fuse MLP runs
+  as kernel K9 when ``fused_mlp`` is set (renderer.py:835-853).
 
   1. ``encode``: DPT-hybrid multi-view encoder + full-res 7x7 conv branch
      -> feature pyramid z (models.py:148-188).
   2. Query rays -> Plücker coords in each context frame; epipolar segment
      per (ray, view) and ``npoints`` uniform samples; the 3D point on the
      query ray at each sample (models.py:213-283).
-  3. Cell rows and slot weights of both streams (the self stream samples
-     view v's maps on its segment; the cross stream samples view 1 - v's
-     maps at the reprojected 3D point), then the fused exchange epilogue
-     (kernel K2) -> joint latent and key per sample (models.py:278-346).
+  3. Latent exchange: for the rays of view v, the self stream samples view
+     v's maps on its segment; each cross stream samples another view k's
+     maps at the sample's 3D point reprojected into frame k. Each stream's
+     features pass the shared fuse MLP, and the per-view concatenation feeds
+     the latent and key projections -> joint latent and key per sample
+     (models.py:278-475,491,529).
   4. Two rounds of joint (view, sample) attention (kernel K1), the depth
      head and the ResnetFC decode with the valid-mask whiteout
      (models.py:487-617).
@@ -40,15 +48,15 @@ from cross_attention_renderer_torch.layers import (Conv, init_parameters,
 from cross_attention_renderer_torch.models.resnet_fc import ResnetFC
 from cross_attention_renderer_torch.ops.epipolar_attention import (
     epipolar_attention)
+from cross_attention_renderer_torch.ops.fused_mlp import fused_mlp2
 from cross_attention_renderer_torch.ops.gather_epilogue import (
-    fused_exchange_epilogue)
+    fused_exchange_epilogue, fused_exchange_epilogue_multi)
 from cross_attention_renderer_torch.ops.grid_sample import (
-    cell_rows_and_slot_weights, pack_pyramid)
+    cell_rows_and_slot_weights, grid_sample_pyramid_packed, pack_pyramid)
 from cross_attention_renderer_torch.utils.image import normalize_imagenet
 
 Tensor = torch.Tensor
 
-N_VIEW = 2                # the V=2 path is the one ported
 HIDDEN_DIM = 128          # attention hidden width (models.py:114)
 QUERY_FEAT_DIM = 16       # cam_rays 3 + zeros 3 + ray_dir 3 + depth 4
                           # + query origin 3 (models.py:528)
@@ -88,22 +96,49 @@ class SplitDense(nn.Module):
 
 
 class CrossAttentionRenderer(nn.Module):
-    """The flagship renderer at V=2 (see the module docstring).
+    """The flagship renderer at V=2 or V=3 (see the module docstring).
 
     Sizes default to the reference configuration (the 122M DPT-hybrid);
     smaller encoder settings keep the architecture for CPU tests. The
     parameters are drawn from ``seed`` (Flax's initialisers, see
     :func:`~cross_attention_renderer_torch.layers.init_parameters`) and
-    placed on ``device``."""
+    placed on ``device``.
 
-    def __init__(self, npoints: int = 64, fusion_features: int = 256,
-                 vit_width: int = 768, vit_depth: int = 12,
-                 vit_heads: int = 12,
+    Args:
+      n_view: context views, 2 or 3.
+      npoints: epipolar samples per view; 0 takes the reference's default,
+        64 at V=2 and 48 at V=3 (models.py:47-54).
+      fused_epilogue: take the fused exchange epilogue (K2 at V=2, K3 at
+        V=3). ``False`` takes the unfused exchange, ported at V=3 only.
+      reference_exchange_compat: reproduce the reference's 3-view exchange
+        index swap (DEVIATIONS.md), which the fused V=3 epilogue does not
+        implement: at V=3 it implies the unfused exchange. No effect at V=2.
+      fused_mlp: run the unfused exchange's fuse MLP as kernel K9 (the JAX
+        package's ``CAR_FUSED_MLP`` switch).
+    """
+
+    def __init__(self, n_view: int = 2, npoints: int = 0,
+                 fusion_features: int = 256, vit_width: int = 768,
+                 vit_depth: int = 12, vit_heads: int = 12,
                  resnet_layers: tuple[int, int, int] = (3, 4, 9),
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 device='cuda'):
+                 device='cuda', fused_epilogue: bool = True,
+                 reference_exchange_compat: bool = False,
+                 fused_mlp: bool = False):
         super().__init__()
-        self.n_samples, self.dtype = npoints, dtype
+        if n_view not in (2, 3):
+            raise ValueError(f'the port renders 2 or 3 context views, got '
+                             f'n_view={n_view}')
+        if n_view == 2 and not fused_epilogue:
+            raise NotImplementedError(
+                'the unfused exchange is ported at n_view=3 only; use '
+                'fused_epilogue=True at n_view=2')
+        self.n_view = n_view
+        self.n_samples = npoints or (64 if n_view <= 2 else 48)
+        self.dtype = dtype
+        self.fused_epilogue = fused_epilogue
+        self.reference_exchange_compat = reference_exchange_compat
+        self.fused_mlp = fused_mlp
         self.encoder = DPTHybridEncoder(
             features=fusion_features, vit_width=vit_width,
             vit_depth=vit_depth, vit_heads=vit_heads,
@@ -115,8 +150,8 @@ class CrossAttentionRenderer(nn.Module):
         self.latent_dim = ld
         self.query_encode_latent = SplitDense(base + 3, base, dtype)
         self.query_encode_latent_2 = SplitDense(base, ld, dtype)
-        self.latent_value = SplitDense(ld * N_VIEW, ld, dtype)
-        self.key_map = SplitDense(ld * N_VIEW, HIDDEN_DIM, dtype)
+        self.latent_value = SplitDense(ld * n_view, ld, dtype)
+        self.key_map = SplitDense(ld * n_view, HIDDEN_DIM, dtype)
         self.key_map_2 = SplitDense(HIDDEN_DIM, HIDDEN_DIM, dtype)
         self.query_embed = SplitDense(QUERY_FEAT_DIM, HIDDEN_DIM, dtype)
         self.query_embed_2 = SplitDense(HIDDEN_DIM, HIDDEN_DIM, dtype)
@@ -124,7 +159,7 @@ class CrossAttentionRenderer(nn.Module):
         self.query_repeat_embed = SplitDense(HIDDEN_DIM + QUERY_FEAT_DIM,
                                              HIDDEN_DIM, dtype)
         self.query_repeat_embed_2 = SplitDense(HIDDEN_DIM, HIDDEN_DIM, dtype)
-        self.phi = ResnetFC(d_in=N_VIEW * 9, d_latent=ld * N_VIEW, d_out=3,
+        self.phi = ResnetFC(d_in=n_view * 9, d_latent=ld * n_view, d_out=3,
                             n_blocks=3, d_hidden=128, dtype=dtype)
         init_parameters(self, seed)
         self.to(device)
@@ -151,9 +186,9 @@ class CrossAttentionRenderer(nn.Module):
         rendering many ray blocks build once per image."""
         ctx, qry = scene['context'], scene['query']
         B, V, H, W, _ = ctx['rgb'].shape
-        if V != N_VIEW:
-            raise ValueError(f'the port renders {N_VIEW} context views, '
-                             f'got {V}')
+        if V != self.n_view:
+            raise ValueError(f'the model was built for {self.n_view} '
+                             f'context views, the scene has {V}')
         R = qry['uv'].shape[2]
         P = self.n_samples
         dev = ctx['rgb'].device
@@ -190,8 +225,19 @@ class CrossAttentionRenderer(nn.Module):
                                        ctx_intr)
         pt_views = pt.reshape(B, V, R, P, 3)
 
-        joint_latent, key_val = self._fused_exchange_v2(
-            zp, pixel_val, pt_views, ctx_c2w, ctx_intr_v, H, W)
+        geo = (zp, pixel_val, pt_views, ctx_c2w, ctx_intr_v, H, W)
+        if V == 2:
+            joint_latent, key_val = self._fused_exchange_v2(*geo)
+        elif self.fused_epilogue and not self.reference_exchange_compat:
+            joint_latent, key_val = self._fused_exchange_multi(*geo)
+        else:
+            interp_val = grid_sample_pyramid_packed(
+                zp, pixel_val.reshape(B * V, R * P, 2), 'border')
+            interp_val = self._latent_exchange(
+                interp_val.reshape(B, V, R, P, -1), zp, pt_views, ctx_c2w,
+                ctx_intr_v, H, W)
+            joint_latent = self.latent_value(interp_val)
+            key_val = self.key_map_2(torch.relu(self.key_map(interp_val)))
 
         # Per-sample query features (models.py:494-528).
         cam_rays = G.ray_directions_cam(pixel_val, ctx_intr[:, None], H,
@@ -259,63 +305,162 @@ class CrossAttentionRenderer(nn.Module):
         return torch.where(torch.isfinite(pt_in), pt_in,
                            torch.zeros_like(pt_in))
 
-    def _stacked_takes(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr, H,
-                       W):
-        """Cell rows of both streams per level, and the two aux arrays
-        (renderer.py:591-655). Returns (cells: per-level (2M,) int32,
-        aux_self, aux_cross: (M, 16) in the model type)."""
+    def _stream_takes(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr, H,
+                      W) -> tuple[tuple[Tensor, ...], list[Tensor]]:
+        """Cell rows and aux arrays of the V exchange streams
+        (renderer.py:591-655 at V=2, :710-754 at V>=3).
+
+        Stream 0 is the self stream (each view's own maps on its segment,
+        border padding); stream j >= 1 holds, for the rays of every view v,
+        its j-th other view k in ascending frame order (the sample's 3D
+        point in frame k, projected with k's intrinsics, k's maps, zeros
+        padding). At V=2 that is the cross stream of view 1 - v. Returns
+        (cells: per-level (V*M,) int32, stream-major; aux: V arrays
+        (M, 16) in the model type: 12 slot weights, tanh(pt/5), pad)."""
         B, V, R, P, _ = pt_views.shape
         M = B * V * R * P
         dev = pt_views.device
         pt_in = self._exchange_points(pt_views, ctx_c2w)
-        pt_self = torch.stack([pt_in[:, v, v] for v in range(2)], dim=1)
-        pt_cross = torch.stack([pt_in[:, 1 - v, v] for v in range(2)], dim=1)
-        # The cross stream of the rays of view v projects with frame
-        # (1 - v)'s intrinsics and samples view (1 - v)'s maps.
-        intr_sw = torch.flip(ctx_intr, dims=[1])
-        proj = G.project_pinhole(pt_cross.reshape(B, V, R * P, 3), intr_sw)
-        pix_cross = G.pixel_to_ndc(proj[..., :2], H, W)
-
-        coords_self = pixel_val.reshape(B * V, R * P, 2)
-        coords_cross = pix_cross.reshape(B * V, R * P, 2)
-        # image row (b, v) of the coords samples image (b, 1 - v)
-        xid = (torch.arange(B * V, dtype=torch.int32, device=dev)[:, None]
-               ^ 1).expand(B * V, R * P)
-
-        cells, w_s, w_c = [], [], []
-        for packed in zp:
-            hw = (packed.shape[1], packed.shape[2])
-            cs, ws = cell_rows_and_slot_weights(hw, coords_self, 'border')
-            cc, wc = cell_rows_and_slot_weights(hw, coords_cross, 'zeros',
-                                                image_id=xid)
-            cells.append(torch.cat([cs.reshape(-1), cc.reshape(-1)]))
-            w_s.append(ws.reshape(M, 4))
-            w_c.append(wc.reshape(M, 4))
+        others = [[k for k in range(V) if k != v] for v in range(V)]
+        pt_self = torch.stack([pt_in[:, v, v] for v in range(V)], dim=1)
+        streams = [(pixel_val.reshape(B * V, R * P, 2), None, 'border',
+                    pt_self)]
+        row = torch.arange(B * V, dtype=torch.int32, device=dev)[:, None]
+        for j in range(V - 1):
+            k_of = torch.tensor([others[v][j] for v in range(V)],
+                                dtype=torch.int32, device=dev)
+            pt_j = torch.stack([pt_in[:, others[v][j], v] for v in range(V)],
+                               dim=1)
+            intr_j = torch.stack([ctx_intr[:, others[v][j]]
+                                  for v in range(V)], dim=1)
+            proj = G.project_pinhole(pt_j.reshape(B, V, R * P, 3), intr_j)
+            pix = G.pixel_to_ndc(proj[..., :2], H, W)
+            # image row (b, v) of the coords samples image (b, k_of[v])
+            xid = (row // V) * V + k_of[(row % V).long()]
+            streams.append((pix.reshape(B * V, R * P, 2), xid, 'zeros',
+                            pt_j))
 
         adt = self.dtype
         pad = torch.zeros((M, 1), dtype=adt, device=dev)
-        t_self = torch.tanh(pt_self.reshape(M, 3) / 5.0).to(adt)
-        t_cross = torch.tanh(pt_cross.reshape(M, 3) / 5.0).to(adt)
-        aux_self = torch.cat([w.to(adt) for w in w_s] + [t_self, pad], dim=-1)
-        aux_cross = torch.cat([w.to(adt) for w in w_c] + [t_cross, pad],
-                              dim=-1)
-        return tuple(cells), aux_self, aux_cross
+        cells = [[] for _ in zp]
+        aux = []
+        for coords, xid, mode, pt in streams:
+            weights = []
+            for l, packed in enumerate(zp):
+                c, w = cell_rows_and_slot_weights(
+                    (packed.shape[1], packed.shape[2]), coords, mode,
+                    image_id=xid)
+                cells[l].append(c.reshape(-1))
+                weights.append(w.reshape(M, 4).to(adt))
+            t = torch.tanh(pt.reshape(M, 3) / 5.0).to(adt)
+            aux.append(torch.cat(weights + [t, pad], dim=-1))
+        return tuple(torch.cat(c) for c in cells), aux
 
-    def _fused_exchange_v2(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr,
-                           H, W) -> tuple[Tensor, Tensor]:
-        """V=2 exchange through the fused epilogue (renderer.py:657-688).
-        Returns (joint_latent, key_val) as (B, V, R, P, ·)."""
-        B, V, R, P, _ = pt_views.shape
-        cells, aux_self, aux_cross = self._stacked_takes(
-            zp, pixel_val, pt_views, ctx_c2w, ctx_intr, H, W)
-        params = tuple(t.to(self.dtype) for t in (
+    def _epilogue_params(self) -> tuple[Tensor, ...]:
+        """The fused epilogues' weights, in the model type."""
+        return tuple(t.to(self.dtype) for t in (
             self.query_encode_latent.kernel, self.query_encode_latent.bias,
             self.query_encode_latent_2.kernel,
             self.query_encode_latent_2.bias,
             self.latent_value.kernel, self.latent_value.bias,
             self.key_map.kernel, self.key_map.bias,
             self.key_map_2.kernel, self.key_map_2.bias))
+
+    def _fused_exchange_v2(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr,
+                           H, W) -> tuple[Tensor, Tensor]:
+        """V=2 exchange through the fused epilogue (renderer.py:657-688).
+        Returns (joint_latent, key_val) as (B, V, R, P, ·)."""
+        B, V, R, P, _ = pt_views.shape
+        cells, (aux_self, aux_cross) = self._stream_takes(
+            zp, pixel_val, pt_views, ctx_c2w, ctx_intr, H, W)
         jl, kv = fused_exchange_epilogue(zp, cells, aux_self, aux_cross,
-                                         params, R * P)
+                                         self._epilogue_params(), R * P)
         return (jl.reshape(B, V, R, P, self.latent_dim),
                 kv.reshape(B, V, R, P, HIDDEN_DIM))
+
+    def _fused_exchange_multi(self, zp, pixel_val, pt_views, ctx_c2w,
+                              ctx_intr, H, W) -> tuple[Tensor, Tensor]:
+        """V>=3 exchange through the multi-stream fused epilogue
+        (renderer.py:690-767): the fixed [self, cross_0, ...] order of the
+        streams equals the reference's [self] + ascending-k concat.
+        Returns (joint_latent, key_val) as (B, V, R, P, ·)."""
+        B, V, R, P, _ = pt_views.shape
+        cells, aux = self._stream_takes(zp, pixel_val, pt_views, ctx_c2w,
+                                        ctx_intr, H, W)
+        jl, kv = fused_exchange_epilogue_multi(zp, cells, tuple(aux),
+                                               self._epilogue_params())
+        return (jl.reshape(B, V, R, P, self.latent_dim),
+                kv.reshape(B, V, R, P, HIDDEN_DIM))
+
+    # ------------------------------------------------------------------
+    def _fuse_latent(self, feat: Tensor, points: Tensor) -> Tensor:
+        """Shared 2-layer exchange encoder on ``[feat | tanh(pt/5)]``
+        (renderer.py:821-855, models.py:335-346); kernel K9 when
+        ``fused_mlp`` is set."""
+        t = torch.tanh(points / 5.0).to(feat.dtype)
+        qel, qel2 = self.query_encode_latent, self.query_encode_latent_2
+        if self.fused_mlp:
+            c1 = feat.shape[-1]
+            out = fused_mlp2(
+                feat.reshape(-1, c1).to(self.dtype).contiguous(),
+                t.reshape(-1, t.shape[-1]).contiguous(), qel.kernel[:c1],
+                qel.kernel[c1:], qel.bias, qel2.kernel, qel2.bias)
+            return out.reshape(*feat.shape[:-1], out.shape[-1])
+        return qel2(torch.relu(qel(feat, t)))
+
+    def _latent_exchange(self, interp_val: Tensor, zp, pt_views, ctx_c2w,
+                         ctx_intr, H, W) -> Tensor:
+        """Unfused cross-view exchange at V>=3 (renderer.py:1056-1112).
+
+        For the rays of view v: the self features (the epipolar gather
+        ``interp_val``) fused with pt in frame v, and for every other view
+        k the features of k's maps at the sample's point in frame k, fused
+        with that point. Under ``reference_exchange_compat`` frame k's maps
+        are sampled at the projection of pt_in[v, k] instead, as the
+        reference does (models.py:384-393). Returns the per-view
+        concatenation (B, V, R, P, ld * V)."""
+        B, V, R, P, C = interp_val.shape
+        pt_in = self._exchange_points(pt_views, ctx_c2w)   # (B,K,V,R,P,3)
+        others = [[v for v in range(V) if v != k] for k in range(V)]
+        swap = self.reference_exchange_compat
+        if swap:
+            pt_cross = torch.stack([pt_in[:, others[k], k] for k in range(V)],
+                                   dim=1)
+        else:
+            pt_cross = torch.stack([pt_in[:, k, others[k]] for k in range(V)],
+                                   dim=1)                  # (B,K,V-1,R,P,3)
+        proj = G.project_pinhole(pt_cross.reshape(B, V, (V - 1) * R * P, 3),
+                                 ctx_intr)
+        pix = G.pixel_to_ndc(proj[..., :2], H, W)
+        gathered_x = grid_sample_pyramid_packed(
+            zp, pix.reshape(B * V, (V - 1) * R * P, 2),
+            'zeros').reshape(B, V, V - 1, R, P, C)
+
+        self_nat = torch.stack([self._fuse_latent(interp_val[:, v],
+                                                  pt_in[:, v, v])
+                                for v in range(V)], dim=1)
+
+        def cross_fn(k, v):
+            return self._fuse_latent(gathered_x[:, k, others[k].index(v)],
+                                     pt_in[:, v, k] if swap
+                                     else pt_in[:, k, v])
+
+        return self._exchange_concat(self_nat, cross_fn, V, swap)
+
+    @staticmethod
+    def _exchange_concat(self_nat: Tensor, cross_fn, V: int,
+                         swap: bool) -> Tensor:
+        """Per-view channel assembly at V>=3 (renderer.py:894-917):
+        [self, other views ascending] (models.py:446,459,473); under
+        ``swap`` the parts interleave (channel, slot) like the reference's
+        cat(dim=2).flatten(1, 2) (models.py:443-446)."""
+        per_view = []
+        for v in range(V):
+            parts = [self_nat[:, v]] + [cross_fn(k, v) for k in range(V)
+                                        if k != v]
+            if swap:
+                iv = torch.stack(parts, dim=-1)
+                per_view.append(iv.reshape(*iv.shape[:-2], -1))
+            else:
+                per_view.append(torch.cat(parts, dim=-1))
+        return torch.stack(per_view, dim=1)               # (B,V,R,P,ld*V)

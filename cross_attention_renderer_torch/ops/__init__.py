@@ -1,5 +1,7 @@
-"""Gather, epilogue and attention ops; the last two launch CUDA kernels.
+"""Gather, epilogue, MLP and attention ops; all but the gather launch CUDA
+kernels.
 
-Import from the submodules: ``grid_sample``, ``gather_epilogue`` (kernel
-K2) and ``epipolar_attention`` (kernel K1).
+Import from the submodules: ``grid_sample``, ``gather_epilogue`` (kernels
+K2 and K3), ``fused_mlp`` (kernel K9) and ``epipolar_attention`` (kernel
+K1).
 """

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with :mod:`ctypes`. Libraries land
 in ``build/`` inside the package (listed in ``.gitignore``), named by a hash
-of the source and flags, so an edited kernel rebuilds and an unchanged one
-loads at once. Nothing here runs at import time: importing the package needs
-neither ``nvcc`` nor a card.
+of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited kernel rebuilds and an unchanged one loads at once. Nothing here
+runs at import time: importing the package needs neither ``nvcc`` nor a
+card.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / 'build'
-KERNELS = ('epipolar_attention', 'gather_epilogue')
+KERNELS = ('epipolar_attention', 'gather_epilogue', 'gather_epilogue_multi',
+           'fused_mlp')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -40,9 +42,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f'{name}.cu'
-    digest = hashlib.sha1(src.read_bytes()
-                          + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC_DIR / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC_DIR.glob('*.cuh')):
+        h.update(header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f'lib{name}_{digest}.so'
 
 

@@ -2,7 +2,8 @@
 epipolar gather.
 
 PyTorch port of ``cross_attention_renderer_tpu/ops/grid_sample.py``
-(``pack_cells``, ``pack_pyramid``, ``cell_rows_and_slot_weights``) with the
+(``pack_cells``, ``pack_pyramid``, ``cell_rows_and_slot_weights``,
+``grid_sample_packed``, ``grid_sample`` and the pyramid wrappers) with the
 semantics of ``F.grid_sample(..., mode='bilinear', align_corners=False)``
 and ``border`` or ``zeros`` padding. Layout is channel-last: (B, H, W, C)
 features, (B, N, 2) ndc coordinates in (x, y) order.
@@ -102,3 +103,47 @@ def cell_rows_and_slot_weights(hw: tuple[int, int], coords_ndc: Tensor,
         dead = w_slot.sum(dim=-1) <= 0.0
         cell = torch.where(dead, torch.zeros_like(cell), cell)
     return cell, w_slot
+
+
+def grid_sample_packed(packed: Tensor, coords_ndc: Tensor,
+                       padding_mode: str = 'border') -> Tensor:
+    """Bilinear sample from a :func:`pack_cells` table: one row take per
+    sample, then the four slots combined in the table's type
+    (grid_sample.py:128-160). (B, H, W, 4C) at (B, N, 2) -> (B, N, C)."""
+    B, H, W, C4 = packed.shape
+    C = C4 // 4
+    N = coords_ndc.shape[1]
+    cell, w_slot = cell_rows_and_slot_weights(
+        (H, W), coords_ndc, padding_mode, weight_dtype=packed.dtype)
+    vals = packed.reshape(B * H * W, C4).index_select(
+        0, cell.reshape(-1).long())                     # (B*N, 4C)
+    w = w_slot.reshape(B * N, 4)
+    out = None
+    for k in range(4):
+        term = vals[:, k * C:(k + 1) * C] * w[:, k:k + 1]
+        out = term if out is None else out + term
+    return out.reshape(B, N, C)
+
+
+def grid_sample(features: Tensor, coords_ndc: Tensor,
+                padding_mode: str = 'border') -> Tensor:
+    """Sample (B, H, W, C) ``features`` bilinearly at (B, N, 2) ndc
+    ``coords_ndc`` -> (B, N, C) (torch ``grid_sample`` semantics,
+    align_corners=False)."""
+    return grid_sample_packed(pack_cells(features), coords_ndc, padding_mode)
+
+
+def grid_sample_pyramid(pyramid: Sequence[Tensor], coords_ndc: Tensor,
+                        padding_mode: str = 'border') -> Tensor:
+    """Every level of a feature pyramid sampled at the same coords, the
+    channels concatenated (reference models.py:278)."""
+    return torch.cat([grid_sample(fm, coords_ndc, padding_mode)
+                      for fm in pyramid], dim=-1)
+
+
+def grid_sample_pyramid_packed(packed_pyramid: Sequence[Tensor],
+                               coords_ndc: Tensor,
+                               padding_mode: str = 'border') -> Tensor:
+    """:func:`grid_sample_pyramid` over tables packed once per image."""
+    return torch.cat([grid_sample_packed(p, coords_ndc, padding_mode)
+                      for p in packed_pyramid], dim=-1)

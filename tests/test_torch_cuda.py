@@ -18,6 +18,7 @@ import torch
 
 from cross_attention_renderer_torch.ops import _build
 from cross_attention_renderer_torch.ops import epipolar_attention as EA
+from cross_attention_renderer_torch.ops import fused_mlp as FM
 from cross_attention_renderer_torch.ops import gather_epilogue as GE
 
 pytestmark = pytest.mark.cuda
@@ -40,7 +41,8 @@ def _scale(want):
 
 
 @pytest.mark.parametrize('B,V,R,P,D,C', [(2, 2, 100, 16, 32, 40),
-                                         (1, 2, 512, 64, 128, 288)])
+                                         (1, 2, 512, 64, 128, 288),
+                                         (1, 3, 512, 48, 128, 288)])
 def test_epipolar_attention_kernel(dev, B, V, R, P, D, C):
     g = torch.Generator(device='cpu').manual_seed(0)
 
@@ -56,29 +58,29 @@ def test_epipolar_attention_kernel(dev, B, V, R, P, D, C):
     assert _max_err(out, out_ref) <= 2 ** -7 * _scale(out_ref)
 
 
-def _epilogue_case(dev, channels, H1, O, K, n_img, hw, M, seed=0):
+def _bf(dev, a):
+    return torch.as_tensor(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+
+
+def _epilogue_case(dev, channels, H1, O, K, n_img, hw, M, S=2, seed=0):
+    """Tables, cells of S streams, S aux arrays and the weights."""
     rng = np.random.default_rng(seed)
-
-    def bf(a):
-        return torch.as_tensor(np.asarray(a, np.float32)).to(dev,
-                                                             torch.bfloat16)
-
-    tables = tuple(bf(rng.standard_normal((n_img, h, h, 4 * c)))
+    tables = tuple(_bf(dev, rng.standard_normal((n_img, h, h, 4 * c)))
                    for c, h in zip(channels, hw))
-    cells = tuple(torch.as_tensor(rng.integers(0, n_img * h * h, 2 * M),
+    cells = tuple(torch.as_tensor(rng.integers(0, n_img * h * h, S * M),
                                   dtype=torch.int32).to(dev) for h in hw)
-    aux = rng.random((2, M, 16)).astype(np.float32)
+    aux = rng.random((S, M, 16)).astype(np.float32)
     aux[:, :, 12:15] = 2 * aux[:, :, 12:15] - 1
     aux[:, ::7, :12] = 0.0
     F = sum(channels)
     lecun = lambda i, o: rng.standard_normal((i, o)) / np.sqrt(i)
-    params = tuple(bf(a) for a in (
+    params = tuple(_bf(dev, a) for a in (
         lecun(F + 3, H1), 0.1 * rng.standard_normal(H1), lecun(H1, O),
-        0.1 * rng.standard_normal(O), lecun(2 * O, O),
-        0.1 * rng.standard_normal(O), lecun(2 * O, K),
+        0.1 * rng.standard_normal(O), lecun(S * O, O),
+        0.1 * rng.standard_normal(O), lecun(S * O, K),
         0.1 * rng.standard_normal(K), lecun(K, K),
         0.1 * rng.standard_normal(K)))
-    return tables, cells, bf(aux[0]), bf(aux[1]), params
+    return tables, cells, tuple(_bf(dev, a) for a in aux), params
 
 
 @pytest.mark.parametrize('channels,H1,O,K,hw,M,rp', [
@@ -86,14 +88,54 @@ def _epilogue_case(dev, channels, H1, O, K, n_img, hw, M, seed=0):
     ((256, 256, 64), 576, 288, 128, (16, 32, 64), 2 * 8 * 64 + 40, 8 * 64),
 ])
 def test_exchange_epilogue_kernel(dev, channels, H1, O, K, hw, M, rp):
-    case = _epilogue_case(dev, channels, H1, O, K, 2, hw, M)
-    jl, kv = GE.fused_exchange_epilogue(*case, rp)
+    tables, cells, (a_s, a_c), params = _epilogue_case(dev, channels, H1, O,
+                                                       K, 2, hw, M)
+    case = (tables, cells, a_s, a_c, params, rp)
+    jl, kv = GE.fused_exchange_epilogue(*case)
     torch.cuda.synchronize()
-    jl_ref, kv_ref = GE.fused_exchange_epilogue_reference(*case, rp)
+    jl_ref, kv_ref = GE.fused_exchange_epilogue_reference(*case)
     assert jl.shape == (M, O) and kv.shape == (M, K)
     assert torch.isfinite(jl.float()).all() and torch.isfinite(kv.float()).all()
     assert _max_err(jl, jl_ref) <= 2 ** -5 * _scale(jl_ref)
     assert _max_err(kv, kv_ref) <= 2 ** -5 * _scale(kv_ref)
+
+
+@pytest.mark.parametrize('channels,H1,O,K,hw,M', [
+    ((32, 32, 16), 80, 48, 16, (4, 8, 16), 3 * 96 + 29),
+    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 3 * 8 * 48 + 40),
+])
+def test_exchange_epilogue_multi_kernel(dev, channels, H1, O, K, hw, M):
+    """K3 at S=3 streams, ragged M (not a multiple of the 48-sample tile)."""
+    case = _epilogue_case(dev, channels, H1, O, K, 3, hw, M, S=3, seed=1)
+    jl, kv = GE.fused_exchange_epilogue_multi(*case)
+    torch.cuda.synchronize()
+    jl_ref, kv_ref = GE.fused_exchange_epilogue_multi_reference(*case)
+    assert jl.shape == (M, O) and kv.shape == (M, K)
+    assert torch.isfinite(jl.float()).all() and torch.isfinite(kv.float()).all()
+    assert _max_err(jl, jl_ref) <= 2 ** -5 * _scale(jl_ref)
+    assert _max_err(kv, kv_ref) <= 2 ** -5 * _scale(kv_ref)
+
+
+@pytest.mark.parametrize('M,K1,H,O', [(64 * 5 + 23, 96, 80, 40),
+                                      (2 * 4096 + 17, 576, 576, 288)])
+def test_fused_mlp_kernel(dev, M, K1, H, O):
+    """K9 at a ragged M (not a multiple of the 64-row tile)."""
+    rng = np.random.default_rng(2)
+    lecun = lambda i, o: rng.standard_normal((i, o)) / np.sqrt(i)
+    x1 = _bf(dev, rng.standard_normal((M, K1)))
+    x2 = _bf(dev, rng.uniform(-1, 1, (M, 3)))
+    w1 = lecun(K1 + 3, H)
+    weights = (_bf(dev, w1[:K1]), _bf(dev, w1[K1:]),
+               torch.as_tensor(0.1 * rng.standard_normal(H),
+                               dtype=torch.float32, device=dev),
+               _bf(dev, lecun(H, O)),
+               torch.as_tensor(0.1 * rng.standard_normal(O),
+                               dtype=torch.float32, device=dev))
+    out = FM.fused_mlp2(x1, x2, *weights)
+    torch.cuda.synchronize()
+    ref = FM.fused_mlp2_reference(x1, x2, *weights)
+    assert out.shape == (M, O) and torch.isfinite(out.float()).all()
+    assert _max_err(out, ref) <= 2 ** -5 * _scale(ref)
 
 
 def test_kernels_count_launches(dev):

@@ -27,10 +27,13 @@ SMALL = dict(features=32, vit_width=64, vit_depth=2, vit_heads=2,
              resnet_layers=(1, 1, 1))
 
 
-def test_encoder_matches_jax():
+@pytest.mark.parametrize('n_view', [2, 3])
+def test_encoder_matches_jax(n_view):
+    """The joint multi-view ViT attends over every view's tokens at once,
+    so V=3 is a distinct sequence length, not a repeat of V=2."""
     rng = np.random.default_rng(0)
-    rgb = rng.standard_normal((1, 2, 64, 64, 3)).astype(np.float32)
-    pose = rng.standard_normal((1, 2, 16)).astype(np.float32)
+    rgb = rng.standard_normal((1, n_view, 64, 64, 3)).astype(np.float32)
+    pose = rng.standard_normal((1, n_view, 16)).astype(np.float32)
     jax_enc = JaxEncoder(**SMALL)
     params = random_flax_params(jax_enc, 0, rgb, pose)
     want = jax.jit(jax_enc.apply)(params, jnp.asarray(rgb),

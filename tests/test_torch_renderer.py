@@ -17,6 +17,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from cross_attention_renderer_tpu.data import make_scene as jax_scene
@@ -28,20 +29,20 @@ from cross_attention_renderer_torch.models.renderer import (
     CrossAttentionRenderer)
 from cross_attention_renderer_torch.train.evaluation import (
     make_scan_renderer)
-from torch_parity import assert_close, random_flax_params
+from torch_parity import (assert_close, golden_fixture_model,
+                          random_flax_params)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-from tools.convert_checkpoint import convert_reference_state_dict  # noqa
 
 SMALL = dict(npoints=8, fusion_features=32, vit_width=64, vit_depth=2,
              vit_heads=2, resnet_layers=(1, 1, 1))
 OUTPUTS = ('rgb', 'depth_ray', 'valid_mask', 'at_wt', 'pixel_val')
 
 
-def test_scene_matches_jax():
-    js = jax_scene(3, H=32, W=32, n_rays=16)
-    ts = make_scene(3, H=32, W=32, n_rays=16, device='cpu')
+@pytest.mark.parametrize('n_view', [2, 3])
+def test_scene_matches_jax(n_view):
+    js = jax_scene(3, n_view=n_view, H=32, W=32, n_rays=16)
+    ts = make_scene(3, n_view=n_view, H=32, W=32, n_rays=16, device='cpu')
     for part in ('context', 'query'):
         for k, v in js[part].items():
             np.testing.assert_array_equal(ts[part][k].numpy(), np.asarray(v))
@@ -65,28 +66,7 @@ def test_render_matches_jax():
 
 def _fixture_model():
     """The golden fixture's scene, pyramid and weights in the port."""
-    d = dict(np.load(ROOT / 'tests' / 'fixtures' / 'renderer_golden_v2.npz'))
-    views, npoints, H, W, rays = (int(v) for v in d['meta'])
-    scene = {'context': {k: torch.from_numpy(d[f'scene_context_{k}'])
-                         for k in ('rgb', 'cam2world', 'intrinsics')},
-             'query': {k: torch.from_numpy(d[f'scene_query_{k}'])
-                       for k in ('cam2world', 'intrinsics', 'uv')}}
-    z = tuple(torch.from_numpy(np.ascontiguousarray(
-        np.moveaxis(d[f'z_{i}'], 1, -1))) for i in range(3))
-    sd = {k[len('sd_'):]: v for k, v in d.items() if k.startswith('sd_')}
-    # Full-width heads (fusion_features 256); the encoder, which the fixture
-    # does not hold (z is given), is kept small.
-    model = CrossAttentionRenderer(npoints=npoints, vit_width=64,
-                                   vit_depth=2, vit_heads=2,
-                                   resnet_layers=(1, 1, 1), device='cpu')
-    missing, unexpected = model.load_state_dict(
-        params_from_jax(convert_reference_state_dict(sd, n_view=views)),
-        strict=False)
-    # The fixture also holds the single-view merge layer, which the V=2
-    # path never builds.
-    assert all(k.startswith('encoder.') for k in missing)
-    assert all(k.startswith('update_val_merge.') for k in unexpected)
-    return d, model, scene, z, (1, views, rays, npoints)
+    return golden_fixture_model(2)
 
 
 def test_render_matches_reference_fixture():
