@@ -24,6 +24,12 @@ no result):
   5. V=2 small-input agreement: a narrow model renders a small scene with
      the kernels in bf16 on the card and with the plain versions in f32 on
      the CPU; the images must agree within the stated tolerance;
+  5b. V=2 fused render (K4): the same model and scene as phase 3 with
+     ``fused_render=True`` (8 fused render core launches, and no attention
+     or epilogue launch, per image); the same image checks; K4 against its
+     plain version on the first block's inputs; the image, and the first
+     block's attention weights and depth, against phase 3's staged render
+     within the stated tolerance; then the small-input agreement;
   6. V=3 default path (Path A): the same as phase 3 for three views at 48
      samples (16 attention and 8 multi-stream epilogue launches per image),
      then K3, and K1 at V*P = 144, against their plain versions;
@@ -56,6 +62,13 @@ F32_FLOPS = 67e12               # f32 outside the tensor cores, published
 # input, and K3 sums the streams in f32 before it rounds once).
 K1_TOL = {'out': 2 ** -7, 'at_wt': 2 ** -8}
 K2_TOL = K3_TOL = K9_TOL = 2 ** -5
+K4_TOL = {'z': 2 ** -5, 'at_wt': 2 ** -8}
+# The fused render against the staged one (K2 + 2 x K1) of the same model:
+# both run in bf16, but the staged path rounds the joint latent, key, query
+# embeddings and both rounds' outputs to bf16 between kernels and its query
+# MLPs round after each product and again after the bias, where K4 keeps
+# f32 until each product's input. A few bf16 steps of each output.
+FUSED_VS_STAGED_TOL = {'rgb': 2 ** -4, 'at_wt': 2 ** -7, 'depth_ray': 2 ** -4}
 SMALL_TOL = 0.1     # bf16 card render vs f32 CPU render of the same model
 # The decoder has no output squashing: at its initial scale random weights
 # put RGB near +-40. Its last layer is drawn this much smaller so that the
@@ -112,11 +125,11 @@ def attention_bound(q, k, v):
     return bound(nbytes, flops, F32_FLOPS)
 
 
-def epilogue_bound(tables, cells, aux_list, params):
-    """(bound_ms, bound_by) of one exchange epilogue call with S =
-    len(aux_list) streams: the table rows this call's cells reference, the
-    cells, aux and weights read once, the outputs written once; the
-    tensor-core products of every sample."""
+def exchange_work(tables, cells, aux_list, params):
+    """(bytes read, multiply-adds) of the exchange epilogue with S =
+    len(aux_list) streams: the table rows the cells reference, the cells,
+    aux and the ten epilogue weights read once; the tensor-core products of
+    every sample."""
     import torch
     S, M = len(aux_list), aux_list[0].shape[0]
     w1, w2, k2 = params[0], params[2], params[8]
@@ -125,8 +138,38 @@ def epilogue_bound(tables, cells, aux_list, params):
                     * t.element_size() for t, c in zip(tables, cells))
     nbytes = (row_bytes + sum(c.numel() * 4 for c in cells)
               + sum(a.numel() * a.element_size() for a in aux_list)
-              + sum(p.numel() * 2 for p in params) + M * (O + K) * 2)
+              + sum(p.numel() * 2 for p in params[:10]))
     macs = M * (S * (F * H1 + H1 * O) + S * O * O + S * O * K + K * K)
+    return nbytes, macs
+
+
+def epilogue_bound(tables, cells, aux_list, params):
+    """(bound_ms, bound_by) of one exchange epilogue call: its reads and
+    products, and its (M, O) and (M, K) outputs written once."""
+    nbytes, macs = exchange_work(tables, cells, aux_list, params)
+    M, O, K = aux_list[0].shape[0], params[2].shape[1], params[8].shape[1]
+    return bound(nbytes + M * (O + K) * 2, 2 * macs, BF16_TENSOR_FLOPS)
+
+
+def render_core_bound(tables, cells, aux_self, aux_cross, lc, params, B, R,
+                      P, repeat):
+    """(bound_ms, bound_by) of one fused_render_core call: the exchange's
+    reads and products; the local coordinates and query weights read once,
+    the (B, R, O) output and (B, 2, R, P) weights written once; per sample
+    the query MLP, the repeat MLP's local-coordinate half and its second
+    layer, and each round's q . k and value sum; per ray encode_latent and
+    the repeat MLP's z_embed half (the same for every sample of a ray). All
+    at the bf16 tensor-core rate, which makes it a lower bound."""
+    nbytes, macs = exchange_work(tables, cells, (aux_self, aux_cross),
+                                 params)
+    M, O, K = aux_self.shape[0], params[2].shape[1], params[8].shape[1]
+    rounds = 2 if repeat else 1
+    query = params[10:14] + (params[14:] if repeat else ())
+    nbytes += (lc.numel() * 2 + sum(p.numel() * 2 for p in query)
+               + (B * R * O + M) * 2)
+    macs += M * rounds * (16 * K + K * K + K + O)
+    if repeat:
+        macs += B * R * (O * K + K * K)
     return bound(nbytes, 2 * macs, BF16_TENSOR_FLOPS)
 
 
@@ -145,7 +188,8 @@ def drive(label, model, scene, RM, counted, expected):
     counters of ``counted`` ({name in the renderer module: kernel wrapper})
     set to 0 just before and read just after, and checks the image. Then
     times encode and the whole image and profiles one image. Returns the
-    first ray block's arguments of every counted kernel and the launches."""
+    first ray block's arguments of every counted kernel that launched, the
+    launches and the image."""
     import torch
     from cross_attention_renderer_torch.train.evaluation import (
         make_scan_renderer)
@@ -216,7 +260,55 @@ def drive(label, model, scene, RM, counted, expected):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f'  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  '
             f'{e.key[:90]}')
-    return captured, launches
+    return captured, launches, rgb
+
+
+def first_block(model, scene):
+    """The model's rgb, at_wt and depth_ray on the image's first ray block,
+    as f32."""
+    import torch
+    s = dict(scene)
+    s['query'] = dict(scene['query'],
+                      uv=scene['query']['uv'][:, :, :RAY_BLOCK])
+    with torch.inference_mode():
+        out = model(s)
+    return {k: out[k].float() for k in ('rgb', 'at_wt', 'depth_ray')}
+
+
+def check_render_core(FR, args):
+    """K4 against its plain version on ``args``; returns its numbers."""
+    z, wt = FR.fused_render_core(*args)
+    z_ref, wt_ref = FR.fused_render_core_reference(*args)
+    err_z, err_wt = max_err(z, z_ref), max_err(wt, wt_ref)
+    log(f'K4 fused_render_core (B, R, P) = {tuple(args[6:9])}, repeat '
+        f'{args[9]}: max err z {err_z:.3e} (tol '
+        f'{K4_TOL["z"] * scale(z_ref):.3e}), at_wt {err_wt:.3e} (tol '
+        f'{K4_TOL["at_wt"]:.3e})')
+    if err_z > K4_TOL['z'] * scale(z_ref) or err_wt > K4_TOL['at_wt']:
+        raise RuntimeError('K4 disagrees with its plain version')
+    del z, wt, z_ref, wt_ref
+    bound_ms, bound_by = render_core_bound(*args)
+    return {'max_abs_err': max(err_z, err_wt),
+            'ms': cuda_ms(lambda: FR.fused_render_core(*args), 10),
+            'plain_ms': cuda_ms(
+                lambda: FR.fused_render_core_reference(*args), 3),
+            'bound_ms': bound_ms, 'bound_by': bound_by}
+
+
+def check_fused_vs_staged(rgb_fused, rgb_staged, block_fused, block_staged):
+    """The fused render's image and first block against the staged
+    render's, within FUSED_VS_STAGED_TOL of max(1, max |staged|)."""
+    pairs = [('rgb', 'rgb', rgb_fused, rgb_staged)] + [
+        (k, f'first block {k}', block_fused[k], block_staged[k])
+        for k in ('at_wt', 'depth_ray')]
+    for key, name, got, want in pairs:
+        tol = FUSED_VS_STAGED_TOL[key]
+        err = max_err(got, want)
+        log(f'fused vs staged render, {name}: max err {err:.3e} (tol '
+            f'{tol * scale(want):.3e})')
+        if err > tol * scale(want):
+            raise RuntimeError(f'the fused render disagrees with the staged '
+                               f'render ({name})')
 
 
 def check_attention(label, EA, q, k, v):
@@ -306,6 +398,7 @@ def main() -> int:
     from cross_attention_renderer_torch.ops import _build
     from cross_attention_renderer_torch.ops import epipolar_attention as EA
     from cross_attention_renderer_torch.ops import fused_mlp as FM
+    from cross_attention_renderer_torch.ops import fused_render as FR
     from cross_attention_renderer_torch.ops import gather_epilogue as GE
 
     t_start = time.perf_counter()
@@ -329,17 +422,19 @@ def main() -> int:
     epilogue_multi = ('fused_exchange_epilogue_multi',
                       GE.fused_exchange_epilogue_multi)
     mlp = ('fused_mlp2', FM.fused_mlp2)
+    render_core = ('fused_render_core', FR.fused_render_core)
     by_path = {}        # launches per image of every kernel on every path
 
     # -- 3. V=2 main path --------------------------------------------------
     model = flagship(RM, dev, npoints=64)
     scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
                        device=dev)
-    captured, launches = drive(
+    captured, launches, rgb_staged = drive(
         'V=2', model, scene, RM, dict([attention, epilogue]),
         {'epipolar_attention': 2 * N_BLOCKS,
          'fused_exchange_epilogue': N_BLOCKS})
     by_path['v2'] = launches
+    block_staged = first_block(model, scene)
 
     # -- 4. V=2 kernel checks on the first block's inputs ------------------
     torch.set_grad_enabled(False)
@@ -349,17 +444,33 @@ def main() -> int:
                         GE.fused_exchange_epilogue,
                         GE.fused_exchange_epilogue_reference, args,
                         args[2:4], args[4], K2_TOL)
-    del model, scene, captured, args
+    del model, captured, args
     torch.cuda.empty_cache()
 
     # -- 5. V=2 small input ------------------------------------------------
     small_agreement('V=2', RM, make_scene, dev)
 
+    # -- 5b. V=2 fused render (K4) -----------------------------------------
+    model = flagship(RM, dev, npoints=64, fused_render=True)
+    captured, launches, rgb_fused = drive(
+        'V=2 fused render', model, scene, RM,
+        dict([render_core, attention, epilogue]),
+        {'fused_render_core': N_BLOCKS, 'epipolar_attention': 0,
+         'fused_exchange_epilogue': 0})
+    by_path['v2_fused_render'] = launches
+    check_fused_vs_staged(rgb_fused, rgb_staged, first_block(model, scene),
+                          block_staged)
+    k4 = check_render_core(FR, captured['fused_render_core'])
+    del model, scene, captured, rgb_fused, rgb_staged, block_staged
+    torch.cuda.empty_cache()
+    small_agreement('V=2 fused render', RM, make_scene, dev,
+                    fused_render=True)
+
     # -- 6. V=3 default path (Path A): K1 and K3 ---------------------------
     model = flagship(RM, dev, n_view=3)
     scene = make_scene(0, n_view=3, H=H, W=W, n_rays=H * W,
                        full_image=True, device=dev)
-    captured, launches = drive(
+    captured, launches, _ = drive(
         'V=3 (Path A)', model, scene, RM, dict([attention, epilogue_multi]),
         {'epipolar_attention': 2 * N_BLOCKS,
          'fused_exchange_epilogue_multi': N_BLOCKS})
@@ -376,7 +487,7 @@ def main() -> int:
     # -- 7. V=3 reference-compatible path (Path B): K1 and K9 --------------
     model = flagship(RM, dev, n_view=3, **PATH_B)
     per_block = 3 * 3       # 3 self and 6 cross fuse calls per block
-    captured, launches = drive(
+    captured, launches, _ = drive(
         'V=3 compat (Path B)', model, scene, RM, dict([attention, mlp]),
         {'epipolar_attention': 2 * N_BLOCKS,
          'fused_mlp2': per_block * N_BLOCKS})
@@ -420,8 +531,9 @@ def main() -> int:
             (epilogue, k2, 'gather_epilogue.cu', 'ops/gather_epilogue.py:220'),
             (epilogue_multi, k3, 'gather_epilogue_multi.cu',
              'ops/gather_epilogue.py:421'),
-            (mlp, k9, 'fused_mlp.cu', 'ops/experimental/fused_mlp.py:77')):
-        paths = {p: n[name] for p, n in by_path.items() if name in n}
+            (mlp, k9, 'fused_mlp.cu', 'ops/experimental/fused_mlp.py:77'),
+            (render_core, k4, 'fused_render.cu', 'ops/fused_render.py:349')):
+        paths = {p: n[name] for p, n in by_path.items() if n.get(name)}
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': f'cross_attention_renderer_torch/csrc/{source}',

@@ -1,6 +1,7 @@
 // The exchange epilogue kernel for Hopper (sm_90a), shared by the V=2
 // epilogue (gather_epilogue.cu) and the S-stream epilogue
-// (gather_epilogue_multi.cu). For a tile of 16 * MT samples it does, per
+// (gather_epilogue_multi.cu); the fused render core (fused_render.cu) runs
+// its gather, combine and fuse MLP on other tiles. For a tile of 16 * MT samples it does, per
 // stream s:
 //
 //   comb = sum_k w_k * row[k*C:(k+1)*C] per pyramid level    (bf16, as the
@@ -54,19 +55,28 @@ struct Args {
   int S, M, F, H1, O, K, rp;
 };
 
+// Copies the 16-wide bf16 rows of the tile's samples from src (rows, 16) to
+// dst (BM, 16); sample(r) is the sample of tile row r, or -1 for a row past
+// the end, which gets zeros.
+template <int BM, typename SampleFn>
+__device__ void load_rows16(const bf16* __restrict__ src, SampleFn sample,
+                            bf16* dst) {
+  for (int i = threadIdx.x; i < BM * 2; i += kThreads) {
+    const int r = i >> 1, half = i & 1, m = sample(r);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (m >= 0)
+      val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)m * 16) + half);
+    reinterpret_cast<uint4*>(dst + r * 16)[half] = val;
+  }
+}
+
 // Fetches the tile's cell rows of stream s and combines each level's four
 // slots into comb (BM, F); copies the tile's aux rows to aux_s (BM, 16).
-template <int BM>
-__device__ void gather_combine(const Args& p, int s, int m0, bf16* comb,
-                               int ldc, bf16* aux_s) {
-  const bf16* __restrict__ aux = p.aux[s];
-  for (int i = threadIdx.x; i < BM * 2; i += kThreads) {
-    const int r = i >> 1, half = i & 1, m = m0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m < p.M)
-      val = __ldg(reinterpret_cast<const uint4*>(aux + (size_t)m * 16) + half);
-    reinterpret_cast<uint4*>(aux_s + r * 16)[half] = val;
-  }
+// sample(r) maps tile row r to its sample, or to -1 past the end.
+template <int BM, typename SampleFn>
+__device__ void gather_combine(const Args& p, int s, SampleFn sample,
+                               bf16* comb, int ldc, bf16* aux_s) {
+  load_rows16<BM>(p.aux[s], sample, aux_s);
   __syncthreads();
   int off = 0;
   for (int l = 0; l < p.n_levels; ++l) {
@@ -76,9 +86,9 @@ __device__ void gather_combine(const Args& p, int s, int m0, bf16* comb,
     const int32_t* __restrict__ cells = p.cells[l] + (size_t)s * p.M;
 #pragma unroll 4
     for (int i = threadIdx.x; i < BM * tps; i += kThreads) {
-      const int r = i / tps, c0 = (i - r * tps) * 8, m = m0 + r;
+      const int r = i / tps, c0 = (i - r * tps) * 8, m = sample(r);
       uint4 out = make_uint4(0u, 0u, 0u, 0u);
-      if (m < p.M) {
+      if (m >= 0) {
         const bf16* src = table + (size_t)__ldg(cells + m) * 4 * C + c0;
         uint4 x[4];
 #pragma unroll
@@ -116,9 +126,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   bf16* fbuf = hbuf + BM * ldh;                     // (BM, S*O): [f_0 | ...]
   bf16* aux_s = fbuf + BM * ldf;                    // (BM, 16)
   const int m0 = blockIdx.x * BM;
+  const auto sample = [&](int r) { return m0 + r < p.M ? m0 + r : -1; };
 
   for (int s = 0; s < p.S; ++s) {
-    gather_combine<BM>(p, s, m0, comb, ldc, aux_s);
+    gather_combine<BM>(p, s, sample, comb, ldc, aux_s);
     mlp2_tile<MT, 3>(comb, ldc, p.F, aux_s + 12, 16, p.w1t, p.w1_tanh, p.b1,
                      p.H1, p.w2t, p.b2, p.O, hbuf, ldh,
                      [&](int row, int col, float x0, float x1) {

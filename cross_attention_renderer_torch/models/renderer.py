@@ -1,14 +1,22 @@
 """Cross-attention light-field renderer (the flagship model), V=2 and V=3.
 
-Port of ``cross_attention_renderer_tpu/models/renderer.py`` along three of
-its branches (renderer.py:344-434):
+Port of ``cross_attention_renderer_tpu/models/renderer.py`` along these
+branches (renderer.py:344-528):
 
-* V=2: the fused exchange epilogue (kernel K2, renderer.py:354-361);
+* V=2, default: the fused exchange epilogue (kernel K2, renderer.py:354-361)
+  and both attention rounds (kernel K1);
+* V=2 with ``fused_render``: the fully fused render core (kernel K4,
+  renderer.py:350-353, :458-467, :769-819), which runs the exchange and
+  both attention rounds in one kernel;
+* V=2 with ``fused_epilogue=False``: the unfused exchange
+  (renderer.py:362-388, :857-883);
 * V=3, default: the multi-stream fused epilogue (kernel K3,
   renderer.py:389-401, :690-767);
 * V=3 with ``reference_exchange_compat`` or ``fused_epilogue=False``: the
-  unfused exchange (renderer.py:402-434, :1056-1112), whose fuse MLP runs
-  as kernel K9 when ``fused_mlp`` is set (renderer.py:835-853).
+  unfused exchange (renderer.py:402-434, :1056-1112).
+
+The unfused exchanges' fuse MLP runs as kernel K9 when ``fused_mlp`` is set
+(renderer.py:835-853).
 
   1. ``encode``: DPT-hybrid multi-view encoder + full-res 7x7 conv branch
      -> feature pyramid z (models.py:148-188).
@@ -49,6 +57,7 @@ from cross_attention_renderer_torch.models.resnet_fc import ResnetFC
 from cross_attention_renderer_torch.ops.epipolar_attention import (
     epipolar_attention)
 from cross_attention_renderer_torch.ops.fused_mlp import fused_mlp2
+from cross_attention_renderer_torch.ops.fused_render import fused_render_core
 from cross_attention_renderer_torch.ops.gather_epilogue import (
     fused_exchange_epilogue, fused_exchange_epilogue_multi)
 from cross_attention_renderer_torch.ops.grid_sample import (
@@ -109,12 +118,20 @@ class CrossAttentionRenderer(nn.Module):
       npoints: epipolar samples per view; 0 takes the reference's default,
         64 at V=2 and 48 at V=3 (models.py:47-54).
       fused_epilogue: take the fused exchange epilogue (K2 at V=2, K3 at
-        V=3). ``False`` takes the unfused exchange, ported at V=3 only.
+        V=3). ``False`` takes the unfused exchange.
       reference_exchange_compat: reproduce the reference's 3-view exchange
         index swap (DEVIATIONS.md), which the fused V=3 epilogue does not
         implement: at V=3 it implies the unfused exchange. No effect at V=2.
       fused_mlp: run the unfused exchange's fuse MLP as kernel K9 (the JAX
         package's ``CAR_FUSED_MLP`` switch).
+      fused_render: at V=2, run the exchange and both attention rounds as
+        the fully fused render core K4 (the JAX package's
+        ``CAR_FUSED_RENDER`` switch); it takes precedence over
+        ``fused_epilogue``. V=2 only.
+      repeat_attention: run the second attention round, queried by the
+        first round's output (models.py:547-565). Without it the model has
+        no ``encode_latent`` and ``query_repeat_embed(_2)``, as the JAX
+        parameter tree has none.
     """
 
     def __init__(self, n_view: int = 2, npoints: int = 0,
@@ -124,21 +141,23 @@ class CrossAttentionRenderer(nn.Module):
                  dtype: torch.dtype = torch.float32, seed: int = 0,
                  device='cuda', fused_epilogue: bool = True,
                  reference_exchange_compat: bool = False,
-                 fused_mlp: bool = False):
+                 fused_mlp: bool = False, fused_render: bool = False,
+                 repeat_attention: bool = True):
         super().__init__()
         if n_view not in (2, 3):
             raise ValueError(f'the port renders 2 or 3 context views, got '
                              f'n_view={n_view}')
-        if n_view == 2 and not fused_epilogue:
-            raise NotImplementedError(
-                'the unfused exchange is ported at n_view=3 only; use '
-                'fused_epilogue=True at n_view=2')
+        if fused_render and n_view != 2:
+            raise ValueError('the fused render core renders 2 context '
+                             f'views, got n_view={n_view}')
         self.n_view = n_view
         self.n_samples = npoints or (64 if n_view <= 2 else 48)
         self.dtype = dtype
         self.fused_epilogue = fused_epilogue
         self.reference_exchange_compat = reference_exchange_compat
         self.fused_mlp = fused_mlp
+        self.fused_render = fused_render
+        self.repeat_attention = repeat_attention
         self.encoder = DPTHybridEncoder(
             features=fusion_features, vit_width=vit_width,
             vit_depth=vit_depth, vit_heads=vit_heads,
@@ -155,10 +174,12 @@ class CrossAttentionRenderer(nn.Module):
         self.key_map_2 = SplitDense(HIDDEN_DIM, HIDDEN_DIM, dtype)
         self.query_embed = SplitDense(QUERY_FEAT_DIM, HIDDEN_DIM, dtype)
         self.query_embed_2 = SplitDense(HIDDEN_DIM, HIDDEN_DIM, dtype)
-        self.encode_latent = SplitDense(ld, HIDDEN_DIM, dtype)
-        self.query_repeat_embed = SplitDense(HIDDEN_DIM + QUERY_FEAT_DIM,
-                                             HIDDEN_DIM, dtype)
-        self.query_repeat_embed_2 = SplitDense(HIDDEN_DIM, HIDDEN_DIM, dtype)
+        if repeat_attention:
+            self.encode_latent = SplitDense(ld, HIDDEN_DIM, dtype)
+            self.query_repeat_embed = SplitDense(HIDDEN_DIM + QUERY_FEAT_DIM,
+                                                 HIDDEN_DIM, dtype)
+            self.query_repeat_embed_2 = SplitDense(HIDDEN_DIM, HIDDEN_DIM,
+                                                   dtype)
         self.phi = ResnetFC(d_in=n_view * 9, d_latent=ld * n_view, d_out=3,
                             n_blocks=3, d_hidden=128, dtype=dtype)
         init_parameters(self, seed)
@@ -226,8 +247,22 @@ class CrossAttentionRenderer(nn.Module):
         pt_views = pt.reshape(B, V, R, P, 3)
 
         geo = (zp, pixel_val, pt_views, ctx_c2w, ctx_intr_v, H, W)
-        if V == 2:
+        if self.fused_render:
+            # K4 takes local_coords as well, so it runs once they exist.
+            joint_latent = key_val = None
+        elif V == 2 and self.fused_epilogue:
             joint_latent, key_val = self._fused_exchange_v2(*geo)
+        elif V == 2:
+            # [self, cross] for view 0, [cross, self] for view 1
+            # (models.py:335,342), by slicing the kernels.
+            fs, fc = self._latent_exchange_parts(*geo)
+            joint_latent = torch.stack(
+                [self.latent_value(fs[:, 0], fc[:, 0]),
+                 self.latent_value(fc[:, 1], fs[:, 1])], dim=1)
+            kh = torch.stack(
+                [torch.relu(self.key_map(fs[:, 0], fc[:, 0])),
+                 torch.relu(self.key_map(fc[:, 1], fs[:, 1]))], dim=1)
+            key_val = self.key_map_2(kh)
         elif self.fused_epilogue and not self.reference_exchange_compat:
             joint_latent, key_val = self._fused_exchange_multi(*geo)
         else:
@@ -256,25 +291,12 @@ class CrossAttentionRenderer(nn.Module):
             [cam_rays, torch.zeros_like(q_orig_e), ray_dir_e, depth_encode,
              q_orig_e], dim=-1)                            # (B,V,R,P,16)
 
-        coords_embed = self.query_embed_2(torch.relu(
-            self.query_embed(local_coords)))
-        # Round 1 over the joint (view, sample) axis (models.py:532-541).
-        z_sum, at_wt = epipolar_attention(coords_embed, key_val,
-                                          joint_latent)
-        # Round 2, queried by the round-1 latent (models.py:547-565); the
-        # result is sum_v z2 + V * z_sum, as round-1 z_local is already the
-        # view-broadcast sum.
-        z_local = z_sum[:, None].expand(B, V, R, z_sum.shape[-1])
-        z_embed = self.encode_latent(z_local)              # (B, V, R, 128)
-        z_embed_local = z_embed[:, :, :, None, :].expand(B, V, R, P,
-                                                         HIDDEN_DIM)
-        query_embed_local = self.query_repeat_embed_2(torch.relu(
-            self.query_repeat_embed(z_embed_local,
-                                    local_coords.to(self.dtype))))
-        z_sum2, _ = epipolar_attention(query_embed_local, coords_embed,
-                                       joint_latent)
-        z_local = (z_sum2 + V * z_sum)[:, None].expand(B, V, R,
-                                                       z_sum.shape[-1])
+        if self.fused_render:
+            z_final, at_wt = self._fused_render_v2(*geo, local_coords)
+            z_local = z_final[:, None].expand(B, V, R, z_final.shape[-1])
+        else:
+            z_local, at_wt = self._attention_rounds(
+                local_coords, key_val, joint_latent)
 
         # Attention-derived depth from the round-1 weights (models.py:573-594).
         pt_clamp = pt_views.clamp(-100.0, 100.0)
@@ -294,6 +316,35 @@ class CrossAttentionRenderer(nn.Module):
         return {'rgb': rgb.reshape(B, 1, R, 3), 'depth_ray': depth_ray,
                 'valid_mask': valid_any, 'at_wt': at_wt,
                 'pixel_val': pixel_val.reshape(B, V, R, P, 2)}
+
+    def _attention_rounds(self, local_coords: Tensor, key_val: Tensor,
+                          joint_latent: Tensor) -> tuple[Tensor, Tensor]:
+        """The query MLP and the attention rounds (K1) on the exchange's
+        outputs (models.py:528-565). Returns (z_local (B, V, R, ld), the
+        round-1 weights (B, V, R, P))."""
+        B, V, R, P, _ = joint_latent.shape
+        coords_embed = self.query_embed_2(torch.relu(
+            self.query_embed(local_coords)))
+        # Round 1 over the joint (view, sample) axis (models.py:532-541).
+        z_sum, at_wt = epipolar_attention(coords_embed, key_val,
+                                          joint_latent)
+        z_local = z_sum[:, None].expand(B, V, R, z_sum.shape[-1])
+        if not self.repeat_attention:
+            return z_local, at_wt
+        # Round 2, queried by the round-1 latent (models.py:547-565); the
+        # result is sum_v z2 + V * z_sum, as round-1 z_local is already the
+        # view-broadcast sum.
+        z_embed = self.encode_latent(z_local)              # (B, V, R, 128)
+        z_embed_local = z_embed[:, :, :, None, :].expand(B, V, R, P,
+                                                         HIDDEN_DIM)
+        query_embed_local = self.query_repeat_embed_2(torch.relu(
+            self.query_repeat_embed(z_embed_local,
+                                    local_coords.to(self.dtype))))
+        z_sum2, _ = epipolar_attention(query_embed_local, coords_embed,
+                                       joint_latent)
+        return ((z_sum2 + V * z_sum)[:, None].expand(B, V, R,
+                                                      z_sum.shape[-1]),
+                at_wt)
 
     # ------------------------------------------------------------------
     def _exchange_points(self, pt_views: Tensor, ctx_c2w: Tensor) -> Tensor:
@@ -378,6 +429,34 @@ class CrossAttentionRenderer(nn.Module):
         return (jl.reshape(B, V, R, P, self.latent_dim),
                 kv.reshape(B, V, R, P, HIDDEN_DIM))
 
+    def _fused_render_v2(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr,
+                         H, W, local_coords) -> tuple[Tensor, Tensor]:
+        """V=2 takes -> exchange -> both attention rounds, one kernel K4
+        (renderer.py:769-819): everything :meth:`_fused_exchange_v2` does
+        plus the query MLP, round 1 and, with ``repeat_attention``,
+        ``encode_latent``, the repeat-query MLP and round 2 (models.py:
+        278-565). Returns (z_final (B, R, ld), at_wt (B, V, R, P))."""
+        B, V, R, P, _ = pt_views.shape
+        cells, (aux_self, aux_cross) = self._stream_takes(
+            zp, pixel_val, pt_views, ctx_c2w, ctx_intr, H, W)
+        ld, dt, dev = self.latent_dim, self.dtype, pt_views.device
+        if self.repeat_attention:
+            round2 = [t for m in (self.encode_latent, self.query_repeat_embed,
+                                  self.query_repeat_embed_2)
+                      for t in (m.kernel, m.bias)]
+        else:
+            # No round-2 modules exist; the kernel ignores these operands.
+            round2 = [torch.zeros(s, device=dev) for s in (
+                (ld, HIDDEN_DIM), (HIDDEN_DIM,),
+                (HIDDEN_DIM + QUERY_FEAT_DIM, HIDDEN_DIM), (HIDDEN_DIM,),
+                (HIDDEN_DIM, HIDDEN_DIM), (HIDDEN_DIM,))]
+        params = self._epilogue_params() + tuple(t.to(dt) for t in (
+            self.query_embed.kernel, self.query_embed.bias,
+            self.query_embed_2.kernel, self.query_embed_2.bias, *round2))
+        lc = local_coords.reshape(-1, QUERY_FEAT_DIM).to(dt).contiguous()
+        return fused_render_core(zp, cells, aux_self, aux_cross, lc, params,
+                                 B, R, P, self.repeat_attention)
+
     def _fused_exchange_multi(self, zp, pixel_val, pt_views, ctx_c2w,
                               ctx_intr, H, W) -> tuple[Tensor, Tensor]:
         """V>=3 exchange through the multi-stream fused epilogue
@@ -407,6 +486,33 @@ class CrossAttentionRenderer(nn.Module):
                 qel.kernel[c1:], qel.bias, qel2.kernel, qel2.bias)
             return out.reshape(*feat.shape[:-1], out.shape[-1])
         return qel2(torch.relu(qel(feat, t)))
+
+    def _latent_exchange_parts(self, zp, pixel_val, pt_views, ctx_c2w,
+                               ctx_intr, H, W) -> tuple[Tensor, Tensor]:
+        """Unfused V=2 exchange before the per-view concat
+        (renderer.py:857-883): (fuse_self, fuse_cross), each
+        (B, V, R, P, ld). fuse_self[:, v] fuses view v's own maps on its
+        segment (border padding) with pt in frame v; fuse_cross[:, v]
+        fuses view 1 - v's maps at view v's samples reprojected into frame
+        1 - v (zeros padding) with that point."""
+        B, V, R, P, _ = pt_views.shape
+        interp_val = grid_sample_pyramid_packed(
+            zp, pixel_val.reshape(B * V, R * P, 2),
+            'border').reshape(B, V, R, P, -1)
+        pt_in = self._exchange_points(pt_views, ctx_c2w)   # (B,K,V,R,P,3)
+        pt_cross = torch.stack([pt_in[:, k, 1 - k] for k in range(2)],
+                               dim=1)                      # (B,K,R,P,3)
+        proj = G.project_pinhole(pt_cross.reshape(B, V, R * P, 3), ctx_intr)
+        pix = G.pixel_to_ndc(proj[..., :2], H, W)
+        gathered = grid_sample_pyramid_packed(
+            zp, pix.reshape(B * V, R * P, 2), 'zeros').reshape(B, V, R, P,
+                                                               -1)
+        fs = torch.stack([self._fuse_latent(interp_val[:, v], pt_in[:, v, v])
+                          for v in range(2)], dim=1)
+        fc = torch.stack([self._fuse_latent(gathered[:, 1 - v],
+                                            pt_in[:, 1 - v, v])
+                          for v in range(2)], dim=1)
+        return fs, fc
 
     def _latent_exchange(self, interp_val: Tensor, zp, pt_views, ctx_c2w,
                          ctx_intr, H, W) -> Tensor:

@@ -123,10 +123,20 @@ def fused_exchange_epilogue(tables: Sequence[Tensor],
 fused_exchange_epilogue.launches = 0  # kernel launches, for the smoke test
 
 
+def _mat(w, dev):
+    """(in, out) weight -> (out, in) bf16 on ``dev``, as the kernels read it."""
+    return w.to(dev, torch.bfloat16).t().contiguous()
+
+
+def _vec(b, dev):
+    """bf16-rounded values as f32 on ``dev`` (biases, tanh rows)."""
+    return b.to(dev, torch.bfloat16).float().contiguous()
+
+
 def _checked_args(what, tables, cells, aux, params):
     """Checks the kernels' inputs and packs the launch arguments shared by
-    K2 and K3: (level arrays, weight tensors, (jl, kv), (M, F, H1, O, K)).
-    Raises ValueError on what the kernels do not take."""
+    K2, K3 and K4: (level arrays, weight tensors, (M, F, H1, O, K)). Raises
+    ValueError on what the kernels do not take."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f'{what}: {msg}')
@@ -153,28 +163,29 @@ def _checked_args(what, tables, cells, aux, params):
                 and tuple(a.shape) == (M, 16) and a.data_ptr() % 16 == 0,
                 f'aux must be contiguous bf16 ({M}, 16) on {dev}')
 
-    def mat(w):                         # (in, out) -> (out, in) bf16
-        return w.to(dev, dt).t().contiguous()
-
-    def vec(b):                         # bf16-rounded values as f32
-        return b.to(dev, dt).float().contiguous()
-
-    weights = [mat(w1[:F]), vec(w1[F:F + 3]), vec(b1), mat(w2), vec(b2),
-               mat(lv), vec(lv_bias), mat(km), vec(km_bias), mat(k2),
-               vec(k2_bias)]
-    jl = torch.empty((M, O), dtype=dt, device=dev)
-    kv = torch.empty((M, K), dtype=dt, device=dev)
+    weights = [_mat(w1[:F], dev), _vec(w1[F:F + 3], dev), _vec(b1, dev),
+               _mat(w2, dev), _vec(b2, dev), _mat(lv, dev),
+               _vec(lv_bias, dev), _mat(km, dev), _vec(km_bias, dev),
+               _mat(k2, dev), _vec(k2_bias, dev)]
     n = len(tables)
     levels = ((ctypes.c_void_p * n)(*[t.data_ptr() for t in tables]),
               (ctypes.c_void_p * n)(*[c.data_ptr() for c in cells]),
               (ctypes.c_int * n)(*channels))
-    return levels, weights, (jl, kv), (M, F, H1, O, K)
+    return levels, weights, (M, F, H1, O, K)
+
+
+def _outputs(aux, sizes):
+    """Empty (jl (M, O), kv (M, K)) bf16 for K2 and K3."""
+    M, _, _, O, K = sizes
+    return (torch.empty((M, O), dtype=torch.bfloat16, device=aux.device),
+            torch.empty((M, K), dtype=torch.bfloat16, device=aux.device))
 
 
 def _launch(tables, cells, aux_self, aux_cross, params, rp):
-    levels, weights, (jl, kv), sizes = _checked_args(
+    levels, weights, sizes = _checked_args(
         'fused_exchange_epilogue', tables, cells, (aux_self, aux_cross),
         params)
+    jl, kv = _outputs(aux_self, sizes)
     fn = _build.load('gather_epilogue').fused_exchange_epilogue_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -261,8 +272,9 @@ def _launch_multi(tables, cells, aux_list, params):
     if not 2 <= S <= 4:
         raise ValueError(f'fused_exchange_epilogue_multi: 2 to 4 streams, '
                          f'got {S}')
-    levels, weights, (jl, kv), sizes = _checked_args(
+    levels, weights, sizes = _checked_args(
         'fused_exchange_epilogue_multi', tables, cells, aux_list, params)
+    jl, kv = _outputs(aux_list[0], sizes)
     fn = _build.load(
         'gather_epilogue_multi').fused_exchange_epilogue_multi_bf16
     fn.restype = ctypes.c_int

@@ -19,6 +19,7 @@ import torch
 from cross_attention_renderer_torch.ops import _build
 from cross_attention_renderer_torch.ops import epipolar_attention as EA
 from cross_attention_renderer_torch.ops import fused_mlp as FM
+from cross_attention_renderer_torch.ops import fused_render as FR
 from cross_attention_renderer_torch.ops import gather_epilogue as GE
 
 pytestmark = pytest.mark.cuda
@@ -138,6 +139,45 @@ def test_fused_mlp_kernel(dev, M, K1, H, O):
     assert _max_err(out, ref) <= 2 ** -5 * _scale(ref)
 
 
+def _render_case(dev, channels, H1, O, K, hw, B, R, P, seed=3):
+    """K4's arguments: the V=2 epilogue's case for M = B * 2 * R * P
+    samples, local coordinates and the ten query weights."""
+    M = B * 2 * R * P
+    tables, cells, (a_s, a_c), params = _epilogue_case(
+        dev, channels, H1, O, K, 2, hw, M, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    lecun = lambda i, o: rng.standard_normal((i, o)) / np.sqrt(i)
+    bias = lambda n: 0.1 * rng.standard_normal(n)
+    lc = _bf(dev, rng.uniform(-1, 1, (M, 16)))
+    query = tuple(_bf(dev, a) for a in (
+        lecun(16, K), bias(K), lecun(K, K), bias(K), lecun(O, K), bias(K),
+        lecun(K + 16, K), bias(K), lecun(K, K), bias(K)))
+    return tables, cells, a_s, a_c, lc, params + query
+
+
+@pytest.mark.parametrize('repeat', [True, False])
+@pytest.mark.parametrize('channels,H1,O,K,hw,B,R,P', [
+    ((32, 32, 16), 80, 40, 16, (4, 8, 16), 2, 13, 24),
+    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 1, 37, 64),
+])
+def test_fused_render_core_kernel(dev, channels, H1, O, K, hw, B, R, P,
+                                  repeat):
+    """K4 at a ragged ray count (R not a multiple of 8) and, in the narrow
+    case, a last 32-sample tile that is part full and a tile that spans
+    both views. Tolerances: z one bf16 step of max(1, |z|), as K2's
+    outputs; at_wt 2^-8, as K1's."""
+    case = _render_case(dev, channels, H1, O, K, hw, B, R, P)
+    before = FR.fused_render_core.launches
+    z, wt = FR.fused_render_core(*case, B, R, P, repeat)
+    torch.cuda.synchronize()
+    assert FR.fused_render_core.launches == before + 1
+    z_ref, wt_ref = FR.fused_render_core_reference(*case, B, R, P, repeat)
+    assert z.shape == (B, R, O) and wt.shape == (B, 2, R, P)
+    assert torch.isfinite(z.float()).all()
+    assert _max_err(wt, wt_ref) <= 2 ** -8
+    assert _max_err(z, z_ref) <= 2 ** -5 * _scale(z_ref)
+
+
 def test_kernels_count_launches(dev):
     q = torch.zeros(1, 2, 8, 4, 8, dtype=torch.bfloat16, device=dev)
     before = EA.epipolar_attention.launches
@@ -149,3 +189,8 @@ def test_kernels_refuse_f32(dev):
     q = torch.zeros(1, 2, 8, 4, 8, device=dev)
     with pytest.raises(ValueError):
         EA.epipolar_attention(q, q, q)
+    tables, cells, a_s, a_c, lc, params = _render_case(
+        dev, (32, 32, 16), 80, 40, 16, (4, 8, 16), 1, 3, 4)
+    with pytest.raises(ValueError):
+        FR.fused_render_core([t.float() for t in tables], cells, a_s.float(),
+                             a_c.float(), lc.float(), params, 1, 3, 4, True)

@@ -174,15 +174,15 @@ def test_scan_renderer_matches_one_call(kw):
 
 
 def test_npoints_default_and_unported_wiring():
-    """npoints=0 takes 64 samples at V=2 and 48 at V=3; the unfused V=2
-    exchange and other view counts are refused, and a scene must match
+    """npoints=0 takes 64 samples at V=2 and 48 at V=3; the fused render
+    core at V=3 and other view counts are refused, and a scene must match
     the model's view count."""
     kw = {k: v for k, v in SMALL.items() if k != 'npoints'}
     assert CrossAttentionRenderer(device='cpu', **kw).n_samples == 64
     model = CrossAttentionRenderer(n_view=3, device='cpu', **kw)
     assert model.n_samples == 48
-    with pytest.raises(NotImplementedError):
-        CrossAttentionRenderer(n_view=2, fused_epilogue=False, device='cpu',
+    with pytest.raises(ValueError):
+        CrossAttentionRenderer(n_view=3, fused_render=True, device='cpu',
                                **kw)
     with pytest.raises(ValueError):
         CrossAttentionRenderer(n_view=4, device='cpu', **kw)
