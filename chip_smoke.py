@@ -36,7 +36,27 @@ no result):
   7. V=3 reference-compatible path (Path B, ``reference_exchange_compat``
      with the fused MLP): the same image checks (16 attention and 72 fused
      MLP launches per image, 9 a block), then K9 against its plain version;
-  8. V=3 small-input agreement for both V=3 paths, as phase 5.
+  8. V=3 small-input agreement for both V=3 paths, as phase 5;
+  9. V=2 sorted stream (K5): phase 3's model and scene with
+     ``sorted_stream=True`` (48 resident-gather and 16 attention launches,
+     and no epilogue or render core launch, per image); the image, and the
+     first block's attention weights and depth, against phase 3's staged
+     render within the stated tolerance; K5 against its plain version on
+     the first block's self- and cross-stream inputs of each level, K6 on
+     the self-stream ones (no path launches K6); the small-input agreement;
+ 10. V=3 sorted stream: phase 6's model with ``sorted_stream=True`` (48
+     K5, 16 attention and no multi-stream epilogue launches per image), its
+     image against phase 6's; the small-input agreement, also with
+     ``reference_exchange_compat``;
+ 11. V=3 compat with the one-hot gather (K7): phase 7's model with
+     ``gather='onehot'`` (48 one-hot gather, 16 attention and 72 fused MLP
+     launches per image), its image against phase 7's; K7 against its
+     plain version on the first block's inputs of each level;
+ 12. K8: the banded gather against its plain version on the V=2 level-0
+     table (2x64x64x256 bf16, exactly the 4 MiB it is limited to) at phase
+     9's first-block self-stream coordinates; the small-input agreement of
+     the V=3 compat model with ``gather='banded'``, where every level is
+     small enough for K8 (6 launches a forward).
 Then it prints the ``kernels`` JSON line, the card line and, last, the
 result line.
 """
@@ -69,6 +89,18 @@ K4_TOL = {'z': 2 ** -5, 'at_wt': 2 ** -8}
 # MLPs round after each product and again after the bias, where K4 keeps
 # f32 until each product's input. A few bf16 steps of each output.
 FUSED_VS_STAGED_TOL = {'rgb': 2 ** -4, 'at_wt': 2 ** -7, 'depth_ray': 2 ** -4}
+# K5-K8 against take_gather: both read the same bf16 table and round each
+# corner's weight to bf16; the kernels sum the products in f32 and round
+# once, the plain version rounds each product and each partial sum to bf16
+# (up to 8 roundings of 2^-9 of the largest table value). A few bf16 steps.
+GATHER_TOL = 2 ** -5
+# The sorted stream (K5) and the one-hot gather (K7) against the paths they
+# replace (phases 3, 6 and 7), in bf16: the staged K2 and K3 keep f32 until
+# each product's input, where the sorted path's plain-torch fuse MLP and
+# projections round every product to bf16; K5 and K7 sum the weighted
+# corners in f32 and round once, where the take path rounds each. A few bf16
+# steps of each output, as the fused render against the staged one.
+PATH_TOL = FUSED_VS_STAGED_TOL
 SMALL_TOL = 0.1     # bf16 card render vs f32 CPU render of the same model
 # The decoder has no output squashing: at its initial scale random weights
 # put RGB near +-40. Its last layer is drawn this much smaller so that the
@@ -183,37 +215,112 @@ def mlp_bound(x1, x2, w1a, w1b, b1, w2, b2):
     return bound(nbytes, 2 * M * (K1 * H + 3 * H + H * O), BF16_TENSOR_FLOPS)
 
 
-def drive(label, model, scene, RM, counted, expected):
+def gather_bound(table, idx, w, out_dtype):
+    """(bound_ms, bound_by) of one bilinear gather (K5-K8): the table rows
+    its live corners touch, read once; its corners and weights (32 bytes a
+    sample); its (M, C) output written once; 4 multiply-adds a channel a
+    sample at the f32 rate."""
+    import torch
+    M, C = idx.shape[0], table.shape[1]
+    rows = int(torch.unique(idx[w != 0]).numel())
+    out_bytes = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = rows * C * table.element_size() + M * 32 + M * C * out_bytes
+    return bound(nbytes, 8 * M * C, F32_FLOPS)
+
+
+def sorted_case(SG, fm, coords, image_id, padding_mode):
+    """K5's (table, idx, w) for one ``grid_sample_sorted`` call."""
+    B, Hl, Wl, C = fm.shape
+    idx, w = SG._corners_flat(Hl, Wl, coords.float(), image_id, padding_mode)
+    return fm.reshape(B * Hl * Wl, C), idx, w
+
+
+def table_case(PG, features, coords, padding_mode):
+    """K7's (table, idx, w) for one ``grid_sample_pallas`` call."""
+    B, Hl, Wl, C = features.shape
+    idx, w = PG.flat_corners(features, coords, padding_mode)
+    return features.reshape(B * Hl * Wl, C), idx, w
+
+
+def check_gather(label, kernel, cases):
+    """A gather kernel against ``take_gather`` cast to the kernel's output
+    type on each (table, idx, w) case, within GATHER_TOL. Returns its
+    numbers per launch, the mean over the cases, with the time of
+    ``embedding_bag`` (one PyTorch call that computes the same sum) on the
+    same inputs as ``library_ms``."""
+    import torch
+    import torch.nn.functional as F
+    from cross_attention_renderer_torch.ops.sorted_gather import take_gather
+    rows = []
+    for table, idx, w in cases:
+        got = kernel(table, idx, w)
+        dt = got.dtype
+        want = take_gather(table, idx, w).to(dt)
+        err, tol = max_err(got, want), GATHER_TOL * scale(want)
+        log(f'{label} table {tuple(table.shape)}, M={idx.shape[0]} -> {dt}: '
+            f'max err {err:.3e} (tol {tol:.3e})')
+        if err > tol:
+            raise RuntimeError(f'{label} disagrees with its plain version')
+        del got, want
+        w_t = w.to(table.dtype)
+        try:
+            lib = cuda_ms(lambda: F.embedding_bag(
+                idx, table, per_sample_weights=w_t, mode='sum'), 10)
+        except RuntimeError as e:      # the yardstick only, never the port
+            log(f'{label}: embedding_bag refused these inputs: {e}')
+            lib = None
+        rows.append((err, *gather_bound(table, idx, w, dt),
+                     cuda_ms(lambda: kernel(table, idx, w), 10),
+                     cuda_ms(lambda: take_gather(table, idx, w).to(dt), 3),
+                     lib))
+    n = len(rows)
+    libs = [r[5] for r in rows]
+    return {'max_abs_err': max(r[0] for r in rows),
+            'ms': sum(r[3] for r in rows) / n,
+            'plain_ms': sum(r[4] for r in rows) / n,
+            'bound_ms': sum(r[1] for r in rows) / n,
+            'bound_by': max(rows, key=lambda r: r[1])[2],
+            'library_ms': None if None in libs else sum(libs) / n}
+
+
+def drive(label, model, scene, RM, counted, expected, capture=None):
     """Renders the full image through ``make_scan_renderer`` with the launch
-    counters of ``counted`` ({name in the renderer module: kernel wrapper})
-    set to 0 just before and read just after, and checks the image. Then
-    times encode and the whole image and profiles one image. Returns the
-    first ray block's arguments of every counted kernel that launched, the
-    launches and the image."""
+    counters of ``counted`` ({name: kernel wrapper}) set to 0 just before
+    and read just after, and checks the image. Then times encode and the
+    whole image and profiles one image. Records the arguments of the first
+    ``n`` calls of each ``capture`` entry ({key: (module, name, n)}; by
+    default the first call of every counted kernel the renderer module
+    calls). Returns the recorded arguments, the launches and the image."""
     import torch
     from cross_attention_renderer_torch.train.evaluation import (
         make_scan_renderer)
     uv_full = scene['query']['uv']
     render_image = make_scan_renderer(model, N_BLOCKS)
-    captured = {}
+    if capture is None:
+        capture = {name: (RM, name, 1) for name in counted
+                   if hasattr(RM, name)}
+    captured = {key: [] for key in capture}
 
-    def capture(name, fn):
+    def recorder(key, fn, n):
         def wrapper(*args):
-            if name not in captured:
-                captured[name] = args
+            if len(captured[key]) < n:
+                captured[key].append(args)
             return fn(*args)
         return wrapper
 
-    for name, fn in counted.items():
-        setattr(RM, name, capture(name, fn))
+    originals = {key: getattr(module, name)
+                 for key, (module, name, _) in capture.items()}
+    for key, (module, name, n) in capture.items():
+        setattr(module, name, recorder(key, originals[key], n))
+    for fn in counted.values():
         fn.launches = 0
     with torch.inference_mode():
         z = model.encode(scene)
         rgb, valid = render_image(scene, z, uv_full)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counted.items()}
-    for name, fn in counted.items():
-        setattr(RM, name, fn)
+    for key, (module, name, _) in capture.items():
+        setattr(module, name, originals[key])
     log(f'{label} launches per image: {launches}')
     if launches != expected:
         raise RuntimeError(f'{label}: unexpected kernel launches {launches}, '
@@ -295,20 +402,20 @@ def check_render_core(FR, args):
             'bound_ms': bound_ms, 'bound_by': bound_by}
 
 
-def check_fused_vs_staged(rgb_fused, rgb_staged, block_fused, block_staged):
-    """The fused render's image and first block against the staged
-    render's, within FUSED_VS_STAGED_TOL of max(1, max |staged|)."""
-    pairs = [('rgb', 'rgb', rgb_fused, rgb_staged)] + [
-        (k, f'first block {k}', block_fused[k], block_staged[k])
-        for k in ('at_wt', 'depth_ray')]
+def check_paths(label, tols, rgb, rgb_ref, block=None, block_ref=None):
+    """One path's image (and, where given, first block's at_wt and
+    depth_ray) against another path's, each within its fraction ``tols``
+    of max(1, max |ref|)."""
+    pairs = [('rgb', 'rgb', rgb, rgb_ref)] + [
+        (k, f'first block {k}', block[k], block_ref[k])
+        for k in (('at_wt', 'depth_ray') if block else ())]
     for key, name, got, want in pairs:
-        tol = FUSED_VS_STAGED_TOL[key]
+        tol = tols[key]
         err = max_err(got, want)
-        log(f'fused vs staged render, {name}: max err {err:.3e} (tol '
+        log(f'{label}, {name}: max err {err:.3e} (tol '
             f'{tol * scale(want):.3e})')
         if err > tol * scale(want):
-            raise RuntimeError(f'the fused render disagrees with the staged '
-                               f'render ({name})')
+            raise RuntimeError(f'{label}: the paths disagree ({name})')
 
 
 def check_attention(label, EA, q, k, v):
@@ -349,9 +456,11 @@ def check_epilogue(name, kernel, plain, args, aux_list, params, tol):
             'bound_ms': bound_ms, 'bound_by': bound_by}
 
 
-def small_agreement(label, RM, make_scene, dev, **kw):
+def small_agreement(label, RM, make_scene, dev, counted=None, **kw):
     """A narrow model's bf16 render on the card against its f32 render on
-    the CPU, through the same entry point."""
+    the CPU, through the same entry point. ``counted`` ({name: (kernel
+    wrapper, launches)}) are the launches the card render must make.
+    Returns them."""
     import torch
     n_view = kw.get('n_view', 2)
     ref = RM.CrossAttentionRenderer(seed=1, device='cpu', **SMALL, **kw)
@@ -360,15 +469,23 @@ def small_agreement(label, RM, make_scene, dev, **kw):
     s_cpu = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512,
                        device='cpu')
     s_dev = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512, device=dev)
+    counted = counted or {}
     with torch.inference_mode():
         want = ref(s_cpu)['rgb']
+        for fn, _ in counted.values():
+            fn.launches = 0
         got = card_model(s_dev)['rgb'].float().cpu()
+    launches = {name: fn.launches for name, (fn, _) in counted.items()}
+    if launches != {name: n for name, (_, n) in counted.items()}:
+        raise RuntimeError(f'small input {label}: unexpected kernel launches '
+                           f'{launches}')
     err = max_err(got, want)
     log(f'small input {label}: bf16 card render vs f32 CPU render, max err '
         f'{err:.3e} (tol {SMALL_TOL * scale(want):.3e})')
     if not bool(torch.isfinite(got).all()) or err > SMALL_TOL * scale(want):
         raise RuntimeError(f'small-input render ({label}) disagrees with the '
                            'reference')
+    return launches
 
 
 def flagship(RM, dev, **kw):
@@ -400,6 +517,10 @@ def main() -> int:
     from cross_attention_renderer_torch.ops import fused_mlp as FM
     from cross_attention_renderer_torch.ops import fused_render as FR
     from cross_attention_renderer_torch.ops import gather_epilogue as GE
+    from cross_attention_renderer_torch.ops import pallas_gather as PG
+    from cross_attention_renderer_torch.ops import sorted_gather as SG
+    from cross_attention_renderer_torch.ops.experimental import (
+        banded_gather as BG)
 
     t_start = time.perf_counter()
     # -- 1. device ---------------------------------------------------------
@@ -423,28 +544,32 @@ def main() -> int:
                       GE.fused_exchange_epilogue_multi)
     mlp = ('fused_mlp2', FM.fused_mlp2)
     render_core = ('fused_render_core', FR.fused_render_core)
+    resident = ('resident_gather', SG.resident_gather)
+    windowed = ('windowed_gather', SG.windowed_gather)
+    onehot = ('onehot_gather', PG.onehot_gather)
+    banded = ('banded_gather', BG.banded_gather)
     by_path = {}        # launches per image of every kernel on every path
 
     # -- 3. V=2 main path --------------------------------------------------
-    model = flagship(RM, dev, npoints=64)
+    model_v2 = flagship(RM, dev, npoints=64)
     scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
                        device=dev)
     captured, launches, rgb_staged = drive(
-        'V=2', model, scene, RM, dict([attention, epilogue]),
+        'V=2', model_v2, scene, RM, dict([attention, epilogue]),
         {'epipolar_attention': 2 * N_BLOCKS,
          'fused_exchange_epilogue': N_BLOCKS})
     by_path['v2'] = launches
-    block_staged = first_block(model, scene)
+    block_staged = first_block(model_v2, scene)
 
     # -- 4. V=2 kernel checks on the first block's inputs ------------------
     torch.set_grad_enabled(False)
-    k1 = check_attention('V=2', EA, *captured['epipolar_attention'])
-    args = captured['fused_exchange_epilogue']
+    k1 = check_attention('V=2', EA, *captured['epipolar_attention'][0])
+    args = captured['fused_exchange_epilogue'][0]
     k2 = check_epilogue('K2 fused_exchange_epilogue',
                         GE.fused_exchange_epilogue,
                         GE.fused_exchange_epilogue_reference, args,
                         args[2:4], args[4], K2_TOL)
-    del model, captured, args
+    del captured, args
     torch.cuda.empty_cache()
 
     # -- 5. V=2 small input ------------------------------------------------
@@ -458,41 +583,43 @@ def main() -> int:
         {'fused_render_core': N_BLOCKS, 'epipolar_attention': 0,
          'fused_exchange_epilogue': 0})
     by_path['v2_fused_render'] = launches
-    check_fused_vs_staged(rgb_fused, rgb_staged, first_block(model, scene),
-                          block_staged)
-    k4 = check_render_core(FR, captured['fused_render_core'])
-    del model, scene, captured, rgb_fused, rgb_staged, block_staged
+    check_paths('fused vs staged render', FUSED_VS_STAGED_TOL, rgb_fused,
+                rgb_staged, first_block(model, scene), block_staged)
+    k4 = check_render_core(FR, captured['fused_render_core'][0])
+    del model, scene, captured, rgb_fused
     torch.cuda.empty_cache()
     small_agreement('V=2 fused render', RM, make_scene, dev,
                     fused_render=True)
 
     # -- 6. V=3 default path (Path A): K1 and K3 ---------------------------
-    model = flagship(RM, dev, n_view=3)
+    model_v3 = flagship(RM, dev, n_view=3)
     scene = make_scene(0, n_view=3, H=H, W=W, n_rays=H * W,
                        full_image=True, device=dev)
-    captured, launches, _ = drive(
-        'V=3 (Path A)', model, scene, RM, dict([attention, epilogue_multi]),
+    captured, launches, rgb_v3 = drive(
+        'V=3 (Path A)', model_v3, scene, RM,
+        dict([attention, epilogue_multi]),
         {'epipolar_attention': 2 * N_BLOCKS,
          'fused_exchange_epilogue_multi': N_BLOCKS})
     by_path['v3'] = launches
-    k1['at_v3'] = check_attention('V=3', EA, *captured['epipolar_attention'])
-    args = captured['fused_exchange_epilogue_multi']
+    k1['at_v3'] = check_attention('V=3', EA,
+                                  *captured['epipolar_attention'][0])
+    args = captured['fused_exchange_epilogue_multi'][0]
     k3 = check_epilogue('K3 fused_exchange_epilogue_multi',
                         GE.fused_exchange_epilogue_multi,
                         GE.fused_exchange_epilogue_multi_reference, args,
                         args[2], args[3], K3_TOL)
-    del model, captured, args
+    del captured, args
     torch.cuda.empty_cache()
 
     # -- 7. V=3 reference-compatible path (Path B): K1 and K9 --------------
-    model = flagship(RM, dev, n_view=3, **PATH_B)
+    model_v3c = flagship(RM, dev, n_view=3, **PATH_B)
     per_block = 3 * 3       # 3 self and 6 cross fuse calls per block
-    captured, launches, _ = drive(
-        'V=3 compat (Path B)', model, scene, RM, dict([attention, mlp]),
+    captured, launches, rgb_v3c = drive(
+        'V=3 compat (Path B)', model_v3c, scene, RM, dict([attention, mlp]),
         {'epipolar_attention': 2 * N_BLOCKS,
          'fused_mlp2': per_block * N_BLOCKS})
     by_path['v3_compat'] = launches
-    args = captured['fused_mlp2']
+    args = captured['fused_mlp2'][0]
     out = FM.fused_mlp2(*args)
     ref = FM.fused_mlp2_reference(*args)
     err9 = max_err(out, ref)
@@ -516,13 +643,85 @@ def main() -> int:
           'bound_ms': bound_ms, 'bound_by': bound_by}
     log(f'note: the torch.matmul chain relu(x1 @ W1a + x2 @ W1b + b1) @ W2 '
         f'+ b2 on K9\'s inputs: {cuda_ms(two_matmuls, 10):.3f} ms')
-    del model, scene, captured, args, x1, x2
+    del scene, captured, args, x1, x2
     torch.cuda.empty_cache()
 
     # -- 8. V=3 small inputs -----------------------------------------------
     small_agreement('V=3 (Path A)', RM, make_scene, dev, n_view=3)
     small_agreement('V=3 compat (Path B)', RM, make_scene, dev, n_view=3,
                     **PATH_B)
+
+    # -- 9. V=2 sorted stream: K5 (and K6 on its inputs) -------------------
+    model_v2.sorted_stream = True
+    scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
+                       device=dev)
+    captured, launches, rgb_sorted = drive(
+        'V=2 sorted', model_v2, scene, RM,
+        dict([resident, attention, epilogue, render_core]),
+        {'resident_gather': 6 * N_BLOCKS, 'epipolar_attention': 2 * N_BLOCKS,
+         'fused_exchange_epilogue': 0, 'fused_render_core': 0},
+        capture={'grid_sample_sorted': (RM, 'grid_sample_sorted', 6)})
+    by_path['v2_sorted'] = launches
+    check_paths('V=2 sorted vs staged render', PATH_TOL, rgb_sorted,
+                rgb_staged, first_block(model_v2, scene), block_staged)
+    # the first block's 3 self-stream levels, then its 3 cross-stream ones
+    cases = [sorted_case(SG, *args) for args in captured['grid_sample_sorted']]
+    k5 = check_gather('K5 resident_gather', SG.resident_gather, cases)
+    k6 = check_gather('K6 windowed_gather', SG.windowed_gather, cases[:3])
+    log('K6 windowed_gather: 0 launches on every path (no renderer path '
+        'calls it; in the JAX package only tools and tests do)')
+    k8_case = cases[0]      # level 0, the V=2 path's 2x64x64x256 table
+    del model_v2, scene, captured, cases, rgb_sorted, rgb_staged
+    torch.cuda.empty_cache()
+    small_agreement('V=2 sorted', RM, make_scene, dev, sorted_stream=True)
+
+    # -- 10. V=3 sorted stream: K5 -----------------------------------------
+    model_v3.sorted_stream = True
+    scene = make_scene(0, n_view=3, H=H, W=W, n_rays=H * W,
+                       full_image=True, device=dev)
+    _, launches, rgb = drive(
+        'V=3 sorted', model_v3, scene, RM,
+        dict([resident, attention, epilogue_multi]),
+        {'resident_gather': 6 * N_BLOCKS, 'epipolar_attention': 2 * N_BLOCKS,
+         'fused_exchange_epilogue_multi': 0})
+    by_path['v3_sorted'] = launches
+    check_paths('V=3 sorted vs default render', PATH_TOL, rgb, rgb_v3)
+    del model_v3, rgb, rgb_v3
+    torch.cuda.empty_cache()
+    small_agreement('V=3 sorted', RM, make_scene, dev, n_view=3,
+                    sorted_stream=True)
+    small_agreement('V=3 compat sorted', RM, make_scene, dev, n_view=3,
+                    sorted_stream=True, **PATH_B)
+
+    # -- 11. V=3 compat with the one-hot gather: K7 -------------------------
+    model_v3c.gather = 'onehot'
+    captured, launches, rgb = drive(
+        'V=3 compat one-hot', model_v3c, scene, RM,
+        dict([onehot, attention, mlp]),
+        {'onehot_gather': 6 * N_BLOCKS, 'epipolar_attention': 2 * N_BLOCKS,
+         'fused_mlp2': per_block * N_BLOCKS},
+        capture={'grid_sample_pallas': (PG, 'grid_sample_pallas', 6)})
+    by_path['v3_compat_onehot'] = launches
+    check_paths('V=3 compat one-hot vs take render', PATH_TOL, rgb, rgb_v3c)
+    # the first block's 3 epipolar-gather levels, then its 3 cross ones
+    k7 = check_gather('K7 onehot_gather', PG.onehot_gather,
+                      [table_case(PG, *args)
+                       for args in captured['grid_sample_pallas']])
+    del model_v3c, scene, captured, rgb, rgb_v3c
+    torch.cuda.empty_cache()
+
+    # -- 12. K8 ------------------------------------------------------------
+    table_bytes = k8_case[0].numel() * 2
+    log(f'K8 on the V=2 level-0 table {tuple(k8_case[0].shape)}: '
+        f'{table_bytes:,} bytes in bf16, limit {PG.BANDED_TABLE_BYTES:,}')
+    if table_bytes > PG.BANDED_TABLE_BYTES:
+        raise RuntimeError('the V=2 level-0 table exceeds K8\'s limit')
+    k8 = check_gather('K8 banded_gather', BG.banded_gather, [k8_case])
+    del k8_case
+    by_path['v3_compat_banded_small'] = small_agreement(
+        'V=3 compat banded', RM, make_scene, dev,
+        counted={'banded_gather': (BG.banded_gather, 6)}, n_view=3,
+        gather='banded', **PATH_B)
 
     kernels = []
     for (name, _), numbers, source, replaces in (
@@ -532,19 +731,24 @@ def main() -> int:
             (epilogue_multi, k3, 'gather_epilogue_multi.cu',
              'ops/gather_epilogue.py:421'),
             (mlp, k9, 'fused_mlp.cu', 'ops/experimental/fused_mlp.py:77'),
-            (render_core, k4, 'fused_render.cu', 'ops/fused_render.py:349')):
+            (render_core, k4, 'fused_render.cu', 'ops/fused_render.py:349'),
+            (resident, k5, 'bilinear_gather.cu', 'ops/sorted_gather.py:206'),
+            (windowed, k6, 'bilinear_gather.cu', 'ops/sorted_gather.py:311'),
+            (onehot, k7, 'bilinear_gather.cu', 'ops/pallas_gather.py:70'),
+            (banded, k8, 'bilinear_gather.cu',
+             'ops/experimental/banded_gather.py:106')):
         paths = {p: n[name] for p, n in by_path.items() if n.get(name)}
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': f'cross_attention_renderer_torch/csrc/{source}',
             'replaces': f'cross_attention_renderer_tpu/{replaces}',
             'launches': sum(paths.values()), 'launches_by_path': paths,
-            **numbers, 'library_ms': None})
+            'library_ms': None, **numbers})
     for kern in kernels:
         log(f'{kern["name"]}: {kern["ms"]:.3f} ms, plain '
             f'{kern["plain_ms"]:.3f} ms, bound {kern["bound_ms"]:.3f} ms '
-            f'({kern["bound_by"]}), launches per image '
-            f'{kern["launches_by_path"]}')
+            f'({kern["bound_by"]}), library {kern["library_ms"]} ms, '
+            f'launches per image {kern["launches_by_path"]}')
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(card)

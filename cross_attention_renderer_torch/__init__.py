@@ -2,9 +2,10 @@
 
 The flagship render at two or three context views: encode the posed
 context views with the DPT-hybrid encoder, then render query rays through
-epipolar sampling, the latent exchange (a fused exchange epilogue, or at
-V=3 the reference-compatible unfused exchange with a fused MLP) and two
-rounds of joint (view, sample) attention. The kernels of those paths are
+epipolar sampling, the latent exchange (a fused exchange epilogue, the
+unfused exchange with a fused MLP and opt-in gathers, or the exchange on a
+row-sorted sample stream) and two rounds of joint (view, sample)
+attention. The kernels of those paths are
 hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built with ``nvcc`` on
 first use; everything else is plain PyTorch. The JAX package stays the reference: this package imports nothing
 of it.

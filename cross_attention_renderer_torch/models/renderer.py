@@ -13,10 +13,14 @@ branches (renderer.py:344-528):
 * V=3, default: the multi-stream fused epilogue (kernel K3,
   renderer.py:389-401, :690-767);
 * V=3 with ``reference_exchange_compat`` or ``fused_epilogue=False``: the
-  unfused exchange (renderer.py:402-434, :1056-1112).
+  unfused exchange (renderer.py:402-434, :1056-1112), whose pyramid gathers
+  run as kernel K7 or K8 under ``gather`` (ops/pallas_gather.py:163-184);
+* ``sorted_stream``, at V=2 and V=3: both pyramid gathers on a sample
+  stream sorted by image row, through kernel K5 (renderer.py:336-343,
+  :402-408, :919-1054); it takes precedence over every fused branch.
 
-The unfused exchanges' fuse MLP runs as kernel K9 when ``fused_mlp`` is set
-(renderer.py:835-853).
+The unfused and sorted exchanges' fuse MLP runs as kernel K9 when
+``fused_mlp`` is set (renderer.py:835-853).
 
   1. ``encode``: DPT-hybrid multi-view encoder + full-res 7x7 conv branch
      -> feature pyramid z (models.py:148-188).
@@ -61,7 +65,11 @@ from cross_attention_renderer_torch.ops.fused_render import fused_render_core
 from cross_attention_renderer_torch.ops.gather_epilogue import (
     fused_exchange_epilogue, fused_exchange_epilogue_multi)
 from cross_attention_renderer_torch.ops.grid_sample import (
-    cell_rows_and_slot_weights, grid_sample_pyramid_packed, pack_pyramid)
+    cell_rows_and_slot_weights, grid_sample_pyramid,
+    grid_sample_pyramid_packed, pack_pyramid)
+from cross_attention_renderer_torch.ops.pallas_gather import GATHERS
+from cross_attention_renderer_torch.ops.sorted_gather import (
+    grid_sample_pyramid_sorted, grid_sample_sorted, sort_stream, unsort)
 from cross_attention_renderer_torch.utils.image import normalize_imagenet
 
 Tensor = torch.Tensor
@@ -132,6 +140,15 @@ class CrossAttentionRenderer(nn.Module):
         first round's output (models.py:547-565). Without it the model has
         no ``encode_latent`` and ``query_repeat_embed(_2)``, as the JAX
         parameter tree has none.
+      sorted_stream: sample both pyramid gathers on a stream sorted by
+        image row through K5 (the JAX ``sorted_stream=True``; its auto mode
+        resolves to False). It takes precedence over ``fused_render`` and
+        ``fused_epilogue``, and runs both attention rounds as K1.
+      gather: the pyramid gather of the unfused V=3 exchange: ``'take'``
+        (the packed-cell take path), ``'onehot'`` (K7, the JAX
+        ``CAR_PALLAS_GATHER`` switch) or ``'banded'`` (K8 on levels whose
+        bf16 table is at most 4 MiB, else the take path; the JAX
+        ``CAR_BANDED_GATHER`` switch).
     """
 
     def __init__(self, n_view: int = 2, npoints: int = 0,
@@ -142,7 +159,8 @@ class CrossAttentionRenderer(nn.Module):
                  device='cuda', fused_epilogue: bool = True,
                  reference_exchange_compat: bool = False,
                  fused_mlp: bool = False, fused_render: bool = False,
-                 repeat_attention: bool = True):
+                 repeat_attention: bool = True, sorted_stream: bool = False,
+                 gather: str = 'take'):
         super().__init__()
         if n_view not in (2, 3):
             raise ValueError(f'the port renders 2 or 3 context views, got '
@@ -150,6 +168,9 @@ class CrossAttentionRenderer(nn.Module):
         if fused_render and n_view != 2:
             raise ValueError('the fused render core renders 2 context '
                              f'views, got n_view={n_view}')
+        if gather not in GATHERS:
+            raise ValueError(f'gather must be one of {GATHERS}, got '
+                             f'{gather!r}')
         self.n_view = n_view
         self.n_samples = npoints or (64 if n_view <= 2 else 48)
         self.dtype = dtype
@@ -158,6 +179,8 @@ class CrossAttentionRenderer(nn.Module):
         self.fused_mlp = fused_mlp
         self.fused_render = fused_render
         self.repeat_attention = repeat_attention
+        self.sorted_stream = sorted_stream
+        self.gather = gather
         self.encoder = DPTHybridEncoder(
             features=fusion_features, vit_width=vit_width,
             vit_depth=vit_depth, vit_heads=vit_heads,
@@ -199,12 +222,24 @@ class CrossAttentionRenderer(nn.Module):
         z_conv = self.conv_map(rgb_norm.reshape(B * V, H, W, 3))
         return path2, path1, z_conv
 
+    @property
+    def uses_packed_tables(self) -> bool:
+        """Whether a render reads the pyramid's packed cell tables: every
+        V=2 path and the V=3 take paths do; the sorted stream and the V=3
+        exchange under the K7 or K8 gather do not (JAX ``uses_packed``,
+        evaluation.py:94-106)."""
+        if self.sorted_stream:
+            return False
+        fused_v3 = self.fused_epilogue and not self.reference_exchange_compat
+        return self.n_view == 2 or fused_v3 or self.gather == 'take'
+
     # ------------------------------------------------------------------
     def forward(self, scene: dict, z: Optional[Sequence[Tensor]] = None,
                 z_packed: Optional[Sequence[Tensor]] = None) -> dict:
         """Renders the query rays. ``z`` is the pyramid from :meth:`encode`
         (computed when absent); ``z_packed`` its cell tables, which callers
-        rendering many ray blocks build once per image."""
+        rendering many ray blocks build once per image (ignored where the
+        render reads no packed table, see :attr:`uses_packed_tables`)."""
         ctx, qry = scene['context'], scene['query']
         B, V, H, W, _ = ctx['rgb'].shape
         if V != self.n_view:
@@ -215,7 +250,9 @@ class CrossAttentionRenderer(nn.Module):
         dev = ctx['rgb'].device
         if z is None:
             z = self.encode(scene)
-        zp = tuple(z_packed) if z_packed is not None else pack_pyramid(z)
+        zp = None
+        if self.uses_packed_tables:
+            zp = tuple(z_packed) if z_packed is not None else pack_pyramid(z)
 
         # Everything happens in each context camera's frame.
         ctx_c2w = ctx['cam2world'].float()
@@ -247,7 +284,12 @@ class CrossAttentionRenderer(nn.Module):
         pt_views = pt.reshape(B, V, R, P, 3)
 
         geo = (zp, pixel_val, pt_views, ctx_c2w, ctx_intr_v, H, W)
-        if self.fused_render:
+        # The sorted stream takes precedence over every fused branch, so K4
+        # runs only without it (renderer.py:334-353, :458).
+        fused_render = self.fused_render and not self.sorted_stream
+        if self.sorted_stream and V == 2:
+            joint_latent, key_val = self._sorted_exchange_v2(z, *geo[1:])
+        elif fused_render:
             # K4 takes local_coords as well, so it runs once they exist.
             joint_latent = key_val = None
         elif V == 2 and self.fused_epilogue:
@@ -263,14 +305,18 @@ class CrossAttentionRenderer(nn.Module):
                 [torch.relu(self.key_map(fs[:, 0], fc[:, 0])),
                  torch.relu(self.key_map(fc[:, 1], fs[:, 1]))], dim=1)
             key_val = self.key_map_2(kh)
-        elif self.fused_epilogue and not self.reference_exchange_compat:
+        elif (self.fused_epilogue and not self.reference_exchange_compat
+              and not self.sorted_stream):
             joint_latent, key_val = self._fused_exchange_multi(*geo)
         else:
-            interp_val = grid_sample_pyramid_packed(
-                zp, pixel_val.reshape(B * V, R * P, 2), 'border')
-            interp_val = self._latent_exchange(
-                interp_val.reshape(B, V, R, P, -1), zp, pt_views, ctx_c2w,
-                ctx_intr_v, H, W)
+            if self.sorted_stream:
+                interp_val = self._latent_exchange_sorted(z, *geo[1:])
+            else:
+                interp_val = self._sample_pyramid(
+                    z, zp, pixel_val.reshape(B * V, R * P, 2), 'border')
+                interp_val = self._latent_exchange(
+                    interp_val.reshape(B, V, R, P, -1), z, zp, pt_views,
+                    ctx_c2w, ctx_intr_v, H, W)
             joint_latent = self.latent_value(interp_val)
             key_val = self.key_map_2(torch.relu(self.key_map(interp_val)))
 
@@ -291,7 +337,7 @@ class CrossAttentionRenderer(nn.Module):
             [cam_rays, torch.zeros_like(q_orig_e), ray_dir_e, depth_encode,
              q_orig_e], dim=-1)                            # (B,V,R,P,16)
 
-        if self.fused_render:
+        if fused_render:
             z_final, at_wt = self._fused_render_v2(*geo, local_coords)
             z_local = z_final[:, None].expand(B, V, R, z_final.shape[-1])
         else:
@@ -514,7 +560,15 @@ class CrossAttentionRenderer(nn.Module):
                           for v in range(2)], dim=1)
         return fs, fc
 
-    def _latent_exchange(self, interp_val: Tensor, zp, pt_views, ctx_c2w,
+    def _sample_pyramid(self, z, zp, coords: Tensor, mode: str) -> Tensor:
+        """The unfused V>=3 exchange's pyramid gather at (B*V, N, 2)
+        coords: the packed tables under ``gather='take'``, else the
+        unpacked levels through K7 or K8 (renderer.py:413, :1092)."""
+        if self.gather == 'take':
+            return grid_sample_pyramid_packed(zp, coords, mode)
+        return grid_sample_pyramid(z, coords, mode, self.gather)
+
+    def _latent_exchange(self, interp_val: Tensor, z, zp, pt_views, ctx_c2w,
                          ctx_intr, H, W) -> Tensor:
         """Unfused cross-view exchange at V>=3 (renderer.py:1056-1112).
 
@@ -538,8 +592,8 @@ class CrossAttentionRenderer(nn.Module):
         proj = G.project_pinhole(pt_cross.reshape(B, V, (V - 1) * R * P, 3),
                                  ctx_intr)
         pix = G.pixel_to_ndc(proj[..., :2], H, W)
-        gathered_x = grid_sample_pyramid_packed(
-            zp, pix.reshape(B * V, (V - 1) * R * P, 2),
+        gathered_x = self._sample_pyramid(
+            z, zp, pix.reshape(B * V, (V - 1) * R * P, 2),
             'zeros').reshape(B, V, V - 1, R, P, C)
 
         self_nat = torch.stack([self._fuse_latent(interp_val[:, v],
@@ -552,6 +606,102 @@ class CrossAttentionRenderer(nn.Module):
                                      else pt_in[:, k, v])
 
         return self._exchange_concat(self_nat, cross_fn, V, swap)
+
+    @staticmethod
+    def _key_hw(z) -> tuple[int, int]:
+        """(H, W) of the pyramid's finest level: the sort key's grid."""
+        return max(((f.shape[1], f.shape[2]) for f in z),
+                   key=lambda s: s[0] * s[1])
+
+    def _sorted_exchange_v2(self, z, pixel_val, pt_views, ctx_c2w, ctx_intr,
+                            H, W) -> tuple[Tensor, Tensor]:
+        """V=2 exchange on one sorted stream (renderer.py:919-997).
+
+        One stable sort by the self sample's row orders both gathers: the
+        cross gather reads the other view's maps (image ``id ^ 1``) at the
+        projection of the same 3D point, with the other frame's intrinsics.
+        The cross coords and both points ride one (M, 8) permute; the fuse
+        MLP, the per-view [self, cross] / [cross, self] order (selected by
+        view id) and the ``latent_value`` / ``key_map`` products run in
+        sorted order, and one (M, ld + 128) unsort restores ray order.
+        Returns (joint_latent, key_val) as (B, V, R, P, ·)."""
+        B, V, R, P, _ = pt_views.shape
+        M = B * V * R * P
+        ld = self.latent_dim
+        pt_in = self._exchange_points(pt_views, ctx_c2w)   # (B,K,V,R,P,3)
+        pt_self = torch.stack([pt_in[:, v, v] for v in range(V)], dim=1)
+        pt_cross = torch.stack([pt_in[:, 1 - v, v] for v in range(V)], dim=1)
+        proj = G.project_pinhole(pt_cross.reshape(B, V, R * P, 3),
+                                 ctx_intr.flip(1))
+        pix = G.pixel_to_ndc(proj[..., :2], H, W)          # (B, V, R*P, 2)
+
+        stream = sort_stream(pixel_val.reshape(B * V, R * P, 2),
+                             self._key_hw(z))
+        payload = torch.cat([pix.reshape(M, 2), pt_self.reshape(M, 3),
+                             pt_cross.reshape(M, 3)], dim=-1)
+        payload_s = payload.index_select(0, stream.perm.long())
+        cross_id = stream.image_id ^ 1                     # the other view
+        feat_self = torch.cat([grid_sample_sorted(
+            fm, stream.coords, stream.image_id, 'border') for fm in z],
+            dim=-1)
+        feat_cross = torch.cat([grid_sample_sorted(
+            fm, payload_s[:, 0:2], cross_id, 'zeros') for fm in z], dim=-1)
+        fs = self._fuse_latent(feat_self, payload_s[:, 2:5])
+        fc = self._fuse_latent(feat_cross, payload_s[:, 5:8])
+
+        # View 0 takes [self, cross], view 1 [cross, self] (models.py:335,342).
+        even = (stream.image_id % 2 == 0)[:, None]
+        interp_s = torch.cat([torch.where(even, fs, fc),
+                              torch.where(even, fc, fs)], dim=-1)
+        jl_s = self.latent_value(interp_s)
+        kv_s = self.key_map_2(torch.relu(self.key_map(interp_s)))
+        both = unsort(torch.cat([jl_s, kv_s], dim=-1), stream)
+        # K1 takes contiguous operands, so each slice gets its own copy.
+        return (both[:, :ld].reshape(B, V, R, P, ld).contiguous(),
+                both[:, ld:].reshape(B, V, R, P, HIDDEN_DIM).contiguous())
+
+    def _latent_exchange_sorted(self, z, pixel_val, pt_views, ctx_c2w,
+                                ctx_intr, H, W) -> Tensor:
+        """Unfused exchange at V>=3 on two sorted streams
+        (renderer.py:999-1054): the self gather sorted by its rows, the
+        cross gathers of all V (V - 1) pairs sorted by theirs; each
+        stream's fuse MLP runs in sorted order and is unsorted once.
+        Covers both wirings; returns what :meth:`_latent_exchange` does."""
+        B, V, R, P, _ = pt_views.shape
+        M = B * V * R * P
+        key_hw = self._key_hw(z)
+        pt_in = self._exchange_points(pt_views, ctx_c2w)   # (B,K,V,R,P,3)
+        others = [[v for v in range(V) if v != k] for k in range(V)]
+        swap = self.reference_exchange_compat
+
+        stream1 = sort_stream(pixel_val.reshape(B * V, R * P, 2), key_hw)
+        feat_s = grid_sample_pyramid_sorted(z, stream1, 'border')
+        pt_self = torch.stack([pt_in[:, v, v] for v in range(V)], dim=1)
+        pt_self_s = pt_self.reshape(M, 3).index_select(
+            0, stream1.perm.long())
+        fuse_self = unsort(self._fuse_latent(feat_s, pt_self_s),
+                           stream1).reshape(B, V, R, P, -1)
+
+        if swap:
+            pt_cross = torch.stack([pt_in[:, others[k], k] for k in range(V)],
+                                   dim=1)
+        else:
+            pt_cross = torch.stack([pt_in[:, k, others[k]] for k in range(V)],
+                                   dim=1)                  # (B,K,V-1,R,P,3)
+        proj = G.project_pinhole(pt_cross.reshape(B, V, (V - 1) * R * P, 3),
+                                 ctx_intr)
+        pix = G.pixel_to_ndc(proj[..., :2], H, W)
+        stream2 = sort_stream(pix.reshape(B * V, (V - 1) * R * P, 2), key_hw)
+        featx_s = grid_sample_pyramid_sorted(z, stream2, 'zeros')
+        ptx_s = pt_cross.reshape(M * (V - 1), 3).index_select(
+            0, stream2.perm.long())
+        fuse_cross = unsort(self._fuse_latent(featx_s, ptx_s),
+                            stream2).reshape(B, V, V - 1, R, P, -1)
+
+        def cross_fn(k, v):
+            return fuse_cross[:, k, others[k].index(v)]
+
+        return self._exchange_concat(fuse_self, cross_fn, V, swap)
 
     @staticmethod
     def _exchange_concat(self_nat: Tensor, cross_fn, V: int,

@@ -105,6 +105,39 @@ def cell_rows_and_slot_weights(hw: tuple[int, int], coords_ndc: Tensor,
     return cell, w_slot
 
 
+def bilinear_corners(hw: tuple[int, int], coords_ndc: Tensor,
+                     padding_mode: str = 'border') -> tuple[Tensor, Tensor]:
+    """The four bilinear corners of each sample, for the gathers K5-K8:
+    (..., 4) int32 rows of a row-major (H * W, C) table, edge-clamped, and
+    their (..., 4) weights in the coords' type, in corner order (y, x) =
+    (0, 0), (0, 1), (1, 0), (1, 1). 'zeros' padding zeroes the weights of
+    out-of-bounds corners (sorted_gather.py:92-123, pallas_gather.py:
+    90-117). Float corners are clamped as in
+    :func:`cell_rows_and_slot_weights`."""
+    H, W = hw
+    x = (coords_ndc[..., 0] + 1.0) * W * 0.5 - 0.5
+    y = (coords_ndc[..., 1] + 1.0) * H * 0.5 - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = x - x0
+    wy = y - y0
+    x0i = x0.clamp(-_COORD_LIMIT, _COORD_LIMIT).to(torch.int32)
+    y0i = y0.clamp(-_COORD_LIMIT, _COORD_LIMIT).to(torch.int32)
+
+    rows, weights = [], []
+    for dy, wy_c in ((0, 1 - wy), (1, wy)):
+        for dx, wx_c in ((0, 1 - wx), (1, wx)):
+            ix, iy = x0i + dx, y0i + dy
+            w = wx_c * wy_c
+            if padding_mode == 'zeros':
+                inb = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
+                w = w * inb.to(w.dtype)
+            rows.append(iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1))
+            weights.append(w)
+    return (torch.stack(rows, dim=-1).to(torch.int32),
+            torch.stack(weights, dim=-1))
+
+
 def grid_sample_packed(packed: Tensor, coords_ndc: Tensor,
                        padding_mode: str = 'border') -> Tensor:
     """Bilinear sample from a :func:`pack_cells` table: one row take per
@@ -134,11 +167,25 @@ def grid_sample(features: Tensor, coords_ndc: Tensor,
 
 
 def grid_sample_pyramid(pyramid: Sequence[Tensor], coords_ndc: Tensor,
-                        padding_mode: str = 'border') -> Tensor:
+                        padding_mode: str = 'border',
+                        gather: str = 'take') -> Tensor:
     """Every level of a feature pyramid sampled at the same coords, the
-    channels concatenated (reference models.py:278)."""
-    return torch.cat([grid_sample(fm, coords_ndc, padding_mode)
-                      for fm in pyramid], dim=-1)
+    channels concatenated (reference models.py:278), each level through
+    :func:`~cross_attention_renderer_torch.ops.pallas_gather.
+    grid_sample_auto` with ``gather``."""
+    return torch.cat(grid_sample_pyramid_parts(pyramid, coords_ndc,
+                                               padding_mode, gather), dim=-1)
+
+
+def grid_sample_pyramid_parts(pyramid: Sequence[Tensor], coords_ndc: Tensor,
+                              padding_mode: str = 'border',
+                              gather: str = 'take') -> tuple[Tensor, ...]:
+    """:func:`grid_sample_pyramid` without the channel concat: one
+    (B, N, C_l) tensor per level, in pyramid order."""
+    from cross_attention_renderer_torch.ops.pallas_gather import (
+        grid_sample_auto)
+    return tuple(grid_sample_auto(fm, coords_ndc, padding_mode, gather)
+                 for fm in pyramid)
 
 
 def grid_sample_pyramid_packed(packed_pyramid: Sequence[Tensor],

@@ -3,8 +3,8 @@
 Port of ``render_full_image`` and ``make_scan_renderer`` of
 ``cross_attention_renderer_tpu/train/evaluation.py`` (reference eval
 protocol, eval_realestate10k.py:136-161). PyTorch runs eagerly, so the JAX
-``lax.scan`` over ray blocks is a Python loop; the packed cell tables are
-still built once per image.
+``lax.scan`` over ray blocks is a Python loop; the packed cell tables, where
+the model reads them, are still built once per image.
 """
 
 from __future__ import annotations
@@ -39,12 +39,13 @@ def render_full_image(render_chunk: Callable, scene: dict, z,
 
 def make_scan_renderer(model, n_chunks: int) -> Callable:
     """Whole-image renderer: ``fn(scene, z, uv_full) -> (rgb (B, Q, n, 3),
-    valid (B, n, 1))``. The pyramid's cell tables are packed once per image
-    (evaluation.py:87-106), then the ray blocks render in turn."""
+    valid (B, n, 1))``. Where the model reads the pyramid's cell tables,
+    they are packed once per image (evaluation.py:87-106); then the ray
+    blocks render in turn."""
 
     @torch.inference_mode()
     def render_image(scene, z, uv_full):
-        zp = pack_pyramid(z)
+        zp = pack_pyramid(z) if model.uses_packed_tables else None
 
         def render_chunk(scene, z, uv):
             s = dict(scene)

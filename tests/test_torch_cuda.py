@@ -21,6 +21,10 @@ from cross_attention_renderer_torch.ops import epipolar_attention as EA
 from cross_attention_renderer_torch.ops import fused_mlp as FM
 from cross_attention_renderer_torch.ops import fused_render as FR
 from cross_attention_renderer_torch.ops import gather_epilogue as GE
+from cross_attention_renderer_torch.ops import pallas_gather as PG
+from cross_attention_renderer_torch.ops import sorted_gather as SG
+from cross_attention_renderer_torch.ops.experimental import (
+    banded_gather as BG)
 
 pytestmark = pytest.mark.cuda
 
@@ -176,6 +180,62 @@ def test_fused_render_core_kernel(dev, channels, H1, O, K, hw, B, R, P,
     assert torch.isfinite(z.float()).all()
     assert _max_err(wt, wt_ref) <= 2 ** -8
     assert _max_err(z, z_ref) <= 2 ** -5 * _scale(z_ref)
+
+
+def _gather_case(dev, rows, C, M, seed, sort):
+    """A bf16 (rows, C) table, (M, 4) corner rows (sorted, or scattered over
+    the whole table) with coincident corners, as at the border, and (M, 4)
+    weights with zeros, as in 'zeros' padding."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, rows, (M, 4))
+    if sort:
+        idx = np.sort(idx, axis=0)
+    idx[::7, 1] = idx[::7, 0]
+    idx[::11, 2:] = idx[::11, :1]
+    w = rng.uniform(0, 1, (M, 4))
+    w[::5, 2:] = 0.0
+    return (_bf(dev, rng.standard_normal((rows, C))),
+            torch.as_tensor(idx, dtype=torch.int32, device=dev),
+            torch.as_tensor(w, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize('kernel,out', [
+    (SG.resident_gather, torch.bfloat16), (SG.windowed_gather, torch.float32),
+    (PG.onehot_gather, torch.bfloat16), (BG.banded_gather, torch.bfloat16)])
+@pytest.mark.parametrize('rows,C,M,sort', [(2 * 16 * 16, 32, 1003, True),
+                                           (2 * 128 * 128, 256, 20000, True),
+                                           (3 * 64 * 64, 64, 4097, False)])
+def test_gather_kernels(dev, kernel, out, rows, C, M, sort):
+    """K5-K8 against ``take_gather`` cast to the kernel's output type. Both
+    round each corner's weight to bf16; the kernel sums the bf16 products in
+    f32 and rounds once, the plain version rounds each product and partial
+    sum to bf16: a few bf16 steps of max(1, |want|)."""
+    table, idx, w = _gather_case(dev, rows, C, M, seed=rows % 7, sort=sort)
+    before = kernel.launches
+    got = kernel(table, idx, w)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = SG.take_gather(table, idx, w).to(out)
+    assert got.shape == (M, C) and got.dtype == out
+    assert _max_err(got, want) <= 2 ** -5 * _scale(want)
+
+
+def test_gather_kernels_cast_and_refuse(dev):
+    """K5's output type follows ``out_dtype``; an f32 table is cast to bf16
+    first, as the TPU wrappers cast theirs; the wrappers raise on what the
+    kernel cannot take."""
+    table, idx, w = _gather_case(dev, 512, 64, 300, seed=9, sort=True)
+    want = SG.take_gather(table, idx, w)
+    got = SG.resident_gather(table.float(), idx, w, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert _max_err(got, want) <= 2 ** -5 * _scale(want)
+    for bad in ((table[:, :60].contiguous(), idx, w),
+                (table.t(), idx, w), (table, idx.long(), w),
+                (table, idx, w.half()), (table, idx[:, :3].contiguous(), w)):
+        for kernel in (SG.resident_gather, SG.windowed_gather,
+                       PG.onehot_gather, BG.banded_gather):
+            with pytest.raises(ValueError):
+                kernel(*bad)
 
 
 def test_kernels_count_launches(dev):
