@@ -7,7 +7,9 @@ Phases, each of which must pass (else the script exits non-zero and prints
 no result):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every CUDA kernel from ``cross_attention_renderer_torch/
-     csrc`` with one ``nvcc`` each, all at once;
+     csrc`` with one ``nvcc`` each, all at once, and prints what ``ptxas -v``
+     says of the exchange core behind K2 and K3 (registers, shared memory,
+     spills);
   3. V=2 main path: the flagship renderer (122M DPT-hybrid, bf16 compute, f32
      parameters from a seeded initialiser; the decoder's output layer is
      drawn at 1/64 of its scale, since an untrained decoder has no image
@@ -20,7 +22,9 @@ no result):
   4. V=2 kernel checks: each kernel against its plain PyTorch version, on
      the inputs of the main path's first ray block, with the tolerance stated
      below, and the times of both beside the least time the card could take
-     (``bound_ms``);
+     (``bound_ms``); K2 is timed as its launch alone, its weights laid out
+     once before the timed calls, and its launch shape (grid, block, cluster,
+     stage slots, shared memory) is printed;
   5. V=2 small-input agreement: a narrow model renders a small scene with
      the kernels in bf16 on the card and with the plain versions in f32 on
      the CPU; the images must agree within the stated tolerance;
@@ -32,7 +36,8 @@ no result):
      within the stated tolerance; then the small-input agreement;
   6. V=3 default path (Path A): the same as phase 3 for three views at 48
      samples (16 attention and 8 multi-stream epilogue launches per image),
-     then K3, and K1 at V*P = 144, against their plain versions;
+     then K3 (timed as K2 in phase 4), and K1 at V*P = 144, against their
+     plain versions;
   7. V=3 reference-compatible path (Path B, ``reference_exchange_compat``
      with the fused MLP): the same image checks (16 attention and 72 fused
      MLP launches per image, 9 a block), then K9 against its plain version;
@@ -438,8 +443,30 @@ def check_attention(label, EA, q, k, v):
             'bound_ms': bound_ms, 'bound_by': bound_by}
 
 
+def core_ptxas(logs):
+    """The ``ptxas -v`` lines of the exchange core (K2, K3): registers,
+    shared memory and spills of each instantiation, and any note of
+    serialised wgmma."""
+    lines = []
+    for name in ('gather_epilogue', 'gather_epilogue_multi'):
+        keep = False
+        for line in logs.get(name, '').splitlines():
+            if 'Compiling entry' in line or 'Function properties' in line:
+                keep = 'exchange_core_kernel' in line
+            if (keep and 'Compile time' not in line) or (
+                    'exchange_core_kernel' in line and 'Performance' in line):
+                lines.append(f'{name}: {line.strip()}')
+    return lines
+
+
 def check_epilogue(name, kernel, plain, args, aux_list, params, tol):
-    """An exchange epilogue (K2 or K3) against its plain version."""
+    """An exchange epilogue (K2 or K3) against its plain version. Its
+    weights are laid out once (``prepared_weights``) before the timed calls,
+    which then time the launch alone."""
+    import torch
+    from cross_attention_renderer_torch.ops import gather_epilogue as GE
+    GE.prepared_weights(params, len(aux_list), aux_list[0].device)
+    torch.cuda.synchronize()
     jl, kv = kernel(*args)
     jl_ref, kv_ref = plain(*args)
     err_jl, err_kv = max_err(jl, jl_ref), max_err(kv, kv_ref)
@@ -449,11 +476,17 @@ def check_epilogue(name, kernel, plain, args, aux_list, params, tol):
     if err_jl > tol * scale(jl_ref) or err_kv > tol * scale(kv_ref):
         raise RuntimeError(f'{name} disagrees with its plain version')
     del jl, kv, jl_ref, kv_ref
+    grid, stages, smem, threads, *cluster = kernel.last_launch
+    log(f'{name} launch: grid {grid} blocks of {threads} threads, cluster '
+        f'shape {tuple(cluster)}, {stages} weight stage slots, '
+        f'{smem:,} bytes of shared memory a block')
     bound_ms, bound_by = epilogue_bound(args[0], args[1], aux_list, params)
     return {'max_abs_err': max(err_jl, err_kv),
             'ms': cuda_ms(lambda: kernel(*args), 10),
             'plain_ms': cuda_ms(lambda: plain(*args), 3),
-            'bound_ms': bound_ms, 'bound_by': bound_by}
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'launch': {'grid': grid, 'threads': threads, 'cluster': cluster,
+                       'stage_slots': stages, 'smem_bytes': smem}}
 
 
 def small_agreement(label, RM, make_scene, dev, counted=None, **kw):
@@ -534,9 +567,12 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    for name, out in _build.build().items():
+    logs = _build.build()
+    for name, out in logs.items():
         print(f'--- nvcc {name}\n{out}', file=sys.stderr)
     log(f'build: {time.perf_counter() - t0:.1f} s')
+    for line in core_ptxas(logs):
+        log(f'ptxas {line}')
 
     attention = ('epipolar_attention', EA.epipolar_attention)
     epilogue = ('fused_exchange_epilogue', GE.fused_exchange_epilogue)

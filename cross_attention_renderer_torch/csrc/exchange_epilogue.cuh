@@ -1,25 +1,16 @@
-// The exchange epilogue kernel for Hopper (sm_90a), shared by the V=2
-// epilogue (gather_epilogue.cu) and the S-stream epilogue
-// (gather_epilogue_multi.cu); the fused render core (fused_render.cu) runs
-// its gather, combine and fuse MLP on other tiles. For a tile of 16 * MT samples it does, per
-// stream s:
+// The exchange epilogue's tile pieces on mma.sync (mma_tile.cuh), used by
+// the fused render core (fused_render.cu): the launch arguments, the
+// cell-row gather with the bilinear combine into a padded (rows, F) tile,
+// and fill_args. For a tile of 16 * MT samples the render core does, per
+// stream s,
 //
 //   comb = sum_k w_k * row[k*C:(k+1)*C] per pyramid level    (bf16, as the
 //          TPU kernels' combine runs in the table type)
 //   h    = relu(comb @ W1[:F] + sum_j tanh_j * W1[F+j] + b1) (f32 sum)
 //   f_s  = bf16(h) @ W2 + b2                                 (f32 sum)
 //
-// and places bf16(f_s) in slot s of the sample's [f_0 | f_1 | ...] row; with
-// kViewSwap (V=2) the slot is 0 for the stream of the sample's own view id
-// (m // rp) % 2 and 1 for the other, so view 0 reads [self, cross] and view
-// 1 [cross, self]. Then
-//
-//   jl = [f_0 | ... | f_{S-1}] @ lv + lvb
-//   kv = bf16(relu([f_0 | ... ] @ km + kmb)) @ k2 + k2b,
-//
-// every product accumulated in f32 across all S streams and rounded once.
-// Each block fetches its own cell rows with 16-byte loads straight into the
-// combine; every intermediate of a tile lives in shared memory.
+// with mlp2_tile, then jl and kv with tile_gemm. K2 and K3 run the same
+// function on the wgmma core of exchange_core.cuh.
 
 #pragma once
 
@@ -115,60 +106,6 @@ __device__ void gather_combine(const Args& p, int s, SampleFn sample,
   __syncthreads();
 }
 
-template <int MT, bool kViewSwap>
-__global__ void __launch_bounds__(kThreads, 1)
-    exchange_epilogue_kernel(const Args p) {
-  constexpr int BM = 16 * MT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldc = p.F + kPad, ldh = p.H1 + kPad, ldf = p.S * p.O + kPad;
-  bf16* comb = reinterpret_cast<bf16*>(smem_raw);  // (BM, F); later kh
-  bf16* hbuf = comb + BM * ldc;                     // (BM, H1)
-  bf16* fbuf = hbuf + BM * ldh;                     // (BM, S*O): [f_0 | ...]
-  bf16* aux_s = fbuf + BM * ldf;                    // (BM, 16)
-  const int m0 = blockIdx.x * BM;
-  const auto sample = [&](int r) { return m0 + r < p.M ? m0 + r : -1; };
-
-  for (int s = 0; s < p.S; ++s) {
-    gather_combine<BM>(p, s, sample, comb, ldc, aux_s);
-    mlp2_tile<MT, 3>(comb, ldc, p.F, aux_s + 12, 16, p.w1t, p.w1_tanh, p.b1,
-                     p.H1, p.w2t, p.b2, p.O, hbuf, ldh,
-                     [&](int row, int col, float x0, float x1) {
-      int slot = s;
-      if (kViewSwap) slot = (((m0 + row) / p.rp) & 1) == s ? 0 : 1;
-      store2(fbuf + row * ldf + slot * p.O + col, x0, x1);
-    });
-  }
-
-  // jl = [f_0 | ...] @ lv + lvb
-  const int KF = p.S * p.O;
-  tile_gemm<MT, 3>(fbuf, ldf, p.lvt, KF, p.O,
-                   [&](int row, int col, float x0, float x1) {
-    const int m = m0 + row;
-    if (m < p.M)
-      store2(p.jl + (size_t)m * p.O + col, x0 + p.lvb[col],
-             x1 + p.lvb[col + 1]);
-  });
-
-  // kh = relu([f_0 | ...] @ km + kmb), into the free comb tile
-  bf16* kh = comb;
-  const int ldk = p.K + kPad;
-  tile_gemm<MT, 2>(fbuf, ldf, p.kmt, KF, p.K,
-                   [&](int row, int col, float x0, float x1) {
-    store2(kh + row * ldk + col, fmaxf(x0 + p.kmb[col], 0.f),
-           fmaxf(x1 + p.kmb[col + 1], 0.f));
-  });
-  __syncthreads();
-
-  // kv = kh @ k2 + k2b
-  tile_gemm<MT, 2>(kh, ldk, p.k2t, p.K, p.K,
-                   [&](int row, int col, float x0, float x1) {
-    const int m = m0 + row;
-    if (m < p.M)
-      store2(p.kv + (size_t)m * p.K + col, x0 + p.k2b[col],
-             x1 + p.k2b[col + 1]);
-  });
-}
-
 // Fills the level, weight and output fields of `a` from the C interface's
 // pointers and checks the sizes the kernel relies on. Returns a cudaError_t
 // code.
@@ -215,21 +152,6 @@ inline int fill_args(Args& a, int n_levels, void* const* tables,
   a.K = K;
   a.rp = rp;
   return 0;
-}
-
-// Launches the kernel for tiles of 16 * MT samples on `stream`; refuses
-// when the tiles do not fit in the card's shared memory.
-template <int MT, bool kViewSwap>
-int launch(const Args& a, void* stream) {
-  constexpr int BM = 16 * MT;
-  const size_t smem = sizeof(bf16) * (size_t)BM *
-                      ((a.F + kPad) + (a.H1 + kPad) + (a.S * a.O + kPad) + 16);
-  const int err = set_smem(exchange_epilogue_kernel<MT, kViewSwap>, smem);
-  if (err) return err;
-  const int grid = (a.M + BM - 1) / BM;
-  exchange_epilogue_kernel<MT, kViewSwap>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace exchange_epilogue

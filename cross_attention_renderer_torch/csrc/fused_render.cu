@@ -5,7 +5,7 @@
 // cross_attention_renderer_tpu/ops/fused_render.py (`fused_render_core`).
 // One block renders one ray (b, r): its 2P samples, P of view 0 then P of
 // view 1, sample j at m = ((b * 2 + j / P) * R + r) * P + j % P. In tiles
-// of 32 samples it runs the V=2 exchange epilogue of gather_epilogue.cu
+// of 32 samples it runs the V=2 exchange epilogue, K2's function
 // (cell-row gather, bilinear combine, both fuse-MLP streams, the per-view
 // [self, cross] / [cross, self] order, jl = [a | b] @ lv + lvb and
 // kv = bf16(relu([a | b] @ km + kmb)) @ k2 + k2b), the query embedding
@@ -31,22 +31,21 @@
 // against ~9.7 GB of cell rows read at random (~2.9 ms at 3.35 TB/s).
 //
 // What the design does about it. As on the TPU, no per-sample intermediate
-// (joint latent, key, query embedding, round-2 query) goes to device
-// memory: only the (B, R, O) output and the (B, 2, R, P) weights are
-// written. The softmax spans both views of a ray, whose samples lie R * P
-// apart, so a block owns whole rays. Shared memory decides the tiling: K2's
-// 64-sample tile alone takes 226 KB (comb, hidden and [a | b] rows, each
-// 64 x 584 bf16), and round 2 needs the ray's whole joint latent
-// (2P x 288) and query embedding (2P x 128) after round 1 ends. So the
-// exchange runs on 32-sample tiles (113,152 bytes) while the ray's jl and
-// ce stay resident (110,592 bytes at P = 64): with the f32 logits and sums,
-// 227,712 of the 232,448 bytes a block may use. The
-// round-1 keys never leave the tile: each tile's logits are taken as soon
-// as its keys exist. The price is half of K2's weight-fragment reuse (each
-// fragment fetched from L2 serves two 16-row tiles instead of four). A
-// persistent grid with per-block scratch in L2 would keep 64-sample tiles;
-// it is left for the kernel's redesign. A simple first kernel: mma.sync,
-// no TMA, no wgmma, one block per SM.
+// (joint latent, key, query embedding, round-2 query) goes to device memory:
+// only the (B, R, O) output and the (B, 2, R, P) weights are written. The
+// softmax spans both views of a ray, whose samples lie R * P apart, so a block
+// owns whole rays. Shared memory decides the tiling: a 64-sample tile of this
+// exchange alone takes 226 KB (comb, hidden and [a | b] rows, each 64 x 584
+// bf16), and round 2 needs the ray's whole joint latent (2P x 288) and query
+// embedding (2P x 128) after round 1 ends. So the exchange runs on 32-sample
+// tiles (113,152 bytes) while the ray's jl and ce stay resident (110,592 bytes
+// at P = 64): with the f32 logits and sums, 227,712 of the 232,448 bytes a
+// block may use. The round-1 keys never leave the tile: each tile's logits are
+// taken as soon as its keys exist. The price is half the weight-fragment reuse
+// of a 64-sample tile (each fragment fetched from L2 serves two 16-row tiles
+// instead of four). A persistent grid with per-block scratch in L2 would keep
+// 64-sample tiles; it is left for the kernel's redesign. A simple first kernel:
+// mma.sync, no TMA, no wgmma, one block per SM.
 
 #include <math.h>
 

@@ -16,53 +16,40 @@
 // What bounds it on an H100: operations. About 3.74 MFLOP a sample (three
 // fuse MLPs of 576 -> 576 -> 288, then 864 -> 288 and 864 -> 128 -> 128),
 // 4.4 TFLOP a call at the V=3 flagship's 1,179,648 samples of an 8,192-ray
-// block: ~4.5 ms at 989 TFLOP/s in bf16. The rows a call's cells reference
-// are at most the three pyramid tables (~0.2 GB), far under that in time,
-// but the kernel reads a 4.6 KB cell row per sample and stream (~16 GB a
-// call) at random from L2 and device memory.
+// block: ~4.5 ms at 989 TFLOP/s in bf16. The kernel also reads a 4.6 KB
+// cell row per sample and stream (~16 GB a call), mostly from L2. Measured
+// on the earlier mma.sync kernel (NVIDIA H100 80GB HBM3, 700 W), the gather
+// alone took 4.4 ms of its 41.7 and the products alone 37.6.
 //
-// What the design does about it. As in the V=2 kernel (the same kernel,
-// exchange_epilogue.cuh), each block fetches its own cell rows with 16-byte
-// loads straight into the bilinear combine, so the (3M, 2304) stack of taken
-// rows that the TPU path wrote and read back never exists, and only the
-// (M, 288) and (M, 128) outputs are written. The V=2 kernel's 64-sample tile
-// keeps comb, the hidden layer and the [f_0 | f_1] row in 226 KB of shared
-// memory; at S=3 the [f_0 | f_1 | f_2] row is 864 wide and that layout
-// would need ~263 KB, over the 227 KB a block may use. Of the two ways out,
-// this kernel takes the smaller tile: 48 samples (three m16 row tiles),
-// 197 KB. The other way, the TPU kernel's, keeps only one f_s and folds
-// f_s @ lv_s and f_s @ km_s into f32 accumulators per stream; at 64 rows
-// those accumulators take about 110 f32 registers a thread on top of the
-// products' own (or 104 KB of shared memory), so they would spill. The
-// smaller tile keeps every stream's f_s, so jl and kh stay single products
-// of depth S*O whose f32 sums span all streams, and the kernel is K2's
-// unchanged; the price is that each weight fragment fetched from L2 serves
-// three row tiles instead of four. A simple first kernel: no TMA, no wgmma,
-// one block per SM.
+// What the design does about it: the same wgmma core as the V=2 kernel
+// (exchange_core.cuh, without the view swap), with its weight stages in
+// shared-memory rings and the hidden layer in registers. The 64-sample
+// tile keeps comb and the f rows of the first S - 1 streams in shared
+// memory; the last stream's f rows go into the comb tile, which that stream
+// no longer reads, so three streams need the shared memory of two (the old
+// kernel cut its tile to 48 samples to fit them). jl and kh stay single
+// products of depth S * O whose f32 sums span all streams. Measured on the
+// same card: 16.46 ms a call.
 
-#include "exchange_epilogue.cuh"
+#include "exchange_core.cuh"
 
 // tables[l]: (rows_l, 4 * channels[l]) bf16; cells[l]: (S*M,) int32,
-// stream-major; aux[s]: (M, 16) bf16 per stream, 2 <= S <= 4. Weights as in
-// exchange_epilogue::Args (bf16 matrices transposed to (out, in), f32
-// biases and tanh rows). jl: (M, O), kv: (M, K) bf16. All contiguous.
+// stream-major; aux[s]: (M, 16) bf16 per stream, 2 <= S <= 4; stages
+// (stage_bytes) and vecs: the prepared weights (layout_stages in
+// ops/gather_epilogue.py). jl: (M, O), kv: (M, K) bf16. All contiguous.
+// info (7 ints) receives the launch's shape, as launch_core gives it.
 // Returns a cudaError_t code.
 extern "C" int fused_exchange_epilogue_multi_bf16(
     int n_levels, void* const* tables, void* const* cells,
-    const int* channels, int S, void* const* aux, const void* w1t,
-    const void* w1_tanh, const void* b1, const void* w2t, const void* b2,
-    const void* lvt, const void* lvb, const void* kmt, const void* kmb,
-    const void* k2t, const void* k2b, void* jl, void* kv, int M, int F,
-    int H1, int O, int K, void* stream) {
-  using namespace exchange_epilogue;
-  const void* const w[11] = {w1t, w1_tanh, b1,  w2t, b2, lvt,
-                             lvb, kmt,     kmb, k2t, k2b};
-  Args a;
+    const int* channels, int S, const void* const* aux, const void* stages,
+    long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
+    int F, int H1, int O, int K, int* info, void* stream) {
+  using namespace exchange_core;
+  CoreArgs a;
   // rp is read only by the V=2 view swap.
-  const int err = fill_args(a, n_levels, tables, cells, channels, w, jl, kv,
-                            S, M, F, H1, O, K, /*rp=*/1);
+  const int err = fill_core(a, n_levels, tables, cells, channels, S, aux,
+                            stages, stage_bytes, vecs, jl, kv, M, F, H1, O,
+                            K, /*rp=*/1);
   if (err) return err;
-  for (int s = 0; s < kMaxStreams; ++s)
-    a.aux[s] = s < S ? static_cast<const bf16*>(aux[s]) : nullptr;
-  return launch<3, false>(a, stream);
+  return launch_core<false>(a, info, stream);
 }

@@ -1,6 +1,7 @@
-// Tensor-core tile products for Hopper (sm_90a), shared by the exchange
-// epilogues (gather_epilogue.cu, gather_epilogue_multi.cu) and the fused MLP
-// (fused_mlp.cu).
+// Tensor-core tile products for Hopper (sm_90a) on mma.sync, shared by the
+// fused render core (fused_render.cu, through exchange_epilogue.cuh) and the
+// fused MLP (fused_mlp.cu). K2 and K3 run on the wgmma core of
+// exchange_core.cuh instead.
 //
 // A block of kThreads threads works on a tile of 16 * MT rows held in shared
 // memory. Products run through mma.sync m16n8k16 (bf16 in, f32 accumulate);

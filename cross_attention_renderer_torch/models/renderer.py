@@ -453,15 +453,21 @@ class CrossAttentionRenderer(nn.Module):
             aux.append(torch.cat(weights + [t, pad], dim=-1))
         return tuple(torch.cat(c) for c in cells), aux
 
+    def _epilogue_weights(self) -> tuple[Tensor, ...]:
+        """The fused epilogues' ten parameters themselves (kernels in (in,
+        out) layout, biases). K2 and K3 lay them out once per set of
+        parameters (``prepared_weights``); their plain versions cast them to
+        the rows' type, as :meth:`_epilogue_params` does."""
+        return (self.query_encode_latent.kernel, self.query_encode_latent.bias,
+                self.query_encode_latent_2.kernel,
+                self.query_encode_latent_2.bias,
+                self.latent_value.kernel, self.latent_value.bias,
+                self.key_map.kernel, self.key_map.bias,
+                self.key_map_2.kernel, self.key_map_2.bias)
+
     def _epilogue_params(self) -> tuple[Tensor, ...]:
         """The fused epilogues' weights, in the model type."""
-        return tuple(t.to(self.dtype) for t in (
-            self.query_encode_latent.kernel, self.query_encode_latent.bias,
-            self.query_encode_latent_2.kernel,
-            self.query_encode_latent_2.bias,
-            self.latent_value.kernel, self.latent_value.bias,
-            self.key_map.kernel, self.key_map.bias,
-            self.key_map_2.kernel, self.key_map_2.bias))
+        return tuple(t.to(self.dtype) for t in self._epilogue_weights())
 
     def _fused_exchange_v2(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr,
                            H, W) -> tuple[Tensor, Tensor]:
@@ -471,7 +477,7 @@ class CrossAttentionRenderer(nn.Module):
         cells, (aux_self, aux_cross) = self._stream_takes(
             zp, pixel_val, pt_views, ctx_c2w, ctx_intr, H, W)
         jl, kv = fused_exchange_epilogue(zp, cells, aux_self, aux_cross,
-                                         self._epilogue_params(), R * P)
+                                         self._epilogue_weights(), R * P)
         return (jl.reshape(B, V, R, P, self.latent_dim),
                 kv.reshape(B, V, R, P, HIDDEN_DIM))
 
@@ -513,7 +519,7 @@ class CrossAttentionRenderer(nn.Module):
         cells, aux = self._stream_takes(zp, pixel_val, pt_views, ctx_c2w,
                                         ctx_intr, H, W)
         jl, kv = fused_exchange_epilogue_multi(zp, cells, tuple(aux),
-                                               self._epilogue_params())
+                                               self._epilogue_weights())
         return (jl.reshape(B, V, R, P, self.latent_dim),
                 kv.reshape(B, V, R, P, HIDDEN_DIM))
 

@@ -169,8 +169,9 @@ fused_render_core.launches = 0  # kernel launches, for the smoke test
 def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
             P, repeat):
     what = 'fused_render_core'
-    levels, weights, (M, F, H1, O, K) = _checked_args(
+    levels, (M, F, H1, O, K) = _checked_args(
         what, tables, cells, (aux_self, aux_cross), params[:10])
+    (w1, b1, w2, b2, lv, lvb, km, kmb, k2, k2b) = params[:10]
     (qe1, qe1b, qe2, qe2b, el, elb, qr1, qr1b, qr2, qr2b) = params[10:]
     dev, dt = aux_self.device, torch.bfloat16
     shapes_ok = (tuple(qe1.shape) == (16, K) and tuple(qe2.shape) == (K, K)
@@ -193,10 +194,13 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
     if smem > SMEM_LIMIT:
         raise ValueError(f'{what}: P = {P} needs {smem} bytes of shared '
                          f'memory a block, more than {SMEM_LIMIT}')
-    weights += [_mat(qe1, dev), _vec(qe1b, dev), _mat(qe2, dev),
-                _vec(qe2b, dev), el.to(dev, dt).contiguous(), _vec(elb, dev),
-                qr1[:K].to(dev, dt).contiguous(), _mat(qr1[K:], dev),
-                _vec(qr1b, dev), _mat(qr2, dev), _vec(qr2b, dev)]
+    weights = [_mat(w1[:F], dev), _vec(w1[F:F + 3], dev), _vec(b1, dev),
+               _mat(w2, dev), _vec(b2, dev), _mat(lv, dev), _vec(lvb, dev),
+               _mat(km, dev), _vec(kmb, dev), _mat(k2, dev), _vec(k2b, dev),
+               _mat(qe1, dev), _vec(qe1b, dev), _mat(qe2, dev),
+               _vec(qe2b, dev), el.to(dev, dt).contiguous(), _vec(elb, dev),
+               qr1[:K].to(dev, dt).contiguous(), _mat(qr1[K:], dev),
+               _vec(qr1b, dev), _mat(qr2, dev), _vec(qr2b, dev)]
     z = torch.empty((B, R, O), dtype=dt, device=dev)
     at_wt = torch.empty((B, 2, R, P), dtype=dt, device=dev)
     fn = lib.fused_render_core_bf16

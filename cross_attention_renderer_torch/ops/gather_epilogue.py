@@ -32,6 +32,7 @@ aux array per stream packing [12 slot weights (4 per level), tanh(pt/5)
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Sequence
 
 import torch
@@ -121,10 +122,116 @@ def fused_exchange_epilogue(tables: Sequence[Tensor],
 
 
 fused_exchange_epilogue.launches = 0  # kernel launches, for the smoke test
+# the last launch's (grid, stage slots, shared bytes, threads a block,
+# cluster x, y, z)
+fused_exchange_epilogue.last_launch = None
+
+
+# The kernels' weight stream (csrc/exchange_core.cuh): tiles of 64-deep
+# k-blocks, one 128-byte row per output unit.
+_KB = 64           # k-values per tile row
+_NC = 64           # hidden units per chunk (W1 tiles)
+_NO = 96           # output columns per O tile (W2, lv)
+_NK = 64           # output columns per K tile (km, k2)
+MAX_O, MAX_K = 3 * _NO, 4 * _NK
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _swizzle_index(n_rows: int, shape, device) -> Tensor:
+    """Gather index over the 16-byte chunks of (..., n_rows, 8, 8) tiles:
+    position p of row r holds chunk p ^ (r % 8) (and, the XOR being its own
+    inverse, the same index undoes it)."""
+    r = torch.arange(n_rows, device=device) % 8
+    src = torch.arange(8, device=device)[None, :] ^ r[:, None]
+    return src[:, :, None].expand(*shape)
+
+
+def _tiles(wt: Tensor, n_rows: int) -> Tensor:
+    """(N, D) weight in (out, in) layout -> (ceil(N / n_rows), ceil(D / 64),
+    n_rows, 64) tiles, zero-padded, each row's eight 16-byte chunks in the
+    128-byte swizzle the kernel's wgmma reads."""
+    N, D = wt.shape
+    nt, nkb = _cdiv(N, n_rows), _cdiv(D, _KB)
+    pad = wt.new_zeros((nt * n_rows, nkb * _KB))
+    pad[:N, :D] = wt
+    t = pad.reshape(nt, n_rows, nkb, 8, 8).permute(0, 2, 1, 3, 4)
+    t = torch.gather(t, 3, _swizzle_index(n_rows, t.shape, wt.device))
+    return t.reshape(nt, nkb, n_rows, _KB)
+
+
+def layout_stages(params: Sequence[Tensor], S: int
+                  ) -> tuple[Tensor, Tensor]:
+    """The weights as K2 and K3 read them, on the parameters' device.
+
+    Returns (stages, vecs). stages (bf16) is the weight stream of one
+    64-sample tile, stage by stage in the kernel's order: one stream's fuse
+    MLP (for each 64-unit hidden chunk c, W1[:F, c] by 64-deep k-blocks,
+    then W2[c, :] by 96-column tiles), which the kernel replays for each of
+    the S streams; then lv (k-blocks of the [f_0 | ...] row, each by
+    96-column tiles), km (the same by 64-column tiles) and k2 (64-column
+    tiles, each by k-blocks). vecs (f32) is [W1[F:F+3] (3, H1p) | b1 (H1p) |
+    b2 | lvb (both O rounded up to 96) | kmb | k2b (both K rounded up to
+    64)], zero-padded, H1p being H1 rounded up to 64. Every value is rounded
+    to bf16 first, as the kernels read bf16 weights."""
+    (w1, b1, w2, b2, lv, lv_bias, km, km_bias, k2, k2_bias) = params
+    F, H1 = w1.shape[0] - 3, w1.shape[1]
+    O, K = w2.shape[1], k2.shape[1]
+    bf = torch.bfloat16
+    t1 = _tiles(w1[:F].to(bf).t(), _NC)     # (chunks, k-blocks of F, 64, 64)
+    t2 = _tiles(w2.to(bf).t(), _NO)         # (O tiles, chunks, 96, 64)
+    mlp = [part for c in range(t1.shape[0])
+           for part in (t1[c].reshape(-1), t2[:, c].reshape(-1))]
+    tail = (_tiles(lv.to(bf).t(), _NO).transpose(0, 1).reshape(-1),
+            _tiles(km.to(bf).t(), _NK).transpose(0, 1).reshape(-1),
+            _tiles(k2.to(bf).t(), _NK).reshape(-1))
+    stages = torch.cat(mlp + list(tail))
+
+    def vec(v, n):
+        out = torch.zeros(v.shape[:-1] + (n,), dtype=torch.float32,
+                          device=v.device)
+        out[..., :v.shape[-1]] = v.to(bf).float()
+        return out.reshape(-1)
+
+    H1p, Op, Kp = _cdiv(H1, _NC) * _NC, _cdiv(O, _NO) * _NO, _cdiv(K, _NK) * _NK
+    vecs = torch.cat([vec(w1[F:F + 3], H1p), vec(b1, H1p), vec(b2, Op),
+                      vec(lv_bias, Op), vec(km_bias, Kp), vec(k2_bias, Kp)])
+    return stages, vecs
+
+
+# Prepared weights by the parameters' identity: {key: (weak references,
+# version counters, (stages, vecs))}.
+_PREPARED: dict = {}
+
+
+def prepared_weights(params: Sequence[Tensor], S: int, device
+                     ) -> tuple[Tensor, Tensor]:
+    """:func:`layout_stages` of ``params`` on ``device``, built once per set
+    of parameter tensors: later calls with the same tensors, none of them
+    changed in place since (their version counters), reuse it. Inference
+    tensors keep no version counter and are laid out on every call."""
+    params = tuple(params)
+    if any(p.is_inference() for p in params):
+        return layout_stages([p.to(device) for p in params], S)
+    key = (tuple(id(p) for p in params), S, str(device))
+    versions = tuple(p._version for p in params)
+    hit = _PREPARED.get(key)
+    if (hit is not None and hit[1] == versions
+            and all(r() is p for r, p in zip(hit[0], params))):
+        return hit[2]
+    with torch.no_grad():
+        prep = layout_stages([p.detach().to(device) for p in params], S)
+    for k in [k for k, v in _PREPARED.items()
+              if any(r() is None for r in v[0])]:
+        del _PREPARED[k]
+    _PREPARED[key] = (tuple(weakref.ref(p) for p in params), versions, prep)
+    return prep
 
 
 def _mat(w, dev):
-    """(in, out) weight -> (out, in) bf16 on ``dev``, as the kernels read it."""
+    """(in, out) weight -> (out, in) bf16 on ``dev``, as K4 reads it."""
     return w.to(dev, torch.bfloat16).t().contiguous()
 
 
@@ -135,8 +242,8 @@ def _vec(b, dev):
 
 def _checked_args(what, tables, cells, aux, params):
     """Checks the kernels' inputs and packs the launch arguments shared by
-    K2, K3 and K4: (level arrays, weight tensors, (M, F, H1, O, K)). Raises
-    ValueError on what the kernels do not take."""
+    K2, K3 and K4: (level arrays, (M, F, H1, O, K)). Raises ValueError on
+    what the kernels do not take."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f'{what}: {msg}')
@@ -162,16 +269,24 @@ def _checked_args(what, tables, cells, aux, params):
         require(a.device == dev and a.dtype == dt and a.is_contiguous()
                 and tuple(a.shape) == (M, 16) and a.data_ptr() % 16 == 0,
                 f'aux must be contiguous bf16 ({M}, 16) on {dev}')
-
-    weights = [_mat(w1[:F], dev), _vec(w1[F:F + 3], dev), _vec(b1, dev),
-               _mat(w2, dev), _vec(b2, dev), _mat(lv, dev),
-               _vec(lv_bias, dev), _mat(km, dev), _vec(km_bias, dev),
-               _mat(k2, dev), _vec(k2_bias, dev)]
     n = len(tables)
     levels = ((ctypes.c_void_p * n)(*[t.data_ptr() for t in tables]),
               (ctypes.c_void_p * n)(*[c.data_ptr() for c in cells]),
               (ctypes.c_int * n)(*channels))
-    return levels, weights, (M, F, H1, O, K)
+    return levels, (M, F, H1, O, K)
+
+
+def _core_args(what, tables, cells, aux, params):
+    """:func:`_checked_args` for K2 and K3, whose core also needs O <= 288
+    and K <= 256 (its accumulators live in registers), and their prepared
+    weights: (levels, sizes, stages, vecs)."""
+    levels, sizes = _checked_args(what, tables, cells, aux, params)
+    O, K = sizes[3], sizes[4]
+    if O > MAX_O or K > MAX_K:
+        raise ValueError(f'{what}: O <= {MAX_O} and K <= {MAX_K}, got O={O}, '
+                         f'K={K}')
+    stages, vecs = prepared_weights(params, len(aux), aux[0].device)
+    return levels, sizes, stages, vecs
 
 
 def _outputs(aux, sizes):
@@ -182,23 +297,25 @@ def _outputs(aux, sizes):
 
 
 def _launch(tables, cells, aux_self, aux_cross, params, rp):
-    levels, weights, sizes = _checked_args(
+    levels, sizes, stages, vecs = _core_args(
         'fused_exchange_epilogue', tables, cells, (aux_self, aux_cross),
         params)
     jl, kv = _outputs(aux_self, sizes)
     fn = _build.load('gather_epilogue').fused_exchange_epilogue_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p] + [ctypes.c_void_p] * 15
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    info = (ctypes.c_int * 7)()
     with torch.cuda.device(jl.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(len(tables), *levels, aux_self.data_ptr(),
-                        aux_cross.data_ptr(),
-                        *[w.data_ptr() for w in weights], jl.data_ptr(),
-                        kv.data_ptr(), *sizes, rp, stream),
+                        aux_cross.data_ptr(), stages.data_ptr(),
+                        stages.numel() * 2, vecs.data_ptr(), jl.data_ptr(),
+                        kv.data_ptr(), *sizes, rp, info, stream),
                      'fused_exchange_epilogue')
     fused_exchange_epilogue.launches += 1
+    fused_exchange_epilogue.last_launch = tuple(info)
     return jl, kv
 
 
@@ -265,6 +382,7 @@ def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
 
 
 fused_exchange_epilogue_multi.launches = 0  # kernel launches
+fused_exchange_epilogue_multi.last_launch = None
 
 
 def _launch_multi(tables, cells, aux_list, params):
@@ -272,22 +390,24 @@ def _launch_multi(tables, cells, aux_list, params):
     if not 2 <= S <= 4:
         raise ValueError(f'fused_exchange_epilogue_multi: 2 to 4 streams, '
                          f'got {S}')
-    levels, weights, sizes = _checked_args(
+    levels, sizes, stages, vecs = _core_args(
         'fused_exchange_epilogue_multi', tables, cells, aux_list, params)
     jl, kv = _outputs(aux_list[0], sizes)
     fn = _build.load(
         'gather_epilogue_multi').fused_exchange_epilogue_multi_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2)
     aux_ptrs = (ctypes.c_void_p * S)(*[a.data_ptr() for a in aux_list])
+    info = (ctypes.c_int * 7)()
     with torch.cuda.device(jl.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(len(tables), *levels, S, aux_ptrs,
-                        *[w.data_ptr() for w in weights], jl.data_ptr(),
-                        kv.data_ptr(), *sizes, stream),
+        _build.check(fn(len(tables), *levels, S, aux_ptrs, stages.data_ptr(),
+                        stages.numel() * 2, vecs.data_ptr(), jl.data_ptr(),
+                        kv.data_ptr(), *sizes, info, stream),
                      'fused_exchange_epilogue_multi')
     fused_exchange_epilogue_multi.launches += 1
+    fused_exchange_epilogue_multi.last_launch = tuple(info)
     return jl, kv

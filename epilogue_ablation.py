@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Where the exchange epilogues' time goes (K2, K3), on one NVIDIA card.
+
+  python3 epilogue_ablation.py
+
+Run from the root of a checkout. It builds variants of the exchange core
+(``csrc/exchange_core.cuh``), each with one part of the work taken out, and
+times K2 and K3 on the first ray block of the flagship V=2 and V=3 renders
+(the inputs ``chip_smoke.py`` holds them to), beside the kernel as it is:
+
+  no_gather - the cell rows are not read (comb is zeros): the products and
+              their weight stream alone;
+  no_copy   - as no_gather, and the weight stages are not copied (the
+              producer only signals them): the consumers' own time.
+
+A variant's outputs are wrong by design; only its time is read. Prints the
+card line, one line per timing and a JSON object last. Needs a card and
+``nvcc``; builds into ``cross_attention_renderer_torch/build/ablation/``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path.cwd()
+CSRC = ROOT / 'cross_attention_renderer_torch' / 'csrc'
+OUT = ROOT / 'cross_attention_renderer_torch' / 'build' / 'ablation'
+LIBS = ('gather_epilogue', 'gather_epilogue_multi')
+
+NO_GATHER = ('    if (row >= 0) {\n      const bf16* src',
+             '    if (row < -1) {\n      const bf16* src')
+NO_COPY = ('    mbar_expect_tx(full + 8 * idx, bytes);\n'
+           '    bulk_copy(slots + idx * kLargeStage, p.stages + off, bytes,\n'
+           '              full + 8 * idx);',
+           '    mbar_arrive(full + 8 * idx);')
+VARIANTS = {'no_gather': [NO_GATHER], 'no_copy': [NO_GATHER, NO_COPY]}
+
+
+def build_variant(_build, name, patches):
+    """Copies csrc with ``patches`` applied to exchange_core.cuh into
+    OUT/name and starts one nvcc per library; returns the processes."""
+    d = OUT / name
+    d.mkdir(parents=True, exist_ok=True)
+    for f in CSRC.iterdir():
+        text = f.read_text()
+        if f.name == 'exchange_core.cuh':
+            for old, new in patches:
+                if old not in text:
+                    raise RuntimeError(f'{name}: exchange_core.cuh has '
+                                       'changed')
+                text = text.replace(old, new)
+        (d / f.name).write_text(text)
+    return [(lib, d / f'lib{lib}.so', subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, '-o',
+         str(d / f'lib{lib}.so'), str(d / f'{lib}.cu')],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for lib in LIBS]
+
+
+def first_block_args(CS, RM, dev, name, **kw):
+    """The arguments of the first call of RM.<name> on the flagship's first
+    ray block."""
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    model = CS.flagship(RM, dev, **kw)
+    scene = make_scene(0, n_view=kw.get('n_view', 2), H=CS.H, W=CS.W,
+                       n_rays=CS.H * CS.W, full_image=True, device=dev)
+    got, orig = [], getattr(RM, name)
+
+    def record(*args):
+        if not got:
+            got.append(args)
+        return orig(*args)
+    setattr(RM, name, record)
+    try:
+        CS.first_block(model, scene)
+    finally:
+        setattr(RM, name, orig)
+    return got[0]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print('epilogue_ablation: no CUDA device', file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as CS
+    from cross_attention_renderer_torch.models import renderer as RM
+    from cross_attention_renderer_torch.ops import _build
+    from cross_attention_renderer_torch.ops import gather_epilogue as GE
+
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    _build.build()
+    procs = {name: build_variant(_build, name, patches)
+             for name, patches in VARIANTS.items()}
+    libs = {}
+    for name, built in procs.items():
+        for lib, path, proc in built:
+            log = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f'nvcc failed for {name}/{lib}:\n{log}')
+        libs[name] = {lib: ctypes.CDLL(str(path)) for lib, path, _ in built}
+    libs['full'] = {lib: _build.load(lib) for lib in LIBS}
+
+    dev = torch.device('cuda')
+    torch.set_grad_enabled(False)
+    results = {}
+    for label, name, fn, kw in (
+            ('K2', 'fused_exchange_epilogue', GE.fused_exchange_epilogue,
+             dict(npoints=64)),
+            ('K3', 'fused_exchange_epilogue_multi',
+             GE.fused_exchange_epilogue_multi, dict(n_view=3))):
+        args = first_block_args(CS, RM, dev, name, **kw)
+        # full, each variant, full again: the spread of the two fulls is the
+        # noise of the call
+        for variant in ('full', *VARIANTS, 'full'):
+            _build._loaded.update(libs[variant])
+            ms = CS.cuda_ms(lambda: fn(*args), 10)
+            results.setdefault(label, {}).setdefault(variant, []).append(ms)
+            print(f'{label} {variant}: {ms:.3f} ms', flush=True)
+        _build._loaded.update(libs['full'])
+        del args
+        torch.cuda.empty_cache()
+    print(json.dumps({'card': card, 'ms': results}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -91,13 +91,29 @@ def _epilogue_case(dev, channels, H1, O, K, n_img, hw, M, S=2, seed=0):
 @pytest.mark.parametrize('channels,H1,O,K,hw,M,rp', [
     ((32, 32, 16), 80, 40, 16, (4, 8, 16), 4 * 96, 96),
     ((256, 256, 64), 576, 288, 128, (16, 32, 64), 2 * 8 * 64 + 40, 8 * 64),
+    # M not a multiple of the 64-sample tile nor of a cluster's tiles; rp
+    # under the tile and not dividing it, so tiles straddle views
+    ((32, 32, 16), 80, 40, 16, (4, 8, 16), 5 * 64 + 17, 40),
+    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 9 * 64 + 3, 200),
+    # one and two pyramid levels; H1 not a multiple of the 64-unit chunk
+    ((48,), 96, 48, 32, (8,), 300, 24),
+    ((64, 32), 112, 56, 48, (8, 16), 3 * 64 + 1, 100),
+    # F under one 64-column k-block, with O filling the last exchanged
+    # fragment: comb's columns past F must not keep the partial sums
+    ((48,), 96, 96, 32, (8,), 2 * 64 + 50, 40),
 ])
 def test_exchange_epilogue_kernel(dev, channels, H1, O, K, hw, M, rp):
+    """K2 against its plain version; every case also checks that the launch
+    was counted."""
     tables, cells, (a_s, a_c), params = _epilogue_case(dev, channels, H1, O,
                                                        K, 2, hw, M)
     case = (tables, cells, a_s, a_c, params, rp)
+    before = GE.fused_exchange_epilogue.launches
     jl, kv = GE.fused_exchange_epilogue(*case)
     torch.cuda.synchronize()
+    assert GE.fused_exchange_epilogue.launches == before + 1
+    # three warpgroups a block, clusters of one block
+    assert GE.fused_exchange_epilogue.last_launch[3:] == (384, 1, 1, 1)
     jl_ref, kv_ref = GE.fused_exchange_epilogue_reference(*case)
     assert jl.shape == (M, O) and kv.shape == (M, K)
     assert torch.isfinite(jl.float()).all() and torch.isfinite(kv.float()).all()
@@ -105,18 +121,49 @@ def test_exchange_epilogue_kernel(dev, channels, H1, O, K, hw, M, rp):
     assert _max_err(kv, kv_ref) <= 2 ** -5 * _scale(kv_ref)
 
 
-@pytest.mark.parametrize('channels,H1,O,K,hw,M', [
-    ((32, 32, 16), 80, 48, 16, (4, 8, 16), 3 * 96 + 29),
-    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 3 * 8 * 48 + 40),
+@pytest.mark.parametrize('channels,H1,O,K,hw,M,S', [
+    ((32, 32, 16), 80, 48, 16, (4, 8, 16), 3 * 96 + 29, 3),
+    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 3 * 8 * 48 + 40, 3),
+    ((32, 32, 16), 80, 40, 16, (4, 8, 16), 2 * 64 + 7, 4),
+    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 300, 4),
+    ((32, 32, 16), 80, 40, 16, (4, 8, 16), 130, 2),
+    ((64,), 64, 32, 16, (8,), 150, 3),
+    ((32, 16), 48, 32, 32, (8, 16), 77, 3),
+    # the last stream's f rows end in comb's first k-block, S*O not a
+    # multiple of 64; and F under one k-block
+    ((32, 32, 16), 80, 80, 16, (4, 8, 16), 200, 3),
+    ((32, 32, 16), 80, 72, 16, (4, 8, 16), 150, 2),
+    ((48,), 64, 96, 32, (8,), 140, 3),
 ])
-def test_exchange_epilogue_multi_kernel(dev, channels, H1, O, K, hw, M):
-    """K3 at S=3 streams, ragged M (not a multiple of the 48-sample tile)."""
-    case = _epilogue_case(dev, channels, H1, O, K, 3, hw, M, S=3, seed=1)
+def test_exchange_epilogue_multi_kernel(dev, channels, H1, O, K, hw, M, S):
+    """K3 at S = 2, 3 and 4 streams, ragged M (not a multiple of the tile),
+    one to three levels, H1 not a multiple of the hidden chunk, and the
+    shapes whose padding columns in comb are read (they must hold zeros or
+    finite values)."""
+    case = _epilogue_case(dev, channels, H1, O, K, 3, hw, M, S=S, seed=1)
     jl, kv = GE.fused_exchange_epilogue_multi(*case)
     torch.cuda.synchronize()
     jl_ref, kv_ref = GE.fused_exchange_epilogue_multi_reference(*case)
     assert jl.shape == (M, O) and kv.shape == (M, K)
     assert torch.isfinite(jl.float()).all() and torch.isfinite(kv.float()).all()
+    assert _max_err(jl, jl_ref) <= 2 ** -5 * _scale(jl_ref)
+    assert _max_err(kv, kv_ref) <= 2 ** -5 * _scale(kv_ref)
+
+
+def test_exchange_epilogue_prepared_once(dev):
+    """The weights K2 reads are laid out on the first call and reused until
+    a parameter changes in place; the result follows the change."""
+    tables, cells, (a_s, a_c), params = _epilogue_case(
+        dev, (32, 32, 16), 80, 40, 16, 2, (4, 8, 16), 200)
+    case = (tables, cells, a_s, a_c, params, 50)
+    GE.fused_exchange_epilogue(*case)
+    prep = GE.prepared_weights(params, 2, dev)
+    GE.fused_exchange_epilogue(*case)
+    assert GE.prepared_weights(params, 2, dev) is prep
+    params[3].mul_(2.0)     # b2
+    assert GE.prepared_weights(params, 2, dev) is not prep
+    jl, kv = GE.fused_exchange_epilogue(*case)
+    jl_ref, kv_ref = GE.fused_exchange_epilogue_reference(*case)
     assert _max_err(jl, jl_ref) <= 2 ** -5 * _scale(jl_ref)
     assert _max_err(kv, kv_ref) <= 2 ** -5 * _scale(kv_ref)
 
