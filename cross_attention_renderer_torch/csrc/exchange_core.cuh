@@ -1,57 +1,81 @@
-// The exchange epilogue core for Hopper (sm_90a): one persistent kernel for
-// the V=2 epilogue (gather_epilogue.cu, with the view swap) and the S-stream
-// epilogue (gather_epilogue_multi.cu). For a tile of 64 samples it computes,
-// per stream s,
+// The exchange core for Hopper (sm_90a): one persistent wgmma kernel, four
+// instantiations (Mode):
+//
+//   kPair    K2, the V=2 exchange epilogue (gather_epilogue.cu);
+//   kStreams K3, the S-stream epilogue (gather_epilogue_multi.cu);
+//   kMlp     K9, the fuse MLP alone on rows read as they are (fused_mlp.cu);
+//   kRender  K4, K2's function per view tile, then both attention rounds
+//            per ray (fused_render.cu).
+//
+// For a tile of 64 samples it computes, per stream s,
 //
 //   comb = sum_k w_k * row[k*C:(k+1)*C] per pyramid level    (bf16, corner
-//          order, as the TPU kernels' combine runs in the table type)
-//   h    = relu(comb @ W1[:F] + sum_j tanh_j * W1[F+j] + b1) (f32 sum)
+//          order, as the TPU kernels' combine runs in the table type; kMlp:
+//          the input rows x1 themselves)
+//   h    = relu(comb @ W1[:F] + sum_j tanh_j * W1[F+j] + b1) (f32 sum; kMlp:
+//          x2 in place of the tanh rows)
 //   f_s  = bf16(h) @ W2 + b2                                 (f32 sum)
 //
-// and places bf16(f_s) in slot s of the sample's [f_0 | f_1 | ...] row; with
-// kViewSwap (V=2) the slot is 0 for the stream of the sample's own view id
-// (m // rp) % 2 and 1 for the other. Then
+// kMlp writes bf16(f) and stops. The others place bf16(f_s) in slot s of
+// the sample's [f_0 | f_1 | ...] row (kPair: slot 0 for the stream of the
+// row's own view id (m // rp) % 2, 1 for the other; kRender: the same, the
+// view being the tile's), then
 //
 //   jl = [f_0 | ... | f_{S-1}] @ lv + lvb
 //   kv = bf16(relu([f_0 | ... ] @ km + kmb)) @ k2 + k2b,
 //
 // every product accumulated in f32 across all S streams and rounded once.
+// K2 and K3 write jl and kv. K4 keeps them: kv meets the query embedding
+// ce = bf16(bf16(relu(lc @ qe1 + qe1b)) @ qe2 + qe2b) in registers as the
+// round-1 logits ce . kv / 16, and the ray's 2P rows of jl and ce go to a
+// per-block scratch in device memory (104 KB at the flagship, so 132
+// blocks hold ~14 MB, which L2 keeps); see ray_tail for the rest.
 //
 // The schedule. A block is two consumer warpgroups (warps 0-7), which run
 // every product as wgmma m64nNk16 with f32 sums, and one producer warp
 // (warp 8). The weights a tile needs are read as stages: for each chunk of
 // 64 hidden units, the chunk's W1 columns by 64-deep k-blocks (8 KB each)
-// then its W2 rows by 96-column tiles (12 KB each); then lv, km and k2
-// (layout_stages in ops/gather_epilogue.py lays them out once, already
-// swizzled). Consumer warpgroup w takes every other chunk, half of jl's
-// column tiles and, for w = 1, kh and kv; it has a ring of
-// shared-memory slots of its own, which lane w of the producer warp fills
-// in that order with cp.async.bulk, each copy completing on the slot's
-// mbarrier. The grid is persistent, one block per SM walking over tiles,
-// and the rings run on across tiles, so the next tile's first stages
-// arrive while this tile's rows are gathered. (Sharing each stage across a
-// cluster of 2 or 4 blocks by multicast halves or quarters the weights'
-// L2 reads, but measured slower on the H100: the blocks of a cluster then
-// wait for each other at every slot.)
+// then its W2 rows by 96-column tiles (12 KB each); then lv, km and k2, and
+// K4's query weights (layout_stages and its siblings in
+// ops/gather_epilogue.py lay them out once, already swizzled). Each
+// consumer warpgroup has a ring of shared-memory slots of its own, which
+// lane w of the producer warp fills in that warpgroup's order with
+// cp.async.bulk, each copy completing on the slot's mbarrier. The grid is
+// persistent, one block per SM walking over tiles (K4: over rays), and the
+// rings run on across tiles, so the next tile's first stages arrive while
+// this tile's rows are gathered. (Sharing each stage across a cluster of 2
+// or 4 blocks by multicast halves or quarters the weights' L2 reads, but
+// measured slower on the H100: the blocks of a cluster then wait for each
+// other at every slot.)
 //
 // Per stream both warpgroups fetch the tile's cell rows (16-byte loads)
 // and combine them into comb, a (64, F) tile in the swizzled wgmma layout.
-// The fuse MLP runs over chunks of 64 hidden units, warpgroup w taking the
-// chunks c with c % 2 == w ^ (s % 2) of stream s (so with an even S each
-// takes half): h_c = relu(comb @ W1[:, c] + ...) stays in registers, is
-// rounded to bf16 and is the register A operand of f += h_c @ W2[c, :], so
-// no hidden layer is kept in shared memory. The two warpgroups' partial f
-// (f32) are summed through shared memory; f + b2 goes to the tile's f rows
-// in bf16, which jl and kh read as a shared-memory A operand; kh is rounded
-// to bf16 in registers and is the A operand of kv. Two warpgroups on one
-// tile keep the tensor cores busy while either waits for a stage or runs
-// its epilogue arithmetic: a warpgroup waits for its products before it
-// releases their stage, so a ring of three slots keeps two stages in
-// flight. Without the view swap the last stream's f goes into the comb
+// Up to O = 288 (three O tiles: the f accumulators of one warpgroup fill
+// 144 registers) the fuse MLP runs over chunks of 64 hidden units,
+// warpgroup w taking the chunks c with c % 2 == w ^ (s % 2) (so with an
+// even S each takes half): h_c = relu(comb @ W1[:, c] + ...) stays in
+// registers, is rounded to bf16 and is the register A operand of
+// f += h_c @ W2[c, :], so no hidden layer is kept in shared memory. The two
+// warpgroups' partial f (f32) are summed through shared memory; f + b2 goes
+// to the tile's f rows in bf16, which jl and kh read as a shared-memory A
+// operand; kh is rounded to bf16 in registers and is the A operand of kv.
+// Above O = 288 (osplit) each warpgroup owns half of the O tiles instead and
+// runs every chunk's layer 1 itself, once per group of up to three of its O
+// tiles: layer 1 is computed twice or more, but no accumulator spills and
+// no partial sums are exchanged. Two warpgroups on one tile keep the tensor
+// cores busy while either waits for a stage or runs its epilogue
+// arithmetic: a warpgroup waits for its products before it releases their
+// stage, so a ring of three slots keeps two stages in flight. Where the
+// slot order allows (kStreams, and kRender, whose tile is of one view and
+// runs its own view's stream first), the last stream's f goes into the comb
 // tile, which it no longer needs, so three streams fit in the shared memory
 // of two.
 
 #pragma once
+
+#include <math.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -60,16 +84,18 @@ namespace exchange_core {
 using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
+enum Mode : int { kPair = 0, kStreams = 1, kMlp = 2, kRender = 3 };
+
 constexpr int kMaxLevels = 3;
 constexpr int kMaxStreams = 4;
 constexpr int kRows = 64;              // samples per tile: wgmma's M
 constexpr int kKBlock = kRows * 128;   // a (64, 64) bf16 A tile, 8 KB
 constexpr int kNC = 64;                // hidden units per chunk
 constexpr int kNO = 96;                // columns of an O tile
-constexpr int kMaxOT = 3;              // O <= 288
+constexpr int kMaxOT = 3;              // O tiles a warpgroup holds at once
 constexpr int kNK = 64;                // columns of a K tile
-constexpr int kMaxKT = 4;              // K <= 256
-constexpr int kSmallStage = kNC * 128;  // 8 KB: W1, km, k2 stages
+constexpr int kMaxKT = 4;              // K <= 256: kh stays in registers
+constexpr int kSmallStage = kNC * 128;  // 8 KB: W1, km, k2, query stages
 constexpr int kLargeStage = kNO * 128;  // 12 KB: W2, lv stages (the slot)
 constexpr int kMaxStages = 8;          // slots of both rings
 constexpr int kWG = 128;               // threads of a warpgroup
@@ -78,6 +104,13 @@ constexpr int kProducerWarp = 8;       // the first of warpgroup 2
 constexpr int kThreads = kConsumers + kWG;  // + the producer warpgroup
 constexpr int kGatherBar = 1;          // named barrier ids (0 is
 constexpr int kPairBar = 2;            // __syncthreads)
+constexpr int kCeBar = 3;              // K4: the tile's ce is stored
+constexpr float kAttnScale = 1.0f / 16.0f;
+
+// The vectors in shared memory: bf16 (their values are bf16-rounded), but
+// f32 for K9, whose biases stay f32 as the TPU kernel keeps them.
+template <int kMode>
+using Vec = typename std::conditional<kMode == kMlp, float, bf16>::type;
 
 struct CoreArgs {
   const bf16* table[kMaxLevels];     // packed cell tables (rows, 4 * C_l)
@@ -86,22 +119,42 @@ struct CoreArgs {
   int n_levels;
   const bf16* aux[kMaxStreams];  // (M, 16) per stream: 12 slot weights,
                                  // tanh(pt/5), pad
+  const bf16* x;                 // kMlp: (M, F) input rows
+  const bf16* x2;                // kMlp: (M, 3)
+  const bf16* lc;                // kRender: (M, 16) local coordinates
   const unsigned char* stages;   // the weight stages of one tile
-  const float* vecs;             // [W1[F:F+3] | b1 | b2 | lvb | kmb | k2b]
-  bf16* jl;                      // (M, O)
+  const float* vecs;             // [W1[F:F+3] | b1 | b2 | lvb | kmb | k2b |
+                                 //  qe1b | qe2b | elb | qr1b | qr2b]
+  const bf16* mats;              // kRender: el (O, K), qr1[:K] (K, K)
+  bf16* jl;                      // (M, O); kMlp: the output
   bf16* kv;                      // (M, K)
+  bf16* z;                       // kRender: (B, R, O)
+  bf16* wt;                      // kRender: (B, 2, R, P)
+  bf16* scratch;                 // kRender: per block, the ray's jl (2P, O)
+                                 // then its ce (2P, K)
   int S, M, F, H1, O, K, rp;
-  // Derived by fill_core: tile counts of each product and where things sit.
-  int nch, nkbF, OT, KT, nkbf, nkbK, nkb_fbuf, n_stages;
+  int B, R, P, tv, repeat;       // kRender; tv: tiles of one view of a ray
+  int n_units;                   // tiles, or rays (kRender)
+  // Derived by fill_sizes: tile counts of each product and where things sit.
+  int nch, nkbF, OT, osplit, KT, nkbf, nkbK, nkb_fbuf, n_stages;
   int chunk_bytes;               // one hidden chunk's W1 and W2 stages
-  int jl_split;                  // jl's O tiles [0, jl_split) go to WG 0
-  int v_b1, v_b2, v_lvb, v_kmb, v_k2b, ldv;  // offsets into vecs
-  int n_vecs;
+  int jl_split;                  // O tiles [0, jl_split) go to WG 0
+  long long jl0, kh0, kv0, qe0, qe20, qr0, qr20;  // stage offsets
+  int v_b1, v_b2, v_lvb, v_kmb, v_k2b, v_q, ldv;  // offsets into vecs
+  int n_vecs, n_rsm;
 };
 
-// Two adjacent bf16 values of a vector in shared memory, as f32.
+// Two adjacent values of a vector in shared memory, as f32.
 __device__ __forceinline__ float2 lds2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float2 lds2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 // 16 bytes of a table row, not kept in L1: a block reads each row once per
@@ -112,6 +165,10 @@ __device__ __forceinline__ uint4 ldg_row(const void* p) {
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(p));
   return v;
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // A consumer warpgroup's side of its stage ring: wait for a slot to fill,
@@ -139,17 +196,26 @@ struct Ring {
   }
 };
 
+// The O tiles warpgroup w computes of a stream's f: all of them (at most
+// kMaxOT, chunks split between the warpgroups), or with osplit its half.
+__device__ __forceinline__ void mlp_tiles(const CoreArgs& p, int w, int& t0,
+                                          int& t1) {
+  t0 = p.osplit && w == 1 ? p.jl_split : 0;
+  t1 = p.osplit && w == 0 ? p.jl_split : p.OT;
+}
+
 // Lane w of the producer warp: the stages of consumer warpgroup w for every
-// tile of this block, in that warpgroup's order, into its ring.
+// unit of this block, in that warpgroup's order, into its ring.
+template <int kMode>
 __device__ void produce(const CoreArgs& p, int w, uint32_t slots,
-                        uint32_t full, uint32_t empty, int n_tiles) {
+                        uint32_t full, uint32_t empty) {
   int idx = 0;
   uint32_t phase = 0;
   const int n = p.n_stages / 2;
   slots += w * n * kLargeStage;
   full += 8 * w * n;
   empty += 8 * w * n;
-  const auto fetch = [&](size_t off, uint32_t bytes) {
+  const auto fetch = [&](long long off, uint32_t bytes) {
     mbar_wait(empty + 8 * idx, phase ^ 1);
     mbar_expect_tx(full + 8 * idx, bytes);
     bulk_copy(slots + idx * kLargeStage, p.stages + off, bytes,
@@ -159,53 +225,90 @@ __device__ void produce(const CoreArgs& p, int w, uint32_t slots,
       phase ^= 1;
     }
   };
-  const size_t jl0 = (size_t)p.nch * p.chunk_bytes;
-  const size_t kh0 = jl0 + (size_t)p.nkbf * p.OT * kLargeStage;
-  const size_t kv0 = kh0 + (size_t)p.nkbf * p.KT * kSmallStage;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    for (int s = 0; s < p.S; ++s)
-      for (int c = w ^ (s & 1); c < p.nch; c += 2) {
-        size_t off = (size_t)c * p.chunk_bytes;
+  int t0, t1;
+  mlp_tiles(p, w, t0, t1);
+  // One stream's fuse MLP (si: the stream's place in the tile's order).
+  const auto mlp = [&](int si) {
+    for (int g0 = t0; g0 < t1; g0 += kMaxOT) {
+      const int g1 = min(g0 + kMaxOT, t1);
+      for (int c = p.osplit ? 0 : w ^ (si & 1); c < p.nch;
+           c += p.osplit ? 1 : 2) {
+        long long off = (long long)c * p.chunk_bytes;
         for (int kb = 0; kb < p.nkbF; ++kb, off += kSmallStage)
           fetch(off, kSmallStage);
-        for (int nt = 0; nt < p.OT; ++nt, off += kLargeStage)
-          fetch(off, kLargeStage);
+        for (int nt = g0; nt < g1; ++nt)
+          fetch(off + (long long)nt * kLargeStage, kLargeStage);
       }
-    for (int kb = 0; kb < p.nkbf; ++kb)
-      for (int nt = 0; nt < p.OT; ++nt)
-        if ((nt < p.jl_split) == (w == 0))
-          fetch(jl0 + ((size_t)kb * p.OT + nt) * kLargeStage, kLargeStage);
+    }
+  };
+  // A 16 -> K -> K query MLP (K4): the first layer's K tiles, then the
+  // second's, each by k-blocks.
+  const auto query = [&](long long l1, long long l2) {
+    for (int nt = 0; nt < p.KT; ++nt)
+      fetch(l1 + (long long)nt * kSmallStage, kSmallStage);
+    for (int nt = 0; nt < p.KT; ++nt)
+      for (int kb = 0; kb < p.nkbK; ++kb)
+        fetch(l2 + ((long long)nt * p.nkbK + kb) * kSmallStage, kSmallStage);
+  };
+  // jl over this warpgroup's O tiles, then kh and kv (WG 1) or K4's query
+  // MLP (WG 0).
+  const auto tail = [&]() {
+    const int a = w == 0 ? 0 : p.jl_split, e = w == 0 ? p.jl_split : p.OT;
+    for (int g0 = a; g0 < e; g0 += kMaxOT)
+      for (int kb = 0; kb < p.nkbf; ++kb)
+        for (int nt = g0; nt < min(g0 + kMaxOT, e); ++nt)
+          fetch(p.jl0 + ((long long)kb * p.OT + nt) * kLargeStage,
+                kLargeStage);
     if (w == 1) {
       for (int kb = 0; kb < p.nkbf; ++kb)
         for (int nt = 0; nt < p.KT; ++nt)
-          fetch(kh0 + ((size_t)kb * p.KT + nt) * kSmallStage, kSmallStage);
+          fetch(p.kh0 + ((long long)kb * p.KT + nt) * kSmallStage,
+                kSmallStage);
       for (int nt = 0; nt < p.KT; ++nt)
         for (int kb = 0; kb < p.nkbK; ++kb)
-          fetch(kv0 + ((size_t)nt * p.nkbK + kb) * kSmallStage, kSmallStage);
+          fetch(p.kv0 + ((long long)nt * p.nkbK + kb) * kSmallStage,
+                kSmallStage);
+    } else if (kMode == kRender) {
+      query(p.qe0, p.qe20);
+    }
+  };
+  for (int unit = blockIdx.x; unit < p.n_units; unit += gridDim.x) {
+    if (kMode == kRender) {
+      for (int k = 0; k < 2 * p.tv; ++k) {
+        mlp(0);
+        mlp(1);
+        tail();
+      }
+      if (p.repeat)
+        for (int k = w; k < 2 * p.tv; k += 2) query(p.qr0, p.qr20);
+    } else {
+      for (int si = 0; si < p.S; ++si) mlp(si);
+      if (kMode != kMlp) tail();
     }
   }
 }
 
-// Gathers the cell rows of stream s for the tile's samples m0.. and
-// combines each level's four slots into comb (64, F), swizzled k-blocks of
-// 64 columns; copies the tile's aux rows to aux (64, 16). Rows past M get
-// zeros. Run by the kConsumers threads, t = threadIdx.x.
-__device__ void gather_tile(const CoreArgs& p, int s, int m0,
+// Gathers the cell rows of stream s for the tile's samples m0 + r, r <
+// n_live, and combines each level's four slots into comb (64, F), swizzled
+// k-blocks of 64 columns; copies the tile's aux rows to aux (64, 16). Rows
+// past n_live get zeros. Run by the kConsumers threads, t = threadIdx.x.
+__device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
                             unsigned char* comb, bf16* aux, int* cell) {
   const int t = threadIdx.x;
   for (int i = t; i < kRows * 2; i += kConsumers) {
-    const int r = i >> 1, half = i & 1, m = m0 + r;
+    const int r = i >> 1, half = i & 1;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m < p.M)
-      val = __ldg(reinterpret_cast<const uint4*>(p.aux[s] + (size_t)m * 16) +
+    if (r < n_live)
+      val = __ldg(reinterpret_cast<const uint4*>(p.aux[s] +
+                                                 (size_t)(m0 + r) * 16) +
                   half);
     reinterpret_cast<uint4*>(aux + r * 16)[half] = val;
   }
   // The tile's cell rows of every level first, so that the row loads below
   // wait on no other load from device memory.
   for (int i = t; i < kRows * p.n_levels; i += kConsumers) {
-    const int l = i / kRows, m = m0 + i % kRows;
-    cell[i] = m < p.M ? __ldg(p.cells[l] + (size_t)s * p.M + m) : -1;
+    const int l = i / kRows, r = i % kRows;
+    cell[i] = r < n_live ? __ldg(p.cells[l] + (size_t)s * p.M + m0 + r) : -1;
   }
   bar_sync(kGatherBar, kConsumers);
   // One pass over the 16-byte chunks of all the tile's comb rows, eight per
@@ -247,12 +350,38 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0,
   bar_sync(kGatherBar, kConsumers);
 }
 
-// Warpgroup w's part of stream s's fuse MLP on the tile in comb:
-// acc (64 x OT*96 f32 fragments) = sum over its chunks c of
-// bf16(h_c) @ W2[c, :], h_c = relu(comb @ W1[:F, c] + tanh terms + b1[c])
-// in registers. b2 is not added.
-__device__ void stream_mlp(const CoreArgs& p, int w, int s, Ring& ring,
-                           uint32_t comb, const bf16* aux, const bf16* vsm,
+// K9's tile: rows m0 + r (r < n_live) of x (M, F) into comb as they are,
+// and x2's three columns into aux's tanh columns 12-14. Rows past n_live
+// get zeros.
+__device__ void load_rows(const CoreArgs& p, int m0, int n_live,
+                          unsigned char* comb, bf16* aux) {
+  const int t = threadIdx.x;
+  for (int i = t; i < kRows * 3; i += kConsumers) {
+    const int r = i / 3, e = i - 3 * r;
+    aux[r * 16 + 12 + e] = r < n_live ? p.x2[(size_t)(m0 + r) * 3 + e]
+                                      : __float2bfloat16(0.f);
+  }
+  const int ch8 = p.F / 8;
+#pragma unroll 8
+  for (int i = t; i < kRows * ch8; i += kConsumers) {
+    const int r = i / ch8, col = (i - r * ch8) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n_live) val = ldg_row(p.x + (size_t)(m0 + r) * p.F + col);
+    *reinterpret_cast<uint4*>(comb + (col >> 6) * kKBlock +
+                              swizzle(r, col & 63)) = val;
+  }
+  fence_proxy_async();
+  bar_sync(kGatherBar, kConsumers);
+}
+
+// Warpgroup w's part of one stream's fuse MLP on the tile in comb:
+// acc[nt - g0] (64 x 96 f32 fragments) for O tiles [g0, g1) = the sum over
+// the chunks c = c0, c0 + cstep, ... of bf16(h_c) @ W2[c, :], h_c =
+// relu(comb @ W1[:F, c] + tanh terms + b1[c]) in registers. b2 is not added.
+template <typename V>
+__device__ void stream_mlp(const CoreArgs& p, int c0, int cstep, int g0,
+                           int g1, Ring& ring, uint32_t comb,
+                           const bf16* aux, const V* vsm,
                            float (&acc)[kMaxOT][kNO / 2]) {
   const int lane = threadIdx.x & 31;
   const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
@@ -267,7 +396,7 @@ __device__ void stream_mlp(const CoreArgs& p, int w, int s, Ring& ring,
   for (int nt = 0; nt < kMaxOT; ++nt)
 #pragma unroll
     for (int i = 0; i < kNO / 2; ++i) acc[nt][i] = 0.f;
-  for (int c = w ^ (s & 1); c < p.nch; c += 2) {
+  for (int c = c0; c < p.nch; c += cstep) {
     // a1 starts at b1 + sum_j tanh_j * W1[F+j] (f32); layer 1 then adds
     // comb @ W1[:F].
     float a1[kNC / 2];
@@ -314,7 +443,7 @@ __device__ void stream_mlp(const CoreArgs& p, int w, int s, Ring& ring,
 
 #pragma unroll
     for (int nt = 0; nt < kMaxOT; ++nt) {
-      if (nt < p.OT) {
+      if (g0 + nt < g1) {
         const uint64_t db = wgmma_desc(ring.acquire());
         fence_regs(acc[nt]);
         wgmma_fence();
@@ -339,77 +468,182 @@ __device__ __forceinline__ unsigned char* f_block(const CoreArgs& p,
                          : comb + (kb - p.nkb_fbuf) * kKBlock;
 }
 
-template <bool kViewSwap>
-__global__ void __launch_bounds__(kThreads, 1)
-    exchange_core_kernel(const CoreArgs p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  unsigned char* slots = base;
-  unsigned char* comb = slots + p.n_stages * kLargeStage;
-  unsigned char* fbuf = comb + p.nkbF * kKBlock;
-  bf16* aux = reinterpret_cast<bf16*>(fbuf + p.nkb_fbuf * kKBlock);
-  int* cell = reinterpret_cast<int*>(aux + kRows * 16);
-  bf16* vsm = reinterpret_cast<bf16*>(cell + kRows * kMaxLevels);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(vsm + p.n_vecs);
-  const uint32_t full = smem_u32(bars), empty = full + 8 * p.n_stages;
+template <int kMode>
+struct Smem {
+  unsigned char* comb;   // (64, F) tile; then the last stream's f rows
+  unsigned char* fbuf;   // the other f rows
+  bf16* aux;             // (64, 16)
+  int* cell;             // (kMaxLevels, 64)
+  const Vec<kMode>* vsm;
+  float* rsm;            // K4's per-ray vectors (ray_tail)
+};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < p.n_stages; ++i) {
-      mbar_init(full + 8 * i, 1);
-      mbar_init(empty + 8 * i, 4);  // each warp of the consumer warpgroup
+// The local coordinates of the tile's rows m0 + r (r < n_live, else zeros)
+// as the register A operand of one k-step (16 columns): words (row, cols
+// tq, tq + 1) of rows r0 and r0 + 8, then of cols 8 + tq, 9 + tq.
+__device__ __forceinline__ void load_lc(const CoreArgs& p, int m0, int n_live,
+                                        uint32_t (&la)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int tq = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    la[h] = la[2 + h] = 0u;
+    if (row < n_live) {
+      const uint32_t* src =
+          reinterpret_cast<const uint32_t*>(p.lc + (size_t)(m0 + row) * 16);
+      la[h] = __ldg(src + tq / 2);
+      la[2 + h] = __ldg(src + 4 + tq / 2);
     }
-    fence_mbar_init();
   }
-  // Every product runs all four k-steps of every k-block: the weight stages
-  // are zero past each depth, so the tiles' columns past F and S*O only
-  // need to hold finite values (0 * Inf is NaN). Zero them once; later they
-  // hold only combined rows, f values or zeros (the partial-sum exchange
-  // through k-block 0 leaves zeros behind).
-  for (int i = threadIdx.x * 16; i < (p.nkbF + p.nkb_fbuf) * kKBlock;
-       i += kThreads * 16)
-    *reinterpret_cast<uint4*>(comb + i) = make_uint4(0u, 0u, 0u, 0u);
-  // The vectors in bf16 (their values are bf16-rounded), out of reach of
-  // L1's misses: every chunk's first step reads W1[F:F+3] and b1.
-  for (int i = threadIdx.x; i < p.n_vecs; i += kThreads)
-    vsm[i] = __float2bfloat16(p.vecs[i]);
-  fence_proxy_async();
-  __syncthreads();
+}
 
-  const int n_tiles = (p.M + kRows - 1) / kRows;
+// A warpgroup's 16 -> K -> K query MLP of its tile (K4): layer 1 is one
+// k-step from the local coordinates la on the K tiles of the ring's next
+// stages, its sums starting at init(col) (f32 pairs), then relu and bf16;
+// layer 2 by k-blocks of the next stages. Calls out(nt, av) with each K
+// tile's f32 sums, the second bias not added.
+template <typename Init, typename Out>
+__device__ void query_mlp(const CoreArgs& p, Ring& ring,
+                          const uint32_t (&la)[4], Init init, Out out) {
+  const int tq = 2 * (threadIdx.x & 3);
+  uint32_t hq[kMaxKT * 4][4];
+#pragma unroll
+  for (int nt = 0; nt < kMaxKT; ++nt) {
+    float a[kNK / 2];
+#pragma unroll
+    for (int j = 0; j < kNK / 8; ++j) {
+      const float2 b = nt < p.KT ? init(nt * kNK + j * 8 + tq)
+                                 : make_float2(0.f, 0.f);
+      a[4 * j] = a[4 * j + 2] = b.x;
+      a[4 * j + 1] = a[4 * j + 3] = b.y;
+    }
+    if (nt < p.KT) {
+      fence_regs(a);
+      const uint64_t db = wgmma_desc(ring.acquire());
+      wgmma_fence();
+      wgmma_rs_n64(a, la, db);
+      wgmma_commit();
+      ring.release();
+      fence_regs(a);
+    }
+#pragma unroll
+    for (int j = 0; j < kNK / 8; ++j) {
+      hq[nt * 4 + (j >> 1)][(j & 1) * 2 + 0] =
+          pack_bf16(fmaxf(a[4 * j], 0.f), fmaxf(a[4 * j + 1], 0.f));
+      hq[nt * 4 + (j >> 1)][(j & 1) * 2 + 1] =
+          pack_bf16(fmaxf(a[4 * j + 2], 0.f), fmaxf(a[4 * j + 3], 0.f));
+    }
+  }
+  fence_regs(hq);
+#pragma unroll
+  for (int nt = 0; nt < kMaxKT; ++nt) {
+    if (nt < p.KT) {
+      float av[kNK / 2];
+#pragma unroll
+      for (int i = 0; i < kNK / 2; ++i) av[i] = 0.f;
+      fence_regs(av);
+#pragma unroll
+      for (int kb = 0; kb < kMaxKT; ++kb) {
+        if (kb < p.nkbK) {
+          const uint64_t db = wgmma_desc(ring.acquire());
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_rs_n64(av, hq[kb * 4 + ks], db + 2 * ks);
+          wgmma_commit();
+          ring.release();
+        }
+      }
+      fence_regs(av);
+      out(nt, av);
+    }
+  }
+}
 
-  // Three warpgroups start at 168 registers a thread; the producer's (one
-  // warp works, three wait) gives its share to the consumers, 232 each.
-  if (warp >= kProducerWarp) {
-    reg_dealloc<40>();
-    if (warp == kProducerWarp && lane < 2)
-      produce(p, lane, smem_u32(slots), full, empty, n_tiles);
-  } else {
-    reg_alloc<232>();
-    const int w = warp >> 2, tw = threadIdx.x & (kWG - 1);
-    const int nh = p.n_stages / 2;
-    Ring ring{smem_u32(slots) + w * nh * kLargeStage, full + 8 * w * nh,
-              empty + 8 * w * nh, nh, 0, 0u};
-    const int r0 = (warp & 3) * 16 + (lane >> 2), tq = 2 * (lane & 3);
-    const uint32_t comb_s = smem_u32(comb);
-    float4* xbuf = reinterpret_cast<float4*>(comb);  // (4, 128) float4
-    float acc[kMaxOT][kNO / 2];
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int m0 = tile * kRows;
-      for (int s = 0; s < p.S; ++s) {
-        bar_sync(kGatherBar, kConsumers);  // comb and aux are free
-        gather_tile(p, s, m0, comb, aux, cell);
-        stream_mlp(p, w, s, ring, comb_s, aux, vsm, acc);
+// sum over this thread's columns of bf16(q) . ce for its two rows, q =
+// av + bias (one K tile's sums); ce (bf16) of the ray's joint rows j0 + row
+// in K4's scratch. Rows past n_live add nothing.
+template <typename V>
+__device__ __forceinline__ void dot_ce(const CoreArgs& p, int nt,
+                                       const float (&av)[kNK / 2],
+                                       const V* bias, const bf16* ce, int j0,
+                                       int n_live, float (&lg)[2]) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int tq = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+#pragma unroll
+    for (int j = 0; j < kNK / 8; ++j) {
+      const int col = nt * kNK + j * 8 + tq;
+      if (col < p.K && row < n_live) {
+        const float2 b = lds2(bias + col);
+        const float2 c = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(
+                ce + (size_t)(j0 + row) * p.K + col));
+        lg[h] += bf16_round(av[4 * j + 2 * h] + b.x) * c.x +
+                 bf16_round(av[4 * j + 2 * h + 1] + b.y) * c.y;
+      }
+    }
+  }
+}
 
-        // f = WG 0's partial sums + WG 1's + b2: WG 1 hands its f32 sums to
-        // WG 0 through the first 8 KB of comb, 16 columns a thread at a time
-        // (thread tw of both warpgroups holds the same fragment positions).
-        // WG 0 zeroes each value it takes, so that no f32 bits stay behind:
-        // read as bf16 they can be Inf or NaN, and k-block 0's columns past
-        // F (F < 64) or past S*O (the last stream's f rows ending there) are
-        // read again by products whose weights are zero there.
+// The four lanes of a row hold its partial sums: logit[j0 + row] = their
+// sum / 16, for the rows before n_live.
+__device__ __forceinline__ void store_logits(float (&lg)[2], int j0,
+                                             int n_live, float* logit) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lg[h] += __shfl_xor_sync(0xffffffffu, lg[h], 1);
+    lg[h] += __shfl_xor_sync(0xffffffffu, lg[h], 2);
+    if ((lane & 3) == 0 && r0 + 8 * h < n_live)
+      logit[j0 + r0 + 8 * h] = lg[h] * kAttnScale;
+  }
+}
+
+// One tile of warpgroup w: rows m0 + r, r < n_live. K4 (view: the tile's
+// view; j0: the ray's joint index of row 0) keeps jl and ce in the block's
+// scratch (scr_jl, scr_ce) and writes the tile's round-1 logits.
+template <int kMode>
+__device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
+                         Ring& ring, int w, int m0, int n_live, int view,
+                         int j0, bf16* scr_jl, bf16* scr_ce) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tw = threadIdx.x & (kWG - 1);
+  const int r0 = (warp & 3) * 16 + (lane >> 2), tq = 2 * (lane & 3);
+  const uint32_t comb_s = smem_u32(sm.comb);
+  const bool f_in_comb = p.nkb_fbuf < p.nkbf;
+  float acc[kMaxOT][kNO / 2];
+  int t0, t1;
+  mlp_tiles(p, w, t0, t1);
+  for (int si = 0; si < p.S; ++si) {
+    // K4 runs the stream of the tile's own view (slot 0) first.
+    const int s = kMode == kRender ? (si == 0 ? view : 1 - view) : si;
+    bar_sync(kGatherBar, kConsumers);  // comb and aux are free
+    if (kMode == kMlp)
+      load_rows(p, m0, n_live, sm.comb, sm.aux);
+    else
+      gather_tile(p, s, m0, n_live, sm.comb, sm.aux, sm.cell);
+    for (int g0 = t0; g0 < t1; g0 += kMaxOT) {
+      const int g1 = min(g0 + kMaxOT, t1);
+      stream_mlp(p, p.osplit ? 0 : w ^ (si & 1), p.osplit ? 1 : 2, g0, g1,
+                 ring, comb_s, sm.aux, sm.vsm, acc);
+      if (!p.osplit) {
+        // f = WG 0's partial sums + WG 1's + b2: WG 1 hands its f32 sums
+        // to WG 0 through the first 8 KB of comb, 16 columns a thread at a
+        // time (thread tw of both warpgroups holds the same fragment
+        // positions). WG 0 zeroes each value it takes, so that no f32 bits
+        // stay behind: read as bf16 they can be Inf or NaN, and k-block
+        // 0's columns past F (F < 64) or past S*O (the last stream's f rows
+        // ending there) are read again by products whose weights are zero
+        // there.
         bar_sync(kPairBar, kConsumers);  // comb is no longer read
+        float4* xbuf = reinterpret_cast<float4*>(sm.comb);  // (4, 128)
 #pragma unroll
         for (int nt = 0; nt < kMaxOT; ++nt)
 #pragma unroll
@@ -436,176 +670,491 @@ __global__ void __launch_bounds__(kThreads, 1)
               bar_sync(kPairBar, kConsumers);
             }
           }
-        if (w == 0) {
-          // f_s + b2 in bf16 to the tile's f rows, slot by view or stream.
-          const bf16* b2 = vsm + p.v_b2;
+      } else if (f_in_comb) {
+        // Each warpgroup has one group; the last stream's f goes into comb,
+        // which neither may read any more.
+        bar_sync(kPairBar, kConsumers);
+      }
+      if (p.osplit || w == 0) {
+        // f_s + b2 in bf16: to the output (K9), or to the tile's f rows,
+        // slot by view or stream.
+        const Vec<kMode>* b2 = sm.vsm + p.v_b2;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = r0 + 8 * h;
-            int slot = s;
-            if (kViewSwap) slot = (((m0 + row) / p.rp) & 1) == s ? 0 : 1;
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * h;
+          int slot = kMode == kRender ? si : s;
+          if (kMode == kPair) slot = (((m0 + row) / p.rp) & 1) == s ? 0 : 1;
 #pragma unroll
-            for (int nt = 0; nt < kMaxOT; ++nt)
+          for (int nt = 0; nt < kMaxOT; ++nt)
 #pragma unroll
-              for (int j = 0; j < kNO / 8; ++j) {
-                const int col = nt * kNO + j * 8 + tq;
-                if (nt < p.OT && col < p.O) {
+            for (int j = 0; j < kNO / 8; ++j) {
+              const int col = (g0 + nt) * kNO + j * 8 + tq;
+              if (g0 + nt < g1 && col < p.O) {
+                const float2 b = lds2(b2 + col);
+                const uint32_t v = pack_bf16(acc[nt][4 * j + 2 * h] + b.x,
+                                             acc[nt][4 * j + 2 * h + 1] + b.y);
+                if (kMode == kMlp) {
+                  if (row < n_live)
+                    *reinterpret_cast<uint32_t*>(
+                        p.jl + (size_t)(m0 + row) * p.O + col) = v;
+                } else {
                   const int fc = slot * p.O + col;
-                  const float2 b = lds2(b2 + col);
-                  *reinterpret_cast<uint32_t*>(f_block(p, fbuf, comb, fc >> 6) +
-                                               swizzle(row, fc & 63)) =
-                      pack_bf16(acc[nt][4 * j + 2 * h] + b.x,
-                                acc[nt][4 * j + 2 * h + 1] + b.y);
+                  *reinterpret_cast<uint32_t*>(
+                      f_block(p, sm.fbuf, sm.comb, fc >> 6) +
+                      swizzle(row, fc & 63)) = v;
                 }
               }
+            }
+        }
+      }
+    }
+  }
+  if (kMode == kMlp) return;
+  fence_proxy_async();
+  bar_sync(kPairBar, kConsumers);  // the f rows are complete
+
+  // jl = [f_0 | ...] @ lv + lvb, WG 0 on O tiles [0, jl_split), WG 1 on
+  // the rest, up to kMaxOT at a time
+  const int ja = w == 0 ? 0 : p.jl_split, je = w == 0 ? p.jl_split : p.OT;
+  for (int g0 = ja; g0 < je; g0 += kMaxOT) {
+    const int g1 = min(g0 + kMaxOT, je);
+#pragma unroll
+    for (int nt = 0; nt < kMaxOT; ++nt)
+#pragma unroll
+      for (int i = 0; i < kNO / 2; ++i) acc[nt][i] = 0.f;
+    for (int kb = 0; kb < p.nkbf; ++kb) {
+      const uint64_t da =
+          wgmma_desc(smem_u32(f_block(p, sm.fbuf, sm.comb, kb)));
+#pragma unroll
+      for (int nt = 0; nt < kMaxOT; ++nt) {
+        if (g0 + nt < g1) {
+          const uint64_t db = wgmma_desc(ring.acquire());
+          fence_regs(acc[nt]);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_ss_n96(acc[nt], da + 2 * ks, db + 2 * ks);
+          wgmma_commit();
+          ring.release();
+        }
+      }
+    }
+    const Vec<kMode>* lvb = sm.vsm + p.v_lvb;
+#pragma unroll
+    for (int nt = 0; nt < kMaxOT; ++nt) {
+      fence_regs(acc[nt]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        bf16* dst = kMode == kRender
+                        ? scr_jl + (size_t)(j0 + row) * p.O
+                        : p.jl + (size_t)(m0 + row) * p.O;
+#pragma unroll
+        for (int j = 0; j < kNO / 8; ++j) {
+          const int col = (g0 + nt) * kNO + j * 8 + tq;
+          if (g0 + nt < g1 && col < p.O && row < n_live) {
+            const float2 b = lds2(lvb + col);
+            *reinterpret_cast<uint32_t*>(dst + col) =
+                pack_bf16(acc[nt][4 * j + 2 * h] + b.x,
+                          acc[nt][4 * j + 2 * h + 1] + b.y);
           }
         }
       }
-      fence_proxy_async();
-      bar_sync(kPairBar, kConsumers);  // the f rows are complete
+    }
+  }
+  if (w == 1) {
+    // kh = relu([f_0 | ...] @ km + kmb), bf16 in registers
+    float ak[kMaxKT][kNK / 2];
+#pragma unroll
+    for (int nt = 0; nt < kMaxKT; ++nt)
+#pragma unroll
+      for (int i = 0; i < kNK / 2; ++i) ak[nt][i] = 0.f;
+    for (int kb = 0; kb < p.nkbf; ++kb) {
+      const uint64_t da =
+          wgmma_desc(smem_u32(f_block(p, sm.fbuf, sm.comb, kb)));
+#pragma unroll
+      for (int nt = 0; nt < kMaxKT; ++nt) {
+        if (nt < p.KT) {
+          const uint64_t db = wgmma_desc(ring.acquire());
+          fence_regs(ak[nt]);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_ss_n64(ak[nt], da + 2 * ks, db + 2 * ks);
+          wgmma_commit();
+          ring.release();
+        }
+      }
+    }
+    const Vec<kMode>* kmb = sm.vsm + p.v_kmb;
+    uint32_t kf[kMaxKT * 4][4];
+#pragma unroll
+    for (int nt = 0; nt < kMaxKT; ++nt) {
+      fence_regs(ak[nt]);
+#pragma unroll
+      for (int j = 0; j < kNK / 8; ++j) {
+        const int col = nt * kNK + j * 8 + tq;
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (nt < p.KT) {
+          const float2 b = lds2(kmb + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[e] = fmaxf(ak[nt][4 * j + e] + (e & 1 ? b.y : b.x), 0.f);
+        }
+        kf[nt * 4 + (j >> 1)][(j & 1) * 2 + 0] = pack_bf16(v[0], v[1]);
+        kf[nt * 4 + (j >> 1)][(j & 1) * 2 + 1] = pack_bf16(v[2], v[3]);
+      }
+    }
+    fence_regs(kf);
 
-      // jl = [f_0 | ...] @ lv + lvb, WG 0 on O tiles [0, jl_split), WG 1 on
-      // the rest
-      const int nt0 = w == 0 ? 0 : p.jl_split;
-      const int nt1 = w == 0 ? p.jl_split : p.OT;
+    // kv = kh @ k2 + k2b, one 64-column tile at a time; K4 takes the
+    // round-1 logits bf16(kv) . ce in place of writing it
+    const Vec<kMode>* k2b = sm.vsm + p.v_k2b;
+    float lg[2] = {0.f, 0.f};
+    if (kMode == kRender) bar_sync(kCeBar, kConsumers);  // ce is stored
 #pragma unroll
-      for (int nt = 0; nt < kMaxOT; ++nt)
+    for (int nt = 0; nt < kMaxKT; ++nt) {
+      if (nt < p.KT) {
+        float av[kNK / 2];
 #pragma unroll
-        for (int i = 0; i < kNO / 2; ++i) acc[nt][i] = 0.f;
-      for (int kb = 0; kb < p.nkbf; ++kb) {
-        const uint64_t da = wgmma_desc(smem_u32(f_block(p, fbuf, comb, kb)));
+        for (int i = 0; i < kNK / 2; ++i) av[i] = 0.f;
+        fence_regs(av);
 #pragma unroll
-        for (int nt = 0; nt < kMaxOT; ++nt) {
-          if (nt >= nt0 && nt < nt1) {
+        for (int kb = 0; kb < kMaxKT; ++kb) {
+          if (kb < p.nkbK) {
             const uint64_t db = wgmma_desc(ring.acquire());
-            fence_regs(acc[nt]);
             wgmma_fence();
 #pragma unroll
             for (int ks = 0; ks < 4; ++ks)
-              wgmma_ss_n96(acc[nt], da + 2 * ks, db + 2 * ks);
+              wgmma_rs_n64(av, kf[kb * 4 + ks], db + 2 * ks);
             wgmma_commit();
             ring.release();
           }
         }
-      }
-      const bf16* lvb = vsm + p.v_lvb;
+        fence_regs(av);
+        if (kMode == kRender) {
+          dot_ce(p, nt, av, k2b, scr_ce, j0, n_live, lg);
+        } else {
 #pragma unroll
-      for (int nt = 0; nt < kMaxOT; ++nt) {
-        fence_regs(acc[nt]);
+          for (int h = 0; h < 2; ++h) {
+            const int row = r0 + 8 * h;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + r0 + 8 * h;
-#pragma unroll
-          for (int j = 0; j < kNO / 8; ++j) {
-            const int col = nt * kNO + j * 8 + tq;
-            if (nt >= nt0 && nt < nt1 && col < p.O && m < p.M) {
-              const float2 b = lds2(lvb + col);
-              *reinterpret_cast<uint32_t*>(p.jl + (size_t)m * p.O + col) =
-                  pack_bf16(acc[nt][4 * j + 2 * h] + b.x,
-                            acc[nt][4 * j + 2 * h + 1] + b.y);
-            }
-          }
-        }
-      }
-      if (w == 1) {
-        // kh = relu([f_0 | ...] @ km + kmb), bf16 in registers
-        float ak[kMaxKT][kNK / 2];
-#pragma unroll
-        for (int nt = 0; nt < kMaxKT; ++nt)
-#pragma unroll
-          for (int i = 0; i < kNK / 2; ++i) ak[nt][i] = 0.f;
-        for (int kb = 0; kb < p.nkbf; ++kb) {
-          const uint64_t da =
-              wgmma_desc(smem_u32(f_block(p, fbuf, comb, kb)));
-#pragma unroll
-          for (int nt = 0; nt < kMaxKT; ++nt) {
-            if (nt < p.KT) {
-              const uint64_t db = wgmma_desc(ring.acquire());
-              fence_regs(ak[nt]);
-              wgmma_fence();
-#pragma unroll
-              for (int ks = 0; ks < 4; ++ks)
-                wgmma_ss_n64(ak[nt], da + 2 * ks, db + 2 * ks);
-              wgmma_commit();
-              ring.release();
-            }
-          }
-        }
-        const bf16* kmb = vsm + p.v_kmb;
-        uint32_t kf[kMaxKT * 4][4];
-#pragma unroll
-        for (int nt = 0; nt < kMaxKT; ++nt) {
-          fence_regs(ak[nt]);
-#pragma unroll
-          for (int j = 0; j < kNK / 8; ++j) {
-            const int col = nt * kNK + j * 8 + tq;
-            float v[4] = {0.f, 0.f, 0.f, 0.f};
-            if (nt < p.KT) {
-              const float2 b = lds2(kmb + col);
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                v[e] = fmaxf(ak[nt][4 * j + e] + (e & 1 ? b.y : b.x), 0.f);
-            }
-            kf[nt * 4 + (j >> 1)][(j & 1) * 2 + 0] = pack_bf16(v[0], v[1]);
-            kf[nt * 4 + (j >> 1)][(j & 1) * 2 + 1] = pack_bf16(v[2], v[3]);
-          }
-        }
-        fence_regs(kf);
-
-        // kv = kh @ k2 + k2b, one 64-column tile at a time
-        const bf16* k2b = vsm + p.v_k2b;
-#pragma unroll
-        for (int nt = 0; nt < kMaxKT; ++nt) {
-          if (nt < p.KT) {
-            float av[kNK / 2];
-#pragma unroll
-            for (int i = 0; i < kNK / 2; ++i) av[i] = 0.f;
-            fence_regs(av);
-#pragma unroll
-            for (int kb = 0; kb < kMaxKT; ++kb) {
-              if (kb < p.nkbK) {
-                const uint64_t db = wgmma_desc(ring.acquire());
-                wgmma_fence();
-#pragma unroll
-                for (int ks = 0; ks < 4; ++ks)
-                  wgmma_rs_n64(av, kf[kb * 4 + ks], db + 2 * ks);
-                wgmma_commit();
-                ring.release();
-              }
-            }
-            fence_regs(av);
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int m = m0 + r0 + 8 * h;
-#pragma unroll
-              for (int j = 0; j < kNK / 8; ++j) {
-                const int col = nt * kNK + j * 8 + tq;
-                if (col < p.K && m < p.M) {
-                  const float2 b = lds2(k2b + col);
-                  *reinterpret_cast<uint32_t*>(p.kv + (size_t)m * p.K + col) =
-                      pack_bf16(av[4 * j + 2 * h] + b.x,
-                                av[4 * j + 2 * h + 1] + b.y);
-                }
+            for (int j = 0; j < kNK / 8; ++j) {
+              const int col = nt * kNK + j * 8 + tq;
+              if (col < p.K && row < n_live) {
+                const float2 b = lds2(k2b + col);
+                *reinterpret_cast<uint32_t*>(p.kv + (size_t)(m0 + row) * p.K +
+                                             col) =
+                    pack_bf16(av[4 * j + 2 * h] + b.x,
+                              av[4 * j + 2 * h + 1] + b.y);
               }
             }
           }
         }
       }
     }
+    if (kMode == kRender) store_logits(lg, j0, n_live, sm.rsm);
+  } else if (kMode == kRender) {
+    // ce = bf16(relu(lc @ qe1 + qe1b)) @ qe2 + qe2b, bf16 to the scratch
+    uint32_t la[4];
+    load_lc(p, m0, n_live, la);
+    const Vec<kMode>* qe1b = sm.vsm + p.v_q;
+    const Vec<kMode>* qe2b = qe1b + p.KT * kNK;
+    query_mlp(
+        p, ring, la, [&](int col) { return lds2(qe1b + col); },
+        [&](int nt, const float (&av)[kNK / 2]) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r0 + 8 * h;
+#pragma unroll
+            for (int j = 0; j < kNK / 8; ++j) {
+              const int col = nt * kNK + j * 8 + tq;
+              if (col < p.K && row < n_live) {
+                const float2 b = lds2(qe2b + col);
+                *reinterpret_cast<uint32_t*>(
+                    scr_ce + (size_t)(j0 + row) * p.K + col) =
+                    pack_bf16(av[4 * j + 2 * h] + b.x,
+                              av[4 * j + 2 * h + 1] + b.y);
+              }
+            }
+          }
+        });
+    bar_arrive(kCeBar, kConsumers);
   }
 }
 
-// Fills `a` from the C interface's pointers, checks the sizes the kernel
-// relies on and derives its tile counts. Returns a cudaError_t code.
-inline int fill_core(CoreArgs& a, int n_levels, void* const* tables,
-                     void* const* cells, const int* channels, int S,
-                     const void* const* aux, const void* stages,
-                     long long stage_bytes, const void* vecs, void* jl,
-                     void* kv, int M, int F, int H1, int O, int K, int rp) {
-  if (n_levels < 1 || n_levels > kMaxLevels || S < 2 || S > kMaxStreams ||
-      M <= 0 || rp <= 0)
-    return (int)cudaErrorInvalidValue;
-  int F_sum = 0;
+// Sum (or max) of x over the kConsumers threads; every one gets it.
+template <bool kMax>
+__device__ float consumers_reduce(float x, float* red8) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = kMax ? fmaxf(x, y) : x + y;
+  }
+  if (lane == 0) red8[warp] = x;
+  bar_sync(kPairBar, kConsumers);
+  float y = red8[0];
+#pragma unroll
+  for (int i = 1; i < kConsumers / 32; ++i)
+    y = kMax ? fmaxf(y, red8[i]) : y + red8[i];
+  bar_sync(kPairBar, kConsumers);
+  return y;
+}
+
+// Joint softmax of x[0:n] in f32, in place, each weight rounded to bf16
+// (the value type, as the attention sums it).
+__device__ void softmax_bf16(float* x, int n, float* red8) {
+  const int t = threadIdx.x;
+  float m = -INFINITY;
+  for (int j = t; j < n; j += kConsumers) m = fmaxf(m, x[j]);
+  m = consumers_reduce<true>(m, red8);
+  float den = 0.f;
+  for (int j = t; j < n; j += kConsumers) {
+    const float e = expf(x[j] - m);
+    x[j] = e;
+    den += e;
+  }
+  den = consumers_reduce<false>(den, red8);
+  for (int j = t; j < n; j += kConsumers) x[j] = bf16_round(x[j] / den);
+  bar_sync(kPairBar, kConsumers);
+}
+
+// out[c] = sum_j wgt[j] * src[j][c] (f32) for c < O, src (n, O) bf16: warp
+// q sums the rows j = q (mod 8), each lane 8 columns at a time (16-byte
+// loads), into red (8, ldr); then one thread a column adds the 8 partial
+// sums.
+__device__ void weighted_sum(const bf16* src, const float* wgt, int n, int O,
+                             float* red, int ldr, float* out) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int ch = lane; ch < O / 8; ch += 32) {
+    float a[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a[e] = 0.f;
+    for (int j = warp; j < n; j += kConsumers / 32) {
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(src + (size_t)j * O + ch * 8);
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&v);
+      const float wj = wgt[j];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(x[e]);
+        a[2 * e] += wj * f.x;
+        a[2 * e + 1] += wj * f.y;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[warp * ldr + ch * 8 + e] = a[e];
+  }
+  bar_sync(kPairBar, kConsumers);
+  for (int c = t; c < O; c += kConsumers) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kConsumers / 32; ++q) s += red[q * ldr + c];
+    out[c] = s;
+  }
+  bar_sync(kPairBar, kConsumers);
+}
+
+// fin(c, sum_i x_i * W[i][c]) for c < n_pad (the sum 0 past K), W (n_in,
+// K) bf16, x in shared memory (rounded to bf16 first with round_x): warp q
+// sums the rows i = q (mod 8), each lane 4 columns at a time, into red
+// (8, ldr); then one thread a column adds the 8 partial sums.
+template <typename Fin>
+__device__ void vecmat(const float* x, bool round_x, const bf16* W, int n_in,
+                       int K, int n_pad, float* red, int ldr, Fin fin) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int c4 = lane; c4 < K / 4; c4 += 32) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = warp; i < n_in; i += kConsumers / 32) {
+      const float xi = round_x ? bf16_round(x[i]) : x[i];
+      const uint2 v =
+          __ldg(reinterpret_cast<const uint2*>(W + (size_t)i * K + c4 * 4));
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+      a[0] += xi * lo.x;
+      a[1] += xi * lo.y;
+      a[2] += xi * hi.x;
+      a[3] += xi * hi.y;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[warp * ldr + c4 * 4 + e] = a[e];
+  }
+  bar_sync(kPairBar, kConsumers);
+  for (int c = t; c < n_pad; c += kConsumers) {
+    float s = 0.f;
+    if (c < K)
+#pragma unroll
+      for (int q = 0; q < kConsumers / 32; ++q) s += red[q * ldr + c];
+    fin(c, s);
+  }
+  bar_sync(kPairBar, kConsumers);
+}
+
+// K4's end of a ray (b, r) = (unit / R, unit % R), once its tiles have
+// written their jl and ce rows and round-1 logits: the joint softmax over
+// the 2P samples, at_wt = bf16(w), z1 = sum_j bf16(w_j) jl_j (f32). With
+// repeat: ze = bf16(bf16(z1) @ el + elb) and u = ze @ qr1[:K] + qr1b (the
+// z_embed half of the repeat-query MLP, the same for every sample of the
+// ray, so computed once), then per tile (warpgroup w taking every other)
+// q2 = bf16(relu(lc @ qr1[K:] + u)) @ qr2 + qr2b and the round-2 logits
+// bf16(q2) . ce / 16, the softmax, z2 = sum_j bf16(w2_j) jl_j and
+// z = bf16(z2 + 2 z1). The per-ray sums are warp-parallel reductions into
+// comb and fbuf, which the next tile overwrites, and which are zeroed
+// after.
+template <int kMode>
+__device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
+                         Ring& ring, int w, int unit, const bf16* scr_jl,
+                         const bf16* scr_ce) {
+  const int b = unit / p.R, r = unit - b * p.R, n = 2 * p.P;
+  const int t = threadIdx.x;
+  const int Op = p.OT * kNO, Kp = p.KT * kNK, ldr = max(Op, Kp);
+  float* logit = sm.rsm;
+  float* z1 = logit + ((n + 3) & ~3);
+  float* z2 = z1 + Op;
+  float* ze = z2 + Op;
+  float* u = ze + Kp;
+  float* red8 = u + Kp;
+  float* red = reinterpret_cast<float*>(sm.comb);
+  bar_sync(kPairBar, kConsumers);  // the ray's logits, jl and ce are there
+  softmax_bf16(logit, n, red8);
+  for (int j = t; j < n; j += kConsumers) {
+    const int v = j >= p.P;
+    p.wt[((size_t)(b * 2 + v) * p.R + r) * p.P + (j - v * p.P)] =
+        __float2bfloat16(logit[j]);
+  }
+  weighted_sum(scr_jl, logit, n, p.O, red, ldr, z1);
+  bf16* z_out = p.z + (size_t)unit * p.O;
+  if (!p.repeat) {
+    for (int c = t; c < p.O; c += kConsumers)
+      z_out[c] = __float2bfloat16(z1[c]);
+  } else {
+    const Vec<kMode>* elb = sm.vsm + p.v_q + 2 * Kp;
+    const Vec<kMode>* qr1b = elb + Kp;
+    const Vec<kMode>* qr2b = qr1b + Kp;
+    vecmat(z1, true, p.mats, p.O, p.K, Kp, red, ldr, [&](int c, float s) {
+      ze[c] = bf16_round(s + float(elb[c]));
+    });
+    vecmat(ze, false, p.mats + (size_t)p.O * p.K, p.K, p.K, Kp, red, ldr,
+           [&](int c, float s) { u[c] = s + float(qr1b[c]); });
+    for (int k = w; k < 2 * p.tv; k += 2) {
+      const int v = k / p.tv, sub = k - v * p.tv;
+      const int m0 = ((b * 2 + v) * p.R + r) * p.P + sub * kRows;
+      const int n_live = min(kRows, p.P - sub * kRows);
+      const int j0 = v * p.P + sub * kRows;
+      uint32_t la[4];
+      load_lc(p, m0, n_live, la);
+      float lg[2] = {0.f, 0.f};
+      query_mlp(
+          p, ring, la, [&](int col) { return make_float2(u[col], u[col + 1]); },
+          [&](int nt, const float (&av)[kNK / 2]) {
+            dot_ce(p, nt, av, qr2b, scr_ce, j0, n_live, lg);
+          });
+      store_logits(lg, j0, n_live, logit);
+    }
+    bar_sync(kPairBar, kConsumers);  // the round-2 logits are there
+    softmax_bf16(logit, n, red8);
+    weighted_sum(scr_jl, logit, n, p.O, red, ldr, z2);
+    for (int c = t; c < p.O; c += kConsumers)
+      z_out[c] = __float2bfloat16(z2[c] + 2.f * z1[c]);
+  }
+  // Padding columns of comb and the f rows are read again by products with
+  // zero weights, so they must not keep f32 bits.
+  for (int i = t * 4; i < 8 * ldr; i += kConsumers * 4)
+    *reinterpret_cast<float4*>(red + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+  fence_proxy_async();
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+    exchange_core_kernel(const CoreArgs p) {
+  using V = Vec<kMode>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* slots = base;
+  Smem<kMode> sm;
+  sm.comb = slots + p.n_stages * kLargeStage;
+  sm.fbuf = sm.comb + p.nkbF * kKBlock;
+  sm.aux = reinterpret_cast<bf16*>(sm.fbuf + p.nkb_fbuf * kKBlock);
+  sm.cell = reinterpret_cast<int*>(sm.aux + kRows * 16);
+  V* vsm = reinterpret_cast<V*>(sm.cell + kRows * kMaxLevels);
+  sm.vsm = vsm;
+  sm.rsm = reinterpret_cast<float*>(vsm + p.n_vecs);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm.rsm + p.n_rsm);
+  const uint32_t full = smem_u32(bars), empty = full + 8 * p.n_stages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.n_stages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 4);  // each warp of the consumer warpgroup
+    }
+    fence_mbar_init();
+  }
+  // Every product runs all four k-steps of every k-block: the weight stages
+  // are zero past each depth, so the tiles' columns past F and S*O only
+  // need to hold finite values (0 * Inf is NaN). Zero them once; later they
+  // hold only combined rows, f values or zeros (the partial-sum exchange
+  // through k-block 0 and K4's per-ray sums leave zeros behind).
+  for (int i = threadIdx.x * 16; i < (p.nkbF + p.nkb_fbuf) * kKBlock;
+       i += kThreads * 16)
+    *reinterpret_cast<uint4*>(sm.comb + i) = make_uint4(0u, 0u, 0u, 0u);
+  // The vectors, out of reach of L1's misses: every chunk's first step
+  // reads W1[F:F+3] and b1.
+  for (int i = threadIdx.x; i < p.n_vecs; i += kThreads)
+    vsm[i] = V(p.vecs[i]);
+  fence_proxy_async();
+  __syncthreads();
+
+  // Three warpgroups start at 168 registers a thread; the producer's (one
+  // warp works, three wait) gives its share to the consumers, 232 each.
+  if (warp >= kProducerWarp) {
+    reg_dealloc<40>();
+    if (warp == kProducerWarp && lane < 2)
+      produce<kMode>(p, lane, smem_u32(slots), full, empty);
+  } else {
+    reg_alloc<232>();
+    const int w = warp >> 2;
+    const int nh = p.n_stages / 2;
+    Ring ring{smem_u32(slots) + w * nh * kLargeStage, full + 8 * w * nh,
+              empty + 8 * w * nh, nh, 0, 0u};
+    bf16* scr_jl = nullptr;
+    bf16* scr_ce = nullptr;
+    if (kMode == kRender) {
+      scr_jl = p.scratch + (size_t)blockIdx.x * 2 * p.P * (p.O + p.K);
+      scr_ce = scr_jl + (size_t)2 * p.P * p.O;
+    }
+    for (int unit = blockIdx.x; unit < p.n_units; unit += gridDim.x) {
+      if (kMode == kRender) {
+        const int b = unit / p.R, r = unit - b * p.R;
+        for (int k = 0; k < 2 * p.tv; ++k) {
+          const int v = k / p.tv, sub = k - v * p.tv;
+          run_tile<kMode>(p, sm, ring, w,
+                          ((b * 2 + v) * p.R + r) * p.P + sub * kRows,
+                          min(kRows, p.P - sub * kRows), v,
+                          v * p.P + sub * kRows, scr_jl, scr_ce);
+        }
+        ray_tail<kMode>(p, sm, ring, w, unit, scr_jl, scr_ce);
+      } else {
+        const int m0 = unit * kRows;
+        run_tile<kMode>(p, sm, ring, w, m0, min(kRows, p.M - m0), 0, 0,
+                        nullptr, nullptr);
+      }
+    }
+  }
+}
+
+// ---- host side --------------------------------------------------------
+
+// The level fields of `a` from the C interface's pointers. Returns a
+// cudaError_t code; F receives the levels' channel sum.
+inline int fill_levels(CoreArgs& a, int n_levels, void* const* tables,
+                       void* const* cells, const int* channels, int* F) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  *F = 0;
   for (int l = 0; l < kMaxLevels; ++l) {
     const bool used = l < n_levels;
     a.table[l] = used ? static_cast<const bf16*>(tables[l]) : nullptr;
@@ -613,66 +1162,104 @@ inline int fill_core(CoreArgs& a, int n_levels, void* const* tables,
     a.channels[l] = used ? channels[l] : 0;
     if (used && (channels[l] <= 0 || channels[l] % 8 != 0))
       return (int)cudaErrorInvalidValue;
-    F_sum += a.channels[l];
+    *F += a.channels[l];
   }
-  if (F_sum != F || F % 16 || H1 <= 0 || H1 % 16 || O <= 0 || O % 8 ||
-      (S * O) % 16 || O > kMaxOT * kNO || K <= 0 || K % 16 ||
-      K > kMaxKT * kNK)
-    return (int)cudaErrorInvalidValue;
-  for (int s = 0; s < kMaxStreams; ++s)
-    a.aux[s] = s < S ? static_cast<const bf16*>(aux[s]) : nullptr;
   a.n_levels = n_levels;
-  a.stages = static_cast<const unsigned char*>(stages);
-  a.vecs = static_cast<const float*>(vecs);
-  a.jl = static_cast<bf16*>(jl);
-  a.kv = static_cast<bf16*>(kv);
+  return 0;
+}
+
+// Checks the sizes the kernel relies on and derives its tile counts, stage
+// and vector offsets. S: streams (1 for kMlp); K ignored by kMlp; B, R, P
+// and repeat only read by kRender. Returns a cudaError_t code.
+inline int fill_sizes(CoreArgs& a, int mode, int S, int M, int F, int H1,
+                      int O, int K, long long stage_bytes, int B, int R,
+                      int P, int repeat) {
+  const bool mlp = mode == kMlp, render = mode == kRender;
+  if (M <= 0 || F <= 0 || F % 16 || H1 <= 0 || H1 % 16 || O <= 0 || O % 8 ||
+      S < 1 || S > kMaxStreams || (mlp ? S != 1 : S < 2))
+    return (int)cudaErrorInvalidValue;
+  if (!mlp && (K <= 0 || K % 16 || K > kMaxKT * kNK || (S * O) % 16))
+    return (int)cudaErrorInvalidValue;
+  if (render && (S != 2 || B <= 0 || R <= 0 || P <= 0 ||
+                 (long long)B * 2 * R * P != M))
+    return (int)cudaErrorInvalidValue;
   a.S = S;
   a.M = M;
   a.F = F;
   a.H1 = H1;
   a.O = O;
-  a.K = K;
-  a.rp = rp;
+  a.K = mlp ? 0 : K;
+  a.B = B;
+  a.R = R;
+  a.P = P;
+  a.repeat = repeat;
   const auto cdiv = [](int x, int y) { return (x + y - 1) / y; };
   a.nch = cdiv(H1, kNC);
   a.nkbF = cdiv(F, 64);
   a.OT = cdiv(O, kNO);
-  a.KT = cdiv(K, kNK);
-  a.nkbf = cdiv(S * O, 64);
-  a.nkbK = cdiv(K, 64);
+  a.osplit = a.OT > kMaxOT;
+  a.KT = cdiv(a.K, kNK);
+  a.nkbf = mlp ? 0 : cdiv(S * O, 64);
+  a.nkbK = a.KT;
   a.chunk_bytes = a.nkbF * kSmallStage + a.OT * kLargeStage;
   a.jl_split = a.OT - a.OT / 2;
-  const long long tail = (long long)a.nkbf * a.OT * kLargeStage +
-                         (long long)a.nkbf * a.KT * kSmallStage +
-                         (long long)a.KT * a.nkbK * kSmallStage;
-  if (stage_bytes != (long long)a.nch * a.chunk_bytes + tail)
-    return (int)cudaErrorInvalidValue;
+  a.jl0 = (long long)a.nch * a.chunk_bytes;
+  a.kh0 = a.jl0 + (long long)a.nkbf * a.OT * kLargeStage;
+  a.kv0 = a.kh0 + (long long)a.nkbf * a.KT * kSmallStage;
+  a.qe0 = a.kv0 + (long long)a.KT * a.nkbK * kSmallStage;
+  a.qe20 = a.qe0 + (long long)a.KT * kSmallStage;
+  a.qr0 = a.qe20 + (long long)a.KT * a.nkbK * kSmallStage;
+  a.qr20 = a.qr0 + (long long)a.KT * kSmallStage;
+  const long long total =
+      mlp ? a.jl0
+          : !render ? a.qe0
+                    : repeat ? a.qr20 + (long long)a.KT * a.nkbK * kSmallStage
+                             : a.qr0;
+  if (stage_bytes != total) return (int)cudaErrorInvalidValue;
   a.ldv = a.nch * kNC;
   a.v_b1 = 3 * a.ldv;
   a.v_b2 = a.v_b1 + a.ldv;
   a.v_lvb = a.v_b2 + a.OT * kNO;
   a.v_kmb = a.v_lvb + a.OT * kNO;
   a.v_k2b = a.v_kmb + a.KT * kNK;
-  a.n_vecs = a.v_k2b + a.KT * kNK;
+  a.v_q = a.v_k2b + a.KT * kNK;
+  a.n_vecs = mlp ? a.v_lvb : render ? a.v_q + 5 * a.KT * kNK : a.v_q;
+  a.tv = render ? cdiv(P, kRows) : 0;
+  a.n_units = render ? B * R : cdiv(M, kRows);
+  a.n_rsm = render ? ((2 * P + 3) & ~3) + 2 * a.OT * kNO + 2 * a.KT * kNK +
+                         32
+                   : 0;
   a.n_stages = 0;
   a.nkb_fbuf = 0;
   return 0;
 }
 
-// Launches the kernel on `stream`: one block per SM (or per tile, if
+// Launches the kernel on `stream`: one block per SM (or per unit, if
 // fewer), as many stage slots as the shared memory holds (up to
-// kMaxStages), split between the two rings, clusters of one block. info
+// kMaxStages), split between the two rings, clusters of one block. K4
+// needs scratch_bytes >= grid * 2P * (O + K) * 2 in a.scratch. info
 // receives the launch's (grid, stage slots, shared bytes, threads a block,
 // cluster x, y, z).
-template <bool kViewSwap>
-int launch_core(CoreArgs& a, int* info, void* stream) {
-  // Without the swap the last stream's f goes into the comb tile.
-  a.nkb_fbuf = kViewSwap ? a.nkbf : (((a.S - 1) * a.O + 63) / 64);
-  if (a.nkbf - a.nkb_fbuf > a.nkbF) a.nkb_fbuf = a.nkbf;
-  const size_t fixed = 1024 + (size_t)(a.nkbF + a.nkb_fbuf) * kKBlock +
-                       kRows * 16 * sizeof(bf16) +
+template <int kMode>
+int launch_core(CoreArgs& a, int* info, void* stream,
+                long long scratch_bytes = 0) {
+  // The last stream's f goes into the comb tile where the slot order is
+  // the same for every row of a tile and, above O = 288, each warpgroup
+  // has one group of O tiles (both then finish reading comb first).
+  a.nkb_fbuf = a.nkbf;
+  if ((kMode == kStreams || kMode == kRender) && a.OT <= 2 * kMaxOT) {
+    a.nkb_fbuf = ((a.S - 1) * a.O + 63) / 64;
+    if (a.nkbf - a.nkb_fbuf > a.nkbF) a.nkb_fbuf = a.nkbf;
+  }
+  const size_t tiles = (size_t)(a.nkbF + a.nkb_fbuf) * kKBlock;
+  if (kMode == kRender &&
+      (size_t)8 * (a.OT * kNO > a.KT * kNK ? a.OT * kNO : a.KT * kNK) * 4 >
+          tiles)
+    return (int)cudaErrorInvalidValue;
+  const size_t fixed = 1024 + tiles + kRows * 16 * sizeof(bf16) +
                        kRows * kMaxLevels * sizeof(int) +
-                       a.n_vecs * sizeof(bf16) + 16 * kMaxStages;
+                       a.n_vecs * sizeof(Vec<kMode>) +
+                       a.n_rsm * sizeof(float) + 16 * kMaxStages;
   int device = 0, optin = 0, n_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -683,13 +1270,16 @@ int launch_core(CoreArgs& a, int* info, void* stream) {
   a.n_stages = (int)((optin - fixed) / kLargeStage) & ~1;
   if (a.n_stages > kMaxStages) a.n_stages = kMaxStages;
   const size_t smem = fixed + (size_t)a.n_stages * kLargeStage;
-  const auto kernel = exchange_core_kernel<kViewSwap>;
+  const int grid = a.n_units < n_sm ? a.n_units : n_sm;
+  if (kMode == kRender &&
+      scratch_bytes < (long long)grid * 2 * a.P * (a.O + a.K) * 2)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = exchange_core_kernel<kMode>;
   const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  const int n_tiles = (a.M + kRows - 1) / kRows;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_tiles < n_sm ? n_tiles : n_sm);
+  cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

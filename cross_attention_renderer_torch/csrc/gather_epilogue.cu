@@ -47,9 +47,18 @@ extern "C" int fused_exchange_epilogue_bf16(
   using namespace exchange_core;
   const void* const aux[2] = {aux_self, aux_cross};
   CoreArgs a;
-  const int err = fill_core(a, n_levels, tables, cells, channels, 2, aux,
-                            stages, stage_bytes, vecs, jl, kv, M, F, H1, O,
-                            K, rp);
+  int F_sum = 0;
+  int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
   if (err) return err;
-  return launch_core<true>(a, info, stream);
+  if (F_sum != F || rp <= 0) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < kMaxStreams; ++s)
+    a.aux[s] = s < 2 ? static_cast<const bf16*>(aux[s]) : nullptr;
+  a.stages = static_cast<const unsigned char*>(stages);
+  a.vecs = static_cast<const float*>(vecs);
+  a.jl = static_cast<bf16*>(jl);
+  a.kv = static_cast<bf16*>(kv);
+  a.rp = rp;
+  err = fill_sizes(a, kPair, 2, M, F, H1, O, K, stage_bytes, 0, 0, 0, 0);
+  if (err) return err;
+  return launch_core<kPair>(a, info, stream);
 }

@@ -46,10 +46,18 @@ extern "C" int fused_exchange_epilogue_multi_bf16(
     int F, int H1, int O, int K, int* info, void* stream) {
   using namespace exchange_core;
   CoreArgs a;
-  // rp is read only by the V=2 view swap.
-  const int err = fill_core(a, n_levels, tables, cells, channels, S, aux,
-                            stages, stage_bytes, vecs, jl, kv, M, F, H1, O,
-                            K, /*rp=*/1);
+  int F_sum = 0;
+  int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
   if (err) return err;
-  return launch_core<false>(a, info, stream);
+  if (F_sum != F || S < 2) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < kMaxStreams; ++s)
+    a.aux[s] = s < S ? static_cast<const bf16*>(aux[s]) : nullptr;
+  a.stages = static_cast<const unsigned char*>(stages);
+  a.vecs = static_cast<const float*>(vecs);
+  a.jl = static_cast<bf16*>(jl);
+  a.kv = static_cast<bf16*>(kv);
+  a.rp = 1;
+  err = fill_sizes(a, kStreams, S, M, F, H1, O, K, stage_bytes, 0, 0, 0, 0);
+  if (err) return err;
+  return launch_core<kStreams>(a, info, stream);
 }

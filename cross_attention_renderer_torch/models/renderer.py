@@ -455,19 +455,15 @@ class CrossAttentionRenderer(nn.Module):
 
     def _epilogue_weights(self) -> tuple[Tensor, ...]:
         """The fused epilogues' ten parameters themselves (kernels in (in,
-        out) layout, biases). K2 and K3 lay them out once per set of
+        out) layout, biases). K2, K3 and K4 lay them out once per set of
         parameters (``prepared_weights``); their plain versions cast them to
-        the rows' type, as :meth:`_epilogue_params` does."""
+        the rows' type."""
         return (self.query_encode_latent.kernel, self.query_encode_latent.bias,
                 self.query_encode_latent_2.kernel,
                 self.query_encode_latent_2.bias,
                 self.latent_value.kernel, self.latent_value.bias,
                 self.key_map.kernel, self.key_map.bias,
                 self.key_map_2.kernel, self.key_map_2.bias)
-
-    def _epilogue_params(self) -> tuple[Tensor, ...]:
-        """The fused epilogues' weights, in the model type."""
-        return tuple(t.to(self.dtype) for t in self._epilogue_weights())
 
     def _fused_exchange_v2(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr,
                            H, W) -> tuple[Tensor, Tensor]:
@@ -491,21 +487,17 @@ class CrossAttentionRenderer(nn.Module):
         B, V, R, P, _ = pt_views.shape
         cells, (aux_self, aux_cross) = self._stream_takes(
             zp, pixel_val, pt_views, ctx_c2w, ctx_intr, H, W)
-        ld, dt, dev = self.latent_dim, self.dtype, pt_views.device
+        # The parameters themselves (K4 lays them out once per set, as K2
+        # does; its plain version casts them to the rows' type). Without
+        # repeat attention no round-2 module exists and none is passed.
+        modules = [self.query_embed, self.query_embed_2]
         if self.repeat_attention:
-            round2 = [t for m in (self.encode_latent, self.query_repeat_embed,
-                                  self.query_repeat_embed_2)
-                      for t in (m.kernel, m.bias)]
-        else:
-            # No round-2 modules exist; the kernel ignores these operands.
-            round2 = [torch.zeros(s, device=dev) for s in (
-                (ld, HIDDEN_DIM), (HIDDEN_DIM,),
-                (HIDDEN_DIM + QUERY_FEAT_DIM, HIDDEN_DIM), (HIDDEN_DIM,),
-                (HIDDEN_DIM, HIDDEN_DIM), (HIDDEN_DIM,))]
-        params = self._epilogue_params() + tuple(t.to(dt) for t in (
-            self.query_embed.kernel, self.query_embed.bias,
-            self.query_embed_2.kernel, self.query_embed_2.bias, *round2))
-        lc = local_coords.reshape(-1, QUERY_FEAT_DIM).to(dt).contiguous()
+            modules += [self.encode_latent, self.query_repeat_embed,
+                        self.query_repeat_embed_2]
+        params = self._epilogue_weights() + tuple(
+            t for m in modules for t in (m.kernel, m.bias))
+        lc = local_coords.reshape(-1, QUERY_FEAT_DIM).to(self.dtype
+                                                          ).contiguous()
         return fused_render_core(zp, cells, aux_self, aux_cross, lc, params,
                                  B, R, P, self.repeat_attention)
 
@@ -527,7 +519,8 @@ class CrossAttentionRenderer(nn.Module):
     def _fuse_latent(self, feat: Tensor, points: Tensor) -> Tensor:
         """Shared 2-layer exchange encoder on ``[feat | tanh(pt/5)]``
         (renderer.py:821-855, models.py:335-346); kernel K9 when
-        ``fused_mlp`` is set."""
+        ``fused_mlp`` is set, handed the parameters themselves (W1's two
+        row blocks as views of its kernel), which it lays out once."""
         t = torch.tanh(points / 5.0).to(feat.dtype)
         qel, qel2 = self.query_encode_latent, self.query_encode_latent_2
         if self.fused_mlp:

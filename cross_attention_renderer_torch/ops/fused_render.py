@@ -29,7 +29,7 @@ weights of ``gather_epilogue._reference`` (w1, b1, w2, b2, lv, lvb, km,
 kmb, k2, k2b), then qe1 (16, K), qe1b, qe2 (K, K), qe2b (``query_embed``
 and ``query_embed_2``), el (O, K), elb (``encode_latent``), qr1 (K + 16,
 K), qr1b, qr2 (K, K), qr2b (``query_repeat_embed`` and ``_2``). Without
-``repeat`` the last six are ignored.
+``repeat`` the last six are ignored and may be left out (a 14-tuple).
 """
 
 from __future__ import annotations
@@ -40,13 +40,12 @@ from typing import Sequence
 import torch
 
 from cross_attention_renderer_torch.ops import _build
-from cross_attention_renderer_torch.ops.gather_epilogue import (
-    _checked_args, _combine, _mat, _vec)
+from cross_attention_renderer_torch.ops import gather_epilogue as GE
+from cross_attention_renderer_torch.ops.gather_epilogue import _combine
 
 Tensor = torch.Tensor
 
 ATTN_SCALE = 1.0 / 16.0     # models.py:532,555
-SMEM_LIMIT = 232_448        # bytes of shared memory a block may use (H100)
 
 
 def _fuse_stream(vals: Sequence[Tensor], aux: Tensor, w1: Tensor, b1: Tensor,
@@ -87,7 +86,7 @@ def _reference(vals_both: Sequence[Tensor], aux_self: Tensor,
     type. Returns (z (B, R, O) in the rows' type, at_wt (B, 2, R, P) f32).
     """
     (w1, b1, w2, b2, lv, lvb, km, kmb, k2, k2b,
-     qe1, qe1b, qe2, qe2b, el, elb, qr1, qr1b, qr2, qr2b) = params
+     qe1, qe1b, qe2, qe2b) = params[:14]
     dt = vals_both[0].dtype
     M = B * 2 * R * P
     O = w2.shape[1]
@@ -107,6 +106,7 @@ def _reference(vals_both: Sequence[Tensor], aux_self: Tensor,
     z1, at_wt = _attend(ce, kv, jl, B, R, P)
     if not repeat:
         return z1, at_wt
+    el, elb, qr1, qr1b, qr2, qr2b = params[14:20]
     E = el.shape[1]
     ze = z1 @ el.to(dt) + elb.to(dt)                       # (B, R, E)
     # ze is the same for every sample of a ray, so its product with the
@@ -152,9 +152,10 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
       repeat: run round 2 and return ``z2 + 2 z1``; else ``z1``.
 
     CPU tensors take the plain version. CUDA tensors must be bf16 (cells
-    int32) and contiguous, any R, P up to what one block's shared memory
-    holds (64 at the flagship widths); they launch the kernel, and anything
-    else raises."""
+    int32) and contiguous, any B, R and P (up to what a block's shared
+    memory holds of the ray's 2P logits); they launch the kernel, and
+    anything else raises. The weights are laid out once per set of
+    parameter tensors (``gather_epilogue.prepared_render``)."""
     if aux_self.device.type == 'cpu':
         return fused_render_core_reference(tables, cells, aux_self,
                                            aux_cross, local_coords, params,
@@ -164,56 +165,57 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
 
 
 fused_render_core.launches = 0  # kernel launches, for the smoke test
+# the last launch's (grid, stage slots, shared bytes, threads a block,
+# cluster x, y, z)
+fused_render_core.last_launch = None
 
 
 def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
             P, repeat):
     what = 'fused_render_core'
-    levels, (M, F, H1, O, K) = _checked_args(
+    levels, (M, F, H1, O, K) = GE._checked_args(
         what, tables, cells, (aux_self, aux_cross), params[:10])
-    (w1, b1, w2, b2, lv, lvb, km, kmb, k2, k2b) = params[:10]
-    (qe1, qe1b, qe2, qe2b, el, elb, qr1, qr1b, qr2, qr2b) = params[10:]
+    (qe1, qe1b, qe2, qe2b) = params[10:14]
     dev, dt = aux_self.device, torch.bfloat16
-    shapes_ok = (tuple(qe1.shape) == (16, K) and tuple(qe2.shape) == (K, K)
-                 and tuple(el.shape) == (O, K)
-                 and tuple(qr1.shape) == (K + 16, K)
-                 and tuple(qr2.shape) == (K, K) and K <= H1)
+    shapes = [tuple(qe1.shape) == (16, K), tuple(qe2.shape) == (K, K)]
+    if repeat:
+        el, elb, qr1, qr1b, qr2, qr2b = params[14:20]
+        shapes += [tuple(el.shape) == (O, K),
+                   tuple(qr1.shape) == (K + 16, K),
+                   tuple(qr2.shape) == (K, K)]
     lc = local_coords
-    if (M != B * 2 * R * P or not shapes_ok or lc.device != dev
+    if (M != B * 2 * R * P or not all(shapes) or lc.device != dev
             or lc.dtype != dt or tuple(lc.shape) != (M, 16)
             or not lc.is_contiguous() or lc.data_ptr() % 16):
         raise ValueError(f'{what}: M = {M} samples must be B*2*R*P with '
                          f'(B, R, P) = {(B, R, P)}, local_coords a '
                          f'contiguous bf16 ({M}, 16) on {dev}, and the '
-                         'query weights (16, K), (K, K), (O, K), (K+16, K), '
-                         '(K, K) with K <= H1')
-    lib = _build.load('fused_render')
-    lib.fused_render_core_smem.restype = ctypes.c_size_t
-    lib.fused_render_core_smem.argtypes = [ctypes.c_int] * 5
-    smem = lib.fused_render_core_smem(F, H1, O, K, P)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'{what}: P = {P} needs {smem} bytes of shared '
-                         f'memory a block, more than {SMEM_LIMIT}')
-    weights = [_mat(w1[:F], dev), _vec(w1[F:F + 3], dev), _vec(b1, dev),
-               _mat(w2, dev), _vec(b2, dev), _mat(lv, dev), _vec(lvb, dev),
-               _mat(km, dev), _vec(kmb, dev), _mat(k2, dev), _vec(k2b, dev),
-               _mat(qe1, dev), _vec(qe1b, dev), _mat(qe2, dev),
-               _vec(qe2b, dev), el.to(dev, dt).contiguous(), _vec(elb, dev),
-               qr1[:K].to(dev, dt).contiguous(), _mat(qr1[K:], dev),
-               _vec(qr1b, dev), _mat(qr2, dev), _vec(qr2b, dev)]
+                         'query weights (16, K), (K, K) and with repeat '
+                         '(O, K), (K+16, K), (K, K)')
+    GE.check_core_widths(what, 'render', 2, F, H1, O, K, P)
+    stages, vecs, mats = GE.prepared_render(params, bool(repeat), dev)
+    # The ray's jl and ce rows, per block of the persistent grid.
+    grid = min(B * R, torch.cuda.get_device_properties(dev)
+               .multi_processor_count)
+    scratch = torch.empty(grid * 2 * P * (O + K), dtype=dt, device=dev)
     z = torch.empty((B, R, O), dtype=dt, device=dev)
     at_wt = torch.empty((B, 2, R, P), dtype=dt, device=dev)
-    fn = lib.fused_render_core_bf16
+    fn = _build.load('fused_render').fused_render_core_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    w_ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr()
-                                                for w in weights])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
+    info = (ctypes.c_int * 7)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(len(tables), *levels, aux_self.data_ptr(),
-                        aux_cross.data_ptr(), lc.data_ptr(), w_ptrs,
-                        z.data_ptr(), at_wt.data_ptr(), B, R, P, F, H1, O, K,
-                        int(repeat), stream), what)
+                        aux_cross.data_ptr(), lc.data_ptr(),
+                        stages.data_ptr(), stages.numel() * 2,
+                        vecs.data_ptr(), mats.data_ptr(), scratch.data_ptr(),
+                        scratch.numel() * 2, z.data_ptr(), at_wt.data_ptr(),
+                        B, R, P, F, H1, O, K, int(repeat), info, stream),
+                     what)
     fused_render_core.launches += 1
+    fused_render_core.last_launch = tuple(info)
     return z, at_wt

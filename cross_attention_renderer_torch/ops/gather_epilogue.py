@@ -132,8 +132,9 @@ fused_exchange_epilogue.last_launch = None
 _KB = 64           # k-values per tile row
 _NC = 64           # hidden units per chunk (W1 tiles)
 _NO = 96           # output columns per O tile (W2, lv)
-_NK = 64           # output columns per K tile (km, k2)
-MAX_O, MAX_K = 3 * _NO, 4 * _NK
+_NK = 64           # output columns per K tile (km, k2, query MLPs)
+MAX_K = 4 * _NK    # kh stays in registers
+SMEM_LIMIT = 232_448   # bytes of shared memory a block may use (H100)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -162,6 +163,39 @@ def _tiles(wt: Tensor, n_rows: int) -> Tensor:
     return t.reshape(nt, nkb, n_rows, _KB)
 
 
+def _mlp_stages(w1: Tensor, w2: Tensor) -> list[Tensor]:
+    """One stream's fuse MLP, W1 (F, H1) and W2 (H1, O) in (in, out) layout:
+    for each 64-unit hidden chunk c, W1[:, c] by 64-deep k-blocks, then
+    W2[c, :] by 96-column tiles."""
+    bf = torch.bfloat16
+    t1 = _tiles(w1.to(bf).t(), _NC)     # (chunks, k-blocks of F, 64, 64)
+    t2 = _tiles(w2.to(bf).t(), _NO)     # (O tiles, chunks, 96, 64)
+    return [part for c in range(t1.shape[0])
+            for part in (t1[c].reshape(-1), t2[:, c].reshape(-1))]
+
+
+def _query_stages(w1: Tensor, w2: Tensor) -> list[Tensor]:
+    """A 16 -> K -> K query MLP in (in, out) layout: the first layer's
+    64-column tiles (one k-block, 16 of its 64 k-values live), then the
+    second's 64-column tiles, each by k-blocks."""
+    bf = torch.bfloat16
+    return [_tiles(w1.to(bf).t(), _NK).reshape(-1),
+            _tiles(w2.to(bf).t(), _NK).reshape(-1)]
+
+
+def _vecs(parts, rounded: bool = True) -> Tensor:
+    """(vector, padded length) pairs as one zero-padded f32 stream; each
+    value rounded to bf16 first where ``rounded``, as the kernels read it."""
+    out = []
+    for v, n in parts:
+        pad = torch.zeros(v.shape[:-1] + (n,), dtype=torch.float32,
+                          device=v.device)
+        pad[..., :v.shape[-1]] = v.to(torch.bfloat16).float() if rounded \
+            else v.float()
+        out.append(pad.reshape(-1))
+    return torch.cat(out)
+
+
 def layout_stages(params: Sequence[Tensor], S: int
                   ) -> tuple[Tensor, Tensor]:
     """The weights as K2 and K3 read them, on the parameters' device.
@@ -180,64 +214,165 @@ def layout_stages(params: Sequence[Tensor], S: int
     F, H1 = w1.shape[0] - 3, w1.shape[1]
     O, K = w2.shape[1], k2.shape[1]
     bf = torch.bfloat16
-    t1 = _tiles(w1[:F].to(bf).t(), _NC)     # (chunks, k-blocks of F, 64, 64)
-    t2 = _tiles(w2.to(bf).t(), _NO)         # (O tiles, chunks, 96, 64)
-    mlp = [part for c in range(t1.shape[0])
-           for part in (t1[c].reshape(-1), t2[:, c].reshape(-1))]
     tail = (_tiles(lv.to(bf).t(), _NO).transpose(0, 1).reshape(-1),
             _tiles(km.to(bf).t(), _NK).transpose(0, 1).reshape(-1),
             _tiles(k2.to(bf).t(), _NK).reshape(-1))
-    stages = torch.cat(mlp + list(tail))
-
-    def vec(v, n):
-        out = torch.zeros(v.shape[:-1] + (n,), dtype=torch.float32,
-                          device=v.device)
-        out[..., :v.shape[-1]] = v.to(bf).float()
-        return out.reshape(-1)
-
+    stages = torch.cat(_mlp_stages(w1[:F], w2) + list(tail))
     H1p, Op, Kp = _cdiv(H1, _NC) * _NC, _cdiv(O, _NO) * _NO, _cdiv(K, _NK) * _NK
-    vecs = torch.cat([vec(w1[F:F + 3], H1p), vec(b1, H1p), vec(b2, Op),
-                      vec(lv_bias, Op), vec(km_bias, Kp), vec(k2_bias, Kp)])
+    vecs = _vecs([(w1[F:F + 3], H1p), (b1, H1p), (b2, Op), (lv_bias, Op),
+                  (km_bias, Kp), (k2_bias, Kp)])
     return stages, vecs
 
 
+def layout_mlp(w1a: Tensor, w1b: Tensor, b1: Tensor, w2: Tensor, b2: Tensor
+               ) -> tuple[Tensor, Tensor]:
+    """The weights as K9 reads them: (stages, vecs). stages is the fuse-MLP
+    part of :func:`layout_stages` for W1 = w1a; vecs (f32) is [w1b (3, H1p)
+    rounded to bf16 | b1 (H1p) | b2 (O rounded up to 96)], the biases kept
+    in f32 as the TPU kernel keeps them."""
+    H1, O = w1a.shape[1], w2.shape[1]
+    H1p, Op = _cdiv(H1, _NC) * _NC, _cdiv(O, _NO) * _NO
+    vecs = torch.cat([_vecs([(w1b, H1p)]),
+                      _vecs([(b1, H1p), (b2, Op)], rounded=False)])
+    return torch.cat(_mlp_stages(w1a, w2)), vecs
+
+
+def layout_render(params: Sequence[Tensor], repeat: bool
+                  ) -> tuple[Tensor, Tensor, Tensor]:
+    """The weights as K4 reads them: (stages, vecs, mats).
+
+    params: K4's (the 10 epilogue weights, qe1, qe1b, qe2, qe2b, and with
+    ``repeat`` el, elb, qr1, qr1b, qr2, qr2b). stages: :func:`layout_stages`'
+    stream, then the query MLP (qe1, qe2) and with ``repeat`` the repeat
+    MLP's local-coordinate half (qr1[K:], qr2), as :func:`_query_stages`.
+    vecs: :func:`layout_stages`' vectors, then [qe1b | qe2b | elb | qr1b |
+    qr2b], each K rounded up to 64 (zeros without ``repeat``). mats: the
+    per-ray products' matrices [el (O, K) | qr1[:K] (K, K)] in bf16, (in,
+    out) layout (one zero without ``repeat``). All rounded to bf16."""
+    stages, vecs = layout_stages(params[:10], 2)
+    qe1, qe1b, qe2, qe2b = params[10:14]
+    K = qe2.shape[1]
+    Kp = _cdiv(K, _NK) * _NK
+    parts = [stages] + _query_stages(qe1, qe2)
+    if repeat:
+        el, elb, qr1, qr1b, qr2, qr2b = params[14:20]
+        parts += _query_stages(qr1[K:], qr2)
+        mats = torch.cat([el.to(torch.bfloat16).reshape(-1),
+                          qr1[:K].to(torch.bfloat16).reshape(-1)])
+        q_vecs = (qe1b, qe2b, elb, qr1b, qr2b)
+    else:
+        zero = qe1b.new_zeros(K)
+        mats = torch.zeros(8, dtype=torch.bfloat16, device=qe1b.device)
+        q_vecs = (qe1b, qe2b, zero, zero, zero)
+    vecs = torch.cat([vecs, _vecs([(v, Kp) for v in q_vecs])])
+    return torch.cat(parts), vecs, mats
+
+
 # Prepared weights by the parameters' identity: {key: (weak references,
-# version counters, (stages, vecs))}.
+# version counters, prepared tensors)}.
 _PREPARED: dict = {}
+
+
+def _identity(t: Tensor):
+    """(the tensor a view was taken of, or t itself; t's place in it)."""
+    base = t._base if t._base is not None else t
+    return base, (id(base), t.storage_offset(), tuple(t.shape),
+                  tuple(t.stride()), t.dtype)
+
+
+def _prepared(tag, params: Sequence[Tensor], device, build):
+    """``build`` of ``params`` on ``device``, once per set of parameter
+    tensors (or views of them, such as a slice of one): later calls with
+    the same tensors, none of them changed in place since (their version
+    counters), reuse it. Inference tensors keep no version counter and are
+    laid out on every call."""
+    params = tuple(params)
+    if any(p.is_inference() for p in params):
+        return build([p.to(device) for p in params])
+    bases, places = zip(*(_identity(p) for p in params))
+    key = (tag, places, str(device))
+    versions = tuple(p._version for p in params)
+    hit = _PREPARED.get(key)
+    if (hit is not None and hit[1] == versions
+            and all(r() is b for r, b in zip(hit[0], bases))):
+        return hit[2]
+    with torch.no_grad():
+        prep = build([p.detach().to(device) for p in params])
+    for k in [k for k, v in _PREPARED.items()
+              if any(r() is None for r in v[0])]:
+        del _PREPARED[k]
+    _PREPARED[key] = (tuple(weakref.ref(b) for b in bases), versions, prep)
+    return prep
 
 
 def prepared_weights(params: Sequence[Tensor], S: int, device
                      ) -> tuple[Tensor, Tensor]:
     """:func:`layout_stages` of ``params`` on ``device``, built once per set
-    of parameter tensors: later calls with the same tensors, none of them
-    changed in place since (their version counters), reuse it. Inference
-    tensors keep no version counter and are laid out on every call."""
-    params = tuple(params)
-    if any(p.is_inference() for p in params):
-        return layout_stages([p.to(device) for p in params], S)
-    key = (tuple(id(p) for p in params), S, str(device))
-    versions = tuple(p._version for p in params)
-    hit = _PREPARED.get(key)
-    if (hit is not None and hit[1] == versions
-            and all(r() is p for r, p in zip(hit[0], params))):
-        return hit[2]
-    with torch.no_grad():
-        prep = layout_stages([p.detach().to(device) for p in params], S)
-    for k in [k for k, v in _PREPARED.items()
-              if any(r() is None for r in v[0])]:
-        del _PREPARED[k]
-    _PREPARED[key] = (tuple(weakref.ref(p) for p in params), versions, prep)
-    return prep
+    of parameter tensors (:func:`_prepared`)."""
+    return _prepared(('exchange', S), params, device,
+                     lambda p: layout_stages(p, S))
 
 
-def _mat(w, dev):
-    """(in, out) weight -> (out, in) bf16 on ``dev``, as K4 reads it."""
-    return w.to(dev, torch.bfloat16).t().contiguous()
+def prepared_mlp(params: Sequence[Tensor], device) -> tuple[Tensor, Tensor]:
+    """:func:`layout_mlp` of (w1a, w1b, b1, w2, b2), once per set."""
+    return _prepared('mlp', params, device, lambda p: layout_mlp(*p))
 
 
-def _vec(b, dev):
-    """bf16-rounded values as f32 on ``dev`` (biases, tanh rows)."""
-    return b.to(dev, torch.bfloat16).float().contiguous()
+def prepared_render(params: Sequence[Tensor], repeat: bool, device
+                    ) -> tuple[Tensor, Tensor, Tensor]:
+    """:func:`layout_render` of K4's parameters (14, or 20 with
+    ``repeat``), once per set."""
+    params = tuple(params)[:20 if repeat else 14]
+    return _prepared(('render', repeat), params, device,
+                     lambda p: layout_render(p, repeat))
+
+
+def core_smem(mode: str, S: int, F: int, H1: int, O: int, K: int,
+              P: int = 0) -> int:
+    """Bytes of shared memory the exchange core needs a block, with two
+    weight stage slots, in mode 'pair' (K2), 'streams' (K3), 'mlp' (K9) or
+    'render' (K4, P samples a view); mirrors ``launch_core``."""
+    nkbF, OT = _cdiv(F, _KB), _cdiv(O, _NO)
+    KT = 0 if mode == 'mlp' else _cdiv(K, _NK)
+    nkbf = 0 if mode == 'mlp' else _cdiv(S * O, _KB)
+    nkb_fbuf = nkbf
+    if mode in ('streams', 'render') and OT <= 6:
+        nkb_fbuf = _cdiv((S - 1) * O, _KB)
+        if nkbf - nkb_fbuf > nkbF:
+            nkb_fbuf = nkbf
+    ldv = _cdiv(H1, _NC) * _NC
+    n_vecs = 4 * ldv + OT * _NO
+    if mode != 'mlp':
+        n_vecs += OT * _NO + 2 * KT * _NK
+    n_rsm = 0
+    if mode == 'render':
+        n_vecs += 5 * KT * _NK
+        n_rsm = (2 * P + 3) // 4 * 4 + 2 * OT * _NO + 2 * KT * _NK + 32
+        if 32 * max(OT * _NO, KT * _NK) > (nkbF + nkb_fbuf) * 8192:
+            return 1 << 30
+    return (1024 + (nkbF + nkb_fbuf) * 8192 + 64 * 16 * 2 + 64 * 3 * 4
+            + n_vecs * (4 if mode == 'mlp' else 2) + n_rsm * 4 + 16 * 8
+            + 2 * 96 * 128)
+
+
+def check_core_widths(what: str, mode: str, S: int, F: int, H1: int, O: int,
+                      K: int, P: int = 0) -> None:
+    """Raises ValueError on widths the exchange core does not take: K above
+    256, or a tile that does not fit in a block's shared memory (naming the
+    largest O that does at these other widths)."""
+    if mode != 'mlp' and K > MAX_K:
+        raise ValueError(f'{what}: K = {K} > {MAX_K}: K is the attention '
+                         'width (128 in both packages), and the core keeps '
+                         'its hidden layer kh in registers')
+    need = core_smem(mode, S, F, H1, O, K, P)
+    if need > SMEM_LIMIT:
+        fits = [o for o in range(8, O, 8)
+                if core_smem(mode, S, F, H1, o, K, P) <= SMEM_LIMIT]
+        raise ValueError(
+            f'{what}: O = {O} needs {need} bytes of shared memory a block, '
+            f'more than {SMEM_LIMIT}; '
+            + (f'the largest O these widths take is {max(fits)}' if fits
+               else f'no O fits at F = {F}, H1 = {H1}'))
 
 
 def _checked_args(what, tables, cells, aux, params):
@@ -276,15 +411,13 @@ def _checked_args(what, tables, cells, aux, params):
     return levels, (M, F, H1, O, K)
 
 
-def _core_args(what, tables, cells, aux, params):
-    """:func:`_checked_args` for K2 and K3, whose core also needs O <= 288
-    and K <= 256 (its accumulators live in registers), and their prepared
-    weights: (levels, sizes, stages, vecs)."""
+def _core_args(what, mode, tables, cells, aux, params):
+    """:func:`_checked_args` for K2 (mode 'pair') and K3 ('streams'), with
+    the widths the core takes (:func:`check_core_widths`), and their
+    prepared weights: (levels, sizes, stages, vecs)."""
     levels, sizes = _checked_args(what, tables, cells, aux, params)
-    O, K = sizes[3], sizes[4]
-    if O > MAX_O or K > MAX_K:
-        raise ValueError(f'{what}: O <= {MAX_O} and K <= {MAX_K}, got O={O}, '
-                         f'K={K}')
+    _, F, H1, O, K = sizes
+    check_core_widths(what, mode, len(aux), F, H1, O, K)
     stages, vecs = prepared_weights(params, len(aux), aux[0].device)
     return levels, sizes, stages, vecs
 
@@ -298,8 +431,8 @@ def _outputs(aux, sizes):
 
 def _launch(tables, cells, aux_self, aux_cross, params, rp):
     levels, sizes, stages, vecs = _core_args(
-        'fused_exchange_epilogue', tables, cells, (aux_self, aux_cross),
-        params)
+        'fused_exchange_epilogue', 'pair', tables, cells,
+        (aux_self, aux_cross), params)
     jl, kv = _outputs(aux_self, sizes)
     fn = _build.load('gather_epilogue').fused_exchange_epilogue_bf16
     fn.restype = ctypes.c_int
@@ -391,7 +524,8 @@ def _launch_multi(tables, cells, aux_list, params):
         raise ValueError(f'fused_exchange_epilogue_multi: 2 to 4 streams, '
                          f'got {S}')
     levels, sizes, stages, vecs = _core_args(
-        'fused_exchange_epilogue_multi', tables, cells, aux_list, params)
+        'fused_exchange_epilogue_multi', 'streams', tables, cells, aux_list,
+        params)
     jl, kv = _outputs(aux_list[0], sizes)
     fn = _build.load(
         'gather_epilogue_multi').fused_exchange_epilogue_multi_bf16

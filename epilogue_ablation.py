@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where the exchange epilogues' time goes (K2, K3), on one NVIDIA card.
+"""Where the exchange core's time goes (K2, K3, K9, K4), on one NVIDIA card.
 
   python3 epilogue_ablation.py
 
 Run from the root of a checkout. It builds variants of the exchange core
 (``csrc/exchange_core.cuh``), each with one part of the work taken out, and
-times K2 and K3 on the first ray block of the flagship V=2 and V=3 renders
-(the inputs ``chip_smoke.py`` holds them to), beside the kernel as it is:
+times K2, K3, K9 and K4 on the first ray block of the flagship V=2, V=3,
+V=3 compat and V=2 fused renders (the inputs ``chip_smoke.py`` holds them
+to), beside the kernel as it is:
 
-  no_gather - the cell rows are not read (comb is zeros): the products and
-              their weight stream alone;
+  no_gather - the cell rows (K9: the input rows) are not read (comb is
+              zeros): the products, their weight stream and, for K4, the
+              per-ray tail alone;
   no_copy   - as no_gather, and the weight stages are not copied (the
-              producer only signals them): the consumers' own time.
+              producer only signals them): the consumers' own time;
+  and K4 as it is without its second attention round (round1_only).
 
 A variant's outputs are wrong by design; only its time is read. Prints the
 card line, one line per timing and a JSON object last. Needs a card and
@@ -29,15 +32,19 @@ from pathlib import Path
 ROOT = Path.cwd()
 CSRC = ROOT / 'cross_attention_renderer_torch' / 'csrc'
 OUT = ROOT / 'cross_attention_renderer_torch' / 'build' / 'ablation'
-LIBS = ('gather_epilogue', 'gather_epilogue_multi')
+LIBS = ('gather_epilogue', 'gather_epilogue_multi', 'fused_mlp',
+        'fused_render')
 
 NO_GATHER = ('    if (row >= 0) {\n      const bf16* src',
              '    if (row < -1) {\n      const bf16* src')
+NO_ROWS = ('    if (r < n_live) val = ldg_row(',
+           '    if (r < -1) val = ldg_row(')
 NO_COPY = ('    mbar_expect_tx(full + 8 * idx, bytes);\n'
            '    bulk_copy(slots + idx * kLargeStage, p.stages + off, bytes,\n'
            '              full + 8 * idx);',
            '    mbar_arrive(full + 8 * idx);')
-VARIANTS = {'no_gather': [NO_GATHER], 'no_copy': [NO_GATHER, NO_COPY]}
+VARIANTS = {'no_gather': [NO_GATHER, NO_ROWS],
+            'no_copy': [NO_GATHER, NO_ROWS, NO_COPY]}
 
 
 def build_variant(_build, name, patches):
@@ -91,6 +98,8 @@ def main() -> int:
     import chip_smoke as CS
     from cross_attention_renderer_torch.models import renderer as RM
     from cross_attention_renderer_torch.ops import _build
+    from cross_attention_renderer_torch.ops import fused_mlp as FM
+    from cross_attention_renderer_torch.ops import fused_render as FR
     from cross_attention_renderer_torch.ops import gather_epilogue as GE
 
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -116,7 +125,11 @@ def main() -> int:
             ('K2', 'fused_exchange_epilogue', GE.fused_exchange_epilogue,
              dict(npoints=64)),
             ('K3', 'fused_exchange_epilogue_multi',
-             GE.fused_exchange_epilogue_multi, dict(n_view=3))):
+             GE.fused_exchange_epilogue_multi, dict(n_view=3)),
+            ('K9', 'fused_mlp2', FM.fused_mlp2,
+             dict(n_view=3, reference_exchange_compat=True, fused_mlp=True)),
+            ('K4', 'fused_render_core', FR.fused_render_core,
+             dict(npoints=64, fused_render=True))):
         args = first_block_args(CS, RM, dev, name, **kw)
         # full, each variant, full again: the spread of the two fulls is the
         # noise of the call
@@ -126,6 +139,12 @@ def main() -> int:
             results.setdefault(label, {}).setdefault(variant, []).append(ms)
             print(f'{label} {variant}: {ms:.3f} ms', flush=True)
         _build._loaded.update(libs['full'])
+        if label == 'K4':
+            # without round 2: what the repeat MLP and second attention
+            # round cost
+            ms = CS.cuda_ms(lambda: fn(*args[:-1], False), 10)
+            results[label]['round1_only'] = [ms]
+            print(f'{label} round1_only: {ms:.3f} ms', flush=True)
         del args
         torch.cuda.empty_cache()
     print(json.dumps({'card': card, 'ms': results}))

@@ -101,6 +101,9 @@ def _epilogue_case(dev, channels, H1, O, K, n_img, hw, M, S=2, seed=0):
     # F under one 64-column k-block, with O filling the last exchanged
     # fragment: comb's columns past F must not keep the partial sums
     ((48,), 96, 96, 32, (8,), 2 * 64 + 50, 40),
+    # fusion_features 288: O = 320 runs as O tiles split between the
+    # warpgroups, layer 1 computed by each
+    ((288, 288, 64), 640, 320, 128, (16, 32, 64), 3 * 64 + 21, 100),
 ])
 def test_exchange_epilogue_kernel(dev, channels, H1, O, K, hw, M, rp):
     """K2 against its plain version; every case also checks that the launch
@@ -134,6 +137,9 @@ def test_exchange_epilogue_kernel(dev, channels, H1, O, K, hw, M, rp):
     ((32, 32, 16), 80, 80, 16, (4, 8, 16), 200, 3),
     ((32, 32, 16), 80, 72, 16, (4, 8, 16), 150, 2),
     ((48,), 64, 96, 32, (8,), 140, 3),
+    # fusion_features 288 (O = 320): the last stream's f rows in comb after
+    # both warpgroups' O tiles
+    ((288, 288, 64), 640, 320, 128, (16, 32, 64), 3 * 64 + 5, 3),
 ])
 def test_exchange_epilogue_multi_kernel(dev, channels, H1, O, K, hw, M, S):
     """K3 at S = 2, 3 and 4 streams, ragged M (not a multiple of the tile),
@@ -169,9 +175,13 @@ def test_exchange_epilogue_prepared_once(dev):
 
 
 @pytest.mark.parametrize('M,K1,H,O', [(64 * 5 + 23, 96, 80, 40),
-                                      (2 * 4096 + 17, 576, 576, 288)])
+                                      (2 * 4096 + 17, 576, 576, 288),
+                                      (3 * 64 + 1, 48, 64, 16),
+                                      (64 * 7 + 9, 640, 640, 320)])
 def test_fused_mlp_kernel(dev, M, K1, H, O):
-    """K9 at a ragged M (not a multiple of the 64-row tile)."""
+    """K9 at a ragged M (not a multiple of the 64-row tile), the flagship
+    widths, a narrow O under one O tile and K1 under one k-block, and O =
+    320 (O tiles split between the warpgroups)."""
     rng = np.random.default_rng(2)
     lecun = lambda i, o: rng.standard_normal((i, o)) / np.sqrt(i)
     x1 = _bf(dev, rng.standard_normal((M, K1)))
@@ -210,23 +220,51 @@ def _render_case(dev, channels, H1, O, K, hw, B, R, P, seed=3):
 @pytest.mark.parametrize('channels,H1,O,K,hw,B,R,P', [
     ((32, 32, 16), 80, 40, 16, (4, 8, 16), 2, 13, 24),
     ((256, 256, 64), 576, 288, 128, (16, 32, 64), 1, 37, 64),
+    ((32, 32, 16), 80, 40, 16, (4, 8, 16), 1, 150, 16),
+    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 1, 9, 48),
+    # F under one k-block and O = 96: padding columns of comb and of the
+    # f rows are read (they must hold zeros or finite values)
+    ((48,), 96, 96, 32, (8,), 2, 7, 16),
+    ((48,), 64, 96, 32, (8,), 1, 5, 48),
+    # more rays than SMs, P over one tile a view
+    ((32, 32, 16), 80, 40, 16, (4, 8, 16), 1, 300, 80),
 ])
 def test_fused_render_core_kernel(dev, channels, H1, O, K, hw, B, R, P,
                                   repeat):
-    """K4 at a ragged ray count (R not a multiple of 8) and, in the narrow
-    case, a last 32-sample tile that is part full and a tile that spans
-    both views. Tolerances: z one bf16 step of max(1, |z|), as K2's
-    outputs; at_wt 2^-8, as K1's."""
+    """K4 at ragged ray counts (R not a multiple of 8), P = 16, 24, 48, 64
+    and 80 (tiles of one view with empty rows; two tiles a view), more rays
+    than the persistent grid's blocks. Tolerances: z one bf16 step of
+    max(1, |z|), as K2's outputs; at_wt 2^-8, as K1's."""
     case = _render_case(dev, channels, H1, O, K, hw, B, R, P)
     before = FR.fused_render_core.launches
     z, wt = FR.fused_render_core(*case, B, R, P, repeat)
     torch.cuda.synchronize()
     assert FR.fused_render_core.launches == before + 1
+    assert FR.fused_render_core.last_launch[3:] == (384, 1, 1, 1)
     z_ref, wt_ref = FR.fused_render_core_reference(*case, B, R, P, repeat)
     assert z.shape == (B, R, O) and wt.shape == (B, 2, R, P)
     assert torch.isfinite(z.float()).all()
     assert _max_err(wt, wt_ref) <= 2 ** -8
     assert _max_err(z, z_ref) <= 2 ** -5 * _scale(z_ref)
+
+
+def test_fused_render_core_prepared_once(dev):
+    """K4 lays its weights out on the first call and again after an
+    in-place change, whose effect the result shows; without repeat it
+    takes the 14 parameters alone."""
+    case = _render_case(dev, (32, 32, 16), 80, 40, 16, (4, 8, 16), 1, 9, 16)
+    params = case[-1]
+    FR.fused_render_core(*case, 1, 9, 16, True)
+    prep = GE.prepared_render(params, True, dev)
+    assert GE.prepared_render(params, True, dev) is prep
+    params[13].mul_(2.0)     # qe2b
+    assert GE.prepared_render(params, True, dev) is not prep
+    for repeat, p in ((True, params), (False, params[:14])):
+        args = case[:-1] + (p, 1, 9, 16, repeat)
+        z, wt = FR.fused_render_core(*args)
+        z_ref, wt_ref = FR.fused_render_core_reference(*args)
+        assert _max_err(wt, wt_ref) <= 2 ** -8
+        assert _max_err(z, z_ref) <= 2 ** -5 * _scale(z_ref)
 
 
 def _gather_case(dev, rows, C, M, seed, sort):

@@ -1,5 +1,6 @@
-"""The weights of the exchange epilogues K2 and K3 as their Hopper kernel
-reads them (``ops/gather_epilogue.py:layout_stages``), on the CPU.
+"""The weights of the exchange core's kernels K2, K3, K9 and K4 as they read
+them (``ops/gather_epilogue.py:layout_stages``, ``layout_mlp``,
+``layout_render``), on the CPU.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 Here: the laid-out stages unpack to the weights exactly; walking them in the
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 import cross_attention_renderer_tpu.ops.gather_epilogue as JGE
+from cross_attention_renderer_tpu.ops import fused_render as JFR
+from cross_attention_renderer_tpu.ops.experimental import fused_mlp as JFM
 from cross_attention_renderer_torch.models.renderer import (
     CrossAttentionRenderer)
 from cross_attention_renderer_torch.ops import gather_epilogue as GE
@@ -26,6 +29,7 @@ SHAPES = [  # (channels, H1, O, K, S)
     ((48,), 96, 48, 32, 2),
     ((32, 16), 48, 32, 32, 3),
     ((32, 32, 16), 80, 40, 16, 4),
+    ((288, 288, 64), 640, 320, 128, 3),
 ]
 
 
@@ -95,45 +99,68 @@ def test_layout_unpacks_to_the_weights(channels, H1, O, K, S):
         assert not part[:, v.shape[-1]:].any()
 
 
-def _walk(stages, vecs, vals, aux_list, F, H1, O, K, rp):
-    """The kernel's arithmetic in f32, reading the weights stage by stage in
-    the order its producer streams them: per stream, chunk by chunk, the
-    W1 k-blocks then the W2 column tiles (the kernel hands the chunks to
-    two warpgroups and adds their partial f; the sum is the same); then lv,
-    km and k2. rp: the V=2 view swap's samples per view, or None."""
-    S, M = len(aux_list), aux_list[0].shape[0]
-    nch, nkbF, OT = _cdiv(H1, 64), _cdiv(F, 64), _cdiv(O, 96)
-    KT, nkbf, nkbK = _cdiv(K, 64), _cdiv(S * O, 64), _cdiv(K, 64)
+def _reader(stages):
+    """stage(off, rows): the (rows, 64) tile at element offset ``off`` of
+    the stream, unswizzled, as f32 (output units by k-values)."""
     st = stages.float()
-    pos = 0
 
-    def stage(rows):
-        nonlocal pos
-        t = st[pos:pos + rows * 64].reshape(1, 1, rows, 64)
-        pos += rows * 64
-        return _untiles(t, rows, 64)     # (output units, 64 k-values)
+    def stage(off, rows):
+        t = st[off:off + rows * 64].reshape(1, 1, rows, 64)
+        return _untiles(t, rows, 64)
+    return stage
 
+
+def _fuse_walk(stage, wt, b1, b2, comb, th, F, H1, O):
+    """One stream's fuse MLP (f32) as the core's warpgroups read its stages
+    (csrc/exchange_core.cuh ``produce``): up to three O tiles, every chunk's
+    W1 k-blocks then its W2 tiles (the two warpgroups split the chunks and
+    add their partial f: the sum is the same); above that each
+    warpgroup's half of the O tiles, up to three at a time, each group
+    running every chunk's layer 1 again. comb (M, F); th (M, 3) the tanh
+    (or x2) columns; wt (3, H1p), b1, b2 the vectors."""
+    nch, nkbF, OT = _cdiv(H1, 64), _cdiv(F, 64), _cdiv(O, 96)
+    chunk = (nkbF * 64 + OT * 96) * 64
+    M = comb.shape[0]
+    comb = torch.nn.functional.pad(comb, (0, nkbF * 64 - F))
+    split = OT - OT // 2
+    groups = [(0, OT)] if OT <= 3 else [
+        (g, min(g + 3, e)) for a, e in ((0, split), (split, OT))
+        for g in range(a, e, 3)]
+    f = torch.zeros(M, OT * 96)
+    for g0, g1 in groups:
+        for c in range(nch):
+            a1 = b1[c * 64:(c + 1) * 64] + th @ wt[:, c * 64:(c + 1) * 64]
+            for kb in range(nkbF):
+                a1 = a1 + (comb[:, kb * 64:(kb + 1) * 64]
+                           @ stage(c * chunk + kb * 4096, 64).t())
+            h = torch.relu(a1)
+            for nt in range(g0, g1):
+                off = c * chunk + nkbF * 4096 + nt * 96 * 64
+                f[:, nt * 96:(nt + 1) * 96] += h @ stage(off, 96).t()
+    return f[:, :O] + b2[:O], nch * chunk
+
+
+def _walk(stages, vecs, vals, aux_list, F, H1, O, K, rp, whole=True):
+    """The kernel's arithmetic in f32, reading the weights stage by stage at
+    the offsets its producer streams them: per stream the fuse MLP
+    (:func:`_fuse_walk`); then lv, km and k2. rp: the V=2 view swap's
+    samples per view, or None. Returns (jl, kv, where the stream's
+    exchange part ends); with ``whole`` that must be its end."""
+    S, M = len(aux_list), aux_list[0].shape[0]
+    nch, OT = _cdiv(H1, 64), _cdiv(O, 96)
+    KT, nkbf, nkbK = _cdiv(K, 64), _cdiv(S * O, 64), _cdiv(K, 64)
+    stage = _reader(stages)
     ldv = nch * 64
     wt, b1, b2, lvb, kmb, k2b = torch.split(
-        vecs, [3 * ldv, ldv, OT * 96, OT * 96, KT * 64, KT * 64])
+        vecs[:4 * ldv + 2 * OT * 96 + 2 * KT * 64],
+        [3 * ldv, ldv, OT * 96, OT * 96, KT * 64, KT * 64])
     wt = wt.reshape(3, ldv)
     fs = torch.zeros(M, nkbf * 64)
     rows = torch.arange(M)
     for s in range(S):
-        comb = torch.zeros(M, nkbF * 64)
-        comb[:, :F] = GE._combine([v[s * M:(s + 1) * M] for v in vals],
-                                  aux_list[s])
-        th = aux_list[s][:, 12:15]
-        acc = torch.zeros(M, OT * 96)
-        pos = 0
-        for c in range(nch):
-            a1 = b1[c * 64:(c + 1) * 64] + th @ wt[:, c * 64:(c + 1) * 64]
-            for kb in range(nkbF):
-                a1 = a1 + comb[:, kb * 64:(kb + 1) * 64] @ stage(64).t()
-            h = torch.relu(a1)
-            for nt in range(OT):
-                acc[:, nt * 96:(nt + 1) * 96] += h @ stage(96).t()
-        f = acc[:, :O] + b2[:O]
+        comb = GE._combine([v[s * M:(s + 1) * M] for v in vals], aux_list[s])
+        f, jl0 = _fuse_walk(stage, wt, b1, b2, comb, aux_list[s][:, 12:15],
+                            F, H1, O)
         slot = torch.full((M,), s)
         if rp is not None:
             slot = torch.where((rows // rp) % 2 == s, 0, 1)
@@ -141,30 +168,40 @@ def _walk(stages, vecs, vals, aux_list, F, H1, O, K, rp):
             sel = slot == k if rp is not None else slice(None)
             col = (k if rp is not None else s) * O
             fs[sel, col:col + O] = f[sel]
+    kh0 = jl0 + nkbf * OT * 96 * 64
+    kv0 = kh0 + nkbf * KT * 64 * 64
+    end = kv0 + KT * nkbK * 64 * 64
     jl = torch.zeros(M, OT * 96)
     for kb in range(nkbf):
         for nt in range(OT):
-            jl[:, nt * 96:(nt + 1) * 96] += (fs[:, kb * 64:(kb + 1) * 64]
-                                             @ stage(96).t())
+            jl[:, nt * 96:(nt + 1) * 96] += (
+                fs[:, kb * 64:(kb + 1) * 64]
+                @ stage(jl0 + (kb * OT + nt) * 96 * 64, 96).t())
     kh = torch.zeros(M, KT * 64)
     for kb in range(nkbf):
         for nt in range(KT):
-            kh[:, nt * 64:(nt + 1) * 64] += (fs[:, kb * 64:(kb + 1) * 64]
-                                             @ stage(64).t())
+            kh[:, nt * 64:(nt + 1) * 64] += (
+                fs[:, kb * 64:(kb + 1) * 64]
+                @ stage(kh0 + (kb * KT + nt) * 4096, 64).t())
     kh = torch.relu(kh + kmb)
     kv = torch.zeros(M, KT * 64)
     for nt in range(KT):
         for kb in range(nkbK):
-            kv[:, nt * 64:(nt + 1) * 64] += (kh[:, kb * 64:(kb + 1) * 64]
-                                             @ stage(64).t())
-    assert pos == st.numel()
-    return jl[:, :O] + lvb[:O], kv[:, :K] + k2b[:K]
+            kv[:, nt * 64:(nt + 1) * 64] += (
+                kh[:, kb * 64:(kb + 1) * 64]
+                @ stage(kv0 + (nt * nkbK + kb) * 4096, 64).t())
+    if whole:
+        assert end == stages.numel()
+    return jl[:, :O] + lvb[:O], kv[:, :K] + k2b[:K], end
 
 
 @pytest.mark.parametrize('channels,H1,O,K,S,M,rp', [
     ((32, 32, 16), 80, 40, 16, 2, 100, 20),
     ((32, 16), 48, 32, 32, 3, 77, None),
     ((32, 32, 16), 80, 40, 16, 4, 65, None),
+    # O = 320: four O tiles, split between the warpgroups
+    ((32, 32, 16), 80, 320, 16, 2, 50, 10),
+    ((32, 16), 48, 320, 32, 3, 40, None),
 ])
 def test_kernel_order_matches_jax_reference(channels, H1, O, K, S, M, rp):
     F = sum(channels)
@@ -175,8 +212,8 @@ def test_kernel_order_matches_jax_reference(channels, H1, O, K, S, M, rp):
     aux[:, :, 12:15] = 2 * aux[:, :, 12:15] - 1
     p = _params(F, H1, O, K, S, seed=2)
     stages, vecs = GE.layout_stages(p, S)
-    jl, kv = _walk(stages, vecs, [torch.from_numpy(v) for v in vals],
-                   [torch.from_numpy(a) for a in aux], F, H1, O, K, rp)
+    jl, kv, _ = _walk(stages, vecs, [torch.from_numpy(v) for v in vals],
+                      [torch.from_numpy(a) for a in aux], F, H1, O, K, rp)
     pj = tuple(jnp.asarray(t.numpy()) for t in p)
     if rp is not None:
         jl_j, kv_j = JGE._reference(tuple(map(jnp.asarray, vals)),
@@ -247,17 +284,251 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(bad):
     elif bad == 'cells shape':
         cells[2] = cells[2][:-1]
     elif bad == 'wide O':
-        tables, cells, aux, params = _core_case(O=296)
+        # the f rows of 2 x 1024 columns outgrow a block's shared memory
+        tables, cells, aux, params = _core_case(O=1024)
     else:
         tables, cells, aux, params = _core_case(K=272)
     with pytest.raises(ValueError):
-        GE._core_args('fused_exchange_epilogue', tables, cells, aux, params)
+        GE._core_args('fused_exchange_epilogue', 'pair', tables, cells, aux,
+                      params)
 
 
 def test_wrappers_accept_the_case_the_refusals_start_from():
     tables, cells, aux, params = _core_case()
     levels, sizes, stages, vecs = GE._core_args(
-        'fused_exchange_epilogue', tables, cells, aux, params)
+        'fused_exchange_epilogue', 'pair', tables, cells, aux, params)
     assert sizes == (50, 80, 80, 40, 16)
     assert stages.numel() * 2 == (2 * (2 * 8192 + 12288) + 2 * 12288
                                   + 2 * 8192 + 8192)
+
+
+# ---------------------------------------------------------------------------
+# K9 and K4 on the same core: their layouts, walked in the kernel's order
+# ---------------------------------------------------------------------------
+
+def _mlp_walk(stages, vecs, x1, x2, K1, H, O):
+    """K9's arithmetic in f32 on ``GE.layout_mlp``'s stream: the fuse-MLP
+    walk with x1 in place of comb and x2 in place of the tanh columns."""
+    H1p, Op = _cdiv(H, 64) * 64, _cdiv(O, 96) * 96
+    w1b, b1, b2 = torch.split(vecs, [3 * H1p, H1p, Op])
+    out, end = _fuse_walk(_reader(stages), w1b.reshape(3, H1p), b1, b2, x1,
+                          x2, K1, H, O)
+    assert end == stages.numel()
+    return out
+
+
+@pytest.mark.parametrize('K1,H,O,M', [(96, 80, 40, 70), (576, 576, 288, 65),
+                                      (48, 64, 16, 20), (80, 96, 320, 33)])
+def test_mlp_layout_matches_jax_fused_mlp2(K1, H, O, M):
+    """K9's layout (``layout_mlp``) walked in the kernel's order against JAX
+    ``fused_mlp2`` off the TPU, all in f32; O = 320 takes the O tiles split
+    between the warpgroups. The biases stay f32, W1b is rounded to bf16, as
+    the kernel reads them."""
+    rng = np.random.default_rng(5)
+    x1 = rng.standard_normal((M, K1)).astype(np.float32)
+    x2 = rng.uniform(-1, 1, (M, 3)).astype(np.float32)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16).float()
+    w = (bf(rng.standard_normal((K1, H)).astype(np.float32) / np.sqrt(K1)),
+         bf(rng.standard_normal((3, H)).astype(np.float32)),
+         torch.from_numpy((0.1 * rng.standard_normal(H)).astype(np.float32)),
+         bf(rng.standard_normal((H, O)).astype(np.float32) / np.sqrt(H)),
+         torch.from_numpy((0.1 * rng.standard_normal(O)).astype(np.float32)))
+    stages, vecs = GE.layout_mlp(*w)
+    got = _mlp_walk(stages, vecs, torch.from_numpy(x1), torch.from_numpy(x2),
+                    K1, H, O)
+    want = JFM.fused_mlp2(jnp.asarray(x1), jnp.asarray(x2),
+                          *(jnp.asarray(t.numpy()) for t in w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def _render_walk(stages, vecs, mats, vals, aux_s, aux_c, lc, F, H1, O, K, B,
+                 R, P, repeat):
+    """K4's arithmetic in f32 on ``GE.layout_render``'s stream: the V=2
+    exchange walk (each row's view by its index), then the query MLP on
+    its stages (the 16-deep first layer as one k-step), the round-1 logits
+    and joint softmax per ray, z1; with ``repeat`` ze and u from ``mats``,
+    the repeat MLP on its stages, round 2 and z2 + 2 z1."""
+    M = B * 2 * R * P
+    KT = _cdiv(K, 64)
+    Kp = KT * 64
+    stage = _reader(stages)
+    jl, kv, q0 = _walk(stages, vecs, vals, [aux_s, aux_c], F, H1, O, K,
+                       R * P, whole=False)
+    qe1b, qe2b, elb, qr1b, qr2b = torch.split(vecs[-5 * Kp:], Kp)
+
+    def query(l1, init):
+        h = torch.zeros(M, Kp)
+        for nt in range(KT):
+            h[:, nt * 64:(nt + 1) * 64] = (
+                init[:, nt * 64:(nt + 1) * 64]
+                + lc @ stage(l1 + nt * 4096, 64)[:, :16].t())
+        h = torch.relu(h)
+        out = torch.zeros(M, Kp)
+        l2 = l1 + KT * 4096
+        for nt in range(KT):
+            for kb in range(KT):
+                out[:, nt * 64:(nt + 1) * 64] += (
+                    h[:, kb * 64:(kb + 1) * 64]
+                    @ stage(l2 + (nt * KT + kb) * 4096, 64).t())
+        return out[:, :K], l2 + KT * KT * 4096
+
+    def attend(q, k):
+        logit = (q * k).sum(-1).reshape(B, 2, R, P) / 16.0
+        w = torch.softmax(logit.permute(0, 2, 1, 3).reshape(B, R, 2 * P), -1)
+        w = w.reshape(B, R, 2, P).permute(0, 2, 1, 3)
+        return torch.einsum('bvrp,bvrpc->brc', w, jl.reshape(B, 2, R, P, O)), w
+
+    ce, r0 = query(q0, qe1b.expand(M, Kp))
+    ce = ce + qe2b[:K]
+    z1, wt = attend(ce, kv)
+    if not repeat:
+        assert r0 == stages.numel()
+        return z1, wt
+    el, qr1z = mats[:O * K].float().reshape(O, K), mats[O * K:].float()
+    ze = z1 @ el + elb[:K]
+    u = ze @ qr1z.reshape(K, K) + qr1b[:K]                  # (B, R, K)
+    u = torch.nn.functional.pad(u, (0, Kp - K))
+    u = u[:, None, :, None].expand(B, 2, R, P, Kp).reshape(M, Kp)
+    q2, end = query(r0, u)
+    assert end == stages.numel()
+    z2, _ = attend(q2 + qr2b[:K], ce)
+    return z2 + 2.0 * z1, wt
+
+
+def _render_case(B, R, P, channels=(32, 32, 16), O=48, K=16, seed=3):
+    """Rows of both streams, aux, local coordinates and K4's 20 weights
+    (bf16 values kept in f32), as numpy."""
+    rng = np.random.default_rng(seed)
+    F, M = sum(channels), B * 2 * R * P
+    vals = [(0.3 * rng.standard_normal((2 * M, 4 * c))).astype(np.float32)
+            for c in channels]
+    aux = rng.random((2, M, 16)).astype(np.float32) * 0.5
+    aux[:, ::5, :12] = 0.0
+    lc = rng.uniform(-1, 1, (M, 16)).astype(np.float32)
+    shapes = ((F + 3, F), (F,), (F, O), (O,), (2 * O, O), (O,), (2 * O, K),
+              (K,), (K, K), (K,), (16, K), (K,), (K, K), (K,), (O, K), (K,),
+              (K + 16, K), (K,), (K, K), (K,))
+    params = [torch.from_numpy(
+        (rng.standard_normal(s) / np.sqrt(s[0] if len(s) > 1 else 10))
+        .astype(np.float32)).to(torch.bfloat16).float() for s in shapes]
+    return vals, aux[0], aux[1], lc, params
+
+
+@pytest.mark.parametrize('repeat', [False, True])
+@pytest.mark.parametrize('against', ['reference', 'interpret'])
+def test_render_layout_matches_jax(monkeypatch, repeat, against):
+    """K4's layout (``layout_render``, all 20 weights) walked in the
+    kernel's order against JAX ``fused_render._reference`` and the Pallas
+    kernel in interpret mode, in f32 (rtol 1e-4: f32 sums in another
+    order)."""
+    B, R, P, channels = 2, 4, 4, (32, 32, 16)
+    F, O, K = sum(channels), 48, 16
+    vals, a_s, a_c, lc, params = _render_case(B, R, P, channels, O, K)
+    stages, vecs, mats = GE.layout_render(params, repeat)
+    t = torch.from_numpy
+    z, wt = _render_walk(stages, vecs, mats, [t(v) for v in vals], t(a_s),
+                         t(a_c), t(lc), F, F, O, K, B, R, P, repeat)
+    args = (tuple(map(jnp.asarray, vals)), jnp.asarray(a_s),
+            jnp.asarray(a_c), jnp.asarray(lc),
+            tuple(jnp.asarray(p.numpy()) for p in params))
+    if against == 'reference':
+        z_j, wt_j = JFR._reference(*args, channels, B, R, P, repeat)
+    else:
+        monkeypatch.setattr(JFR, 'RAY_BLOCK', 4)
+        z_j, wt_j = JFR._pallas_forward(*args, channels, B, R, P, repeat,
+                                        interpret=True)
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_j), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(wt.numpy(), np.asarray(wt_j), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_render_layout_without_repeat_is_the_repeat_layouts_head():
+    """Without repeat K4 streams the same stages up to the repeat MLP's,
+    and the round-2 vectors are zeros."""
+    params = _render_case(1, 2, 4)[-1]
+    s1, v1, _ = GE.layout_render(params, True)
+    s0, v0, m0 = GE.layout_render(params[:14], False)
+    assert torch.equal(s1[:s0.numel()], s0) and s1.numel() > s0.numel()
+    assert torch.equal(v1[:-3 * 64], v0[:-3 * 64]) and not v0[-3 * 64:].any()
+    assert m0.numel() == 8
+
+
+def test_mlp_and_render_prepared_once_and_again_after_an_inplace_edit():
+    """K9's layout is keyed by the parameters a view was taken of (the
+    renderer hands W1's two row blocks as slices), K4's by its 14 or 20
+    parameters; both are rebuilt after an in-place edit."""
+    w1 = torch.randn(83, 64)
+    w = (w1[:80], w1[80:], torch.randn(64), torch.randn(64, 40),
+         torch.randn(40))
+    first = GE.prepared_mlp(w, 'cpu')
+    assert GE.prepared_mlp((w1[:80], w1[80:]) + w[2:], 'cpu') is first
+    assert GE.prepared_mlp((w1[:79], w1[79:82]) + w[2:], 'cpu') is not first
+    with torch.no_grad():
+        w1[81].add_(1.0)     # a row of W1b, in place on the parameter
+    again = GE.prepared_mlp(w, 'cpu')
+    assert again is not first
+    assert torch.equal(again[1][64:128], w1[81].to(torch.bfloat16).float())
+    params = _render_case(1, 2, 4)[-1]
+    r = GE.prepared_render(params, True, 'cpu')
+    assert GE.prepared_render(params, True, 'cpu') is r
+    assert GE.prepared_render(params, False, 'cpu') is not r
+    with torch.no_grad():
+        params[17].mul_(2.0)     # qr1b
+    assert GE.prepared_render(params, True, 'cpu') is not r
+
+
+def test_renderer_hands_k4_and_k9_the_parameters_themselves(monkeypatch):
+    """The fused render gets the model's parameter tensors, 14 of them
+    without repeat attention; K9 gets parameters or views of them, so both
+    layouts are built once per set of weights."""
+    import cross_attention_renderer_torch.models.renderer as RM
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    seen = {}
+
+    def spy(name, fn):
+        def wrapper(*args):
+            seen.setdefault(name, args)
+            return fn(*args)
+        monkeypatch.setattr(RM, name, wrapper)
+
+    spy('fused_render_core', RM.fused_render_core)
+    spy('fused_mlp2', RM.fused_mlp2)
+    small = dict(npoints=8, fusion_features=32, vit_width=64, vit_depth=2,
+                 vit_heads=2, resnet_layers=(1, 1, 1), device='cpu')
+    for repeat in (True, False):
+        seen.clear()
+        model = CrossAttentionRenderer(fused_render=True,
+                                       repeat_attention=repeat, **small)
+        ids = {id(t) for t in model.parameters()}
+        with torch.no_grad():
+            model(make_scene(0, H=32, W=32, n_rays=8, device='cpu'))
+        params = seen['fused_render_core'][5]
+        assert len(params) == (20 if repeat else 14)
+        assert all(id(t) in ids for t in params)
+    model = CrossAttentionRenderer(n_view=3, reference_exchange_compat=True,
+                                   fused_mlp=True, **small)
+    ids = {id(t) for t in model.parameters()}
+    with torch.no_grad():
+        model(make_scene(0, n_view=3, H=32, W=32, n_rays=8, device='cpu'))
+    for t in seen['fused_mlp2'][2:]:
+        assert id(t._base if t._base is not None else t) in ids
+
+
+@pytest.mark.parametrize('mode,F,O,K,says', [
+    ('render', 80, 1024, 16, 'the largest O these widths take is'),
+    ('pair', 576, 512, 128, 'the largest O these widths take is 480'),
+    ('mlp', 4096, 64, 0, 'no O fits at F = 4096'),
+    ('render', 80, 48, 272, 'K = 272 > 256: K is the attention width')])
+def test_core_refuses_what_does_not_fit_and_says_why(mode, F, O, K, says):
+    with pytest.raises(ValueError, match=says):
+        GE.check_core_widths('k', mode, 1 if mode == 'mlp' else 2, F, 80, O,
+                             K, 64)
+
+
+def test_core_takes_fusion_features_288():
+    """O = 320 (fusion_features 288) fits every instantiation at the
+    flagship's other widths (F = 640 at that fusion width)."""
+    for mode, S in (('pair', 2), ('streams', 3), ('mlp', 1), ('render', 2)):
+        GE.check_core_widths('k', mode, S, 640, 640, 320, 128, 64)
