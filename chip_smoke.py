@@ -65,9 +65,25 @@ no result):
      table (2x64x64x256 bf16, exactly the 4 MiB it is limited to) at phase
      9's first-block self-stream coordinates; the small-input agreement of
      the V=3 compat model with ``gather='banded'``, where every level is
-     small enough for K8 (6 launches a forward).
-Then it prints the ``kernels`` JSON line, the card line and, last, the
-result line.
+     small enough for K8 (6 launches a forward);
+ 13. wide latents: K2, K3, K4 and K9 against their plain versions at
+     fusion_features 384 and 512 (models of the flagship's widths but
+     that one, the ViT cut to 2 blocks, on the first 4,096 rays), each
+     printing the plan the exchange core took for it ('smem' or
+     'global'); the small-input agreement at fusion_features 512 on the
+     V=2, V=2 fused render and V=3 default paths;
+ 14. the 13 row-gather probes (T1-T13, the scripts of
+     ``cross_attention_renderer_torch/tools/``): each instantiation equal
+     to its plain version bit for bit, timed at the probe's shapes beside
+     ``torch.index_select`` (a ``copy_`` for the fills) and its byte bound;
+ 15. evaluation: ``evaluate_scene`` on the flagship V=2 image with LPIPS
+     from seeded random VGG weights written by ``convert_weights``; its
+     PSNR, SSIM and LPIPS on the card (cuDNN's TF32 off) against the same
+     metrics of the same image on the CPU in f32;
+ 16. bench: one run of ``bench_torch.py``'s measurement, its JSON line
+     printed.
+Then it prints the ``kernels`` JSON line (K1-K9, T1-T13), the card line
+and, last, the result line.
 """
 
 from __future__ import annotations
@@ -111,6 +127,12 @@ GATHER_TOL = 2 ** -5
 # steps of each output, as the fused render against the staged one.
 PATH_TOL = FUSED_VS_STAGED_TOL
 SMALL_TOL = 0.1     # bf16 card render vs f32 CPU render of the same model
+WIDE_FF = (384, 512)    # fusion_features past the 'smem' plan's widths
+WIDE_RAYS = 4096
+# evaluate_scene's metrics on the card against the CPU's, both f32 on the
+# same image: sums in another order (PSNR, SSIM) and cuDNN's f32
+# convolutions against the CPU's (LPIPS)
+EVAL_TOL = {'psnr': 1e-3, 'ssim': 1e-4, 'lpips_rel': 1e-3}
 # The decoder has no output squashing: at its initial scale random weights
 # put RGB near +-40. Its last layer is drawn this much smaller so that the
 # random image lies in an image's range and the range check below means
@@ -126,18 +148,10 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls after one warm-up."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean device time of ``fn`` over ``iters`` calls after one warm-up
+    (``utils/profiling.py``)."""
+    from cross_attention_renderer_torch.utils.profiling import cuda_ms as ms
+    return ms(fn, iters)
 
 
 def max_err(got, want) -> float:
@@ -498,26 +512,29 @@ def check_epilogue(name, kernel, plain, args, aux_list, params, tol):
 
 
 def launch_shape(name, kernel):
-    """Logs and returns the last launch's shape of an exchange-core kernel
-    (K2, K3, K4, K9) as the launch reported it."""
+    """Logs and returns the last launch's shape and plan of an
+    exchange-core kernel (K2, K3, K4, K9) as the launch reported them."""
     grid, stages, smem, threads, *cluster = kernel.last_launch
     log(f'{name} launch: grid {grid} blocks of {threads} threads, cluster '
         f'shape {tuple(cluster)}, {stages} weight stage slots, '
-        f'{smem:,} bytes of shared memory a block')
+        f'{smem:,} bytes of shared memory a block, plan '
+        f'{kernel.last_plan!r}')
     return {'grid': grid, 'threads': threads, 'cluster': cluster,
-            'stage_slots': stages, 'smem_bytes': smem}
+            'stage_slots': stages, 'smem_bytes': smem,
+            'plan': kernel.last_plan}
 
 
-def small_agreement(label, RM, make_scene, dev, counted=None, **kw):
+def small_agreement(label, RM, make_scene, dev, counted=None, small=SMALL,
+                    **kw):
     """A narrow model's bf16 render on the card against its f32 render on
     the CPU, through the same entry point. ``counted`` ({name: (kernel
     wrapper, launches)}) are the launches the card render must make.
     Returns them."""
     import torch
     n_view = kw.get('n_view', 2)
-    ref = RM.CrossAttentionRenderer(seed=1, device='cpu', **SMALL, **kw)
+    ref = RM.CrossAttentionRenderer(seed=1, device='cpu', **small, **kw)
     card_model = RM.CrossAttentionRenderer(dtype=torch.bfloat16, seed=1,
-                                           device=dev, **SMALL, **kw)
+                                           device=dev, **small, **kw)
     s_cpu = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512,
                        device='cpu')
     s_dev = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512, device=dev)
@@ -531,6 +548,10 @@ def small_agreement(label, RM, make_scene, dev, counted=None, **kw):
     if launches != {name: n for name, (_, n) in counted.items()}:
         raise RuntimeError(f'small input {label}: unexpected kernel launches '
                            f'{launches}')
+    plans = {name: fn.last_plan for name, (fn, n) in counted.items()
+             if n and hasattr(fn, 'last_plan')}
+    if plans:
+        log(f'small input {label}: launches {launches}, plans {plans}')
     err = max_err(got, want)
     log(f'small input {label}: bf16 card render vs f32 CPU render, max err '
         f'{err:.3e} (tol {SMALL_TOL * scale(want):.3e})')
@@ -538,6 +559,188 @@ def small_agreement(label, RM, make_scene, dev, counted=None, **kw):
         raise RuntimeError(f'small-input render ({label}) disagrees with the '
                            'reference')
     return launches
+
+
+def check_mlp(FM, args, label='K9 fused_mlp2'):
+    """K9 against its plain version on ``args``; returns its numbers. Its
+    weights are laid out once (``prepared_mlp``) before the timed calls,
+    which then time the launch alone."""
+    import torch
+    from cross_attention_renderer_torch.ops import gather_epilogue as GE
+    GE.prepared_mlp(args[2:], args[0].device)
+    torch.cuda.synchronize()
+    out = FM.fused_mlp2(*args)
+    ref = FM.fused_mlp2_reference(*args)
+    err = max_err(out, ref)
+    log(f'{label} {tuple(args[0].shape)}: max err {err:.3e} (tol '
+        f'{K9_TOL * scale(ref):.3e})')
+    if err > K9_TOL * scale(ref):
+        raise RuntimeError(f'{label} disagrees with its plain version')
+    del out, ref
+    bound_ms, bound_by = mlp_bound(*args)
+    return {'max_abs_err': err,
+            'ms': cuda_ms(lambda: FM.fused_mlp2(*args), 20),
+            'plain_ms': cuda_ms(lambda: FM.fused_mlp2_reference(*args), 10),
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'launch': launch_shape(label, FM.fused_mlp2)}
+
+
+def first_call(model, scene, module, name):
+    """The arguments of the first call of ``module.<name>`` in one forward
+    of ``model`` on ``scene``."""
+    import torch
+    fn, seen = getattr(module, name), []
+
+    def recorder(*args):
+        if not seen:
+            seen.append(args)
+        return fn(*args)
+
+    setattr(module, name, recorder)
+    try:
+        with torch.inference_mode():
+            model(scene)
+    finally:
+        setattr(module, name, fn)
+    return seen[0]
+
+
+def check_wide(ff, RM, FM, FR, GE, make_scene, dev):
+    """K2, K3, K4 and K9 against their plain versions at fusion_features
+    ``ff``: models of the flagship's other widths with the ViT cut to 2
+    blocks, on the first WIDE_RAYS rays of a 256x256 scene. Returns each
+    kernel's numbers and plan."""
+    import torch
+    out = {}
+    base = dict(fusion_features=ff, vit_depth=2)
+    for key, kw, name in (
+            ('K2', dict(npoints=64), 'fused_exchange_epilogue'),
+            ('K4', dict(npoints=64, fused_render=True), 'fused_render_core'),
+            ('K3', dict(n_view=3), 'fused_exchange_epilogue_multi'),
+            ('K9', dict(n_view=3, **PATH_B), 'fused_mlp2')):
+        model = flagship(RM, dev, **base, **kw)
+        scene = make_scene(0, n_view=kw.get('n_view', 2), H=H, W=W,
+                           n_rays=WIDE_RAYS, device=dev)
+        args = first_call(model, scene, RM, name)
+        label = f'{key} {name} ff={ff}'
+        if key == 'K2':
+            n = check_epilogue(label, GE.fused_exchange_epilogue,
+                               GE.fused_exchange_epilogue_reference, args,
+                               args[2:4], args[4], K2_TOL)
+        elif key == 'K3':
+            n = check_epilogue(label, GE.fused_exchange_epilogue_multi,
+                               GE.fused_exchange_epilogue_multi_reference,
+                               args, args[2], args[3], K3_TOL)
+        elif key == 'K4':
+            log(f'{label}:')
+            n = check_render_core(FR, args)
+        else:
+            n = check_mlp(FM, args, label)
+        out[key] = n
+        del model, scene, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def random_lpips_npz(path):
+    """LPIPS weights drawn from seed 0 (VGG16's 13 convolutions at 0.05,
+    nonnegative 1x1 heads), written through ``convert_weights`` as the
+    learned ones would be: the repository ships none."""
+    import numpy as np
+    from cross_attention_renderer_torch.losses.lpips import convert_weights
+    rng = np.random.default_rng(0)
+    layer_ids = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+    channels = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512,
+                512)
+    vgg, c_in = {}, 3
+    for lid, c in zip(layer_ids, channels):
+        vgg[f'{lid}.weight'] = rng.normal(0, 0.05, (c, c_in, 3, 3)).astype(
+            np.float32)
+        vgg[f'{lid}.bias'] = np.zeros(c, np.float32)
+        c_in = c
+    lins = {f'lins.{i}.model.1.weight': np.abs(rng.normal(
+        0, 1, (1, c, 1, 1))).astype(np.float32)
+        for i, c in enumerate((64, 128, 256, 512, 512))}
+    return convert_weights(vgg, lins, str(path))
+
+
+def check_evaluation(RM, make_scene, dev, npz):
+    """``evaluate_scene`` on the flagship V=2 image with LPIPS, on the card,
+    against the same metrics of the same image on the CPU in f32."""
+    import torch
+    from cross_attention_renderer_torch.losses import lpips as LP
+    from cross_attention_renderer_torch.train.evaluation import (
+        evaluate_scene)
+    from cross_attention_renderer_torch.utils import metrics as MT
+    model = flagship(RM, dev, npoints=64)
+    scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
+                       device=dev)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        card = evaluate_scene(model, scene, H, W, N_BLOCKS,
+                              lpips_fn=LP.load_lpips(str(npz), device=dev))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    pred = torch.from_numpy(card['pred'])
+    target = torch.from_numpy(card['target'])
+    cpu = {'psnr': float(MT.psnr(pred, target)),
+           'ssim': float(MT.ssim(pred, target)),
+           'lpips': float(LP.load_lpips(str(npz), device='cpu')(
+               (pred[None] - 0.5) * 2.0, (target[None] - 0.5) * 2.0)[0])}
+    got = {k: float(card[k]) for k in ('psnr', 'ssim', 'lpips')}
+    log(f'evaluate_scene (V=2, {H}x{W}, {N_BLOCKS} blocks, {eval_s:.2f} s '
+        f'with the encode): card {got}, CPU f32 {cpu}')
+    ok = (all(map(np_isfinite, got.values()))
+          and abs(got['psnr'] - cpu['psnr']) <= EVAL_TOL['psnr']
+          and abs(got['ssim'] - cpu['ssim']) <= EVAL_TOL['ssim']
+          and abs(got['lpips'] - cpu['lpips'])
+          <= EVAL_TOL['lpips_rel'] * abs(cpu['lpips'])
+          and got['lpips'] > 0 and -1 <= got['ssim'] <= 1)
+    if not ok:
+        raise RuntimeError('evaluate_scene on the card disagrees with the '
+                           'CPU metrics of the same image')
+    return {'card': got, 'cpu': cpu, 'seconds': eval_s}
+
+
+def np_isfinite(x) -> bool:
+    return x == x and abs(x) != float('inf')
+
+
+def probe_kernels(dev):
+    """T1-T13: every case of the five probe scripts, then one entry a probe
+    for the ``kernels`` line (its first case's numbers, all cases
+    beside)."""
+    import importlib
+    from cross_attention_renderer_torch.tools import _common as PC
+    records = []
+    for name in ('micro_kgather', 'micro_kgather2', 'micro_kgather3',
+                 'micro_kgather_bisect', 'micro_kgather_bisect2'):
+        log(f'--- probes: {name}')
+        mod = importlib.import_module(
+            f'cross_attention_renderer_torch.tools.{name}')
+        records += mod.run(dev)
+    entries = []
+    for tid, (site, fn_name) in PC.PROBES.items():
+        cases = [r for r in records if r['probe'] == tid]
+        if not cases:
+            raise RuntimeError(f'probe {tid} ran no case')
+        main_case = cases[0]
+        entries.append({
+            'name': f'{tid} {fn_name}', 'route': 'cuda',
+            'source': 'cross_attention_renderer_torch/csrc/row_gather.cu',
+            'replaces': site, 'launches': 0, 'launches_by_path': {},
+            **{k: main_case[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                         'bound_by', 'library_ms',
+                                         'max_abs_err')},
+            'case': main_case['case'],
+            'cases': [{k: r[k] for k in ('case', 'ms', 'plain_ms',
+                                         'library_ms', 'bound_ms')}
+                      for r in cases]})
+    return entries
 
 
 def flagship(RM, dev, **kw):
@@ -675,17 +878,7 @@ def main() -> int:
          'fused_mlp2': per_block * N_BLOCKS})
     by_path['v3_compat'] = launches
     args = captured['fused_mlp2'][0]
-    # the weights laid out once before the timed calls (the launch alone)
-    GE.prepared_mlp(args[2:], args[0].device)
-    torch.cuda.synchronize()
-    out = FM.fused_mlp2(*args)
-    ref = FM.fused_mlp2_reference(*args)
-    err9 = max_err(out, ref)
-    log(f'K9 fused_mlp2 {tuple(args[0].shape)}: max err {err9:.3e} (tol '
-        f'{K9_TOL * scale(ref):.3e})')
-    if err9 > K9_TOL * scale(ref):
-        raise RuntimeError('K9 disagrees with its plain version')
-    del out, ref
+    k9 = check_mlp(FM, args)
     x1, x2, w1a, w1b, b1, w2, b2 = args
     dt = x1.dtype
     w1a_, w1b_, w2_ = (w.to(dt) for w in (w1a, w1b, w2))
@@ -694,12 +887,6 @@ def main() -> int:
         h = torch.relu(x1 @ w1a_ + x2 @ w1b_ + b1.to(dt))
         return h @ w2_ + b2.to(dt)
 
-    bound_ms, bound_by = mlp_bound(*args)
-    k9 = {'max_abs_err': err9,
-          'ms': cuda_ms(lambda: FM.fused_mlp2(*args), 20),
-          'plain_ms': cuda_ms(lambda: FM.fused_mlp2_reference(*args), 10),
-          'bound_ms': bound_ms, 'bound_by': bound_by,
-          'launch': launch_shape('K9 fused_mlp2', FM.fused_mlp2)}
     log(f'note: the torch.matmul chain relu(x1 @ W1a + x2 @ W1b + b1) @ W2 '
         f'+ b2 on K9\'s inputs: {cuda_ms(two_matmuls, 10):.3f} ms')
     del scene, captured, args, x1, x2
@@ -782,6 +969,46 @@ def main() -> int:
         counted={'banded_gather': (BG.banded_gather, 6)}, n_view=3,
         gather='banded', **PATH_B)
 
+    # -- 13. wide latents: the exchange core's plans ------------------------
+    wide = {ff: check_wide(ff, RM, FM, FR, GE, make_scene, dev)
+            for ff in WIDE_FF}
+    wide_small = dict(SMALL, fusion_features=512)
+    for label, kw, counted in (
+            ('V=2', {}, {'epipolar_attention': (EA.epipolar_attention, 2),
+                         'fused_exchange_epilogue': (
+                             GE.fused_exchange_epilogue, 1)}),
+            ('V=2 fused render', dict(fused_render=True),
+             {'fused_render_core': (FR.fused_render_core, 1),
+              'epipolar_attention': (EA.epipolar_attention, 0)}),
+            ('V=3 (Path A)', dict(n_view=3),
+             {'epipolar_attention': (EA.epipolar_attention, 2),
+              'fused_exchange_epilogue_multi': (
+                  GE.fused_exchange_epilogue_multi, 1)})):
+        small_agreement(f'{label} ff=512', RM, make_scene, dev,
+                        counted=counted, small=wide_small, **kw)
+    for key, numbers in (('K2', k2), ('K3', k3), ('K9', k9), ('K4', k4)):
+        numbers['wide'] = {str(ff): wide[ff][key] for ff in WIDE_FF}
+    torch.cuda.empty_cache()
+
+    # -- 14. the row-gather probes (T1-T13) ---------------------------------
+    t0 = time.perf_counter()
+    probes = probe_kernels(dev)
+    log(f'probes: {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+
+    # -- 15. evaluation ----------------------------------------------------
+    build_dir = root / 'cross_attention_renderer_torch' / 'build'
+    build_dir.mkdir(parents=True, exist_ok=True)
+    evaluation = check_evaluation(
+        RM, make_scene, dev, random_lpips_npz(build_dir / 'lpips_random.npz'))
+    torch.cuda.empty_cache()
+
+    # -- 16. bench ---------------------------------------------------------
+    import bench_torch
+    bench = bench_torch.measure()
+    log(f'bench_torch encode: {bench.pop("encode_ms"):.3f} ms')
+    print(json.dumps(bench), flush=True)
+
     kernels = []
     for (name, _), numbers, source, replaces in (
             (attention, k1, 'epipolar_attention.cu',
@@ -803,11 +1030,13 @@ def main() -> int:
             'replaces': f'cross_attention_renderer_tpu/{replaces}',
             'launches': sum(paths.values()), 'launches_by_path': paths,
             'library_ms': None, **numbers})
+    kernels += probes
     for kern in kernels:
         log(f'{kern["name"]}: {kern["ms"]:.3f} ms, plain '
             f'{kern["plain_ms"]:.3f} ms, bound {kern["bound_ms"]:.3f} ms '
             f'({kern["bound_by"]}), library {kern["library_ms"]} ms, '
             f'launches per image {kern["launches_by_path"]}')
+    log(f'evaluation: {json.dumps(evaluation)}')
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -70,6 +70,21 @@
 // runs its own view's stream first), the last stream's f goes into the comb
 // tile, which it no longer needs, so three streams fit in the shared memory
 // of two.
+//
+// Two plans (launch_core picks the first that fits a block's shared
+// memory; ops/gather_epilogue.py core_plan mirrors it). 'smem': comb and
+// the f rows are swizzled tiles in shared memory, read by wgmma as its
+// shared-memory A operand; the flagship's widths and every fusion_features
+// up to 320 in K2 and K3 (S = 3), 416 in K4 and 672 in K9 take it.
+// 'global' (kWide) for
+// wider tiles: comb and the f rows go to a per-block scratch in device
+// memory (L2), stored in the register A operand's fragment order so that
+// each thread reads a k-step's four words with one 16-byte load, and every
+// product that read them from shared memory takes them as its register A
+// operand instead. Only the stage ring, aux, the cells, the vectors and a
+// small reduction buffer stay in shared memory, so the plan has no
+// ceiling below widths whose vectors alone fill it (H1 in the tens of
+// thousands). The weight stream and the schedule are the same in both.
 
 #pragma once
 
@@ -105,6 +120,7 @@ constexpr int kThreads = kConsumers + kWG;  // + the producer warpgroup
 constexpr int kGatherBar = 1;          // named barrier ids (0 is
 constexpr int kPairBar = 2;            // __syncthreads)
 constexpr int kCeBar = 3;              // K4: the tile's ce is stored
+constexpr int kFragWords = kKBlock / 4;  // 32-bit words of a k-block
 constexpr float kAttnScale = 1.0f / 16.0f;
 
 // The vectors in shared memory: bf16 (their values are bf16-rounded), but
@@ -130,13 +146,19 @@ struct CoreArgs {
   bf16* kv;                      // (M, K)
   bf16* z;                       // kRender: (B, R, O)
   bf16* wt;                      // kRender: (B, 2, R, P)
-  bf16* scratch;                 // kRender: per block, the ray's jl (2P, O)
-                                 // then its ce (2P, K)
+  unsigned char* scratch;        // per block (scr_stride bytes): kRender
+                                 // the ray's jl (2P, O) then its ce (2P,
+                                 // K); then, with the 'global' plan, comb
+                                 // and the f rows in fragment order
   int S, M, F, H1, O, K, rp;
   int B, R, P, tv, repeat;       // kRender; tv: tiles of one view of a ray
   int n_units;                   // tiles, or rays (kRender)
   // Derived by fill_sizes: tile counts of each product and where things sit.
   int nch, nkbF, OT, osplit, KT, nkbf, nkbK, nkb_fbuf, n_stages;
+  int wide;                      // the 'global' plan
+  int nkb_tiles;                 // k-blocks of shared memory for tiles
+  long long scr_stride, scr_wide0;  // scratch bytes a block; the 'global'
+                                    // plan's tiles' offset in them
   int chunk_bytes;               // one hidden chunk's W1 and W2 stages
   int jl_split;                  // O tiles [0, jl_split) go to WG 0
   long long jl0, kh0, kv0, qe0, qe20, qr0, qr20;  // stage offsets
@@ -165,6 +187,50 @@ __device__ __forceinline__ uint4 ldg_row(const void* p) {
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(p));
   return v;
+}
+
+// The 'global' plan's tiles: a (64, 64 n) bf16 tile in the order of the
+// register A operand, the four words that thread `lane` of warp g of a
+// warpgroup holds for k-step ks being 16 contiguous bytes. Word of element
+// (row, col), col even.
+__device__ __forceinline__ int frag_word(int row, int col) {
+  return ((((col >> 4) * 4 + (row >> 4)) * 32 + ((row & 7) << 2) +
+           ((col & 7) >> 1))
+          << 2) +
+         (((col >> 3) & 1) << 1) + ((row >> 3) & 1);
+}
+
+// The register A operand of k-block kb's four k-steps from a tile in
+// fragment order (read through L2: the block wrote it).
+__device__ __forceinline__ void load_frags(const uint32_t* g, int kb,
+                                           uint32_t (&af)[4][4]) {
+  const int lane = threadIdx.x & 31, grp = (threadIdx.x >> 5) & 3;
+  const uint4* src = reinterpret_cast<const uint4*>(g);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint4 v = __ldcg(src + ((kb * 4 + ks) * 4 + grp) * 32 + lane);
+    af[ks][0] = v.x;
+    af[ks][1] = v.y;
+    af[ks][2] = v.z;
+    af[ks][3] = v.w;
+  }
+}
+
+// Stores columns col..col+7 (col % 8 == 0) of comb's row r: into the
+// swizzled shared-memory tile, or (kWide) into the fragment-order tile g.
+template <bool kWide>
+__device__ __forceinline__ void put_chunk(unsigned char* comb, uint32_t* g,
+                                          int r, int col, uint4 v) {
+  if (kWide) {
+    uint32_t* w = g + frag_word(r, col);
+    __stcg(w, v.x);
+    __stcg(w + 4, v.y);
+    __stcg(w + 8, v.z);
+    __stcg(w + 12, v.w);
+  } else {
+    *reinterpret_cast<uint4*>(comb + (col >> 6) * kKBlock +
+                              swizzle(r, col & 63)) = v;
+  }
 }
 
 __device__ __forceinline__ void bar_arrive(int id, int count) {
@@ -292,8 +358,11 @@ __device__ void produce(const CoreArgs& p, int w, uint32_t slots,
 // n_live, and combines each level's four slots into comb (64, F), swizzled
 // k-blocks of 64 columns; copies the tile's aux rows to aux (64, 16). Rows
 // past n_live get zeros. Run by the kConsumers threads, t = threadIdx.x.
+// kWide: comb goes to the fragment-order tile gcomb in device memory.
+template <bool kWide>
 __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
-                            unsigned char* comb, bf16* aux, int* cell) {
+                            unsigned char* comb, uint32_t* gcomb, bf16* aux,
+                            int* cell) {
   const int t = threadIdx.x;
   for (int i = t; i < kRows * 2; i += kConsumers) {
     const int r = i >> 1, half = i & 1;
@@ -343,8 +412,7 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
         }
       }
     }
-    *reinterpret_cast<uint4*>(comb + (col >> 6) * kKBlock +
-                              swizzle(r, col & 63)) = out;
+    put_chunk<kWide>(comb, gcomb, r, col, out);
   }
   fence_proxy_async();
   bar_sync(kGatherBar, kConsumers);
@@ -352,9 +420,10 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
 
 // K9's tile: rows m0 + r (r < n_live) of x (M, F) into comb as they are,
 // and x2's three columns into aux's tanh columns 12-14. Rows past n_live
-// get zeros.
+// get zeros. kWide: comb goes to gcomb, as in gather_tile.
+template <bool kWide>
 __device__ void load_rows(const CoreArgs& p, int m0, int n_live,
-                          unsigned char* comb, bf16* aux) {
+                          unsigned char* comb, uint32_t* gcomb, bf16* aux) {
   const int t = threadIdx.x;
   for (int i = t; i < kRows * 3; i += kConsumers) {
     const int r = i / 3, e = i - 3 * r;
@@ -367,8 +436,7 @@ __device__ void load_rows(const CoreArgs& p, int m0, int n_live,
     const int r = i / ch8, col = (i - r * ch8) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < n_live) val = ldg_row(p.x + (size_t)(m0 + r) * p.F + col);
-    *reinterpret_cast<uint4*>(comb + (col >> 6) * kKBlock +
-                              swizzle(r, col & 63)) = val;
+    put_chunk<kWide>(comb, gcomb, r, col, val);
   }
   fence_proxy_async();
   bar_sync(kGatherBar, kConsumers);
@@ -378,11 +446,12 @@ __device__ void load_rows(const CoreArgs& p, int m0, int n_live,
 // acc[nt - g0] (64 x 96 f32 fragments) for O tiles [g0, g1) = the sum over
 // the chunks c = c0, c0 + cstep, ... of bf16(h_c) @ W2[c, :], h_c =
 // relu(comb @ W1[:F, c] + tanh terms + b1[c]) in registers. b2 is not added.
-template <typename V>
+// kWide: layer 1 reads comb from gcomb as the register A operand.
+template <bool kWide, typename V>
 __device__ void stream_mlp(const CoreArgs& p, int c0, int cstep, int g0,
                            int g1, Ring& ring, uint32_t comb,
-                           const bf16* aux, const V* vsm,
-                           float (&acc)[kMaxOT][kNO / 2]) {
+                           const uint32_t* gcomb, const bf16* aux,
+                           const V* vsm, float (&acc)[kMaxOT][kNO / 2]) {
   const int lane = threadIdx.x & 31;
   const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
   const int tq = 2 * (lane & 3);
@@ -418,14 +487,25 @@ __device__ void stream_mlp(const CoreArgs& p, int c0, int cstep, int g0,
     }
     fence_regs(a1);
     for (int kb = 0; kb < p.nkbF; ++kb) {
-      const uint64_t db = wgmma_desc(ring.acquire());
-      const uint64_t da = wgmma_desc(comb + kb * kKBlock);
-      wgmma_fence();
+      if (kWide) {
+        uint32_t af[4][4];
+        load_frags(gcomb, kb, af);
+        const uint64_t db = wgmma_desc(ring.acquire());
+        wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        wgmma_ss_n64(a1, da + 2 * ks, db + 2 * ks);
-      wgmma_commit();
-      ring.release();
+        for (int ks = 0; ks < 4; ++ks) wgmma_rs_n64(a1, af[ks], db + 2 * ks);
+        wgmma_commit();
+        ring.release();
+      } else {
+        const uint64_t db = wgmma_desc(ring.acquire());
+        const uint64_t da = wgmma_desc(comb + kb * kKBlock);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_ss_n64(a1, da + 2 * ks, db + 2 * ks);
+        wgmma_commit();
+        ring.release();
+      }
     }
     fence_regs(a1);
 
@@ -472,6 +552,8 @@ template <int kMode>
 struct Smem {
   unsigned char* comb;   // (64, F) tile; then the last stream's f rows
   unsigned char* fbuf;   // the other f rows
+  uint32_t* gcomb;       // kWide: comb in device memory, fragment order
+  uint32_t* gf;          // kWide: all f rows there
   bf16* aux;             // (64, 16)
   int* cell;             // (kMaxLevels, 64)
   const Vec<kMode>* vsm;
@@ -609,7 +691,7 @@ __device__ __forceinline__ void store_logits(float (&lg)[2], int j0,
 // One tile of warpgroup w: rows m0 + r, r < n_live. K4 (view: the tile's
 // view; j0: the ray's joint index of row 0) keeps jl and ce in the block's
 // scratch (scr_jl, scr_ce) and writes the tile's round-1 logits.
-template <int kMode>
+template <int kMode, bool kWide>
 __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
                          Ring& ring, int w, int m0, int n_live, int view,
                          int j0, bf16* scr_jl, bf16* scr_ce) {
@@ -626,13 +708,14 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
     const int s = kMode == kRender ? (si == 0 ? view : 1 - view) : si;
     bar_sync(kGatherBar, kConsumers);  // comb and aux are free
     if (kMode == kMlp)
-      load_rows(p, m0, n_live, sm.comb, sm.aux);
+      load_rows<kWide>(p, m0, n_live, sm.comb, sm.gcomb, sm.aux);
     else
-      gather_tile(p, s, m0, n_live, sm.comb, sm.aux, sm.cell);
+      gather_tile<kWide>(p, s, m0, n_live, sm.comb, sm.gcomb, sm.aux,
+                         sm.cell);
     for (int g0 = t0; g0 < t1; g0 += kMaxOT) {
       const int g1 = min(g0 + kMaxOT, t1);
-      stream_mlp(p, p.osplit ? 0 : w ^ (si & 1), p.osplit ? 1 : 2, g0, g1,
-                 ring, comb_s, sm.aux, sm.vsm, acc);
+      stream_mlp<kWide>(p, p.osplit ? 0 : w ^ (si & 1), p.osplit ? 1 : 2, g0,
+                        g1, ring, comb_s, sm.gcomb, sm.aux, sm.vsm, acc);
       if (!p.osplit) {
         // f = WG 0's partial sums + WG 1's + b2: WG 1 hands its f32 sums
         // to WG 0 through the first 8 KB of comb, 16 columns a thread at a
@@ -641,7 +724,8 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
         // stay behind: read as bf16 they can be Inf or NaN, and k-block
         // 0's columns past F (F < 64) or past S*O (the last stream's f rows
         // ending there) are read again by products whose weights are zero
-        // there.
+        // there. (kWide: the first 8 KB of shared memory for tiles, which
+        // no product reads.)
         bar_sync(kPairBar, kConsumers);  // comb is no longer read
         float4* xbuf = reinterpret_cast<float4*>(sm.comb);  // (4, 128)
 #pragma unroll
@@ -697,6 +781,8 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
                   if (row < n_live)
                     *reinterpret_cast<uint32_t*>(
                         p.jl + (size_t)(m0 + row) * p.O + col) = v;
+                } else if (kWide) {
+                  __stcg(sm.gf + frag_word(row, slot * p.O + col), v);
                 } else {
                   const int fc = slot * p.O + col;
                   *reinterpret_cast<uint32_t*>(
@@ -723,6 +809,24 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
 #pragma unroll
       for (int i = 0; i < kNO / 2; ++i) acc[nt][i] = 0.f;
     for (int kb = 0; kb < p.nkbf; ++kb) {
+      if (kWide) {
+        uint32_t af[4][4];
+        load_frags(sm.gf, kb, af);
+#pragma unroll
+        for (int nt = 0; nt < kMaxOT; ++nt) {
+          if (g0 + nt < g1) {
+            const uint64_t db = wgmma_desc(ring.acquire());
+            fence_regs(acc[nt]);
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              wgmma_rs_n96(acc[nt], af[ks], db + 2 * ks);
+            wgmma_commit();
+            ring.release();
+          }
+        }
+        continue;
+      }
       const uint64_t da =
           wgmma_desc(smem_u32(f_block(p, sm.fbuf, sm.comb, kb)));
 #pragma unroll
@@ -770,6 +874,24 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
 #pragma unroll
       for (int i = 0; i < kNK / 2; ++i) ak[nt][i] = 0.f;
     for (int kb = 0; kb < p.nkbf; ++kb) {
+      if (kWide) {
+        uint32_t af[4][4];
+        load_frags(sm.gf, kb, af);
+#pragma unroll
+        for (int nt = 0; nt < kMaxKT; ++nt) {
+          if (nt < p.KT) {
+            const uint64_t db = wgmma_desc(ring.acquire());
+            fence_regs(ak[nt]);
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              wgmma_rs_n64(ak[nt], af[ks], db + 2 * ks);
+            wgmma_commit();
+            ring.release();
+          }
+        }
+        continue;
+      }
       const uint64_t da =
           wgmma_desc(smem_u32(f_block(p, sm.fbuf, sm.comb, kb)));
 #pragma unroll
@@ -1067,7 +1189,7 @@ __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
   fence_proxy_async();
 }
 
-template <int kMode>
+template <int kMode, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
     exchange_core_kernel(const CoreArgs p) {
   using V = Vec<kMode>;
@@ -1078,13 +1200,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   Smem<kMode> sm;
   sm.comb = slots + p.n_stages * kLargeStage;
   sm.fbuf = sm.comb + p.nkbF * kKBlock;
-  sm.aux = reinterpret_cast<bf16*>(sm.fbuf + p.nkb_fbuf * kKBlock);
+  sm.aux = reinterpret_cast<bf16*>(sm.comb + p.nkb_tiles * kKBlock);
   sm.cell = reinterpret_cast<int*>(sm.aux + kRows * 16);
   V* vsm = reinterpret_cast<V*>(sm.cell + kRows * kMaxLevels);
   sm.vsm = vsm;
   sm.rsm = reinterpret_cast<float*>(vsm + p.n_vecs);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm.rsm + p.n_rsm);
   const uint32_t full = smem_u32(bars), empty = full + 8 * p.n_stages;
+  unsigned char* scr = p.scratch + (size_t)blockIdx.x * p.scr_stride;
+  sm.gcomb = reinterpret_cast<uint32_t*>(scr + p.scr_wide0);
+  sm.gf = sm.gcomb + (size_t)p.nkbF * kFragWords;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
@@ -1099,9 +1224,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   // need to hold finite values (0 * Inf is NaN). Zero them once; later they
   // hold only combined rows, f values or zeros (the partial-sum exchange
   // through k-block 0 and K4's per-ray sums leave zeros behind).
-  for (int i = threadIdx.x * 16; i < (p.nkbF + p.nkb_fbuf) * kKBlock;
+  for (int i = threadIdx.x * 16; i < p.nkb_tiles * kKBlock;
        i += kThreads * 16)
     *reinterpret_cast<uint4*>(sm.comb + i) = make_uint4(0u, 0u, 0u, 0u);
+  if (kWide)  // the same for the block's tiles in device memory
+    for (int i = threadIdx.x; i < (p.nkbF + p.nkbf) * kKBlock / 16;
+         i += kThreads)
+      __stcg(reinterpret_cast<uint4*>(sm.gcomb) + i,
+             make_uint4(0u, 0u, 0u, 0u));
   // The vectors, out of reach of L1's misses: every chunk's first step
   // reads W1[F:F+3] and b1.
   for (int i = threadIdx.x; i < p.n_vecs; i += kThreads)
@@ -1124,7 +1254,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     bf16* scr_jl = nullptr;
     bf16* scr_ce = nullptr;
     if (kMode == kRender) {
-      scr_jl = p.scratch + (size_t)blockIdx.x * 2 * p.P * (p.O + p.K);
+      scr_jl = reinterpret_cast<bf16*>(scr);
       scr_ce = scr_jl + (size_t)2 * p.P * p.O;
     }
     for (int unit = blockIdx.x; unit < p.n_units; unit += gridDim.x) {
@@ -1132,16 +1262,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int b = unit / p.R, r = unit - b * p.R;
         for (int k = 0; k < 2 * p.tv; ++k) {
           const int v = k / p.tv, sub = k - v * p.tv;
-          run_tile<kMode>(p, sm, ring, w,
-                          ((b * 2 + v) * p.R + r) * p.P + sub * kRows,
-                          min(kRows, p.P - sub * kRows), v,
-                          v * p.P + sub * kRows, scr_jl, scr_ce);
+          run_tile<kMode, kWide>(p, sm, ring, w,
+                                 ((b * 2 + v) * p.R + r) * p.P + sub * kRows,
+                                 min(kRows, p.P - sub * kRows), v,
+                                 v * p.P + sub * kRows, scr_jl, scr_ce);
         }
         ray_tail<kMode>(p, sm, ring, w, unit, scr_jl, scr_ce);
       } else {
         const int m0 = unit * kRows;
-        run_tile<kMode>(p, sm, ring, w, m0, min(kRows, p.M - m0), 0, 0,
-                        nullptr, nullptr);
+        run_tile<kMode, kWide>(p, sm, ring, w, m0, min(kRows, p.M - m0), 0,
+                               0, nullptr, nullptr);
       }
     }
   }
@@ -1236,45 +1366,64 @@ inline int fill_sizes(CoreArgs& a, int mode, int S, int M, int F, int H1,
 
 // Launches the kernel on `stream`: one block per SM (or per unit, if
 // fewer), as many stage slots as the shared memory holds (up to
-// kMaxStages), split between the two rings, clusters of one block. K4
-// needs scratch_bytes >= grid * 2P * (O + K) * 2 in a.scratch. info
-// receives the launch's (grid, stage slots, shared bytes, threads a block,
-// cluster x, y, z).
+// kMaxStages), split between the two rings, clusters of one block. The
+// 'smem' plan where its tiles fit beside two stage slots, else the
+// 'global' one (kWide). The scratch (scratch_bytes at a.scratch) must hold
+// grid blocks of scr_stride bytes: K4's 2P * (O + K) * 2, plus with the
+// 'global' plan (nkbF + nkbf) * 8 KB. info receives the launch's (grid,
+// stage slots, shared bytes, threads a block, cluster x, y, z, plan:
+// 0 'smem', 1 'global').
 template <int kMode>
 int launch_core(CoreArgs& a, int* info, void* stream,
-                long long scratch_bytes = 0) {
-  // The last stream's f goes into the comb tile where the slot order is
-  // the same for every row of a tile and, above O = 288, each warpgroup
-  // has one group of O tiles (both then finish reading comb first).
-  a.nkb_fbuf = a.nkbf;
-  if ((kMode == kStreams || kMode == kRender) && a.OT <= 2 * kMaxOT) {
-    a.nkb_fbuf = ((a.S - 1) * a.O + 63) / 64;
-    if (a.nkbf - a.nkb_fbuf > a.nkbF) a.nkb_fbuf = a.nkbf;
-  }
-  const size_t tiles = (size_t)(a.nkbF + a.nkb_fbuf) * kKBlock;
-  if (kMode == kRender &&
-      (size_t)8 * (a.OT * kNO > a.KT * kNK ? a.OT * kNO : a.KT * kNK) * 4 >
-          tiles)
-    return (int)cudaErrorInvalidValue;
-  const size_t fixed = 1024 + tiles + kRows * 16 * sizeof(bf16) +
-                       kRows * kMaxLevels * sizeof(int) +
-                       a.n_vecs * sizeof(Vec<kMode>) +
-                       a.n_rsm * sizeof(float) + 16 * kMaxStages;
+                long long scratch_bytes) {
   int device = 0, optin = 0, n_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          device);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  // K4's per-ray sums take (8, max(O, K) padded) f32 of the tiles' space.
+  const size_t red = kMode == kRender ? (size_t)8 * 4 *
+                         (a.OT * kNO > a.KT * kNK ? a.OT * kNO : a.KT * kNK)
+                                      : 0;
+  const size_t common = 1024 + kRows * 16 * sizeof(bf16) +
+                        kRows * kMaxLevels * sizeof(int) +
+                        a.n_vecs * sizeof(Vec<kMode>) +
+                        a.n_rsm * sizeof(float) + 16 * kMaxStages;
+  // The 'smem' plan. The last stream's f goes into the comb tile where the
+  // slot order is the same for every row of a tile and, above O = 288,
+  // each warpgroup has one group of O tiles (both then finish reading comb
+  // first).
+  a.wide = 0;
+  a.nkb_fbuf = a.nkbf;
+  if ((kMode == kStreams || kMode == kRender) && a.OT <= 2 * kMaxOT) {
+    a.nkb_fbuf = ((a.S - 1) * a.O + 63) / 64;
+    if (a.nkbf - a.nkb_fbuf > a.nkbF) a.nkb_fbuf = a.nkbf;
+  }
+  a.nkb_tiles = a.nkbF + a.nkb_fbuf;
+  if ((size_t)a.nkb_tiles * kKBlock < red ||
+      (size_t)optin < common + (size_t)a.nkb_tiles * kKBlock +
+                          2 * kLargeStage) {
+    // The 'global' plan: shared memory keeps one k-block (the partial-sum
+    // exchange), or K4's per-ray sums.
+    a.wide = 1;
+    a.nkb_fbuf = a.nkbf;
+    a.nkb_tiles = (int)((red + kKBlock - 1) / kKBlock);
+    if (a.nkb_tiles < 1) a.nkb_tiles = 1;
+  }
+  const size_t fixed = common + (size_t)a.nkb_tiles * kKBlock;
   if ((size_t)optin < fixed + 2 * kLargeStage)
     return (int)cudaErrorInvalidValue;
   a.n_stages = (int)((optin - fixed) / kLargeStage) & ~1;
   if (a.n_stages > kMaxStages) a.n_stages = kMaxStages;
   const size_t smem = fixed + (size_t)a.n_stages * kLargeStage;
   const int grid = a.n_units < n_sm ? a.n_units : n_sm;
-  if (kMode == kRender &&
-      scratch_bytes < (long long)grid * 2 * a.P * (a.O + a.K) * 2)
+  a.scr_wide0 = kMode == kRender ? (long long)2 * a.P * (a.O + a.K) * 2 : 0;
+  a.scr_stride =
+      a.scr_wide0 + (a.wide ? (long long)(a.nkbF + a.nkbf) * kKBlock : 0);
+  if (scratch_bytes < (long long)grid * a.scr_stride)
     return (int)cudaErrorInvalidValue;
-  const auto kernel = exchange_core_kernel<kMode>;
+  const auto kernel = a.wide ? exchange_core_kernel<kMode, true>
+                             : exchange_core_kernel<kMode, false>;
   const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
@@ -1299,6 +1448,7 @@ int launch_core(CoreArgs& a, int* info, void* stream,
     info[4] = (int)cluster.val.clusterDim.x;
     info[5] = (int)cluster.val.clusterDim.y;
     info[6] = (int)cluster.val.clusterDim.z;
+    info[7] = a.wide;
   }
   return launched ? launched : (int)cudaGetLastError();
 }

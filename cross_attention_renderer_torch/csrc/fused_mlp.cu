@@ -33,12 +33,16 @@
 // x1: (M, K1), x2: (M, 3), out: (M, O) bf16, contiguous; stages
 // (stage_bytes) and vecs: the prepared weights (layout_mlp in
 // ops/gather_epilogue.py: W1b (3, H rounded up to 64) | b1 | b2 (O rounded
-// up to 96), f32). info (7 ints) receives the launch's shape, as
-// launch_core gives it. Returns a cudaError_t code.
+// up to 96), f32). scratch: scratch_bytes of device memory, which the
+// 'global' plan needs (launch_core; null and 0 do for the 'smem' plan).
+// info (8 ints) receives the launch's shape and plan, as launch_core gives
+// them. Returns a cudaError_t code.
 extern "C" int fused_mlp2_bf16(const void* x1, const void* x2,
                                const void* stages, long long stage_bytes,
                                const void* vecs, void* out, int M, int K1,
-                               int H, int O, int* info, void* stream) {
+                               int H, int O, void* scratch,
+                               long long scratch_bytes, int* info,
+                               void* stream) {
   using namespace exchange_core;
   CoreArgs a = {};
   a.x = static_cast<const bf16*>(x1);
@@ -46,8 +50,9 @@ extern "C" int fused_mlp2_bf16(const void* x1, const void* x2,
   a.stages = static_cast<const unsigned char*>(stages);
   a.vecs = static_cast<const float*>(vecs);
   a.jl = static_cast<bf16*>(out);
+  a.scratch = static_cast<unsigned char*>(scratch);
   const int err = fill_sizes(a, kMlp, 1, M, K1, H, O, 0, stage_bytes, 0, 0,
                              0, 0);
   if (err) return err;
-  return launch_core<kMlp>(a, info, stream);
+  return launch_core<kMlp>(a, info, stream, scratch_bytes);
 }

@@ -56,9 +56,10 @@
 // aux_self, aux_cross, lc: (M, 16) bf16; stages (stage_bytes), vecs and
 // mats: the prepared weights (layout_render in ops/gather_epilogue.py);
 // scratch: scratch_bytes of device memory, at least grid * 2P * (O + K) *
-// 2 (grid: min(B * R, SMs)). z: (B, R, O), wt: (B, 2, R, P) bf16. All
-// contiguous. info (7 ints) receives the launch's shape, as launch_core
-// gives it. Returns a cudaError_t code.
+// 2 (grid: min(B * R, SMs)), and with the 'global' plan grid * (nkbF +
+// nkbf) * 8 KB more (launch_core). z: (B, R, O), wt: (B, 2, R, P) bf16.
+// All contiguous. info (8 ints) receives the launch's shape and plan, as
+// launch_core gives them. Returns a cudaError_t code.
 extern "C" int fused_render_core_bf16(
     int n_levels, void* const* tables, void* const* cells,
     const int* channels, const void* aux_self, const void* aux_cross,
@@ -78,7 +79,7 @@ extern "C" int fused_render_core_bf16(
   a.stages = static_cast<const unsigned char*>(stages);
   a.vecs = static_cast<const float*>(vecs);
   a.mats = static_cast<const bf16*>(mats);
-  a.scratch = static_cast<bf16*>(scratch);
+  a.scratch = static_cast<unsigned char*>(scratch);
   a.z = static_cast<bf16*>(z);
   a.wt = static_cast<bf16*>(wt);
   a.rp = R * P;

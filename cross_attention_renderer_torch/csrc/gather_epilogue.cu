@@ -36,17 +36,19 @@
 // self stream's rows then the cross stream's; aux_self, aux_cross: (M, 16)
 // bf16; stages (stage_bytes) and vecs: the prepared weights
 // (layout_stages in ops/gather_epilogue.py). jl: (M, O), kv: (M, K) bf16.
-// All contiguous. info (7 ints) receives the launch's shape, as
-// launch_core gives it. Returns a cudaError_t code.
+// All contiguous. scratch: scratch_bytes of device memory, which the
+// 'global' plan needs (launch_core; null and 0 do for the 'smem' plan).
+// info (8 ints) receives the launch's shape and plan, as launch_core gives
+// them. Returns a cudaError_t code.
 extern "C" int fused_exchange_epilogue_bf16(
     int n_levels, void* const* tables, void* const* cells,
     const int* channels, const void* aux_self, const void* aux_cross,
     const void* stages, long long stage_bytes, const void* vecs, void* jl,
-    void* kv, int M, int F, int H1, int O, int K, int rp, int* info,
-    void* stream) {
+    void* kv, int M, int F, int H1, int O, int K, int rp, void* scratch,
+    long long scratch_bytes, int* info, void* stream) {
   using namespace exchange_core;
   const void* const aux[2] = {aux_self, aux_cross};
-  CoreArgs a;
+  CoreArgs a = {};
   int F_sum = 0;
   int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
   if (err) return err;
@@ -58,7 +60,8 @@ extern "C" int fused_exchange_epilogue_bf16(
   a.jl = static_cast<bf16*>(jl);
   a.kv = static_cast<bf16*>(kv);
   a.rp = rp;
+  a.scratch = static_cast<unsigned char*>(scratch);
   err = fill_sizes(a, kPair, 2, M, F, H1, O, K, stage_bytes, 0, 0, 0, 0);
   if (err) return err;
-  return launch_core<kPair>(a, info, stream);
+  return launch_core<kPair>(a, info, stream, scratch_bytes);
 }

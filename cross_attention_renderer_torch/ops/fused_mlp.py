@@ -44,8 +44,8 @@ def fused_mlp2(x1: Tensor, x2: Tensor, w1a: Tensor, w1b: Tensor, b1: Tensor,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
     which takes x1 bf16 and contiguous with K1 % 16 == 0, x2 contiguous
-    (M, 3) in bf16, H % 16 == 0 and O % 8 == 0 up to what a block's shared
-    memory holds; anything else raises. The kernel rounds its inputs as the
+    (M, 3) in bf16, H % 16 == 0 and O % 8 == 0 (at any width a renderer
+    has; ``gather_epilogue.check_core_widths``); anything else raises. The kernel rounds its inputs as the
     TPU kernel does: x2 and the weight matrices to bf16, biases kept in f32,
     the hidden layer rounded to bf16 before the second product. The weights
     are laid out once per set of parameter tensors, or views of them
@@ -57,8 +57,9 @@ def fused_mlp2(x1: Tensor, x2: Tensor, w1a: Tensor, w1b: Tensor, b1: Tensor,
 
 fused_mlp2.launches = 0   # kernel launches, for the chip smoke test
 # the last launch's (grid, stage slots, shared bytes, threads a block,
-# cluster x, y, z)
+# cluster x, y, z), and its plan ('smem' or 'global')
 fused_mlp2.last_launch = None
+fused_mlp2.last_plan = None
 
 
 def _launch(x1, x2, w1a, w1b, b1, w2, b2):
@@ -81,19 +82,21 @@ def _launch(x1, x2, w1a, w1b, b1, w2, b2):
             'weight shapes')
     GE.check_core_widths('fused_mlp2', 'mlp', 1, K1, H, O, 0)
     stages, vecs = GE.prepared_mlp((w1a, w1b, b1, w2, b2), dev)
+    scratch = GE.core_scratch('mlp', 1, K1, H, O, 0, -(-M // 64), dev)
     out = torch.empty((M, O), dtype=dt, device=dev)
 
     fn = _build.load('fused_mlp').fused_mlp2_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 2)
-    info = (ctypes.c_int * 7)()
+    info = (ctypes.c_int * 8)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(x1.data_ptr(), x2.data_ptr(), stages.data_ptr(),
                         stages.numel() * 2, vecs.data_ptr(), out.data_ptr(),
-                        M, K1, H, O, info, stream), 'fused_mlp2')
-    fused_mlp2.launches += 1
-    fused_mlp2.last_launch = tuple(info)
+                        M, K1, H, O, *GE._scratch_args(scratch), info,
+                        stream), 'fused_mlp2')
+    GE.record_launch(fused_mlp2, info)
     return out

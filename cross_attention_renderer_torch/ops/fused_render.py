@@ -153,7 +153,8 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
 
     CPU tensors take the plain version. CUDA tensors must be bf16 (cells
     int32) and contiguous, any B, R and P (up to what a block's shared
-    memory holds of the ray's 2P logits); they launch the kernel, and
+    memory holds of the ray's 2P logits) and any width a renderer has
+    (``gather_epilogue.check_core_widths``); they launch the kernel, and
     anything else raises. The weights are laid out once per set of
     parameter tensors (``gather_epilogue.prepared_render``)."""
     if aux_self.device.type == 'cpu':
@@ -166,8 +167,9 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
 
 fused_render_core.launches = 0  # kernel launches, for the smoke test
 # the last launch's (grid, stage slots, shared bytes, threads a block,
-# cluster x, y, z)
+# cluster x, y, z), and its plan ('smem' or 'global')
 fused_render_core.last_launch = None
+fused_render_core.last_plan = None
 
 
 def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
@@ -194,10 +196,9 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
                          '(O, K), (K+16, K), (K, K)')
     GE.check_core_widths(what, 'render', 2, F, H1, O, K, P)
     stages, vecs, mats = GE.prepared_render(params, bool(repeat), dev)
-    # The ray's jl and ce rows, per block of the persistent grid.
-    grid = min(B * R, torch.cuda.get_device_properties(dev)
-               .multi_processor_count)
-    scratch = torch.empty(grid * 2 * P * (O + K), dtype=dt, device=dev)
+    # The ray's jl and ce rows (and the 'global' plan's tiles), per block
+    # of the persistent grid.
+    scratch = GE.core_scratch('render', 2, F, H1, O, K, B * R, dev, P)
     z = torch.empty((B, R, O), dtype=dt, device=dev)
     at_wt = torch.empty((B, 2, R, P), dtype=dt, device=dev)
     fn = _build.load('fused_render').fused_render_core_bf16
@@ -206,16 +207,16 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
-    info = (ctypes.c_int * 7)()
+    info = (ctypes.c_int * 8)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(len(tables), *levels, aux_self.data_ptr(),
                         aux_cross.data_ptr(), lc.data_ptr(),
                         stages.data_ptr(), stages.numel() * 2,
-                        vecs.data_ptr(), mats.data_ptr(), scratch.data_ptr(),
-                        scratch.numel() * 2, z.data_ptr(), at_wt.data_ptr(),
+                        vecs.data_ptr(), mats.data_ptr(),
+                        *GE._scratch_args(scratch), z.data_ptr(),
+                        at_wt.data_ptr(),
                         B, R, P, F, H1, O, K, int(repeat), info, stream),
                      what)
-    fused_render_core.launches += 1
-    fused_render_core.last_launch = tuple(info)
+    GE.record_launch(fused_render_core, info)
     return z, at_wt

@@ -123,8 +123,17 @@ def fused_exchange_epilogue(tables: Sequence[Tensor],
 
 fused_exchange_epilogue.launches = 0  # kernel launches, for the smoke test
 # the last launch's (grid, stage slots, shared bytes, threads a block,
-# cluster x, y, z)
+# cluster x, y, z), and its plan ('smem' or 'global', see core_plan)
 fused_exchange_epilogue.last_launch = None
+fused_exchange_epilogue.last_plan = None
+
+
+def record_launch(wrapper, info) -> None:
+    """Counts a launch of an exchange-core kernel and keeps its shape and
+    plan from the launcher's 8 ints."""
+    wrapper.launches += 1
+    wrapper.last_launch = tuple(info)[:7]
+    wrapper.last_plan = ('smem', 'global')[info[7]]
 
 
 # The kernels' weight stream (csrc/exchange_core.cuh): tiles of 64-deep
@@ -327,11 +336,21 @@ def prepared_render(params: Sequence[Tensor], repeat: bool, device
                      lambda p: layout_render(p, repeat))
 
 
-def core_smem(mode: str, S: int, F: int, H1: int, O: int, K: int,
-              P: int = 0) -> int:
-    """Bytes of shared memory the exchange core needs a block, with two
-    weight stage slots, in mode 'pair' (K2), 'streams' (K3), 'mlp' (K9) or
-    'render' (K4, P samples a view); mirrors ``launch_core``."""
+def core_plan(mode: str, S: int, F: int, H1: int, O: int, K: int,
+              P: int = 0, force: str | None = None) -> tuple[str, int, int]:
+    """The exchange core's plan for these widths, in mode 'pair' (K2),
+    'streams' (K3), 'mlp' (K9) or 'render' (K4, P samples a view); mirrors
+    ``launch_core``. Returns (plan, bytes of shared memory a block with two
+    weight stage slots, bytes of device-memory scratch a block).
+    ``force='global'`` gives the 'global' plan's layout at any width (for a
+    core built to take that plan everywhere, as ``epilogue_ablation.py``
+    builds one).
+
+    'smem' keeps comb and the f rows in shared memory; where they do not
+    fit (from fusion_features 352 at S = 2 or 3, 448 in K4, 768 in K9),
+    'global' puts them in the scratch, in the register A operand's fragment
+    order, and keeps one 8 KB k-block (K4: its per-ray sums) in shared
+    memory."""
     nkbF, OT = _cdiv(F, _KB), _cdiv(O, _NO)
     KT = 0 if mode == 'mlp' else _cdiv(K, _NK)
     nkbf = 0 if mode == 'mlp' else _cdiv(S * O, _KB)
@@ -344,35 +363,60 @@ def core_smem(mode: str, S: int, F: int, H1: int, O: int, K: int,
     n_vecs = 4 * ldv + OT * _NO
     if mode != 'mlp':
         n_vecs += OT * _NO + 2 * KT * _NK
-    n_rsm = 0
+    n_rsm, red, scratch = 0, 0, 0
     if mode == 'render':
         n_vecs += 5 * KT * _NK
         n_rsm = (2 * P + 3) // 4 * 4 + 2 * OT * _NO + 2 * KT * _NK + 32
-        if 32 * max(OT * _NO, KT * _NK) > (nkbF + nkb_fbuf) * 8192:
-            return 1 << 30
-    return (1024 + (nkbF + nkb_fbuf) * 8192 + 64 * 16 * 2 + 64 * 3 * 4
-            + n_vecs * (4 if mode == 'mlp' else 2) + n_rsm * 4 + 16 * 8
-            + 2 * 96 * 128)
+        red = 32 * max(OT * _NO, KT * _NK)
+        scratch = 2 * P * (O + K) * 2
+    common = (1024 + 64 * 16 * 2 + 64 * 3 * 4
+              + n_vecs * (4 if mode == 'mlp' else 2) + n_rsm * 4 + 16 * 8
+              + 2 * 96 * 128)
+    tiles = (nkbF + nkb_fbuf) * 8192
+    if force != 'global' and tiles >= red and common + tiles <= SMEM_LIMIT:
+        return 'smem', common + tiles, scratch
+    return ('global', common + max(1, _cdiv(red, 8192)) * 8192,
+            scratch + (nkbF + nkbf) * 8192)
 
 
 def check_core_widths(what: str, mode: str, S: int, F: int, H1: int, O: int,
                       K: int, P: int = 0) -> None:
     """Raises ValueError on widths the exchange core does not take: K above
-    256, or a tile that does not fit in a block's shared memory (naming the
-    largest O that does at these other widths)."""
+    256 (the attention width, 128 in both packages and not configurable),
+    and vectors too long for shared memory even in the 'global' plan (H1
+    in the tens of thousands, or K4's P in the thousands)."""
     if mode != 'mlp' and K > MAX_K:
         raise ValueError(f'{what}: K = {K} > {MAX_K}: K is the attention '
-                         'width (128 in both packages), and the core keeps '
-                         'its hidden layer kh in registers')
-    need = core_smem(mode, S, F, H1, O, K, P)
+                         'width (HIDDEN_DIM, 128 in both packages and not '
+                         'configurable), and the core keeps its hidden '
+                         'layer kh in registers')
+    need = core_plan(mode, S, F, H1, O, K, P)[1]
     if need > SMEM_LIMIT:
-        fits = [o for o in range(8, O, 8)
-                if core_smem(mode, S, F, H1, o, K, P) <= SMEM_LIMIT]
         raise ValueError(
-            f'{what}: O = {O} needs {need} bytes of shared memory a block, '
-            f'more than {SMEM_LIMIT}; '
-            + (f'the largest O these widths take is {max(fits)}' if fits
-               else f'no O fits at F = {F}, H1 = {H1}'))
+            f'{what}: even with its tiles in device memory the core needs '
+            f'{need} bytes of shared memory a block at H1 = {H1}, O = {O}, '
+            f'P = {P}, more than {SMEM_LIMIT}: its vectors (8-16 bytes a '
+            'hidden unit) and K4\'s per-ray logits (8 P bytes) stay there')
+
+
+def core_scratch(mode: str, S: int, F: int, H1: int, O: int, K: int,
+                 n_units: int, device, P: int = 0) -> Tensor | None:
+    """The device-memory scratch a launch of the core needs (the 'global'
+    plan's tiles, K4's ray rows), for the persistent grid of min(n_units,
+    SMs) blocks; None where it needs none."""
+    per_block = core_plan(mode, S, F, H1, O, K, P)[2]
+    if per_block == 0:
+        return None
+    grid = min(n_units,
+               torch.cuda.get_device_properties(device).multi_processor_count)
+    return torch.empty(grid * per_block, dtype=torch.uint8, device=device)
+
+
+def _scratch_args(scratch: Tensor | None) -> tuple[int | None, int]:
+    """(pointer, bytes) of a scratch for the C interface."""
+    if scratch is None:
+        return None, 0
+    return scratch.data_ptr(), scratch.numel()
 
 
 def _checked_args(what, tables, cells, aux, params):
@@ -413,13 +457,16 @@ def _checked_args(what, tables, cells, aux, params):
 
 def _core_args(what, mode, tables, cells, aux, params):
     """:func:`_checked_args` for K2 (mode 'pair') and K3 ('streams'), with
-    the widths the core takes (:func:`check_core_widths`), and their
-    prepared weights: (levels, sizes, stages, vecs)."""
+    the widths the core takes (:func:`check_core_widths`), their prepared
+    weights and the scratch of their plan: (levels, sizes, stages, vecs,
+    scratch)."""
     levels, sizes = _checked_args(what, tables, cells, aux, params)
-    _, F, H1, O, K = sizes
+    M, F, H1, O, K = sizes
     check_core_widths(what, mode, len(aux), F, H1, O, K)
     stages, vecs = prepared_weights(params, len(aux), aux[0].device)
-    return levels, sizes, stages, vecs
+    scratch = core_scratch(mode, len(aux), F, H1, O, K, _cdiv(M, 64),
+                           aux[0].device)
+    return levels, sizes, stages, vecs, scratch
 
 
 def _outputs(aux, sizes):
@@ -430,7 +477,7 @@ def _outputs(aux, sizes):
 
 
 def _launch(tables, cells, aux_self, aux_cross, params, rp):
-    levels, sizes, stages, vecs = _core_args(
+    levels, sizes, stages, vecs, scratch = _core_args(
         'fused_exchange_epilogue', 'pair', tables, cells,
         (aux_self, aux_cross), params)
     jl, kv = _outputs(aux_self, sizes)
@@ -438,17 +485,18 @@ def _launch(tables, cells, aux_self, aux_cross, params, rp):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
-    info = (ctypes.c_int * 7)()
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 2)
+    info = (ctypes.c_int * 8)()
     with torch.cuda.device(jl.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(len(tables), *levels, aux_self.data_ptr(),
                         aux_cross.data_ptr(), stages.data_ptr(),
                         stages.numel() * 2, vecs.data_ptr(), jl.data_ptr(),
-                        kv.data_ptr(), *sizes, rp, info, stream),
+                        kv.data_ptr(), *sizes, rp, *_scratch_args(scratch),
+                        info, stream),
                      'fused_exchange_epilogue')
-    fused_exchange_epilogue.launches += 1
-    fused_exchange_epilogue.last_launch = tuple(info)
+    record_launch(fused_exchange_epilogue, info)
     return jl, kv
 
 
@@ -516,6 +564,7 @@ def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
 
 fused_exchange_epilogue_multi.launches = 0  # kernel launches
 fused_exchange_epilogue_multi.last_launch = None
+fused_exchange_epilogue_multi.last_plan = None
 
 
 def _launch_multi(tables, cells, aux_list, params):
@@ -523,7 +572,7 @@ def _launch_multi(tables, cells, aux_list, params):
     if not 2 <= S <= 4:
         raise ValueError(f'fused_exchange_epilogue_multi: 2 to 4 streams, '
                          f'got {S}')
-    levels, sizes, stages, vecs = _core_args(
+    levels, sizes, stages, vecs, scratch = _core_args(
         'fused_exchange_epilogue_multi', 'streams', tables, cells, aux_list,
         params)
     jl, kv = _outputs(aux_list[0], sizes)
@@ -533,15 +582,16 @@ def _launch_multi(tables, cells, aux_list, params):
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 2)
     aux_ptrs = (ctypes.c_void_p * S)(*[a.data_ptr() for a in aux_list])
-    info = (ctypes.c_int * 7)()
+    info = (ctypes.c_int * 8)()
     with torch.cuda.device(jl.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(len(tables), *levels, S, aux_ptrs, stages.data_ptr(),
                         stages.numel() * 2, vecs.data_ptr(), jl.data_ptr(),
-                        kv.data_ptr(), *sizes, info, stream),
+                        kv.data_ptr(), *sizes, *_scratch_args(scratch), info,
+                        stream),
                      'fused_exchange_epilogue_multi')
-    fused_exchange_epilogue_multi.launches += 1
-    fused_exchange_epilogue_multi.last_launch = tuple(info)
+    record_launch(fused_exchange_epilogue_multi, info)
     return jl, kv

@@ -1,21 +1,43 @@
-"""Full-image rendering with the encoder latent computed once per scene.
+"""Evaluation: full-image rendering with the encoder latent computed once
+per scene, and the reference's per-scene metrics.
 
-Port of ``render_full_image`` and ``make_scan_renderer`` of
-``cross_attention_renderer_tpu/train/evaluation.py`` (reference eval
-protocol, eval_realestate10k.py:136-161). PyTorch runs eagerly, so the JAX
-``lax.scan`` over ray blocks is a Python loop; the packed cell tables, where
-the model reads them, are still built once per image.
+Port of ``make_chunk_renderer``, ``render_full_image``,
+``make_scan_renderer``, ``make_image_renderer`` (its dense renderer) and
+``evaluate_scene`` of ``cross_attention_renderer_tpu/train/evaluation.py``
+(reference eval protocol, eval_realestate10k.py:131-199). PyTorch runs
+eagerly, so the JAX ``lax.scan`` over ray blocks is a Python loop; the
+packed cell tables, where the model reads them, are still built once per
+image. The parameters live in the model, so no entry point takes them.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from cross_attention_renderer_torch.ops.grid_sample import pack_pyramid
+from cross_attention_renderer_torch.utils.metrics import eval_image_metrics
 
 Tensor = torch.Tensor
+
+
+def make_chunk_renderer(model) -> tuple[Callable, Callable]:
+    """(encode(scene) -> z, render_chunk(scene, z, uv) -> (rgb, valid)):
+    one forward a chunk of query rays, with the latent ``z`` cached."""
+
+    @torch.inference_mode()
+    def encode(scene):
+        return model.encode(scene)
+
+    @torch.inference_mode()
+    def render_chunk(scene, z, uv):
+        s = dict(scene)
+        s['query'] = dict(scene['query'], uv=uv)
+        out = model(s, z=z)
+        return out['rgb'], out['valid_mask']
+
+    return encode, render_chunk
 
 
 def render_full_image(render_chunk: Callable, scene: dict, z,
@@ -56,3 +78,49 @@ def make_scan_renderer(model, n_chunks: int) -> Callable:
         return render_full_image(render_chunk, scene, z, uv_full, n_chunks)
 
     return render_image
+
+
+def make_image_renderer(model, n_chunks: int,
+                        pruned: Optional[tuple] = None,
+                        narrow: Optional[tuple] = None,
+                        q8: bool = False) -> tuple[Callable, Callable]:
+    """(encode(scene) -> z, render_image(scene, z) -> (rgb, valid)): the
+    scene's full query uv grid in ``n_chunks`` ray blocks
+    (:func:`make_scan_renderer`). ``pruned``, ``narrow`` and ``q8`` (the
+    JAX package's fast-eval renderers) are not ported yet and raise."""
+    if pruned is not None or narrow is not None or q8:
+        raise NotImplementedError(
+            'the fast-eval renderers (pruned, narrow, q8) are not ported '
+            'yet: ROADMAP.md Queue A 6')
+    encode, _ = make_chunk_renderer(model)
+    scan = make_scan_renderer(model, n_chunks)
+    return encode, lambda scene, z: scan(scene, z, scene['query']['uv'])
+
+
+def evaluate_scene(model, scene: dict, H: int = 256, W: int = 256,
+                   n_chunks: int = 8, lpips_fn: Optional[Callable] = None,
+                   renderer=None) -> dict:
+    """The reference protocol's evaluation of one scene with a full-image
+    query uv grid (eval_realestate10k.py:131-199): encode once, render the
+    image, grey out invalid rays in both images, then MSE, PSNR, SSIM and,
+    with ``lpips_fn`` (``losses.lpips.load_lpips``), LPIPS. Returns numpy
+    values: the metrics and the greyed images ``pred`` and ``target`` in
+    [0, 1]. ``renderer`` is an (encode, render_image) pair from
+    :func:`make_image_renderer`; the metrics run in f32 on the image's
+    device."""
+    if renderer is None:
+        renderer = make_image_renderer(model, n_chunks)
+    encode, render_image = renderer
+    z = encode(scene)
+    rgb, valid = render_image(scene, z)
+    pred01 = (rgb.float().reshape(H, W, 3) + 1.0) * 0.5
+    target01 = (scene['query']['rgb'].float().reshape(H, W, 3) + 1.0) * 0.5
+    mask = valid.float().reshape(H, W, 1)
+    metrics = eval_image_metrics(pred01, target01, mask)
+    out = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+    if lpips_fn is not None:
+        # lpips_distance is batched NHWC in [-1, 1]
+        pred = (metrics['pred'][None] - 0.5) * 2.0
+        target = (metrics['target'][None] - 0.5) * 2.0
+        out['lpips'] = float(lpips_fn(pred, target)[0])
+    return out

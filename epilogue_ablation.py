@@ -14,7 +14,14 @@ to), beside the kernel as it is:
               per-ray tail alone;
   no_copy   - as no_gather, and the weight stages are not copied (the
               producer only signals them): the consumers' own time;
-  and K4 as it is without its second attention round (round1_only).
+  global    - the 'global' plan (comb and the f rows in device memory,
+              read as wgmma's register operand) where the kernel would
+              take the 'smem' one: what that plan costs;
+  and K4 as it is without its second attention round (round1_only). Then
+  the widths where the 'smem' plan fits with few stage slots (K4 at
+  fusion_features 384: 2 slots; K9 at 512: 4), as they are against the
+  'global' variant, on the first 4,096 rays of models with the ViT cut to
+  2 blocks (chip_smoke's wide-latent inputs).
 
 A variant's outputs are wrong by design; only its time is read. Prints the
 card line, one line per timing and a JSON object last. Needs a card and
@@ -43,8 +50,11 @@ NO_COPY = ('    mbar_expect_tx(full + 8 * idx, bytes);\n'
            '    bulk_copy(slots + idx * kLargeStage, p.stages + off, bytes,\n'
            '              full + 8 * idx);',
            '    mbar_arrive(full + 8 * idx);')
+FORCE_GLOBAL = ('  if ((size_t)a.nkb_tiles * kKBlock < red ||',
+                '  if (true ||')
 VARIANTS = {'no_gather': [NO_GATHER, NO_ROWS],
-            'no_copy': [NO_GATHER, NO_ROWS, NO_COPY]}
+            'no_copy': [NO_GATHER, NO_ROWS, NO_COPY],
+            'global': [FORCE_GLOBAL]}
 
 
 def build_variant(_build, name, patches):
@@ -87,6 +97,23 @@ def first_block_args(CS, RM, dev, name, **kw):
     finally:
         setattr(RM, name, orig)
     return got[0]
+
+
+def timed(CS, GE, _build, libs, fn, args, variant):
+    """ms of ``fn(*args)`` with the libraries of ``variant``; checks the
+    plan the launch took."""
+    real = GE.core_plan
+    if variant == 'global':     # the wrappers size the scratch for it
+        GE.core_plan = lambda *a: real(*a, force='global')
+    _build._loaded.update(libs[variant])
+    try:
+        ms = CS.cuda_ms(lambda: fn(*args), 10)
+    finally:
+        GE.core_plan = real
+        _build._loaded.update(libs['full'])
+    if variant == 'global' and fn.last_plan != 'global':
+        raise RuntimeError(f'the global variant launched {fn.last_plan!r}')
+    return ms
 
 
 def main() -> int:
@@ -134,11 +161,9 @@ def main() -> int:
         # full, each variant, full again: the spread of the two fulls is the
         # noise of the call
         for variant in ('full', *VARIANTS, 'full'):
-            _build._loaded.update(libs[variant])
-            ms = CS.cuda_ms(lambda: fn(*args), 10)
+            ms = timed(CS, GE, _build, libs, fn, args, variant)
             results.setdefault(label, {}).setdefault(variant, []).append(ms)
             print(f'{label} {variant}: {ms:.3f} ms', flush=True)
-        _build._loaded.update(libs['full'])
         if label == 'K4':
             # without round 2: what the repeat MLP and second attention
             # round cost
@@ -146,6 +171,27 @@ def main() -> int:
             results[label]['round1_only'] = [ms]
             print(f'{label} round1_only: {ms:.3f} ms', flush=True)
         del args
+        torch.cuda.empty_cache()
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    for label, name, fn, ff, kw in (
+            ('K4', 'fused_render_core', FR.fused_render_core, 384,
+             dict(npoints=64, fused_render=True)),
+            ('K9', 'fused_mlp2', FM.fused_mlp2, 512,
+             dict(n_view=3, reference_exchange_compat=True, fused_mlp=True))):
+        model = CS.flagship(RM, dev, fusion_features=ff, vit_depth=2, **kw)
+        scene = make_scene(0, n_view=kw.get('n_view', 2), H=CS.H, W=CS.W,
+                           n_rays=CS.WIDE_RAYS, device=dev)
+        args = CS.first_call(model, scene, RM, name)
+        key = f'{label} ff={ff}'
+        # as it is, global, global, as it is
+        for variant in ('full', 'global', 'global', 'full'):
+            ms = timed(CS, GE, _build, libs, fn, args, variant)
+            plan = fn.last_plan
+            results.setdefault(key, {}).setdefault(variant, []).append(ms)
+            print(f'{key} {variant} (plan {plan!r}, '
+                  f'{fn.last_launch[1]} stage slots): {ms:.3f} ms',
+                  flush=True)
+        del model, scene, args
         torch.cuda.empty_cache()
     print(json.dumps({'card': card, 'ms': results}))
     return 0

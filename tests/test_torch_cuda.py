@@ -25,6 +25,7 @@ from cross_attention_renderer_torch.ops import pallas_gather as PG
 from cross_attention_renderer_torch.ops import sorted_gather as SG
 from cross_attention_renderer_torch.ops.experimental import (
     banded_gather as BG)
+from cross_attention_renderer_torch.ops.experimental import row_gather as RG
 
 pytestmark = pytest.mark.cuda
 
@@ -267,6 +268,60 @@ def test_fused_render_core_prepared_once(dev):
         assert _max_err(z, z_ref) <= 2 ** -5 * _scale(z_ref)
 
 
+@pytest.mark.parametrize('mode', ['pair', 'streams', 'mlp', 'render'])
+@pytest.mark.parametrize('ff', [320, 352, 384, 416, 448, 512, 640, 672,
+                                768])
+def test_exchange_core_at_wide_fusion_widths(dev, mode, ff):
+    """K2, K3 (S = 3), K9 and K4 at wide fusion_features (F = H1 = 2 ff +
+    64, O = ff + 32, K = 128), widths whose tiles outgrow a block's shared
+    memory in some modes: each takes the plan ``core_plan`` names for it and
+    matches its plain version, as at the flagship. The widths include each
+    mode's last 'smem' width and first 'global' one (K2 and K3: 320 | 352;
+    K4: 416 | 448; K9: 640 | 672)."""
+    channels, F, O, K = (ff, ff, 64), 2 * ff + 64, ff + 32, 128
+    hw = (8, 16, 32)
+    if mode == 'pair':
+        case = _epilogue_case(dev, channels, F, O, K, 2, hw, 2 * 64 + 37)
+        case = (case[0], case[1], *case[2], case[3], 60)
+        fn, plain = (GE.fused_exchange_epilogue,
+                     GE.fused_exchange_epilogue_reference)
+        want_plan = GE.core_plan('pair', 2, F, F, O, K)[0]
+    elif mode == 'streams':
+        case = _epilogue_case(dev, channels, F, O, K, 3, hw, 3 * 64 + 5,
+                              S=3, seed=1)
+        fn, plain = (GE.fused_exchange_epilogue_multi,
+                     GE.fused_exchange_epilogue_multi_reference)
+        want_plan = GE.core_plan('streams', 3, F, F, O, K)[0]
+    elif mode == 'mlp':
+        rng = np.random.default_rng(2)
+        M = 64 * 3 + 9
+        lecun = lambda i, o: rng.standard_normal((i, o)) / np.sqrt(i)
+        w1 = lecun(F + 3, F)
+        case = (_bf(dev, rng.standard_normal((M, F))),
+                _bf(dev, rng.uniform(-1, 1, (M, 3))), _bf(dev, w1[:F]),
+                _bf(dev, w1[F:]), _bf(dev, 0.1 * rng.standard_normal(F)),
+                _bf(dev, lecun(F, O)), _bf(dev, 0.1 * rng.standard_normal(O)))
+        fn, plain = FM.fused_mlp2, FM.fused_mlp2_reference
+        want_plan = GE.core_plan('mlp', 1, F, F, O, 0)[0]
+    else:
+        case = _render_case(dev, channels, F, O, K, hw, 1, 5, 64) + (
+            1, 5, 64, True)
+        fn, plain = FR.fused_render_core, FR.fused_render_core_reference
+        want_plan = GE.core_plan('render', 2, F, F, O, K, 64)[0]
+    got = fn(*case)
+    torch.cuda.synchronize()
+    assert fn.last_plan == want_plan
+    want = plain(*case)
+    if mode == 'render':        # at_wt within 2^-8, as K1's
+        assert _max_err(got[1], want[1]) <= 2 ** -8
+        got, want = got[:1], want[:1]
+    elif mode == 'mlp':
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        assert _max_err(g, w) <= 2 ** -5 * _scale(w)
+
+
 def _gather_case(dev, rows, C, M, seed, sort):
     """A bf16 (rows, C) table, (M, 4) corner rows (sorted, or scattered over
     the whole table) with coincident corners, as at the border, and (M, 4)
@@ -339,3 +394,94 @@ def test_kernels_refuse_f32(dev):
     with pytest.raises(ValueError):
         FR.fused_render_core([t.float() for t in tables], cells, a_s.float(),
                              a_c.float(), lc.float(), params, 1, 3, 4, True)
+
+
+# The row-gather probes' instantiations (T1-T13): (entry point, options,
+# table shape, dtype); M is ragged (not a multiple of bm) where the
+# instantiation takes it, and the indices run past both ends of the table.
+ROW_GATHERS = [
+    ('copy', dict(bm=512, unroll=1, index='shared'), (3000, 1024),
+     torch.bfloat16),                                           # T1
+    ('copy', dict(bm=512, unroll=8, index='shared'), (3000, 1024),
+     torch.bfloat16),                                           # T1
+    ('bulk', dict(bm=512, window=16), (3000, 1024), torch.bfloat16),  # T2
+    ('copy', dict(bm=2048, unroll=4), (5000, 256), torch.bfloat16),   # T3
+    ('copy', dict(bm=512, unroll=8), (700, 16, 128), torch.bfloat16),  # T4
+    ('copy', dict(bm=512, index='shared'), (8192, 256), torch.float32),
+    ('copy', dict(bm=512, index='shared', stage=True), (8192, 256),
+     torch.float32),                                            # T9
+    ('bulk', dict(bm=512, window=1), (8192, 256), torch.float32),  # T10
+    ('copy', dict(bm=512, unroll=1), (8192, 256), torch.float32),  # T12
+    ('copy', dict(bm=512, index='bulk'), (8192, 256), torch.float32),
+]
+
+
+@pytest.mark.parametrize('entry,kw,shape,dtype', ROW_GATHERS)
+def test_row_gather_kernels(dev, entry, kw, shape, dtype):
+    """Each probe instantiation equals ``table[clip(idx)]`` bit for bit."""
+    g = torch.Generator(device='cpu').manual_seed(len(shape) + shape[0])
+    table = torch.randn(shape, generator=g).to(dev, dtype)
+    M = 4 * 1000 if kw.get('index') == 'bulk' else 4 * 1000 + 3
+    idx = torch.randint(-5, shape[0] + 5, (M,), generator=g,
+                        dtype=torch.int32).to(dev)
+    fn = RG.copy_gather if entry == 'copy' else RG.bulk_gather
+    before = fn.launches
+    got = fn(table, idx, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, RG.row_gather_reference(table, idx))
+
+
+@pytest.mark.parametrize('bm,M', [(512, 2048), (512, 2000), (64, 777)])
+def test_block_fill_kernel(dev, bm, M):
+    """T6 and T11: each block of bm rows holds its first index."""
+    idx = torch.randint(-9, 9000, (M,), dtype=torch.int32, device=dev)
+    before = RG.block_fill.launches
+    got = RG.block_fill(idx, bm)
+    torch.cuda.synchronize()
+    assert RG.block_fill.launches == before + 1
+    assert torch.equal(got, RG.block_fill_reference(idx, bm))
+
+
+def test_row_gather_kernels_replay_in_a_cuda_graph(dev):
+    """The probe scripts time each kernel as calls captured in one CUDA
+    graph (``utils/profiling.py`` ``graph_ms``): each entry point and its
+    plain version capture, and a replay writes what an eager call does."""
+    from cross_attention_renderer_torch.utils.profiling import graph_ms
+    table = torch.randn((4096, 256), device=dev)
+    idx = torch.randint(-3, 4100, (2048,), dtype=torch.int32, device=dev)
+    want = RG.row_gather_reference(table, idx)
+    for call in (lambda: RG.copy_gather(table, idx, index='bulk'),
+                 lambda: RG.bulk_gather(table, idx, window=16),
+                 lambda: RG.row_gather_reference(table, idx)):
+        out = torch.zeros_like(want)
+        graph = torch.cuda.CUDAGraph()
+        call()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            out.copy_(call())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert graph_ms(call, 16) > 0
+    assert graph_ms(lambda: RG.block_fill(idx, 512), 16) > 0
+    assert graph_ms(lambda: RG.block_fill_reference(idx, 512), 16) > 0
+
+
+def test_row_gather_refuses_what_the_kernels_do_not_take(dev):
+    table = torch.zeros((64, 20), dtype=torch.bfloat16, device=dev)
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    for call in (lambda: RG.copy_gather(table, idx),          # 40-byte rows
+                 lambda: RG.copy_gather(table.float()[:, :16].t(), idx),
+                 lambda: RG.copy_gather(table[:, :16].half(), idx),
+                 lambda: RG.copy_gather(table[:, :16].contiguous(),
+                                        idx.long()),
+                 lambda: RG.copy_gather(table[:, :16].contiguous(), idx,
+                                        unroll=3),
+                 lambda: RG.copy_gather(table[:, :16].contiguous(), idx[:6],
+                                        index='bulk'),
+                 lambda: RG.bulk_gather(table[:, :16].contiguous(), idx,
+                                        window=4),
+                 lambda: RG.block_fill(idx.long(), 4)):
+        with pytest.raises(ValueError):
+            call()

@@ -202,6 +202,10 @@ def _walk(stages, vecs, vals, aux_list, F, H1, O, K, rp, whole=True):
     # O = 320: four O tiles, split between the warpgroups
     ((32, 32, 16), 80, 320, 16, 2, 50, 10),
     ((32, 16), 48, 320, 32, 3, 40, None),
+    # O = 416 and 544 (fusion_features 384 and 512, the 'global' plan's
+    # widths): five and six O tiles
+    ((32, 32, 16), 80, 416, 16, 2, 30, 10),
+    ((32, 16), 48, 544, 32, 3, 20, None),
 ])
 def test_kernel_order_matches_jax_reference(channels, H1, O, K, S, M, rp):
     F = sum(channels)
@@ -263,18 +267,18 @@ def test_renderer_hands_the_parameters_themselves():
     assert all(a is b for a, b in zip(w, model._epilogue_weights()))
 
 
-def _core_case(O=40, K=16, S=2, M=50):
+def _core_case(O=40, K=16, S=2, M=50, H1=80):
     channels = (32, 32, 16)
     F = sum(channels)
     tables = [torch.zeros((2, 4, 4, 4 * c), dtype=torch.bfloat16)
               for c in channels]
     cells = [torch.zeros(S * M, dtype=torch.int32) for _ in channels]
     aux = [torch.zeros((M, 16), dtype=torch.bfloat16) for _ in range(S)]
-    return tables, cells, aux, _params(F, 80, O, K, S)
+    return tables, cells, aux, _params(F, H1, O, K, S)
 
 
 @pytest.mark.parametrize('bad', ['f32 tables', 'strided aux', 'cells shape',
-                                 'wide O', 'wide K'])
+                                 'long vectors', 'wide K'])
 def test_wrappers_refuse_what_the_kernel_does_not_take(bad):
     tables, cells, aux, params = _core_case()
     if bad == 'f32 tables':
@@ -283,9 +287,10 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(bad):
         aux[1] = torch.zeros((16, 50), dtype=torch.bfloat16).t()
     elif bad == 'cells shape':
         cells[2] = cells[2][:-1]
-    elif bad == 'wide O':
-        # the f rows of 2 x 1024 columns outgrow a block's shared memory
-        tables, cells, aux, params = _core_case(O=1024)
+    elif bad == 'long vectors':
+        # the vectors of H1 = 30,000 hidden units alone outgrow a block's
+        # shared memory, which even the 'global' plan keeps them in
+        tables, cells, aux, params = _core_case(H1=30_000)
     else:
         tables, cells, aux, params = _core_case(K=272)
     with pytest.raises(ValueError):
@@ -295,9 +300,10 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(bad):
 
 def test_wrappers_accept_the_case_the_refusals_start_from():
     tables, cells, aux, params = _core_case()
-    levels, sizes, stages, vecs = GE._core_args(
+    levels, sizes, stages, vecs, scratch = GE._core_args(
         'fused_exchange_epilogue', 'pair', tables, cells, aux, params)
     assert sizes == (50, 80, 80, 40, 16)
+    assert scratch is None      # the 'smem' plan needs no scratch
     assert stages.numel() * 2 == (2 * (2 * 8192 + 12288) + 2 * 12288
                                   + 2 * 8192 + 8192)
 
@@ -318,7 +324,8 @@ def _mlp_walk(stages, vecs, x1, x2, K1, H, O):
 
 
 @pytest.mark.parametrize('K1,H,O,M', [(96, 80, 40, 70), (576, 576, 288, 65),
-                                      (48, 64, 16, 20), (80, 96, 320, 33)])
+                                      (48, 64, 16, 20), (80, 96, 320, 33),
+                                      (80, 96, 416, 21), (48, 64, 544, 13)])
 def test_mlp_layout_matches_jax_fused_mlp2(K1, H, O, M):
     """K9's layout (``layout_mlp``) walked in the kernel's order against JAX
     ``fused_mlp2`` off the TPU, all in f32; O = 320 takes the O tiles split
@@ -444,6 +451,28 @@ def test_render_layout_matches_jax(monkeypatch, repeat, against):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize('O', [416, 544])
+def test_render_layout_matches_jax_at_wide_latents(O):
+    """K4's layout at O = 416 and 544 (fusion_features 384 and 512: five
+    and six O tiles, split between the warpgroups) against JAX
+    ``fused_render._reference``, as above."""
+    B, R, P, channels = 1, 2, 4, (32, 16)
+    F, K = sum(channels), 16
+    vals, a_s, a_c, lc, params = _render_case(B, R, P, channels, O, K)
+    stages, vecs, mats = GE.layout_render(params, True)
+    t = torch.from_numpy
+    z, wt = _render_walk(stages, vecs, mats, [t(v) for v in vals], t(a_s),
+                         t(a_c), t(lc), F, F, O, K, B, R, P, True)
+    z_j, wt_j = JFR._reference(
+        tuple(map(jnp.asarray, vals)), jnp.asarray(a_s), jnp.asarray(a_c),
+        jnp.asarray(lc), tuple(jnp.asarray(p.numpy()) for p in params),
+        channels, B, R, P, True)
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_j), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(wt.numpy(), np.asarray(wt_j), rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_render_layout_without_repeat_is_the_repeat_layouts_head():
     """Without repeat K4 streams the same stages up to the repeat MLP's,
     and the round-2 vectors are zeros."""
@@ -516,14 +545,17 @@ def test_renderer_hands_k4_and_k9_the_parameters_themselves(monkeypatch):
         assert id(t._base if t._base is not None else t) in ids
 
 
-@pytest.mark.parametrize('mode,F,O,K,says', [
-    ('render', 80, 1024, 16, 'the largest O these widths take is'),
-    ('pair', 576, 512, 128, 'the largest O these widths take is 480'),
-    ('mlp', 4096, 64, 0, 'no O fits at F = 4096'),
-    ('render', 80, 48, 272, 'K = 272 > 256: K is the attention width')])
-def test_core_refuses_what_does_not_fit_and_says_why(mode, F, O, K, says):
+@pytest.mark.parametrize('mode,F,H1,O,K,says', [
+    ('render', 80, 80, 1024, 272, 'K = 272 > 256: K is the attention'),
+    ('pair', 576, 576, 288, 320, 'K = 320 > 256: K is the attention'),
+    ('mlp', 4096, 30_000, 64, 0, 'even with its tiles in device memory'),
+    ('render', 80, 80, 48, 272, 'HIDDEN_DIM, 128 in both packages')])
+def test_core_refuses_what_does_not_fit_and_says_why(mode, F, H1, O, K,
+                                                     says):
+    """Only K above 256 (the attention width, not configurable) and vectors
+    too long for shared memory in either plan are refused."""
     with pytest.raises(ValueError, match=says):
-        GE.check_core_widths('k', mode, 1 if mode == 'mlp' else 2, F, 80, O,
+        GE.check_core_widths('k', mode, 1 if mode == 'mlp' else 2, F, H1, O,
                              K, 64)
 
 
@@ -532,3 +564,25 @@ def test_core_takes_fusion_features_288():
     flagship's other widths (F = 640 at that fusion width)."""
     for mode, S in (('pair', 2), ('streams', 3), ('mlp', 1), ('render', 2)):
         GE.check_core_widths('k', mode, S, 640, 640, 320, 128, 64)
+
+
+@pytest.mark.parametrize('mode,S', [('pair', 2), ('streams', 2),
+                                    ('streams', 3), ('mlp', 1),
+                                    ('render', 2)])
+def test_core_takes_every_fusion_width(mode, S):
+    """Every fusion_features from 32 to 768 in steps of 32 (F = H1 = 2 ff +
+    64, O = ff + 32, K = 128; K4 at 64 samples) is taken: the flagship's
+    and the narrower widths by the 'smem' plan, the widths whose tiles
+    outgrow shared memory by the 'global' one."""
+    plans = {}
+    for ff in range(32, 769, 32):
+        F, O = 2 * ff + 64, ff + 32
+        GE.check_core_widths('k', mode, S, F, F, O, 128, 64)
+        plan, smem, scratch = GE.core_plan(mode, S, F, F, O, 128, 64)
+        assert smem <= GE.SMEM_LIMIT
+        assert (scratch > 0) == (plan == 'global' or mode == 'render')
+        plans[ff] = plan
+    assert plans[256] == 'smem' and plans[768] == 'global'
+    # once a width takes the 'global' plan, every wider one does
+    order = [plans[ff] for ff in sorted(plans)]
+    assert order == sorted(order, key=lambda p: p == 'global')

@@ -1,0 +1,86 @@
+"""The row-gather probes' plain versions (``ops/experimental/row_gather.py``)
+against the JAX probes' own oracle, on the CPU.
+
+The 13 Pallas probes of ``tools/micro_kgather*.py`` check their kernels
+against ``jnp.take(table, idx, axis=0, mode='clip')`` (T1-T5, T7-T10,
+T12, T13) or fill each block of rows with its first index (T6, T11). The
+port's entry points take their plain versions on CPU tensors; the kernels
+themselves run on the card (``tests/test_torch_cuda.py``). A gather is a
+copy, so the comparison is exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cross_attention_renderer_torch.ops.experimental import row_gather as RG
+from cross_attention_renderer_torch.tools import _common as C
+
+# probe -> (entry point, its options, table shape, dtype), at a small size
+GATHERS = {
+    'T1': ('copy', dict(bm=8, unroll=8, index='shared'), (64, 32),
+           'bfloat16'),
+    'T2': ('bulk', dict(bm=8, window=16), (64, 32), 'bfloat16'),
+    'T3': ('copy', dict(bm=16, unroll=4), (64, 16), 'bfloat16'),
+    'T4': ('copy', dict(bm=8, unroll=4), (40, 4, 8), 'bfloat16'),
+    'T5': ('bulk', dict(bm=8, window=16), (40, 32), 'bfloat16'),
+    'T7': ('copy', dict(bm=8, index='shared'), (50, 8), 'float32'),
+    'T8': ('copy', dict(bm=8, index='shared'), (50, 32), 'bfloat16'),
+    'T9': ('copy', dict(bm=8, index='shared', stage=True), (50, 8),
+           'float32'),
+    'T10': ('bulk', dict(bm=8, window=1), (50, 8), 'float32'),
+    'T12': ('copy', dict(bm=8), (50, 8), 'float32'),
+    'T13': ('copy', dict(bm=8, index='bulk'), (50, 8), 'float32'),
+}
+FILLS = {'T6': 8, 'T11': 16}
+
+
+def test_every_probe_has_a_case():
+    assert set(GATHERS) | set(FILLS) == set(C.PROBES)
+
+
+@pytest.mark.parametrize('probe', sorted(C.PROBES, key=lambda p: int(p[1:])))
+def test_probe_plain_version_matches_the_probes_oracle(probe):
+    rng = np.random.default_rng(int(probe[1:]))
+    if probe in FILLS:
+        bm, M = FILLS[probe], 4 * FILLS[probe] + 3
+        idx = rng.integers(-5, 100, M).astype(np.int32)
+        got = RG.block_fill(torch.from_numpy(idx), bm)
+        want = np.repeat(idx[::bm], bm)[:M, None] * np.ones((1, 128),
+                                                            np.int32)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        return
+    entry, kw, shape, dtype = GATHERS[probe]
+    table = rng.standard_normal(shape).astype(np.float32)
+    # indices past both ends: mode='clip' clamps them
+    idx = rng.integers(-3, shape[0] + 3, 37).astype(np.int32)
+    t = torch.from_numpy(table).to(getattr(torch, dtype))
+    fn = RG.copy_gather if entry == 'copy' else RG.bulk_gather
+    got = fn(t, torch.from_numpy(idx), **kw)
+    want = jnp.take(jnp.asarray(t.float().numpy()).astype(dtype),
+                    jnp.asarray(idx), axis=0, mode='clip')
+    assert got.dtype == t.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_probe_bounds_count_what_the_data_needs():
+    """Each input byte is read once and each output byte written once: the
+    rows written, each distinct row gathered read once (in L2 or not), the
+    indices; the fill reads one index a block."""
+    small = torch.zeros((8, 256), dtype=torch.float32)      # 8 KB
+    big = torch.zeros((2 ** 17, 256), dtype=torch.bfloat16)  # 67 MB
+    idx = torch.tensor([0, 1, 1, 1], dtype=torch.int32)
+    ms, by = C.gather_bound(small, idx)
+    assert by == 'bytes'
+    assert ms == pytest.approx((4 * 1024 + 2 * 1024 + 16) / 3.35e12 * 1e3)
+    ms, _ = C.gather_bound(big, idx)
+    assert ms == pytest.approx((4 * 512 + 2 * 512 + 16) / 3.35e12 * 1e3)
+    # indices past the ends read the first and last rows, once each
+    ms, _ = C.gather_bound(big, torch.tensor([-4, -1, 2 ** 17, 2 ** 20],
+                                             dtype=torch.int32))
+    assert ms == pytest.approx((4 * 512 + 2 * 512 + 16) / 3.35e12 * 1e3)
+    ms, _ = C.fill_bound(torch.zeros(2048, dtype=torch.int32), 512, 128)
+    assert ms == pytest.approx((2048 * 128 + 4) * 4 / 3.35e12 * 1e3)
