@@ -9,7 +9,9 @@ no result):
   2. build: compiles every CUDA kernel from ``cross_attention_renderer_torch/
      csrc`` with one ``nvcc`` each, all at once, and prints what ``ptxas -v``
      says of the exchange core's four instantiations, K2, K3, K9 and K4
-     (registers, barriers, spills, any note of serialised wgmma);
+     (registers, barriers, spills, any note of serialised wgmma), and of
+     the row gathers' (the copy and bulk gathers of T1-T5, T7-T10, T12,
+     T13);
   3. V=2 main path: the flagship renderer (122M DPT-hybrid, bf16 compute, f32
      parameters from a seeded initialiser; the decoder's output layer is
      drawn at 1/64 of its scale, since an untrained decoder has no image
@@ -76,6 +78,8 @@ no result):
      ``cross_attention_renderer_torch/tools/``): each instantiation equal
      to its plain version bit for bit, timed at the probe's shapes beside
      ``torch.index_select`` (a ``copy_`` for the fills) and its byte bound;
+     a line a case with its time over ``index_select``'s, its share of the
+     bound and the launch plan its kernel took (no speed gate);
  15. evaluation: ``evaluate_scene`` on the flagship V=2 image with LPIPS
      from seeded random VGG weights written by ``convert_weights``; its
      PSNR, SSIM and LPIPS on the card (cuDNN's TF32 off) against the same
@@ -469,20 +473,46 @@ def check_attention(label, EA, q, k, v):
             'bound_ms': bound_ms, 'bound_by': bound_by}
 
 
-def core_ptxas(logs):
-    """The ``ptxas -v`` lines of the exchange core's instantiations (K2,
-    K3, K9, K4): registers, barriers and spills of each, and any note of
-    serialised wgmma."""
+def core_ptxas(logs, names=('gather_epilogue', 'gather_epilogue_multi',
+                             'fused_mlp', 'fused_render'),
+               kernel='exchange_core_kernel'):
+    """The ``ptxas -v`` lines of a kernel's instantiations in the named
+    sources (by default the exchange core's, K2, K3, K9, K4): registers,
+    barriers and spills of each, and any note of serialised wgmma."""
     lines = []
-    for name in ('gather_epilogue', 'gather_epilogue_multi', 'fused_mlp',
-                 'fused_render'):
+    for name in names:
         keep = False
         for line in logs.get(name, '').splitlines():
             if 'Compiling entry' in line or 'Function properties' in line:
-                keep = 'exchange_core_kernel' in line
+                keep = kernel in line
             if (keep and 'Compile time' not in line) or (
-                    'exchange_core_kernel' in line and 'Performance' in line):
+                    kernel in line and 'Performance' in line):
                 lines.append(f'{name}: {line.strip()}')
+    return lines
+
+
+def gather_ptxas(log_text):
+    """One line an instantiation of the copy and bulk gathers (T1-T5,
+    T7-T10, T12, T13) from ``ptxas -v``: its template arguments, registers
+    and spill bytes."""
+    import re
+    lines, name, spilled = [], None, '?'
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(copy|bulk)_gather_"
+                      r"kernelI(\w*?)EEv", line)
+        if m:
+            keys = (('index', 'unroll', 'rows', 'stage') if m[1] == 'copy'
+                    else ('window',))
+            args = re.findall(r'L[ib](\d+)E', m[2])
+            name = f"{m[1]}_gather<{', '.join(map(' '.join, zip(keys, args)))}>"
+        spill = re.search(r'(\d+) bytes spill stores', line)
+        if spill and name:
+            spilled = spill[1]
+        regs = re.search(r'Used (\d+) registers', line)
+        if regs and name:
+            lines.append(f'{name}: {regs[1]} registers, {spilled} bytes '
+                         'spilled')
+            name = None
     return lines
 
 
@@ -723,6 +753,25 @@ def probe_kernels(dev):
         mod = importlib.import_module(
             f'cross_attention_renderer_torch.tools.{name}')
         records += mod.run(dev)
+    # each case against index_select (timed before the kernel touched the
+    # table) and its bound; unroll sets only the chunks of one row a lane
+    # takes at a step, so cases that differ in unroll or bm alone may run
+    # one launch, marked here
+    log('probe: unroll sets the chunks of one row a lane takes at a step; '
+        'the rows in flight fill each lane to 8 chunks')
+    first = {}
+    for r in records:
+        lib = r['library_ms']
+        key = (r['probe'], r.get('table'), r.get('rows'), str(r.get('plan')))
+        same = first.setdefault(key, r['case']) if r.get('plan') else None
+        log(f"probe {r['probe']} {r['case']}: {r['ms']:.4f} ms, "
+            + (f"{r['ms'] / lib:.3f}x {r['library']} ({lib:.4f} ms), "
+               if lib else 'no library call, ')
+            + f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound "
+            f"({r['bound_ms']:.4f} ms)"
+            + (f", plan {r['plan']}" if r.get('plan') else '')
+            + (f", the launch of '{same}'" if same not in (None, r['case'])
+               else ''))
     entries = []
     for tid, (site, fn_name) in PC.PROBES.items():
         cases = [r for r in records if r['probe'] == tid]
@@ -737,8 +786,9 @@ def probe_kernels(dev):
                                          'bound_by', 'library_ms',
                                          'max_abs_err')},
             'case': main_case['case'],
-            'cases': [{k: r[k] for k in ('case', 'ms', 'plain_ms',
-                                         'library_ms', 'bound_ms')}
+            'cases': [{k: r.get(k) for k in ('case', 'ms', 'plain_ms',
+                                             'library_ms', 'bound_ms',
+                                             'plan')}
                       for r in cases]})
     return entries
 
@@ -795,6 +845,8 @@ def main() -> int:
     log(f'build: {time.perf_counter() - t0:.1f} s')
     for line in core_ptxas(logs):
         log(f'ptxas {line}')
+    for line in gather_ptxas(logs.get('row_gather', '')):
+        log(f'ptxas row_gather {line}')
 
     attention = ('epipolar_attention', EA.epipolar_attention)
     epilogue = ('fused_exchange_epilogue', GE.fused_exchange_epilogue)

@@ -91,6 +91,16 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+def use(name: str, lib: ctypes.CDLL | None) -> None:
+    """Makes :func:`load` give ``lib`` for ``name``: a variant of the
+    source built elsewhere, as the tools' studies build them. None: the
+    package's own build again."""
+    if lib is None:
+        _loaded.pop(name, None)
+    else:
+        _loaded[name] = lib
+
+
 def check(code: int, what: str) -> None:
     """Raises if a launcher returned a CUDA error code."""
     if code != 0:

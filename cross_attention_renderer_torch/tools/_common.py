@@ -9,10 +9,17 @@ function (``torch.index_select``; for the block fill a ``copy_`` from an
 expanded view, since ``Tensor.fill_`` takes one value, not one a block).
 All three are timed as device time: back-to-back calls in one CUDA graph
 (``utils/profiling.py`` ``graph_ms``), so that a probe of a few
-microseconds is not timed as the host's cost of launching it.
+microseconds is not timed as the host's cost of launching it. A gather's
+``index_select`` and plain version are timed before its kernel first
+touches the table: the kernels load a table ``evict_last``, and the marks,
+which outlast the launch, would keep the table in L2 for whatever reads it
+next. After the kernel's timing the marks are cleared
+(``row_gather.release_l2``), so no later case or caller inherits them.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -102,22 +109,32 @@ def gather_case(probe: str, label: str, kernel, table, idx) -> dict:
     """One gather case: the kernel (a callable of (table, idx)) checked
     against ``row_gather_reference`` and timed beside it, beside
     ``torch.index_select`` and beside the byte bound. Prints the probe's
-    lines; returns the case's numbers."""
-    want = RG.row_gather_reference(table, idx)
-    err = check_exact(label, kernel(table, idx), want)
-    del want
+    lines; returns the case's numbers and the launch plan its kernel
+    took."""
     M = idx.shape[0]
     n = calls_for(M)
-    ms = graph_ms(lambda: kernel(table, idx), n)
-    plain_ms = graph_ms(lambda: RG.row_gather_reference(table, idx), n)
+    # index_select and the plain version first, on a table no kernel has
+    # marked evict_last
     lib_ms = graph_ms(lambda: torch.index_select(table, 0, idx), n)
+    plain_ms = graph_ms(lambda: RG.row_gather_reference(table, idx), n)
+    want = RG.row_gather_reference(table, idx)
+    launched = (RG.copy_gather.launches, RG.bulk_gather.launches)
+    err = check_exact(label, kernel(table, idx), want)
+    plan = None                 # the plan of the launch just made
+    for entry, before in zip((RG.copy_gather, RG.bulk_gather), launched):
+        if entry.launches > before:
+            plan = dataclasses.asdict(entry.last_plan)
+    del want
+    ms = graph_ms(lambda: kernel(table, idx), n)
+    RG.release_l2(table)
     bound_ms, bound_by = gather_bound(table, idx)
     line(f'{probe} {label}', ms, M)
     line(f'{probe} index_select (beside it)', lib_ms, M)
     return {'probe': probe, 'case': label, 'ms': ms, 'plain_ms': plain_ms,
-            'library_ms': lib_ms, 'bound_ms': bound_ms,
-            'bound_by': bound_by, 'max_abs_err': err,
-            'ns_per_row': ms * 1e6 / M}
+            'library': 'index_select', 'library_ms': lib_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'max_abs_err': err,
+            'ns_per_row': ms * 1e6 / M, 'plan': plan,
+            'table': f'{tuple(table.shape)} {table.dtype}', 'rows': M}
 
 
 def fill_case(probe: str, label: str, idx, bm: int, width: int = 128
@@ -142,7 +159,7 @@ def fill_case(probe: str, label: str, idx, bm: int, width: int = 128
     bound_ms, bound_by = fill_bound(idx, bm, width)
     line(f'{probe} {label}', ms, M)
     return {'probe': probe, 'case': label, 'ms': ms, 'plain_ms': plain_ms,
-            'library_ms': lib_ms, 'bound_ms': bound_ms,
+            'library': 'copy_', 'library_ms': lib_ms, 'bound_ms': bound_ms,
             'bound_by': bound_by, 'max_abs_err': err,
             'ns_per_row': ms * 1e6 / M}
 

@@ -432,6 +432,72 @@ def test_row_gather_kernels(dev, entry, kw, shape, dtype):
     assert torch.equal(got, RG.row_gather_reference(table, idx))
 
 
+# The launch geometry's edges (``row_gather.launch_plan``): each gather
+# option at rows of 16 B to 4 KB, on a table smaller than any block's rows
+# and on a larger one, at M of 1, 3, one less and one more than the rows a
+# warp has in flight, one less than a block's tile, and a ragged M of more
+# tiles than the grid has blocks (the grid-stride loop); the bulk gathers'
+# blocks hold several issuing warps. Row widths as (table shape, dtype).
+GATHER_ROWS = {16: ((4,), torch.float32), 512: ((256,), torch.bfloat16),
+               1024: ((256,), torch.float32),
+               2048: ((1024,), torch.bfloat16),
+               4096: ((16, 128), torch.bfloat16)}
+GATHER_OPTIONS = [
+    ('copy', dict(unroll=1)), ('copy', dict(unroll=4, index='shared')),
+    ('copy', dict(unroll=8, index='bulk')),
+    ('copy', dict(index='shared', stage=True)),
+    ('bulk', dict(window=1)), ('bulk', dict(window=16))]
+
+
+@pytest.mark.parametrize('row_bytes', sorted(GATHER_ROWS))
+@pytest.mark.parametrize('entry,kw', GATHER_OPTIONS)
+def test_row_gather_launch_geometry(dev, entry, kw, row_bytes):
+    """Every edge of the launch plan equals ``table[clip(idx)]`` bit for bit,
+    one launch a call."""
+    tail, dtype = GATHER_ROWS[row_bytes]
+    fn = RG.copy_gather if entry == 'copy' else RG.bulk_gather
+    sms = RG.sm_count(dev)
+    kind = 'copy' if entry == 'copy' else 'bulk'
+    opts = {k: v for k, v in kw.items() if k != 'stage'}
+    small = RG.launch_plan(kind, 4096, row_bytes, sms, **kw)
+    big = RG.launch_plan(kind, 1 << 16, row_bytes, sms, **kw)
+    Ms = {1, 3, small.in_flight - 1, small.in_flight + 1, small.tile - 1,
+          big.tile * big.grid * (3 if kind == 'copy' else 1) + 5}
+    if kw.get('index') == 'bulk':
+        Ms = {m + (-m) % 4 for m in Ms}
+    g = torch.Generator(device='cpu').manual_seed(row_bytes)
+    for hw in (5, 3000):
+        table = torch.randn((hw,) + tail, generator=g).to(dev, dtype)
+        for M in sorted(m for m in Ms if m > 0):
+            idx = torch.randint(-7, hw + 7, (M,), generator=g,
+                                dtype=torch.int32).to(dev)
+            before = fn.launches
+            got = fn(table, idx, **kw)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1, (M, hw, opts)
+            assert torch.equal(got, RG.row_gather_reference(table, idx)), (
+                M, hw, fn.last_plan)
+    if kind == 'bulk':
+        assert fn.last_plan.warps > 1
+
+
+def test_release_l2_leaves_the_table_and_counts_no_launch(dev):
+    """``release_l2`` (undoing the gathers' evict_last marks) runs on an
+    unaligned table view and changes neither the table nor the counts."""
+    g = torch.Generator(device='cpu').manual_seed(0)
+    table = torch.randn(3000, 256, generator=g).to(dev, torch.bfloat16)
+    idx = torch.randint(0, 3000, (4096,), generator=g,
+                        dtype=torch.int32).to(dev)
+    want = RG.copy_gather(table, idx)
+    kept, launches = table.clone(), RG.copy_gather.launches
+    RG.release_l2(table)
+    RG.release_l2(table[1:, 8:])
+    torch.cuda.synchronize()
+    assert torch.equal(table, kept)
+    assert RG.copy_gather.launches == launches
+    assert torch.equal(RG.copy_gather(table, idx), want)
+
+
 @pytest.mark.parametrize('bm,M', [(512, 2048), (512, 2000), (64, 777)])
 def test_block_fill_kernel(dev, bm, M):
     """T6 and T11: each block of bm rows holds its first index."""

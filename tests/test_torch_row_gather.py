@@ -84,3 +84,85 @@ def test_probe_bounds_count_what_the_data_needs():
     assert ms == pytest.approx((4 * 512 + 2 * 512 + 16) / 3.35e12 * 1e3)
     ms, _ = C.fill_bound(torch.zeros(2048, dtype=torch.int32), 512, 128)
     assert ms == pytest.approx((2048 * 128 + 4) * 4 / 3.35e12 * 1e3)
+
+
+def _probe_launches():
+    """Every gather the probe scripts run, as (kind, M, row bytes, options),
+    read from the scripts' own constants."""
+    from cross_attention_renderer_torch.tools import (
+        micro_kgather as K1, micro_kgather2 as K2, micro_kgather3 as K3,
+        micro_kgather_bisect as B1, micro_kgather_bisect2 as B2)
+    out = []
+    for _, c4 in K1.SHAPES:                              # T1, T2
+        out += [('copy', K1.M, 2 * c4, dict(unroll=u, index='shared'))
+                for u in (1, 8)]
+        out.append(('bulk', K1.M, 2 * c4, dict(window=16)))
+    for _, c4 in K2.SHAPES:                              # T3
+        out += [('copy', K2.M, 2 * c4, dict(unroll=u)) for u in (1, 4, 8)]
+    out += [('copy', 1 << logm, 512, dict()) for logm in (14, 16, 18, 20)]
+    out += [('copy', K3.M, 4096, dict(unroll=u)) for u in (1, 4, 8)]  # T4
+    out.append(('bulk', K3.M, 2048, dict(window=16)))    # T5
+    out += [('copy', B1.M, 1024, dict(index='shared')),  # T7
+            ('copy', B1.M, 2 * B1.C4, dict(index='shared')),     # T8
+            ('copy', B1.M, 1024, dict(index='shared', stage=True)),  # T9
+            ('bulk', B1.M, 1024, dict(window=1)),        # T10
+            ('copy', B2.M, 1024, dict()),                # T12
+            ('copy', B2.M, 1024, dict(index='bulk'))]    # T13
+    return out
+
+
+@pytest.mark.parametrize('sm_count', [1, 8, 132])
+def test_launch_plan_covers_every_row_once(sm_count):
+    """The gathers' launch plans (``row_gather.launch_plan``) at every shape
+    the probe scripts run: at least one block, no block with more rows than
+    M, the rows 0..M-1 each gathered exactly once as the kernels assign
+    them, and shared memory within a block's 232,448 bytes."""
+    for kind, M, row_bytes, kw in _probe_launches():
+        plan = RG.launch_plan(kind, M, row_bytes, sm_count, **kw)
+        assert plan.grid >= 1 and 1 <= plan.warps <= RG.MAX_WARPS
+        assert plan.smem <= RG.SMEM_MAX
+        runs = []
+        for b in range(plan.grid):
+            rows = RG.block_rows(plan, M, b)
+            assert 0 < sum(len(r) for r in rows) <= M
+            runs += rows
+        runs.sort(key=lambda r: r.start)
+        assert runs[0].start == 0 and runs[-1].stop == M
+        assert all(a.stop == b.start for a, b in zip(runs, runs[1:]))
+        if kind == 'copy':
+            # the kernel's templates: at most 8 chunks a lane, 1-8 rows
+            assert plan.unroll in (1, 2, 4, 8)
+            assert plan.in_flight in (1, 2, 4, 8)
+            assert plan.unroll * plan.in_flight <= RG.COPY_DEPTH
+            assert plan.unroll <= kw.get('unroll', 1)
+            assert kw.get('index') != 'bulk' or plan.tile % 4 == 0
+        else:
+            assert plan.grid * plan.warps * plan.tile >= M
+            assert plan.in_flight == kw['window']
+        if M >= 2 * sm_count * RG.MAX_TILE:
+            assert plan.grid >= sm_count        # the card is filled
+
+
+def test_launch_plan_ignores_the_probes_block_size():
+    """``bm`` sets no part of a launch: the plan has no such input, and on
+    the bisect probes' 2,048 rows it gives every SM of an H100 work."""
+    assert 'bm' not in RG.launch_plan.__code__.co_varnames
+    for kind, kw in (('copy', dict(index='shared')), ('bulk',
+                                                      dict(window=1))):
+        plan = RG.launch_plan(kind, 2048, 1024, 132, **kw)
+        assert plan.grid >= 132
+
+
+def test_launch_plan_takes_the_studys_choices():
+    """The rule's knobs that ``tools/gather_study.py`` varies: fewer warps a
+    block, and how far a short copy gather is spread (``fill_warps`` 0:
+    every lane filled with 8 chunks of rows)."""
+    for warps in (1, 4):
+        plan = RG.launch_plan('bulk', 1 << 20, 2048, 132, warps=warps)
+        assert plan.warps == warps
+        assert plan.grid * plan.warps * plan.tile >= 1 << 20
+    spread = RG.launch_plan('copy', 2048, 1024, 132, index='shared')
+    packed = RG.launch_plan('copy', 2048, 1024, 132, index='shared',
+                            fill_warps=0)
+    assert packed.in_flight * packed.unroll == RG.COPY_DEPTH
+    assert spread.in_flight < packed.in_flight
