@@ -11,7 +11,8 @@ no result):
      says of the exchange core's four instantiations, K2, K3, K9 and K4
      (registers, barriers, spills, any note of serialised wgmma), and of
      the row gathers' (the copy and bulk gathers of T1-T5, T7-T10, T12,
-     T13);
+     T13, and the block fill of T6 and T11) and the bilinear gather's
+     (K5-K8, one a depth and output type): registers and spills;
   3. V=2 main path: the flagship renderer (122M DPT-hybrid, bf16 compute, f32
      parameters from a seeded initialiser; the decoder's output layer is
      drawn at 1/64 of its scale, since an untrained decoder has no image
@@ -242,19 +243,6 @@ def mlp_bound(x1, x2, w1a, w1b, b1, w2, b2):
     return bound(nbytes, 2 * M * (K1 * H + 3 * H + H * O), BF16_TENSOR_FLOPS)
 
 
-def gather_bound(table, idx, w, out_dtype):
-    """(bound_ms, bound_by) of one bilinear gather (K5-K8): the table rows
-    its live corners touch, read once; its corners and weights (32 bytes a
-    sample); its (M, C) output written once; 4 multiply-adds a channel a
-    sample at the f32 rate."""
-    import torch
-    M, C = idx.shape[0], table.shape[1]
-    rows = int(torch.unique(idx[w != 0]).numel())
-    out_bytes = torch.empty((), dtype=out_dtype).element_size()
-    nbytes = rows * C * table.element_size() + M * 32 + M * C * out_bytes
-    return bound(nbytes, 8 * M * C, F32_FLOPS)
-
-
 def sorted_case(SG, fm, coords, image_id, padding_mode):
     """K5's (table, idx, w) for one ``grid_sample_sorted`` call."""
     B, Hl, Wl, C = fm.shape
@@ -269,26 +257,22 @@ def table_case(PG, features, coords, padding_mode):
     return features.reshape(B * Hl * Wl, C), idx, w
 
 
-def check_gather(label, kernel, cases):
+def check_gather(label, kernel, cases, out_dtype):
     """A gather kernel against ``take_gather`` cast to the kernel's output
-    type on each (table, idx, w) case, within GATHER_TOL. Returns its
-    numbers per launch, the mean over the cases, with the time of
-    ``embedding_bag`` (one PyTorch call that computes the same sum) on the
-    same inputs as ``library_ms``."""
-    import torch
+    type (``out_dtype``) on each (table, idx, w) case, within GATHER_TOL.
+    Returns its numbers per launch, the mean over the cases, with the time
+    of ``embedding_bag`` (one PyTorch call that computes the same sum) on
+    the same inputs as ``library_ms``, timed before the kernel's check and
+    timing on each case. (The kernel loads its table rows at L2's normal
+    priority, so it leaves no ``evict_last`` marks for the yardstick or
+    the next case to find.)"""
+    import dataclasses
     import torch.nn.functional as F
     from cross_attention_renderer_torch.ops.sorted_gather import take_gather
+    from cross_attention_renderer_torch.tools._common import bilinear_bound
     rows = []
     for table, idx, w in cases:
-        got = kernel(table, idx, w)
-        dt = got.dtype
-        want = take_gather(table, idx, w).to(dt)
-        err, tol = max_err(got, want), GATHER_TOL * scale(want)
-        log(f'{label} table {tuple(table.shape)}, M={idx.shape[0]} -> {dt}: '
-            f'max err {err:.3e} (tol {tol:.3e})')
-        if err > tol:
-            raise RuntimeError(f'{label} disagrees with its plain version')
-        del got, want
+        dt = out_dtype
         w_t = w.to(table.dtype)
         try:
             lib = cuda_ms(lambda: F.embedding_bag(
@@ -296,10 +280,21 @@ def check_gather(label, kernel, cases):
         except RuntimeError as e:      # the yardstick only, never the port
             log(f'{label}: embedding_bag refused these inputs: {e}')
             lib = None
-        rows.append((err, *gather_bound(table, idx, w, dt),
-                     cuda_ms(lambda: kernel(table, idx, w), 10),
-                     cuda_ms(lambda: take_gather(table, idx, w).to(dt), 3),
-                     lib))
+        plain = cuda_ms(lambda: take_gather(table, idx, w).to(dt), 3)
+        got = kernel(table, idx, w)
+        want = take_gather(table, idx, w).to(dt)
+        err, tol = max_err(got, want), GATHER_TOL * scale(want)
+        if got.dtype != dt:
+            raise RuntimeError(f'{label} returned {got.dtype}, not {dt}')
+        plan = dataclasses.asdict(kernel.last_plan)
+        log(f'{label} table {tuple(table.shape)}, M={idx.shape[0]} -> {dt}: '
+            f'max err {err:.3e} (tol {tol:.3e}), plan {plan}')
+        if err > tol:
+            raise RuntimeError(f'{label} disagrees with its plain version')
+        del got, want
+        ms = cuda_ms(lambda: kernel(table, idx, w), 10)
+        rows.append((err, *bilinear_bound(table, idx, w, dt), ms, plain,
+                     lib, plan))
     n = len(rows)
     libs = [r[5] for r in rows]
     return {'max_abs_err': max(r[0] for r in rows),
@@ -307,7 +302,10 @@ def check_gather(label, kernel, cases):
             'plain_ms': sum(r[4] for r in rows) / n,
             'bound_ms': sum(r[1] for r in rows) / n,
             'bound_by': max(rows, key=lambda r: r[1])[2],
-            'library_ms': None if None in libs else sum(libs) / n}
+            'library_ms': None if None in libs else sum(libs) / n,
+            'cases': [{'table': list(c[0].shape), 'M': int(c[1].shape[0]),
+                       'ms': r[3], 'bound_ms': r[1], 'library_ms': r[5],
+                       'plan': r[6]} for c, r in zip(cases, rows)]}
 
 
 def drive(label, model, scene, RM, counted, expected, capture=None):
@@ -493,18 +491,22 @@ def core_ptxas(logs, names=('gather_epilogue', 'gather_epilogue_multi',
 
 def gather_ptxas(log_text):
     """One line an instantiation of the copy and bulk gathers (T1-T5,
-    T7-T10, T12, T13) from ``ptxas -v``: its template arguments, registers
-    and spill bytes."""
+    T7-T10, T12, T13), the block fill (T6, T11) and the bilinear gather
+    (K5-K8) from ``ptxas -v``: its template arguments, registers and spill
+    bytes."""
     import re
+    keys = {'copy_gather': ('index', 'unroll', 'rows', 'stage'),
+            'bulk_gather': ('window',), 'bilinear_gather': ('depth',)}
     lines, name, spilled = [], None, '?'
     for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(copy|bulk)_gather_"
-                      r"kernelI(\w*?)EEv", line)
+        m = re.search(r"Compiling entry function '\w*?(copy_gather|bulk_gather"
+                      r"|bilinear_gather|block_fill)_kernel(I\w*?EEv)?", line)
         if m:
-            keys = (('index', 'unroll', 'rows', 'stage') if m[1] == 'copy'
-                    else ('window',))
-            args = re.findall(r'L[ib](\d+)E', m[2])
-            name = f"{m[1]}_gather<{', '.join(map(' '.join, zip(keys, args)))}>"
+            args = re.findall(r'L[ib](\d+)E', m[2] or '')
+            named = [' '.join(a) for a in zip(keys.get(m[1], ()), args)]
+            if m[1] == 'bilinear_gather':
+                named.append('bf16 out' if 'bfloat16' in m[2] else 'f32 out')
+            name = f"{m[1]}<{', '.join(named)}>" if named else m[1]
         spill = re.search(r'(\d+) bytes spill stores', line)
         if spill and name:
             spilled = spill[1]
@@ -845,8 +847,9 @@ def main() -> int:
     log(f'build: {time.perf_counter() - t0:.1f} s')
     for line in core_ptxas(logs):
         log(f'ptxas {line}')
-    for line in gather_ptxas(logs.get('row_gather', '')):
-        log(f'ptxas row_gather {line}')
+    for source in ('row_gather', 'bilinear_gather'):
+        for line in gather_ptxas(logs.get(source, '')):
+            log(f'ptxas {source} {line}')
 
     attention = ('epipolar_attention', EA.epipolar_attention)
     epilogue = ('fused_exchange_epilogue', GE.fused_exchange_epilogue)
@@ -964,8 +967,10 @@ def main() -> int:
                 rgb_staged, first_block(model_v2, scene), block_staged)
     # the first block's 3 self-stream levels, then its 3 cross-stream ones
     cases = [sorted_case(SG, *args) for args in captured['grid_sample_sorted']]
-    k5 = check_gather('K5 resident_gather', SG.resident_gather, cases)
-    k6 = check_gather('K6 windowed_gather', SG.windowed_gather, cases[:3])
+    k5 = check_gather('K5 resident_gather', SG.resident_gather, cases,
+                      torch.bfloat16)
+    k6 = check_gather('K6 windowed_gather', SG.windowed_gather, cases[:3],
+                      torch.float32)
     log('K6 windowed_gather: 0 launches on every path (no renderer path '
         'calls it; in the JAX package only tools and tests do)')
     k8_case = cases[0]      # level 0, the V=2 path's 2x64x64x256 table
@@ -1004,7 +1009,8 @@ def main() -> int:
     # the first block's 3 epipolar-gather levels, then its 3 cross ones
     k7 = check_gather('K7 onehot_gather', PG.onehot_gather,
                       [table_case(PG, *args)
-                       for args in captured['grid_sample_pallas']])
+                       for args in captured['grid_sample_pallas']],
+                      torch.bfloat16)
     del model_v3c, scene, captured, rgb, rgb_v3c
     torch.cuda.empty_cache()
 
@@ -1014,7 +1020,8 @@ def main() -> int:
         f'{table_bytes:,} bytes in bf16, limit {PG.BANDED_TABLE_BYTES:,}')
     if table_bytes > PG.BANDED_TABLE_BYTES:
         raise RuntimeError('the V=2 level-0 table exceeds K8\'s limit')
-    k8 = check_gather('K8 banded_gather', BG.banded_gather, [k8_case])
+    k8 = check_gather('K8 banded_gather', BG.banded_gather, [k8_case],
+                      torch.bfloat16)
     del k8_case
     by_path['v3_compat_banded_small'] = small_agreement(
         'V=3 compat banded', RM, make_scene, dev,

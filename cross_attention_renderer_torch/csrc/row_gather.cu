@@ -48,8 +48,21 @@
 //                       rows earlier has read it, so loads and stores
 //                       overlap; the indices come 32 at a time, one a lane,
 //                       a batch ahead;
-//   block_fill_kernel   each block's bm rows of (M, width) int32 filled
-//                       with its first index.
+//   block_fill_kernel   the (M, width) int32 output, each row block of bm
+//                       rows filled with its first index: a block takes a
+//                       tile of rows at a time, reads the first index of
+//                       each row block the tile spans once (into shared
+//                       memory), and writes the tile's 16-byte chunks,
+//                       consecutive threads on consecutive chunks (one a
+//                       thread at the probes' shapes: 1-8 a thread were
+//                       timed, tools/gather_study.py fill), its index math
+//                       multiplies and shifts (no division). Its launch
+//                       (tile, warps, grid) comes
+//                       from the SM count as the gathers' does, never
+//                       from bm. A fill writes 1 MiB at the probes' shapes
+//                       (0.3 us at 3.35 TB/s), so what bounds it is the
+//                       launch and one index read's latency; its
+//                       yardstick is a copy_ from an expanded view.
 //
 // The element type does not enter: rows are copied as bytes (a multiple of
 // 16 a row).
@@ -327,13 +340,51 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   if (lane == 0) bulk_wait_read<0>();  // the slots are read before exit
 }
 
-__global__ void block_fill_kernel(const int* idx, int4* out, int M, int bm,
-                                  int width4) {
-  const int m0 = blockIdx.x * bm, n = min(bm, M - m0);
-  const int v = __ldg(idx + m0);
-  const int4 q = make_int4(v, v, v, v);
-  int4* dst = out + (size_t)m0 * width4;
-  for (int i = threadIdx.x; i < n * width4; i += blockDim.x) __stcs(dst + i, q);
+__device__ __forceinline__ void fill_store(int4* p, int4 v) { __stcs(p, v); }
+
+// n / d for 0 <= n < 2^31 as a multiply-high, an add and a shift, the
+// divisor's magic number made once on the host (PyTorch's IntDivider): a
+// runtime division is ~20 dependent instructions, which a fill of a few
+// microseconds would wait on.
+struct FastDiv {
+  unsigned magic;
+  int shift;
+  __device__ __forceinline__ int operator()(int n) const {
+    return (int)((__umulhi((unsigned)n, magic) + (unsigned)n) >> shift);
+  }
+};
+
+inline FastDiv fast_div(int d) {
+  int shift = 0;
+  while ((1u << shift) < (unsigned)d) ++shift;
+  const uint64_t one = 1;
+  return {(unsigned)(((one << 32) * ((one << shift) - (unsigned)d)) / d + 1),
+          shift};
+}
+
+// Block b fills the tiles b, b + grid, ... (of `tiles`) of `tile` rows of
+// (M, chunks x 16 bytes): the first indices of the row blocks a tile spans
+// (at most tile) into shared memory, one load each, then chunk i of the
+// tile, by thread i % blockDim.x, from the head of its row's block.
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    block_fill_kernel(const int* idx, int4* out, int M, int bm, int chunks,
+                      int tile, int tiles, FastDiv by_bm, FastDiv by_chunks) {
+  extern __shared__ int heads[];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t * tile, n = min(tile, M - m0);
+    const int b0 = by_bm(m0), nb = by_bm(m0 + n - 1) - b0 + 1;
+    for (int i = threadIdx.x; i < nb; i += blockDim.x)
+      heads[i] = __ldg(idx + (size_t)(b0 + i) * bm);
+    __syncthreads();
+    int4* dst = out + (size_t)m0 * chunks;
+    const int total = n * chunks;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int v = heads[by_bm(m0 + by_chunks(i)) - b0];
+      fill_store(dst + i, make_int4(v, v, v, v));
+    }
+    __syncthreads();  // the heads are refilled for the next tile
+  }
 }
 
 // Returns the L2 lines of `lines` 128-byte lines from p to the normal
@@ -412,13 +463,6 @@ constexpr size_t kMaxSmem = 232448;
 
 }  // namespace row_gather
 
-// The number of SMs of CUDA device `device` into *count; returns a
-// cudaError_t code.
-extern "C" int row_gather_sm_count(int device, int* count) {
-  return (int)cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount,
-                                     device);
-}
-
 // table: (hw, row_bytes) bytes, idx: (M,) int32, out: (M, row_bytes), all
 // contiguous and 16-byte aligned; row_bytes % 16 == 0. index 0 (device
 // memory), 1 (staged by the threads) or 2 (staged by a bulk copy: M % 4 ==
@@ -491,15 +535,23 @@ extern "C" int row_gather_bulk(const void* table, const void* idx, void* out,
 }
 
 // idx: (M,) int32; out: (M, width) int32, width % 4 == 0; each block of bm
-// rows filled with the block's first index.
+// rows filled with the block's first index, by grid blocks of `warps`
+// warps taking tiles of `tile` rows (ops/experimental/row_gather.py
+// launch_plan 'fill'). Returns a cudaError_t code.
 extern "C" int row_block_fill(const void* idx, void* out, int M, int bm,
-                              int width, void* stream) {
+                              int width, int tile, int warps, int grid,
+                              void* stream) {
   using namespace row_gather;
-  if (M <= 0 || bm <= 0 || width <= 0 || width % 4)
+  if (M <= 0 || bm <= 0 || width <= 0 || width % 4 || tile <= 0 ||
+      warps <= 0 || warps > kMaxWarps || grid <= 0)
     return (int)cudaErrorInvalidValue;
-  int width4 = width / 4;
-  const void* args[] = {&idx, &out, &M, &bm, &width4};
-  return launch(block_fill_kernel, (M + bm - 1) / bm, 256, 0, stream, args);
+  int chunks = width / 4, tiles = (M + tile - 1) / tile;
+  const size_t smem = (size_t)tile * 4;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  FastDiv by_bm = fast_div(bm), by_chunks = fast_div(chunks);
+  const void* args[] = {&idx,   &out,  &M,     &bm,       &chunks,
+                        &tile,  &tiles, &by_bm, &by_chunks};
+  return launch(block_fill_kernel, grid, warps * 32, smem, stream, args);
 }
 
 // Returns the L2 lines of [p, p + bytes) to the normal eviction priority,

@@ -34,6 +34,7 @@ def banded_gather(fm_flat: Tensor, idx: Tensor, w: Tensor) -> Tensor:
 
 
 banded_gather.launches = 0   # kernel launches, for the chip smoke test
+banded_gather.last_plan = None
 
 
 def grid_sample_banded(features: Tensor, coords_ndc: Tensor,

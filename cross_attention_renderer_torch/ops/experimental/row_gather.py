@@ -17,12 +17,13 @@ against ``torch.index_select`` and the card's byte bound. One CUDA source,
   with one ``cp.async.bulk`` a row into shared memory, ``window`` rows (16
   or 1) in flight, and one bulk copy out, loads and stores overlapping;
 * :func:`block_fill`: each block of ``bm`` rows of an (M, width) int32
-  output filled with the block's first index.
+  output filled with the block's first index, a tile of rows a block at a
+  time, the first index of each row block it spans read once.
 
-The gathers' launch geometry comes from :func:`launch_plan`, from the card's
-SM count and the shapes, never from the probes' ``bm``: it stays in the
+The launch geometry comes from :func:`launch_plan`, from the card's SM
+count and the shapes, never from the probes' ``bm``: it stays in the
 gathers' signatures because the probe scripts pass it, but a gather's
-function never depended on it.
+function never depended on it; the fill reads it as data only.
 
 CPU tensors take the plain versions, :func:`row_gather_reference` (the
 probes' own oracle, ``jnp.take(..., mode='clip')``) and
@@ -39,6 +40,7 @@ from dataclasses import dataclass
 import torch
 
 from cross_attention_renderer_torch.ops import _build
+from cross_attention_renderer_torch.ops.sorted_gather import sm_count
 
 Tensor = torch.Tensor
 
@@ -52,6 +54,8 @@ FILL_DTYPE = torch.int32
 SMEM_MAX = 232448       # shared memory a block can take, bytes
 SM_SMEM = 233472        # shared memory an SM gives its blocks, bytes
 COPY_DEPTH = 8          # 16-byte chunks a lane of the copy gather has in flight
+FILL_DEPTH = 1          # 16-byte chunks a thread of the fill writes a tile
+FILL_TILES = 4          # tiles an SM the fill's rows are cut into
 FILL_WARPS = 8          # warps an SM a short copy gather is spread over
 MAX_WARPS = 8           # warps a block (the bulk gather's issuing warps)
 RESIDENT_WARPS = 32     # warps an SM is taken to hold (its registers)
@@ -66,7 +70,9 @@ class Plan:
     grid, ...), each warp ``in_flight`` rows at a time, ``unroll`` chunks of
     each a lane (``in_flight * unroll <= COPY_DEPTH``), a row in ``steps``
     units; the bulk gather's warps take
-    ``tile`` consecutive rows each, ``in_flight`` (the window) at a time.
+    ``tile`` consecutive rows each, ``in_flight`` (the window) at a time;
+    the fill's blocks take tiles of ``tile`` rows as the copy gather's, a
+    thread writing at most ``in_flight`` 16-byte chunks of a tile.
     ``smem``: dynamic shared memory a block, bytes."""
     kind: str
     grid: int
@@ -81,16 +87,20 @@ class Plan:
 def launch_plan(kind: str, M: int, row_bytes: int, sm_count: int, *,
                 unroll: int = 1, index: str = 'global', stage: bool = False,
                 window: int = 16, fill_warps: int = FILL_WARPS,
-                warps: int = MAX_WARPS) -> Plan:
+                warps: int = MAX_WARPS, fill_depth: int = FILL_DEPTH,
+                fill_tiles: int = FILL_TILES) -> Plan:
     """The launch of a gather of M rows of ``row_bytes`` on a card of
-    ``sm_count`` SMs (``kind`` 'copy' or 'bulk'): at least two blocks an SM
+    ``sm_count`` SMs (``kind`` 'copy' or 'bulk'), or of a block fill of M
+    rows of ``row_bytes`` ('fill'): at least two blocks an SM
     where M allows, a grid-stride loop over the tiles of a large M (copy),
     fewer rows in flight a warp where M is too short to give ``fill_warps``
     warps an SM a unit (copy); as many issuing warps as M, shared memory and
-    ``warps`` allow (bulk). ``unroll`` sets the chunks of one row a lane
-    takes at a step; the rows in flight fill the lane to ``COPY_DEPTH``
-    chunks whatever ``unroll`` is, so probe cases that differ only in
-    ``unroll`` may run one plan. ``warps``: warps a block, at most (a study
+    ``warps`` allow (bulk); rows a tile for ``fill_tiles`` tiles an SM, as
+    many warps as give each thread ``fill_depth`` chunks of a tile, and a
+    grid-stride loop past ``RESIDENT_WARPS`` an SM (fill). ``unroll`` sets
+    the chunks of one row a lane takes at a step; the rows in flight fill
+    the lane to ``COPY_DEPTH`` chunks whatever ``unroll`` is, so probe
+    cases that differ only in ``unroll`` may run one plan. ``warps``: warps a block, at most (a study
     of the rule's choices passes fewer). Raises ValueError where the rows
     do not fit shared memory."""
     if kind == 'copy':
@@ -110,6 +120,14 @@ def launch_plan(kind: str, M: int, row_bytes: int, sm_count: int, *,
         smem = (-(-tile * 4 // 16) * 16 + 16
                 + (warps * rows * eff * 32 * 16 if stage else 0))
         return Plan(kind, grid, warps, tile, rows, eff, steps, smem)
+    if kind == 'fill':
+        chunks = row_bytes // 16
+        tile = max(1, min(-(-M // (fill_tiles * sm_count)),
+                          warps * 32 * fill_depth // chunks))
+        warps = max(1, min(warps, -(-tile * chunks // (32 * fill_depth))))
+        grid = min(-(-M // tile), sm_count * max(1, RESIDENT_WARPS // warps))
+        return Plan(kind, grid, warps, tile, fill_depth, 1, 1,
+                    -(-tile * 4 // 16) * 16)
     warps = min(warps, (SMEM_MAX - 128) // (window * (row_bytes + 8)))
     if warps < 1:
         raise ValueError(f'bulk_gather: {window} rows of {row_bytes} bytes '
@@ -123,8 +141,8 @@ def launch_plan(kind: str, M: int, row_bytes: int, sm_count: int, *,
 
 def block_rows(plan: Plan, M: int, block: int) -> list[range]:
     """The rows block ``block`` of ``plan`` gathers, as the kernel assigns
-    them: its tiles (copy) or its warps' runs (bulk)."""
-    if plan.kind == 'copy':
+    them: its tiles (copy, fill) or its warps' runs (bulk)."""
+    if plan.kind in ('copy', 'fill'):
         return [range(t * plan.tile, min(M, (t + 1) * plan.tile))
                 for t in range(block, -(-M // plan.tile), plan.grid)]
     first = block * plan.warps * plan.tile
@@ -183,14 +201,12 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     'row_gather_bulk': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
-    'row_gather_sm_count': [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
     'row_gather_release_l2': [ctypes.c_void_p, ctypes.c_size_t,
                               ctypes.c_void_p],
-    'row_block_fill': [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    'row_block_fill': [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 _launchers = {}      # (library, name) -> its ctypes function
-_sm_counts = {}      # device index -> its SM count
 
 
 def _launcher(name: str):
@@ -205,20 +221,6 @@ def _launcher(name: str):
         fn.argtypes = _SIGNATURES[name]
         _launchers[lib, name] = fn
     return fn
-
-
-def sm_count(dev) -> int:
-    """The SM count of CUDA device ``dev`` (``cudaDevAttrMultiProcessorCount``),
-    read once."""
-    index = torch.device(dev).index
-    index = torch.cuda.current_device() if index is None else index
-    if index not in _sm_counts:
-        count = ctypes.c_int(0)
-        _build.check(_launcher('row_gather_sm_count')(index,
-                                                      ctypes.byref(count)),
-                     'row_gather_sm_count')
-        _sm_counts[index] = count.value
-    return _sm_counts[index]
 
 
 def run_plan(plan: Plan, table: Tensor, idx: Tensor, *,
@@ -318,9 +320,31 @@ bulk_gather.launches = 0    # kernel launches
 bulk_gather.last_plan = None
 
 
+def fill_heads(plan: Plan, M: int, bm: int, tile: int) -> tuple[int, int]:
+    """(first row block, row blocks) of tile ``tile`` of a fill ``plan``:
+    the indices the kernel reads into shared memory for it, one a row
+    block."""
+    m0 = tile * plan.tile
+    n = min(plan.tile, M - m0)
+    return m0 // bm, (m0 + n - 1) // bm - m0 // bm + 1
+
+
+def run_fill(plan: Plan, idx: Tensor, bm: int, width: int) -> Tensor:
+    """Launches the fill ``plan`` on checked CUDA operands -> (M, width)
+    int32; counts no launch. Raises on a refused launch."""
+    M = idx.shape[0]
+    out = torch.empty((M, width), dtype=FILL_DTYPE, device=idx.device)
+    with torch.cuda.device(idx.device):
+        _build.check(_launcher('row_block_fill')(
+            idx.data_ptr(), out.data_ptr(), M, bm, width, plan.tile,
+            plan.warps, plan.grid, _stream(idx.device)), 'block_fill')
+    return out
+
+
 def block_fill(idx: Tensor, bm: int, width: int = 128) -> Tensor:
     """(M, width) int32, each block of ``bm`` rows filled with its first
-    index (:func:`block_fill_reference`)."""
+    index (:func:`block_fill_reference`), launched as :func:`launch_plan`
+    ('fill') gives."""
     if idx.device.type == 'cpu':
         return block_fill_reference(idx, bm, width)
     what = 'block_fill'
@@ -329,14 +353,12 @@ def block_fill(idx: Tensor, bm: int, width: int = 128) -> Tensor:
              'idx must be contiguous 1-D int32')
     _require(what, bm > 0 and width > 0 and width % 4 == 0,
              'bm > 0 and width a multiple of 4')
-    M = idx.shape[0]
-    out = torch.empty((M, width), dtype=FILL_DTYPE, device=idx.device)
-    fn = _launcher('row_block_fill')
-    with torch.cuda.device(idx.device):
-        _build.check(fn(idx.data_ptr(), out.data_ptr(), M, bm, width,
-                        _stream(idx.device)), what)
+    plan = launch_plan('fill', idx.shape[0], width * 4, sm_count(idx.device))
+    out = run_fill(plan, idx, bm, width)
     block_fill.launches += 1
+    block_fill.last_plan = plan
     return out
 
 
 block_fill.launches = 0     # kernel launches
+block_fill.last_plan = None

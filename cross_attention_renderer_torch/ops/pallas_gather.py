@@ -62,6 +62,7 @@ def onehot_gather(fm_flat: Tensor, idx: Tensor, w: Tensor) -> Tensor:
 
 
 onehot_gather.launches = 0   # kernel launches, for the chip smoke test
+onehot_gather.last_plan = None
 
 
 def grid_sample_pallas(features: Tensor, coords_ndc: Tensor,

@@ -10,9 +10,10 @@ All four gathers of the port (K5, K6 here, K7 in ``pallas_gather``, K8 in
 ``experimental/banded_gather``) compute ``out[m] = sum_c w[m, c] *
 T[idx[m, c]]`` from a flat (rows, C) table and corners built outside them,
 and launch one CUDA routine, ``csrc/bilinear_gather.cu``, through
-:func:`launch_gather`. On a CPU tensor each takes its plain version,
-:func:`take_gather`, cast to its output type; on a CUDA tensor it launches
-the kernel or raises.
+:func:`launch_gather`, with the launch :func:`gather_plan` takes from the
+card's SM count and the shapes. On a CPU tensor each takes its plain
+version, :func:`take_gather`, cast to its output type; on a CUDA tensor it
+launches the kernel or raises.
 
 The TPU kernels see a window of table rows per sample block, which the sort
 keeps small, and add the corners outside it in a residual take pass; the
@@ -23,8 +24,10 @@ nothing.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from cross_attention_renderer_torch.ops import _build
@@ -35,6 +38,13 @@ Tensor = torch.Tensor
 SAMPLE_BLOCK = 2048
 BAND = 256
 MAX_BANDS = 8
+
+# The kernel's launch (csrc/bilinear_gather.cu)
+GATHER_WARPS = 8        # warps a block (the kernel's kWarps)
+GATHER_BATCH = 32       # samples a warp takes at a time, one a lane
+GATHER_DEPTH = 4        # samples a lane has in flight: 16 row chunks
+GATHER_DEPTHS = (1, 2, 4)   # the kernel's instantiations
+GATHER_WAVES = 2        # waves of the blocks an SM holds in the grid
 
 
 class SortedStream(NamedTuple):
@@ -99,6 +109,121 @@ def take_gather(fm_flat: Tensor, idx: Tensor, w: Tensor) -> Tensor:
     return out.float()
 
 
+@dataclass(frozen=True)
+class GatherPlan:
+    """The bilinear gather's launch: ``grid`` blocks of ``warps`` warps; a
+    warp takes ``batch`` samples at a time (block b's warp w the batches b
+    * warps + w + k * grid * warps), a sample ``group`` lanes (16 bytes of
+    each corner row a lane, ``per_lane`` chunks of it where C / 8 exceeds
+    32), a lane ``depth`` samples in flight."""
+    grid: int
+    warps: int
+    batch: int
+    group: int
+    depth: int
+    per_lane: int
+
+
+def sample_lanes(C: int) -> int:
+    """Lanes a sample of C channels takes: C / 8 rounded up to a power of
+    two, at most a warp."""
+    return min(32, 1 << (C // 8 - 1).bit_length())
+
+
+def gather_plan(M: int, C: int, sm_count: int, blocks_per_sm: int, *,
+                depth: int = GATHER_DEPTH) -> GatherPlan:
+    """The launch of a bilinear gather of M samples of C channels on a card
+    of ``sm_count`` SMs that holds ``blocks_per_sm`` blocks of the kernel an
+    SM (a multiple of :func:`resident_blocks`): :func:`sample_lanes` lanes
+    a sample, ``depth`` samples in flight a lane (at most the lanes of a
+    group, so that the steps tile a batch), and ``blocks_per_sm`` blocks an
+    SM where M has that many batches, the warps walking the rest
+    grid-stride. ``depth`` and ``blocks_per_sm`` are also the knobs
+    ``tools/gather_study.py`` varies."""
+    if depth not in GATHER_DEPTHS:
+        raise ValueError(f'gather_plan: depth in {GATHER_DEPTHS}, got {depth}')
+    group = sample_lanes(C)
+    batches = -(-M // GATHER_BATCH)
+    grid = max(1, min(-(-batches // GATHER_WARPS),
+                      sm_count * max(1, blocks_per_sm)))
+    return GatherPlan(grid, GATHER_WARPS, GATHER_BATCH, group,
+                      min(depth, group), -(-(C // 8) // group))
+
+
+def plan_cells(plan: GatherPlan, M: int, C: int, block: int) -> np.ndarray:
+    """The flat (sample * C / 8 + chunk) 16-byte output chunks block
+    ``block`` of ``plan`` writes, as the kernel assigns them (one entry a
+    write)."""
+    chunks = C // 8
+    batches = -(-M // plan.batch)
+    stride = plan.grid * plan.warps
+    first = block * plan.warps
+    b = np.concatenate([np.arange(w, batches, stride)
+                        for w in range(first, first + plan.warps)])
+    lane = np.arange(32)
+    shift = plan.group.bit_length() - 1
+    g, sub = lane >> shift, lane & (plan.group - 1)
+    per_row = plan.batch >> shift
+    # (step, d, lane): the sample of the batch; (k, lane): the chunk
+    j = (np.arange(0, plan.batch, per_row * plan.depth)[:, None, None]
+         + np.arange(plan.depth)[None, :, None] * per_row + g)
+    c = sub + plan.group * np.arange(plan.per_lane)[:, None]
+    m = b[:, None, None, None, None] * plan.batch + j[None, :, :, None, :]
+    c = np.broadcast_to(c[None, None, None], m.shape[:3] + c.shape)
+    m = np.broadcast_to(m, c.shape)
+    keep = (m < M) & (c < chunks)
+    return (m[keep].astype(np.int64) * chunks + c[keep])
+
+
+_sm_counts = {}     # device index -> its SM count
+_resident = {}      # (library, device index, depth, f32 out) -> blocks an SM
+
+
+def _index(dev) -> int:
+    index = torch.device(dev).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev``, read once."""
+    index = _index(dev)
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
+def resident_blocks(dev, depth: int, out_f32: bool) -> int:
+    """Blocks of the kernel's ``depth`` / output-type instantiation an SM of
+    ``dev`` holds at once (its registers and shared memory, as the CUDA
+    occupancy calculator gives them), read once."""
+    lib = _build.load('bilinear_gather')
+    key = (lib, _index(dev), depth, bool(out_f32))
+    if key not in _resident:
+        fn = lib.bilinear_gather_blocks_per_sm
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(key[1]):
+            _build.check(fn(depth, int(out_f32), ctypes.byref(blocks)),
+                         'bilinear_gather_blocks_per_sm')
+        _resident[key] = blocks.value
+    return _resident[key]
+
+
+def card_plan(dev, M: int, C: int, out_dtype: torch.dtype) -> GatherPlan:
+    """The launch the wrappers take on ``dev``: :func:`gather_plan` at
+    ``GATHER_DEPTH`` with the SM count and ``GATHER_WAVES`` waves of the
+    blocks an SM holds of the instantiation it runs (two waves ran up to
+    7% faster than one on the main paths' 256-wide inputs and at most
+    1.5% slower on the 64-wide ones, ``tools/gather_study.py``
+    bilinear, on an H100 80GB HBM3 at 700 W)."""
+    depth = min(GATHER_DEPTH, sample_lanes(C))
+    return gather_plan(M, C, sm_count(dev), GATHER_WAVES * resident_blocks(
+        dev, depth, out_dtype == torch.float32), depth=depth)
+
+
 def launch_gather(kernel, entry: str, fm_flat: Tensor, idx: Tensor,
                   w: Tensor, out_dtype: torch.dtype) -> Tensor:
     """Launches ``entry`` of ``csrc/bilinear_gather.cu`` for the wrapper
@@ -108,7 +233,8 @@ def launch_gather(kernel, entry: str, fm_flat: Tensor, idx: Tensor,
     Takes a (rows, C) bf16 or f32 table with C % 8 == 0 (an f32 table is
     cast to bf16 first, as the TPU wrappers cast theirs), (M, 4) int32
     corners, (M, 4) f32 weights, all contiguous on one card, and a bf16 or
-    f32 output; raises ValueError on anything else."""
+    f32 output; raises ValueError on anything else. The launch is
+    :func:`gather_plan`'s, kept as ``kernel.last_plan``."""
     what = kernel.__name__
     dev = fm_flat.device
 
@@ -126,8 +252,8 @@ def launch_gather(kernel, entry: str, fm_flat: Tensor, idx: Tensor,
             f'{tuple(fm_flat.shape)}')
     require(idx.device == dev and idx.dtype == torch.int32
             and idx.is_contiguous() and idx.dim() == 2
-            and idx.shape[1] == 4 and M > 0,
-            f'idx must be contiguous (M > 0, 4) int32 on {dev}')
+            and idx.shape[1] == 4 and 0 < M < 2 ** 31 - GATHER_BATCH,
+            f'idx must be contiguous (M > 0, 4) int32 on {dev}, M < 2^31')
     require(w.device == dev and w.dtype == torch.float32
             and w.is_contiguous() and tuple(w.shape) == (M, 4),
             f'w must be contiguous ({M}, 4) f32 on {dev}')
@@ -138,18 +264,29 @@ def launch_gather(kernel, entry: str, fm_flat: Tensor, idx: Tensor,
     require(all(t.data_ptr() % 16 == 0 for t in (table, idx, w)),
             'tensors must be 16-byte aligned')
 
+    plan = card_plan(dev, M, C, out_dtype)
+    run_gather(entry, plan, table, idx, w, out, what)
+    kernel.launches += 1
+    kernel.last_plan = plan
+    return out
+
+
+def run_gather(entry: str, plan: GatherPlan, table: Tensor, idx: Tensor,
+               w: Tensor, out: Tensor, what: str = 'bilinear gather') -> None:
+    """Launches ``entry`` of ``csrc/bilinear_gather.cu`` with ``plan`` on
+    checked operands (a bf16 table), writing ``out``; counts no launch.
+    Raises on a refused launch."""
     fn = getattr(_build.load('bilinear_gather'), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(table.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                        out.data_ptr(), int(out_dtype == torch.float32), M,
-                        C, rows, stream), what)
-    kernel.launches += 1
-    return out
+                        out.data_ptr(), int(out.dtype == torch.float32),
+                        idx.shape[0], table.shape[1], table.shape[0],
+                        plan.group.bit_length() - 1, plan.depth, plan.grid,
+                        stream), what)
 
 
 def _check_positive(what: str, **sizes: int) -> None:
@@ -180,6 +317,7 @@ def resident_gather(fm_flat: Tensor, idx: Tensor, w: Tensor,
 
 
 resident_gather.launches = 0   # kernel launches, for the chip smoke test
+resident_gather.last_plan = None
 
 
 def windowed_gather(fm_flat: Tensor, idx: Tensor, w: Tensor,
@@ -201,6 +339,7 @@ def windowed_gather(fm_flat: Tensor, idx: Tensor, w: Tensor,
 
 
 windowed_gather.launches = 0   # kernel launches
+windowed_gather.last_plan = None
 
 
 def grid_sample_sorted(fm: Tensor, coords: Tensor, image_id: Tensor,

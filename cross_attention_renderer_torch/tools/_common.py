@@ -1,12 +1,14 @@
 """What the row-gather probe scripts share: the probes' sites, timing, the
-byte bound and the exactness check.
+byte bound and the exactness check; and the bilinear gather's (K5-K8)
+bound, which ``chip_smoke.py`` and ``gather_study.py`` share.
 
 Each probe case runs its kernel (``ops/experimental/row_gather.py``) at the
 JAX probe's shapes, checks it bit for bit against the plain version
 (``table[clip(idx)]``, the probes' ``jnp.take(..., mode='clip')``), and
 times it beside the plain version and one PyTorch call computing the same
 function (``torch.index_select``; for the block fill a ``copy_`` from an
-expanded view, since ``Tensor.fill_`` takes one value, not one a block).
+expanded view, since ``Tensor.fill_`` takes one value, not one a block,
+timed before the kernel as well).
 All three are timed as device time: back-to-back calls in one CUDA graph
 (``utils/profiling.py`` ``graph_ms``), so that a probe of a few
 microseconds is not timed as the host's cost of launching it. A gather's
@@ -29,6 +31,7 @@ from cross_attention_renderer_torch.utils.profiling import graph_ms
 Tensor = torch.Tensor
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
+F32_FLOPS = 67e12               # f32 outside the tensor cores, published
 
 # probe -> (the TPU kernel's site, what it computes)
 PROBES = {
@@ -81,6 +84,20 @@ def gather_bound(table, idx) -> tuple[float, str]:
     row = table[0].numel() * table.element_size()
     read = int(torch.unique(idx.clamp(0, table.shape[0] - 1)).numel())
     return (M * row + read * row + 4 * M) / HBM_BYTES_PER_S * 1e3, 'bytes'
+
+
+def bilinear_bound(table, idx, w, out_dtype) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one bilinear gather (K5-K8): the table rows
+    its live corners touch, read once; its corners and weights (32 bytes a
+    sample); its (M, C) output written once; 4 multiply-adds a channel a
+    sample at the f32 rate."""
+    M, C = idx.shape[0], table.shape[1]
+    rows = int(torch.unique(idx[w != 0]).numel())
+    out_bytes = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = rows * C * table.element_size() + M * 32 + M * C * out_bytes
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8 * M * C / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes >= t_ops else 'operations')
 
 
 def fill_bound(idx, bm: int, width: int) -> tuple[float, str]:
@@ -139,11 +156,11 @@ def gather_case(probe: str, label: str, kernel, table, idx) -> dict:
 
 def fill_case(probe: str, label: str, idx, bm: int, width: int = 128
               ) -> dict:
-    """One block-fill case, as :func:`gather_case`, beside ``copy_`` from an
-    expanded view."""
+    """One block-fill case, as :func:`gather_case`: ``copy_`` from an
+    expanded view and the plain version timed first, then the kernel
+    checked bit for bit and timed; returns its launch plan too."""
     M = idx.shape[0]
     want = RG.block_fill_reference(idx, bm, width)
-    err = check_exact(label, RG.block_fill(idx, bm, width), want)
     out = torch.empty_like(want)
     nb = -(-M // bm)
 
@@ -154,14 +171,18 @@ def fill_case(probe: str, label: str, idx, bm: int, width: int = 128
 
     n = calls_for(M)
     lib_ms = graph_ms(library, n) if M % bm == 0 else None
-    ms = graph_ms(lambda: RG.block_fill(idx, bm, width), n)
     plain_ms = graph_ms(lambda: RG.block_fill_reference(idx, bm, width), n)
+    err = check_exact(label, RG.block_fill(idx, bm, width), want)
+    plan = dataclasses.asdict(RG.block_fill.last_plan)
+    ms = graph_ms(lambda: RG.block_fill(idx, bm, width), n)
     bound_ms, bound_by = fill_bound(idx, bm, width)
     line(f'{probe} {label}', ms, M)
+    if lib_ms:
+        line(f'{probe} copy_ (beside it)', lib_ms, M)
     return {'probe': probe, 'case': label, 'ms': ms, 'plain_ms': plain_ms,
             'library': 'copy_', 'library_ms': lib_ms, 'bound_ms': bound_ms,
             'bound_by': bound_by, 'max_abs_err': err,
-            'ns_per_row': ms * 1e6 / M}
+            'ns_per_row': ms * 1e6 / M, 'plan': plan}
 
 
 def ok(name: str) -> None:

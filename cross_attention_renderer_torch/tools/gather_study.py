@@ -16,6 +16,21 @@
    32).
 4. ``bulk_warps``: the bulk gather's issuing warps a block, 4 or as many
    as shared memory holds (up to 8; T2, T5).
+5. ``fill``: the block fill (T6's 2,048 rows of 128 int32) with
+   ``st.global.cs`` stores (shipped) or plain ones (a patched copy of
+   ``row_gather.cu``), each at 1, 2 and 4 chunks a thread and 2 or 4
+   tiles an SM (``launch_plan``'s ``fill_depth``, ``fill_tiles``), and
+   ``copy_`` from an expanded view, all in turns.
+6. ``bilinear``: the bilinear gather (``csrc/bilinear_gather.cu``, K5-K8)
+   on the inputs of the flagship V=2 sorted path's first ray block (its
+   three self-stream and three cross-stream levels; the first is K8's
+   case) and of the V=3 compat one-hot path's (K7): the cache policy
+   (plain loads or ``evict_last`` ones, ``.cs`` or plain stores; patched
+   copies of the source) and ``gather_plan``'s samples in flight a lane
+   (``depth`` 1, 2, 4) and blocks an SM (one or two waves), beside
+   ``embedding_bag`` (timed between CUDA events, as ``chip_smoke.py``
+   times it), each turn on a table whose ``evict_last`` marks, where a
+   variant left them, were cleared.
 
 Every plan is ``row_gather.launch_plan``'s, at the keyword arguments the
 study varies (``in_flight`` fixes the grid besides). Variants are timed in
@@ -37,7 +52,7 @@ import sys
 from cross_attention_renderer_torch.ops import _build
 from cross_attention_renderer_torch.ops.experimental import row_gather as RG
 from cross_attention_renderer_torch.tools import _common as C
-from cross_attention_renderer_torch.utils.profiling import graph_ms
+from cross_attention_renderer_torch.utils.profiling import cuda_ms, graph_ms
 
 # the source's loads and stores, and what the variants put in their place
 NO_ALLOCATE = ('.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, "\n      "[%4], %5;',
@@ -64,23 +79,23 @@ CASES = (('T1 u1 (32768, 1024)', (32768, 1024), 1 << 20,
           dict(index='shared')))
 
 
-def build_variants(variants: dict) -> dict:
-    """Compiles a patched copy of ``row_gather.cu`` a variant ({name:
+def build_variants(variants: dict, source: str = 'row_gather') -> dict:
+    """Compiles a patched copy of ``csrc/<source>.cu`` a variant ({name:
     [(old, new), ...]}), all at once, into ``build/gather_study/``; the
     unpatched variant is the package's own build. Returns name -> library.
     Raises where a patch no longer matches the source."""
-    text = (_build.CSRC_DIR / 'row_gather.cu').read_text()
-    out_dir = _build.BUILD_DIR / 'gather_study'
+    text = (_build.CSRC_DIR / f'{source}.cu').read_text()
+    out_dir = _build.BUILD_DIR / 'gather_study' / source
     out_dir.mkdir(parents=True, exist_ok=True)
     procs, libs = {}, {}
     for i, (name, patches) in enumerate(variants.items()):
         if not patches:
-            libs[name] = _build.load('row_gather')
+            libs[name] = _build.load(source)
             continue
         src = text
         for old, new in patches:
             if old not in src:
-                raise RuntimeError(f'{name}: row_gather.cu has changed')
+                raise RuntimeError(f'{name}: {source}.cu has changed')
             src = src.replace(old, new)
         cu, lib = out_dir / f'variant{i}.cu', out_dir / f'libvariant{i}.so'
         cu.write_text(src)
@@ -273,8 +288,217 @@ def bulk_warps(dev) -> list[dict]:
     return records
 
 
+FILL_PLAIN = ('{ __stcs(p, v); }', '{ *p = v; }')
+FILL_POLICIES = {'cs': [], 'plain': [FILL_PLAIN]}
+
+
+def fill(dev) -> list[dict]:
+    """T6's fill, ``.cs`` or plain stores at each ``fill_depth`` and
+    ``fill_tiles``, and ``copy_`` from an expanded view, in turns A B .. B
+    A."""
+    import torch
+    from cross_attention_renderer_torch.tools import micro_kgather_bisect
+    M, bm, width = micro_kgather_bisect.M, micro_kgather_bisect.BM, 128
+    sms = RG.sm_count(dev)
+    idx = torch.arange(M, dtype=torch.int32, device=dev)
+    want = RG.block_fill_reference(idx, bm, width)
+    out = torch.empty_like(want)
+    nb = M // bm
+    bound_ms, _ = C.fill_bound(idx, bm, width)
+    libs = build_variants(FILL_POLICIES)
+    plans = {'copy_': (None, None)}
+    plans.update({f'{pol} depth {d} tiles {t}': (pol, RG.launch_plan(
+        'fill', M, width * 4, sms, fill_depth=d, fill_tiles=t))
+        for pol in FILL_POLICIES for d in (1, 2, 4) for t in (2, 4)})
+    records = []
+    try:
+        def call(name):
+            pol, plan = plans[name]
+            if pol is None:
+                return out.view(nb, bm, width).copy_(
+                    idx.view(nb, bm)[:, :1, None].expand(nb, bm, width)
+                ).view(M, width)
+            _build.use('row_gather', libs[pol])
+            return RG.run_fill(plan, idx, bm, width)
+
+        times = {name: [] for name in plans}
+        for name in list(plans) + list(reversed(plans)):
+            C.check_exact(f'fill {name}', call(name), want)
+            times[name].append(graph_ms(lambda: call(name), 512))
+    finally:
+        _build.use('row_gather', None)
+    lib_ms = sum(times['copy_']) / 2
+    for name, ts in times.items():
+        ms = sum(ts) / len(ts)
+        plan = plans[name][1]
+        shape = (f'grid {plan.grid} x {plan.warps} warps, tile {plan.tile}'
+                 if plan else 'one PyTorch call')
+        print(f'T6 fill {name:24s} {shape}: {ms * 1e3:7.3f} us (turns '
+              + ', '.join(f'{t * 1e3:.3f}' for t in ts)
+              + f')  {ms / lib_ms:5.3f}x copy_ ({lib_ms * 1e3:.3f} us)  '
+              f'{100 * bound_ms / ms:5.1f}% of bound', flush=True)
+        records.append({'variant': name, 'ms': ms, 'turns': ts,
+                        'library_ms': lib_ms, 'bound_ms': bound_ms,
+                        'plan': dataclasses.asdict(plan) if plan else None})
+    return records
+
+
+# the bilinear gather's loads and stores, and what the variants put there:
+# loads with an L2 evict_last policy (made once, the asm being hoistable),
+# plain stores
+BILINEAR_EVICT_LAST = (
+    'uint4 load_row(const uint4* p) { return __ldg(p); }',
+    'uint4 load_row(const uint4* p) {\n'
+    '  uint64_t policy;\n'
+    '  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\\n"'
+    ' : "=l"(policy));\n'
+    '  uint4 v;\n'
+    '  asm volatile("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, '
+    '[%4], %5;\\n"\n'
+    '      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)\n'
+    '      : "l"(p), "l"(policy));\n'
+    '  return v;\n'
+    '}')
+BILINEAR_PLAIN = ('__stcs(p, v);', '*p = v;')
+BILINEAR_POLICIES = {'normal + cs': [],
+                     'normal + plain': [BILINEAR_PLAIN],
+                     'evict_last + cs': [BILINEAR_EVICT_LAST],
+                     'evict_last + plain': [BILINEAR_EVICT_LAST,
+                                            BILINEAR_PLAIN]}
+# the main path's (kernel, entry point, output type) of each case set
+ENTRIES = {'K5': ('resident_gather_bf16', 'bfloat16'),
+           'K6': ('windowed_gather_bf16', 'float32'),
+           'K7': ('onehot_gather_bf16', 'bfloat16'),
+           'K8': ('banded_gather_bf16', 'bfloat16')}
+
+
+def first_block_calls(dev, module, name, n_view=2, **kw):
+    """The arguments of the first 6 calls of ``module.<name>`` as the
+    flagship model (bf16, seed 0, model options ``kw``) renders the first
+    8,192-ray block of the 256x256 ``make_scene(0)`` image."""
+    import torch
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models import renderer as RM
+    model = RM.CrossAttentionRenderer(dtype=torch.bfloat16, seed=0,
+                                      device=dev, n_view=n_view, **kw).eval()
+    scene = make_scene(0, n_view=n_view, H=256, W=256, n_rays=256 * 256,
+                       full_image=True, device=dev)
+    scene['query'] = dict(scene['query'],
+                          uv=scene['query']['uv'][:, :, :8192])
+    fn, seen = getattr(module, name), []
+
+    def recorder(*args):
+        if len(seen) < 6:
+            seen.append(args)
+        return fn(*args)
+
+    setattr(module, name, recorder)
+    try:
+        with torch.inference_mode():
+            model(scene)
+    finally:
+        setattr(module, name, fn)
+    return seen
+
+
+def bilinear_cases(dev) -> dict:
+    """kernel -> [(label, table, idx, w)]: the V=2 sorted path's first
+    block's six levels (K5; K6 on the three self-stream ones; K8 on the
+    level-0 self-stream one) and the V=3 compat one-hot path's (K7)."""
+    from cross_attention_renderer_torch.models import renderer as RM
+    from cross_attention_renderer_torch.ops import pallas_gather as PG
+    from cross_attention_renderer_torch.ops import sorted_gather as SG
+    cases = []
+    for fm, coords, image_id, mode in first_block_calls(
+            dev, RM, 'grid_sample_sorted', npoints=64, sorted_stream=True):
+        B, H, W, Ch = fm.shape
+        idx, w = SG._corners_flat(H, W, coords.float(), image_id, mode)
+        cases.append((fm.reshape(B * H * W, Ch), idx, w))
+    onehot = []
+    for fm, coords, mode in first_block_calls(
+            dev, PG, 'grid_sample_pallas', n_view=3,
+            reference_exchange_compat=True, fused_mlp=True, gather='onehot'):
+        B, H, W, Ch = fm.shape
+        idx, w = PG.flat_corners(fm, coords, mode)
+        onehot.append((fm.reshape(B * H * W, Ch), idx, w))
+
+    def named(key, items):
+        return [(f'{key} {tuple(t.shape)} M={i.shape[0]}', t, i, w)
+                for t, i, w in items]
+
+    return {'K5': named('K5', cases), 'K6': named('K6', cases[:3]),
+            'K7': named('K7', onehot), 'K8': named('K8', cases[:1])}
+
+
+def bilinear(dev) -> list[dict]:
+    """The bilinear gather's cache policies, then ``gather_plan``'s depth
+    and blocks an SM (one wave of the blocks an SM holds, and two), on
+    the main paths' first-block inputs; each variant
+    checked against the shipped build's output first (bit for bit: a
+    policy or a launch changes no arithmetic), then timed in turns A B ..
+    B A from tables whose marks were cleared."""
+    import torch
+    import torch.nn.functional as F
+    from cross_attention_renderer_torch.ops import sorted_gather as SG
+    sms = SG.sm_count(dev)
+    libs = build_variants(BILINEAR_POLICIES, 'bilinear_gather')
+    records = []
+    try:
+        for key, cases in bilinear_cases(dev).items():
+            entry, out_name = ENTRIES[key]
+            out_dtype = getattr(torch, out_name)
+            for label, table, idx, w in cases:
+                M, Ch = idx.shape[0], table.shape[1]
+                RG.release_l2(table)
+                w_t = w.to(table.dtype)
+                lib_ms = cuda_ms(lambda: F.embedding_bag(
+                    idx, table, per_sample_weights=w_t, mode='sum'), 10)
+                bound_ms, _ = C.bilinear_bound(table, idx, w, out_dtype)
+                out = torch.empty((M, Ch), dtype=out_dtype, device=dev)
+
+                def run(lib, plan):
+                    _build.use('bilinear_gather', libs[lib])
+                    SG.run_gather(entry, plan, table, idx, w, out)
+                    return out
+
+                shipped = SG.card_plan(dev, M, Ch, out_dtype)
+                want = run('normal + cs', shipped).clone()
+                variants = {name: (name, shipped)
+                            for name in BILINEAR_POLICIES}
+                # each depth at one wave of its resident blocks, and two
+                for d in SG.GATHER_DEPTHS:
+                    eff = min(d, SG.sample_lanes(Ch))
+                    r = SG.resident_blocks(dev, eff, out_name == 'float32')
+                    for b in (r, 2 * r):
+                        variants[f'depth {eff}, {b} blocks/SM'] = (
+                            'normal + cs',
+                            SG.gather_plan(M, Ch, sms, b, depth=eff))
+
+                def call(name):
+                    return run(*variants[name])
+
+                times = turns(label, variants, call, want, 10, table)
+                for name, ts in times.items():
+                    ms = sum(ts) / len(ts)
+                    print(f'{label:36s} {name:24s} {ms:8.4f} ms (turns '
+                          + ', '.join(f'{t:.4f}' for t in ts)
+                          + f')  {ms / lib_ms:5.3f}x embedding_bag '
+                          f'({lib_ms:.4f})  {100 * bound_ms / ms:5.1f}% of '
+                          'bound', flush=True)
+                    records.append({
+                        'case': label, 'variant': name, 'ms': ms,
+                        'turns': ts, 'library_ms': lib_ms,
+                        'bound_ms': bound_ms,
+                        'plan': dataclasses.asdict(variants[name][1])})
+                RG.release_l2(table)
+    finally:
+        _build.use('bilinear_gather', None)
+    return records
+
+
 STUDIES = dict(policies=policies, in_flight=in_flight,
-               short_rows=short_rows, bulk_warps=bulk_warps)
+               short_rows=short_rows, bulk_warps=bulk_warps, fill=fill,
+               bilinear=bilinear)
 
 
 def run(dev=None, names=None) -> dict:

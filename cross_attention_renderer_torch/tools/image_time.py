@@ -1,0 +1,111 @@
+"""Device time of one rendered image on the paths that run the bilinear
+gather, for comparing two trees of the package on one card.
+
+  python3 cross_attention_renderer_torch/tools/image_time.py \\
+      [--root DIR] [--patch evict_last] [--paths v2_sorted,v3_onehot]
+
+Imports ``cross_attention_renderer_torch`` from DIR (by default the
+checkout that holds this script), so the same script times an older
+commit's package unpacked beside this one: run it once a tree, in turns
+(old, new, new, old), in one call on the card. ``--patch evict_last``
+swaps in a copy of this tree's ``csrc/bilinear_gather.cu`` whose table
+loads carry an L2 ``evict_last`` policy (``tools/gather_study.py``
+builds it), to ask whether the marks those loads leave, which outlast a
+launch, help or hurt the next ray block of a render.
+
+Each path renders the flagship 256x256 image (``make_scene(0)``, 8 blocks
+of 8,192 rays, the 122M model in bf16 from seed 0) once to warm up, then
+twice under ``torch.profiler``: the card's busy time an image (the sum of
+its kernels' device time) and the bilinear gather's share of it. Prints
+one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+H = W = 256
+N_BLOCKS = 8
+PATHS = {
+    'v2_sorted': dict(npoints=64, sorted_stream=True),
+    'v3_onehot': dict(n_view=3, reference_exchange_compat=True,
+                      fused_mlp=True, gather='onehot'),
+}
+
+
+def image_device_ms(model, scene, make_scan_renderer, images: int = 2):
+    """[(busy ms, bilinear gather ms, its launches)] of ``images`` profiled
+    images after one warm-up image."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    uv = scene['query']['uv']
+    render = make_scan_renderer(model, N_BLOCKS)
+    out = []
+    with torch.inference_mode():
+        z = model.encode(scene)
+        render(scene, z, uv)
+        torch.cuda.synchronize()
+        for _ in range(images):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                render(scene, z, uv)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if str(getattr(e, 'device_type', '')).endswith('CUDA')]
+            gather = [e for e in events if 'bilinear_gather' in e.key]
+            out.append((sum(e.self_device_time_total for e in events) / 1e3,
+                        sum(e.self_device_time_total for e in gather) / 1e3,
+                        sum(e.count for e in gather)))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--root', default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument('--patch', choices=('evict_last',), default=None)
+    ap.add_argument('--paths', default=','.join(PATHS))
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print('image_time: no CUDA device', file=sys.stderr)
+        return 1
+    root = str(Path(args.root).resolve())
+    sys.path.insert(0, root)
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models import renderer as RM
+    from cross_attention_renderer_torch.ops import _build
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_scan_renderer)
+    if not _build.PKG_DIR.is_relative_to(root):
+        raise SystemExit(f'image_time: the package came from {_build.PKG_DIR}'
+                         f', not from {root}')
+    _build.build()
+    if args.patch:
+        from cross_attention_renderer_torch.tools import gather_study as GS
+        lib = GS.build_variants({'evict_last': [GS.BILINEAR_EVICT_LAST]},
+                                'bilinear_gather')['evict_last']
+        _build.use('bilinear_gather', lib)
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    result = {'root': root, 'patch': args.patch, 'card': card}
+    for name in args.paths.split(','):
+        kw = PATHS[name]
+        model = RM.CrossAttentionRenderer(dtype=torch.bfloat16, seed=0,
+                                          device='cuda', **kw).eval()
+        scene = make_scene(0, n_view=kw.get('n_view', 2), H=H, W=W,
+                           n_rays=H * W, full_image=True, device='cuda')
+        result[name] = image_device_ms(model, scene, make_scan_renderer)
+        del model, scene
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

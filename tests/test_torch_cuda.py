@@ -322,10 +322,12 @@ def test_exchange_core_at_wide_fusion_widths(dev, mode, ff):
         assert _max_err(g, w) <= 2 ** -5 * _scale(w)
 
 
-def _gather_case(dev, rows, C, M, seed, sort):
+def _gather_case(dev, rows, C, M, seed, sort, edges=False):
     """A bf16 (rows, C) table, (M, 4) corner rows (sorted, or scattered over
     the whole table) with coincident corners, as at the border, and (M, 4)
-    weights with zeros, as in 'zeros' padding."""
+    weights with zeros, as in 'zeros' padding. ``edges`` adds a run of 70
+    samples whose weights are all 0 (across two of a warp's 32-sample
+    batches) and samples whose four corners all lie on one row."""
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, rows, (M, 4))
     if sort:
@@ -334,30 +336,63 @@ def _gather_case(dev, rows, C, M, seed, sort):
     idx[::11, 2:] = idx[::11, :1]
     w = rng.uniform(0, 1, (M, 4))
     w[::5, 2:] = 0.0
+    if edges:
+        w[M // 3:M // 3 + 70] = 0.0
+        idx[3::13] = idx[3::13, :1]
     return (_bf(dev, rng.standard_normal((rows, C))),
             torch.as_tensor(idx, dtype=torch.int32, device=dev),
             torch.as_tensor(w, dtype=torch.float32, device=dev))
 
 
-@pytest.mark.parametrize('kernel,out', [
+GATHER_KERNELS = [
     (SG.resident_gather, torch.bfloat16), (SG.windowed_gather, torch.float32),
-    (PG.onehot_gather, torch.bfloat16), (BG.banded_gather, torch.bfloat16)])
-@pytest.mark.parametrize('rows,C,M,sort', [(2 * 16 * 16, 32, 1003, True),
-                                           (2 * 128 * 128, 256, 20000, True),
-                                           (3 * 64 * 64, 64, 4097, False)])
-def test_gather_kernels(dev, kernel, out, rows, C, M, sort):
+    (PG.onehot_gather, torch.bfloat16), (BG.banded_gather, torch.bfloat16)]
+
+
+@pytest.mark.parametrize('kernel,out', GATHER_KERNELS)
+@pytest.mark.parametrize('rows,C,M,sort,edges', [
+    (2 * 16 * 16, 32, 1003, True, False),
+    (2 * 128 * 128, 256, 20000, True, False),
+    (3 * 64 * 64, 64, 4097, False, False),
+    # the flagship's three levels (V=2), M not a multiple of a warp's 32
+    # samples; the last two tables hold more than 2^16 rows
+    (2 * 64 * 64, 256, 65537, True, True),
+    (2 * 128 * 128, 256, 65555, True, True),
+    (2 * 256 * 256, 64, 65571, True, True),
+    (3 * 256 * 256, 64, 33333, False, True)])
+def test_gather_kernels(dev, kernel, out, rows, C, M, sort, edges):
     """K5-K8 against ``take_gather`` cast to the kernel's output type. Both
     round each corner's weight to bf16; the kernel sums the bf16 products in
     f32 and rounds once, the plain version rounds each product and partial
-    sum to bf16: a few bf16 steps of max(1, |want|)."""
-    table, idx, w = _gather_case(dev, rows, C, M, seed=rows % 7, sort=sort)
+    sum to bf16: a few bf16 steps of max(1, |want|). Samples whose weights
+    are all 0 are exactly 0."""
+    table, idx, w = _gather_case(dev, rows, C, M, seed=rows % 7, sort=sort,
+                                 edges=edges)
     before = kernel.launches
     got = kernel(table, idx, w)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert kernel.last_plan == SG.card_plan(dev, M, C, out)
     want = SG.take_gather(table, idx, w).to(out)
     assert got.shape == (M, C) and got.dtype == out
     assert _max_err(got, want) <= 2 ** -5 * _scale(want)
+    dead = (w == 0).all(dim=1)
+    assert bool((got[dead] == 0).all())
+
+
+def test_gather_plan_is_waves_of_resident_blocks(dev):
+    """Every instantiation of the bilinear gather fits at least one block
+    an SM, and the wrappers' plan at K8's 1,048,576 samples is
+    ``GATHER_WAVES`` waves of them on this card."""
+    sms = SG.sm_count(dev)
+    for depth in SG.GATHER_DEPTHS:
+        for f32 in (False, True):
+            assert SG.resident_blocks(dev, depth, f32) >= 1
+    for C, out in ((256, torch.bfloat16), (64, torch.bfloat16),
+                   (256, torch.float32)):
+        plan = SG.card_plan(dev, 1 << 20, C, out)
+        assert plan.grid == sms * SG.GATHER_WAVES * SG.resident_blocks(
+            dev, plan.depth, out == torch.float32)
 
 
 def test_gather_kernels_cast_and_refuse(dev):
@@ -498,15 +533,42 @@ def test_release_l2_leaves_the_table_and_counts_no_launch(dev):
     assert torch.equal(RG.copy_gather(table, idx), want)
 
 
-@pytest.mark.parametrize('bm,M', [(512, 2048), (512, 2000), (64, 777)])
-def test_block_fill_kernel(dev, bm, M):
-    """T6 and T11: each block of bm rows holds its first index."""
+@pytest.mark.parametrize('width', [4, 128, 512])
+@pytest.mark.parametrize('bm', [64, 512, 4096])
+@pytest.mark.parametrize('M', [1, 777, 2000, 2048])
+def test_block_fill_kernel(dev, M, bm, width):
+    """T6 and T11: each block of bm rows holds its first index, bit for
+    bit, at blocks shorter than, equal to and longer than M (4096), one
+    launch of ``launch_plan``'s fill plan a call."""
     idx = torch.randint(-9, 9000, (M,), dtype=torch.int32, device=dev)
     before = RG.block_fill.launches
-    got = RG.block_fill(idx, bm)
+    got = RG.block_fill(idx, bm, width)
     torch.cuda.synchronize()
     assert RG.block_fill.launches == before + 1
-    assert torch.equal(got, RG.block_fill_reference(idx, bm))
+    assert RG.block_fill.last_plan == RG.launch_plan(
+        'fill', M, width * 4, RG.sm_count(dev))
+    assert torch.equal(got, RG.block_fill_reference(idx, bm, width))
+
+
+def test_fill_and_bilinear_gather_replay_in_a_cuda_graph(dev):
+    """The block fill and the four bilinear gather entry points capture in
+    a CUDA graph, and a replay writes bit for bit what an eager call
+    does."""
+    idx = torch.randint(-3, 4100, (2048,), dtype=torch.int32, device=dev)
+    table, cidx, w = _gather_case(dev, 2 * 64 * 64, 256, 4099, seed=3,
+                                  sort=True, edges=True)
+    calls = [lambda: RG.block_fill(idx, 512)] + [
+        (lambda k=kernel: k(table, cidx, w)) for kernel, _ in GATHER_KERNELS]
+    for call in calls:
+        want = call()
+        torch.cuda.synchronize()
+        out = torch.zeros_like(want)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out.copy_(call())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 def test_row_gather_kernels_replay_in_a_cuda_graph(dev):

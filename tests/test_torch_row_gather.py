@@ -166,3 +166,43 @@ def test_launch_plan_takes_the_studys_choices():
                             fill_warps=0)
     assert packed.in_flight * packed.unroll == RG.COPY_DEPTH
     assert spread.in_flight < packed.in_flight
+
+
+@pytest.mark.parametrize('width', [4, 128, 512])
+@pytest.mark.parametrize('bm', [64, 512, 4096])
+@pytest.mark.parametrize('M', [1, 777, 2000, 2048])
+def test_fill_plan_covers_every_row_once(M, bm, width):
+    """The block fill's launch (``launch_plan('fill')``), taken from the SM
+    count (114 and 132) and never from ``bm``: each row is in exactly one
+    tile of one block, a tile's row-block heads fit its shared memory, a
+    thread writes at most ``FILL_DEPTH`` chunks of a tile, and the kernel's
+    head lookup, run here as the kernel runs it tile by tile, gives
+    ``block_fill_reference``."""
+    rng = np.random.default_rng(M + bm + width)
+    idx = rng.integers(-9, 9000, M).astype(np.int32)
+    want = RG.block_fill_reference(torch.from_numpy(idx), bm, width).numpy()
+    chunks = width // 4
+    for sm_count in (114, 132):
+        plan = RG.launch_plan('fill', M, width * 4, sm_count)
+        assert plan == RG.launch_plan('fill', M, width * 4, sm_count,
+                                      unroll=8, index='bulk')
+        assert plan.grid >= 1 and 1 <= plan.warps <= RG.MAX_WARPS
+        assert plan.tile * chunks <= plan.warps * 32 * RG.FILL_DEPTH
+        assert plan.smem <= RG.SMEM_MAX
+        got = np.full((M, width), -12345, np.int32)
+        runs = []
+        for b in range(plan.grid):
+            rows = RG.block_rows(plan, M, b)
+            assert rows and sum(len(r) for r in rows) <= M
+            runs += rows
+            for r in rows:
+                b0, nb = RG.fill_heads(plan, M, bm, r.start // plan.tile)
+                assert nb * 4 <= plan.smem
+                heads = idx[(b0 + np.arange(nb)) * bm]
+                got[r] = heads[np.arange(r.start, r.stop) // bm - b0, None]
+        runs.sort(key=lambda r: r.start)
+        assert runs[0].start == 0 and runs[-1].stop == M
+        assert all(a.stop == b.start for a, b in zip(runs, runs[1:]))
+        np.testing.assert_array_equal(got, want)
+        if M >= 2 * sm_count:
+            assert plan.grid >= sm_count        # the card is filled

@@ -251,3 +251,67 @@ def test_grid_sample_auto_routes_as_jax(monkeypatch, gather, shape, route):
     assert seen == [route]
     with pytest.raises(ValueError):
         PG.grid_sample_auto(features, None, 'zeros', 'windowed')
+
+
+@pytest.mark.parametrize('sm_count', [114, 132])
+@pytest.mark.parametrize('M', [1, 1003, 4097, 1 << 20])
+@pytest.mark.parametrize('C', [32, 64, 256])
+def test_gather_plan_covers_every_chunk_once(C, M, sm_count):
+    """The bilinear gather's launch (``sorted_gather.gather_plan``) at the
+    paths' widths and sizes (1,048,576 samples is K8's case), ragged M and
+    two SM counts, at every depth the kernel is built for and 1 to 8
+    resident blocks an SM: the (sample, 16-byte chunk) pairs of the
+    output, as the kernel assigns them to its blocks' warps and lanes
+    (``plan_cells``), are each written exactly once; a group of lanes is
+    C / 8 rounded up to a power of two; the steps of ``depth`` samples
+    tile a warp's batch; the grid is one wave of the resident blocks where
+    M has that many batches."""
+    chunks = C // 8
+    for depth, blocks in zip(SG.GATHER_DEPTHS, (8, 3, 1)):
+        plan = SG.gather_plan(M, C, sm_count, blocks, depth=depth)
+        assert plan.group == SG.sample_lanes(C) == min(32, chunks)
+        assert plan.per_lane == 1 and plan.depth == min(depth, plan.group)
+        assert plan.batch % ((plan.batch // plan.group) * plan.depth) == 0
+        batches = -(-M // plan.batch)
+        assert plan.grid == min(sm_count * blocks,
+                                -(-batches // plan.warps))
+        counts = np.zeros(M * chunks, np.uint8)
+        written = 0
+        for block in range(plan.grid):
+            cells = SG.plan_cells(plan, M, C, block)
+            written += cells.size
+            counts[cells] += 1
+        # as many writes as chunks, and each chunk written: once each
+        assert written == M * chunks and bool((counts == 1).all())
+
+
+def test_gather_plan_takes_any_width():
+    """Widths past a warp's 32 chunks give a lane several chunks of a row;
+    widths that are no power of two leave the group's last lanes idle.
+    Either way every chunk is written once."""
+    for C, group, per_lane in ((8, 1, 1), (40, 8, 1), (520, 32, 3),
+                               (1024, 32, 4)):
+        M = 77
+        plan = SG.gather_plan(M, C, 132, 3)
+        assert (plan.group, plan.per_lane) == (group, per_lane)
+        cells = np.concatenate([SG.plan_cells(plan, M, C, b)
+                                for b in range(plan.grid)])
+        assert np.array_equal(np.sort(cells), np.arange(M * (C // 8)))
+    with pytest.raises(ValueError):
+        SG.gather_plan(100, 64, 132, 3, depth=3)
+
+
+def test_bilinear_bound_counts_what_the_data_needs():
+    """K5-K8's bound: the distinct rows of live corners read once, 32 bytes
+    of corners and weights a sample, the output written once; bytes, not
+    the f32 multiply-adds, at every width."""
+    from cross_attention_renderer_torch.tools import _common as C
+    table = torch.zeros((1000, 64), dtype=torch.bfloat16)
+    idx = torch.tensor([[0, 1, 2, 3], [3, 3, 3, 999]], dtype=torch.int32)
+    w = torch.tensor([[1, 1, 1, 0], [1, 0, 0, 0]], dtype=torch.float32)
+    for out, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+        ms, by = C.bilinear_bound(table, idx, w, out)
+        assert by == 'bytes'
+        # rows 0, 1, 2 and 3 live; 999 and the other 3s carry weight 0
+        assert ms == pytest.approx(
+            (4 * 64 * 2 + 2 * 32 + 2 * 64 * size) / 3.35e12 * 1e3)
