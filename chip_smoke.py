@@ -86,9 +86,30 @@ no result):
      PSNR, SSIM and LPIPS on the card (cuDNN's TF32 off) against the same
      metrics of the same image on the CPU in f32;
  16. bench: one run of ``bench_torch.py``'s measurement, its JSON line
-     printed.
-Then it prints the ``kernels`` JSON line (K1-K9, T1-T13), the card line
-and, last, the result line.
+     printed;
+ 17. training, the flagship stage-1 step (``tools/bench_train.py``'s
+     setting: the 122M model in bf16 from seed 0, batch 12 of 256x256
+     scenes, 192 query rays, ``TrainConfig()``) on both routes of
+     ``train/trainer.py``, each from the same parameters and batch: the
+     default route (the train model clones the renderer with both kernel
+     flags off: no K1 or K2 launch) and the kernel route
+     (``CAR_TRAIN_KERNELS=1``: 2 K1 and 1 K2 launches a step, their
+     gradients from the plain versions). The first step's loss and
+     grad_norm must be finite; the two routes' first losses and each
+     tensor's first gradient must agree within the stated bf16 tolerance;
+     then each route is timed (one warm-up, 5 steps between CUDA events,
+     peak memory allocated), after which every parameter must have
+     changed, and one more step is profiled;
+ 18. ``fit``: 3 steps of a narrow model in bf16 into a temporary
+     directory (a ``current`` checkpoint at step 2), then a fresh model
+     resumed from it, whose step must reproduce the first run's third
+     loss;
+ 19. stage 2: one flagship step at batch 4 on one 32x32 ray patch a scene
+     (mask 1) with the depth and LPIPS terms (phase 15's random VGG
+     weights): ``lpips_loss`` above 0, and a nonzero finite gradient at
+     the VGG input.
+Then it prints the ``train`` JSON line (phases 17-19), the ``kernels``
+JSON line (K1-K9, T1-T13), the card line and, last, the result line.
 """
 
 from __future__ import annotations
@@ -146,6 +167,27 @@ RGB_LAYER_SCALE = 1.0 / 64
 SMALL = dict(npoints=16, fusion_features=32, vit_width=64, vit_depth=2,
              vit_heads=2, resnet_layers=(1, 1, 1))
 PATH_B = dict(reference_exchange_compat=True, fused_mlp=True)
+# Training phases (17-19). The kernel route against the default route of
+# the same flagship step: both run in bf16 from the same parameters, the
+# kernel route's forward through K2 and K1 (f32 until each product's
+# input), the default route's through the unfused exchange and the plain
+# attention (rounding every product to bf16), so the rgb the loss reads
+# differs by a few bf16 steps; the gradients are the plain versions' in
+# both. The loss within ROUTE_LOSS_TOL relative; each tensor's gradient
+# within ROUTE_GRAD_TOL of the larger of its norm and GRAD_FLOOR of the
+# whole gradient's norm (the ViT's key biases have a gradient of 0 in
+# exact arithmetic: rounding noise on both routes). Measured at the
+# flagship (NVIDIA H100 80GB HBM3, 700 W, four runs): the losses 4.7e-4
+# apart, the worst tensor 2.9-3.2e-2 (GroupNorms of the ResNet stem and
+# first stage), the median 2.4-2.5e-3; the tolerances leave a factor of
+# 3-8.
+ROUTE_LOSS_TOL = 2 ** -8
+ROUTE_GRAD_TOL = 0.1
+GRAD_FLOOR = 1e-3
+TRAIN_TIMED = 5
+# fit's resumed step against the first run's on the same parameters: the
+# same forward (cuDNN may pick another algorithm in another process)
+RESUME_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -376,23 +418,36 @@ def drive(label, model, scene, RM, counted, expected, capture=None):
         f'V={V}, '
         f'{model.n_samples} samples, bf16)')
 
+    with torch.inference_mode():
+        profile_device(f'{label} profile of one image',
+                       lambda: render_image(scene, z, uv_full))
+    return captured, launches, rgb
+
+
+def profile_device(label, fn) -> dict:
+    """Runs ``fn`` once under ``torch.profiler``; logs its wall time, the
+    device's busy time and the 12 operations with the most device time
+    (user annotations, such as the optimizer's step range, left out: their
+    device time is their kernels'). Returns the two times in ms."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_image(scene, z, uv_full)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
               if getattr(e, 'device_type', None) is not None
-              and str(e.device_type).endswith('CUDA')]
+              and str(e.device_type).endswith('CUDA')
+              and not getattr(e, 'is_user_annotation', False)]
     dev_us = sum(e.self_device_time_total for e in events)
-    log(f'{label} profile of one image: wall {wall_ms:.1f} ms, device busy '
-        f'{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}%)')
+    log(f'{label}: wall {wall_ms:.1f} ms, device busy {dev_us / 1e3:.1f} ms '
+        f'({100 * dev_us / 1e3 / wall_ms:.1f}%)')
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f'  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  '
             f'{e.key[:90]}')
-    return captured, launches, rgb
+    return {'wall_ms': wall_ms, 'device_busy_ms': dev_us / 1e3}
 
 
 def first_block(model, scene):
@@ -795,6 +850,170 @@ def probe_kernels(dev):
     return entries
 
 
+def train_routes(EA, GE, make_scene, dev, model_fn, batch, rays):
+    """Phase 17: one step of ``model_fn()``'s model on each route from the
+    same parameters and batch, with the K1 and K2 counters set to 0 just
+    before the step and read just after; each route's loss, grad_norm,
+    launches, gradient and timing; then the routes against each other."""
+    import torch
+    from cross_attention_renderer_torch.tools import bench_train as BT
+    from cross_attention_renderer_torch.train import trainer as T
+    scene = make_scene(0, batch=batch, n_view=2, H=H, W=W, n_rays=rays,
+                       device=dev)
+    cfg = T.TrainConfig()
+    counted = {'epipolar_attention': EA.epipolar_attention,
+               'fused_exchange_epilogue': GE.fused_exchange_epilogue}
+    expected = {'default': {'epipolar_attention': 0,
+                            'fused_exchange_epilogue': 0},
+                'kernels': {'epipolar_attention': 2,
+                            'fused_exchange_epilogue': 1}}
+    out, grads = {}, {}
+    for route in BT.ROUTES:
+        model = model_fn()
+        before = [p.detach().to('cpu', copy=True) for p in model.parameters()]
+        state = T.create_train_state(model, cfg)
+        step = BT.make_route_step(model, cfg, route)
+        for fn in counted.values():
+            fn.launches = 0
+        state, metrics = step(state, scene)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counted.items()}
+        loss = float(metrics['total_loss'])
+        gnorm = float(metrics['grad_norm'])
+        log(f'train {route} route: loss {loss:.6f}, grad_norm {gnorm:.6f}, '
+            f'launches a step {launches}')
+        if launches != expected[route]:
+            raise RuntimeError(f'train {route} route: launches {launches}, '
+                               f'expected {expected[route]}')
+        if not (np_isfinite(loss) and np_isfinite(gnorm)):
+            raise RuntimeError(f'train {route} route: loss {loss}, '
+                               f'grad_norm {gnorm}')
+        # the step's clip scaled the gradients by clip / norm where the
+        # norm was over the clip; undone here to compare the routes
+        unclip = max(1.0, gnorm / cfg.clip_norm)
+        grads[route] = {n: (p.grad.float() * unclip).cpu()
+                        for n, p in model.named_parameters()}
+        timed = BT.time_steps(step, state, scene, TRAIN_TIMED)
+        # every parameter has changed after these steps (not after the
+        # first alone: the decoder's blocks start with a zero output layer,
+        # as the reference's, so their first layer gets no gradient then)
+        changed = sum(not torch.equal(p.detach().cpu(), b)
+                      for p, b in zip(model.parameters(), before))
+        log(f'train {route} route: {changed} of {len(before)} parameter '
+            f'tensors changed over {TRAIN_TIMED + 2} steps')
+        if changed != len(before) or not np_isfinite(timed['total_loss']):
+            raise RuntimeError(f'train {route} route: {changed} of '
+                               f'{len(before)} parameters changed, loss '
+                               f'{timed["total_loss"]}')
+        del before
+        out[route] = {'loss': loss, 'grad_norm': gnorm,
+                      'launches_per_step': launches,
+                      **{k: timed[k] for k in ('ms_per_step', 'steps_per_s',
+                                               'peak_gb')},
+                      'profile': profile_device(
+                          f'train {route} route, profile of one step',
+                          lambda: step(state, scene))}
+        log(f'train {route} route: {timed["ms_per_step"]:.2f} ms a step, '
+            f'{timed["steps_per_s"]:.3f} steps/s, peak '
+            f'{timed["peak_gb"]:.2f} GB (batch {batch}, {rays} rays, '
+            f'{H}x{W}, {TRAIN_TIMED} steps after a warm-up)')
+        del model, state, step, metrics
+        torch.cuda.empty_cache()
+
+    d, k = grads['default'], grads['kernels']
+    total = float(sum(g.norm() ** 2 for g in d.values())) ** 0.5
+    errs = sorted(((float((k[n] - g).norm())
+                    / max(float(g.norm()), GRAD_FLOOR * total), n)
+                   for n, g in d.items()), reverse=True)
+    loss_err = abs(out['kernels']['loss'] - out['default']['loss']) / abs(
+        out['default']['loss'])
+    log(f'train routes: loss {loss_err:.3e} apart relative (tol '
+        f'{ROUTE_LOSS_TOL:.3e}); worst gradients (norm of the difference '
+        f'over the default route\'s): '
+        + ', '.join(f'{n} {e:.3e}' for e, n in errs[:4])
+        + f' (tol {ROUTE_GRAD_TOL})')
+    if loss_err > ROUTE_LOSS_TOL or errs[0][0] > ROUTE_GRAD_TOL:
+        raise RuntimeError('the kernel route\'s step disagrees with the '
+                           'default route\'s')
+    out['agreement'] = {'loss_rel': loss_err, 'grad_worst': errs[0][0],
+                        'grad_worst_tensor': errs[0][1],
+                        'grad_median': errs[len(errs) // 2][0]}
+    return out
+
+
+def check_fit(make_scene, dev, model_fn):
+    """Phase 18: ``fit`` 3 steps into a temporary directory (a 'current'
+    checkpoint at step 2, 'final' at 3), then a model from another seed
+    resumed from 'current' for the last step."""
+    import itertools
+    import tempfile
+    from cross_attention_renderer_torch.train import trainer as T
+    scene = make_scene(1, batch=4, n_view=2, H=64, W=64, n_rays=256,
+                       device=dev)
+    cfg = T.TrainConfig(lr=1e-3, steps_til_summary=2,
+                        iters_til_checkpoint=10 ** 6)
+    first, second = [], []
+    with tempfile.TemporaryDirectory() as ckpt:
+        T.fit(model_fn(0), cfg, itertools.repeat(scene), 3, ckpt_dir=ckpt,
+              log_fn=lambda i, m: first.append(float(m['total_loss'])))
+        names = sorted(p.name for p in Path(ckpt).iterdir())
+        state = T.fit(model_fn(5), cfg, itertools.repeat(scene), 3,
+                      ckpt_dir=ckpt,
+                      log_fn=lambda i, m: second.append(
+                          float(m['total_loss'])))
+    err = abs(second[0] - first[2]) / abs(first[2]) if second else None
+    log(f'fit: losses {first}, checkpoints {names}; resumed at step 2 for '
+        f'one step: loss {second} (relative difference {err}, tol '
+        f'{RESUME_TOL}), step {state.step}')
+    if (names != ['current.pt', 'final.pt'] or len(second) != 1
+            or state.step != 3 or err > RESUME_TOL
+            or not all(map(np_isfinite, first))):
+        raise RuntimeError('fit / resume failed')
+    return {'losses': first, 'resumed_loss': second[0], 'resume_rel': err}
+
+
+def check_stage2(make_scene, dev, model_fn, npz):
+    """Phase 19: one stage-2 step (depth and LPIPS) at batch 4, each scene's
+    1,024 query rays one 32x32 pixel patch with mask 1."""
+    import torch
+    from cross_attention_renderer_torch.losses.lpips import load_lpips
+    from cross_attention_renderer_torch.train import trainer as T
+    batch = 4
+    scene = make_scene(2, batch=batch, n_view=2, H=H, W=W, n_rays=1024,
+                       device=dev)
+    j, i = torch.meshgrid(torch.arange(32.0), torch.arange(32.0),
+                          indexing='ij')
+    patch = torch.stack([i, j], -1).reshape(1, 1, 1024, 2).to(dev)
+    corner = torch.tensor([[40.0, 60.0], [100.0, 20.0], [0.0, 200.0],
+                           [180.0, 130.0]], device=dev)[:, None, None]
+    scene['query']['uv'] = patch + corner
+    scene['query']['mask'] = torch.ones(batch, device=dev)
+    lpips = load_lpips(str(npz), device=dev)
+    inputs = []
+
+    def lpips_fn(pred, target):         # keeps the VGG input's gradient
+        pred.retain_grad()
+        inputs.append(pred)
+        return lpips(pred, target)
+
+    model = model_fn()
+    cfg = T.TrainConfig(depth=True, lpips=True)
+    state = T.create_train_state(model, cfg)
+    state, m = T.make_train_step(model, cfg, lpips_fn=lpips_fn)(state, scene)
+    metrics = {k: float(v) for k, v in m.items()}
+    g = inputs[0].grad
+    g_abs = float(g.abs().max()) if g is not None else 0.0
+    log(f'stage 2 (batch {batch}, one 32x32 patch a scene): {metrics}; '
+        f'VGG input gradient max |g| {g_abs:.3e}')
+    if not (metrics['lpips_loss'] > 0 and 'depth_loss' in metrics
+            and all(map(np_isfinite, metrics.values()))
+            and g is not None and bool(torch.isfinite(g).all())
+            and g_abs > 0):
+        raise RuntimeError('stage-2 step: no LPIPS term or no gradient '
+                           'through it')
+    return {**metrics, 'vgg_input_grad_max': g_abs}
+
+
 def flagship(RM, dev, **kw):
     """The 122M model in bf16 from seed 0, decoder output layer scaled."""
     import torch
@@ -1067,6 +1286,28 @@ def main() -> int:
     bench = bench_torch.measure()
     log(f'bench_torch encode: {bench.pop("encode_ms"):.3f} ms')
     print(json.dumps(bench), flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 17-19. training ---------------------------------------------------
+    from cross_attention_renderer_torch.tools import bench_train as BT
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        routes = train_routes(EA, GE, make_scene, dev,
+                              lambda: BT.flagship_train_model(dev),
+                              BT.BATCH, BT.RAYS)
+        by_path['train_kernel_route_step'] = routes['kernels'][
+            'launches_per_step']
+        fitted = check_fit(make_scene, dev, lambda seed: (
+            RM.CrossAttentionRenderer(dtype=torch.bfloat16, seed=seed,
+                                      device=dev, **SMALL)))
+        stage2 = check_stage2(make_scene, dev,
+                              lambda: BT.flagship_train_model(dev),
+                              build_dir / 'lpips_random.npz')
+    log(f'training phases: {time.perf_counter() - t0:.1f} s')
+    print(json.dumps({'train': {
+        'card': card, 'step': {'batch': BT.BATCH, 'rays': BT.RAYS,
+                               'hw': H, 'views': 2, 'dtype': 'bf16'},
+        'routes': routes, 'fit': fitted, 'stage2': stage2}}), flush=True)
 
     kernels = []
     for (name, _), numbers, source, replaces in (
@@ -1088,6 +1329,7 @@ def main() -> int:
             'source': f'cross_attention_renderer_torch/csrc/{source}',
             'replaces': f'cross_attention_renderer_tpu/{replaces}',
             'launches': sum(paths.values()), 'launches_by_path': paths,
+            'backward': 'the plain version, recomputed (ops/_autograd.py)',
             'library_ms': None, **numbers})
     kernels += probes
     for kern in kernels:

@@ -5,9 +5,11 @@ context views with the DPT-hybrid encoder, then render query rays through
 epipolar sampling, the latent exchange (a fused exchange epilogue, the
 unfused exchange with a fused MLP and opt-in gathers, or the exchange on a
 row-sorted sample stream) and two rounds of joint (view, sample)
-attention. The kernels of those paths are
+attention; and train it (``train/trainer.py``: the reference's losses,
+clip + Adam, checkpoints). The kernels of those paths are
 hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built with ``nvcc`` on
-first use; everything else is plain PyTorch. The JAX package stays the reference: this package imports nothing
+first use; everything else is plain PyTorch. Each kernel's gradients are
+its plain version's, recomputed in the backward (``ops/_autograd.py``). The JAX package stays the reference: this package imports nothing
 of it.
 
 Entry points take a ``device`` that defaults to ``"cuda"``; the CPU runs only

@@ -78,7 +78,7 @@ class DPTHybridEncoder(nn.Module):
                  vit_depth: int = 12, vit_heads: int = 12,
                  resnet_layers: tuple[int, int, int] = (3, 4, 9),
                  resnet_width: int = 64, pretrain_grid: int = 14,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.vit_width = vit_width
         self.backbone = ResNetV2Stem(resnet_layers, resnet_width, dtype)
@@ -86,7 +86,7 @@ class DPTHybridEncoder(nn.Module):
                 else (max(vit_depth * 3 // 4 - 1, 0), vit_depth - 1))
         stage = [resnet_width * 4 * 2 ** i for i in range(3)]
         self.vit = MultiViewViT(stage[2], vit_width, vit_depth, vit_heads,
-                                taps, pretrain_grid, dtype)
+                                taps, pretrain_grid, dtype, remat)
         self.ProjectReadout_0 = ProjectReadout(vit_width, dtype)
         self.ProjectReadout_1 = ProjectReadout(vit_width, dtype)
         self.post3_conv = Conv(vit_width, vit_width, 1, dtype=dtype)

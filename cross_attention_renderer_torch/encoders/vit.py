@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from cross_attention_renderer_torch.layers import Dense, LayerNorm
 from cross_attention_renderer_torch.utils.image import resize_bilinear
@@ -76,13 +77,17 @@ class MultiViewViT(nn.Module):
 
     Input: (B, V, Hg, Wg, C_in) grids and (B, V, 16) flattened relative
     poses. Output: the two tap activations, each (B*V, 1 + Hg*Wg, width),
-    cls token first, view-major."""
+    cls token first, view-major. With ``remat`` each block is recomputed
+    in the backward pass instead of keeping its activations (JAX
+    ``nn.remat``, vit.py:111-113)."""
 
     def __init__(self, d_in: int, width: int = 768, depth: int = 12,
                  heads: int = 12, taps: tuple[int, int] = (8, 11),
-                 pretrain_grid: int = 14, dtype: torch.dtype = torch.float32):
+                 pretrain_grid: int = 14, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.width, self.depth, self.taps = width, depth, taps
+        self.remat = remat
         self.pretrain_grid, self.dtype = pretrain_grid, dtype
         self.patch_proj = Dense(d_in, width, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, width))
@@ -118,7 +123,11 @@ class MultiViewViT(nn.Module):
         x = x.reshape(B, V * tokens, self.width)
         taps = {}
         for i in range(self.depth):
-            x = getattr(self, f'block{i}')(x)
+            block = getattr(self, f'block{i}')
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
             if i in self.taps:
                 taps[i] = x.reshape(B * V, tokens, self.width)
         return taps[self.taps[0]], taps[self.taps[1]]

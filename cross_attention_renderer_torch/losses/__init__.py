@@ -1,1 +1,2 @@
-"""Losses and perceptual metrics: ``lpips`` (VGG16 LPIPS)."""
+"""Losses and perceptual metrics: ``lf_loss`` (the training losses) and
+``lpips`` (VGG16 LPIPS)."""

@@ -94,7 +94,11 @@ def default_weights_path() -> Path:
 
 def load_lpips(path: Optional[str] = None, device='cuda') -> Callable:
     """``fn(img0, img1) -> (B,)`` distances from converted weights, on
-    ``device``; images (B, H, W, 3) in [-1, 1], tensors or arrays."""
+    ``device``; images (B, H, W, 3) in [-1, 1], tensors or arrays.
+
+    ``fn`` is differentiable in both images, as the JAX ``load_lpips``'s
+    is: the stage-2 loss (``losses/lf_loss.py``) trains through it. The
+    VGG weights are constants (``requires_grad=False``)."""
     p = Path(path) if path else default_weights_path()
     if not p.exists():
         raise FileNotFoundError(
@@ -104,7 +108,6 @@ def load_lpips(path: Optional[str] = None, device='cuda') -> Callable:
             '$LPIPS_WEIGHTS.')
     weights = torch_weights(dict(np.load(p)), device)
 
-    @torch.no_grad()
     def fn(img0, img1):
         a = torch.as_tensor(img0, dtype=torch.float32, device=device)
         b = torch.as_tensor(img1, dtype=torch.float32, device=device)

@@ -43,6 +43,12 @@ Scene dict layout (channel-last), as in the JAX package:
   query:   cam2world (B, 1, 4, 4); intrinsics (B, 1, 4, 4);
            uv (B, 1, R, 2) in pixel units.
 Geometry runs in f32; the network in ``dtype``.
+
+Gradients: every kernel's gradients are its plain version's
+(``ops/_autograd.py``). The JAX renderer's ``stop_gradient``s
+(renderer.py:449, :649, :731, :831) act only on camera geometry, and no
+camera input here ever requires a gradient, so the port needs no
+``detach`` in their place.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from cross_attention_renderer_torch.layers import (Conv, init_parameters,
                                                    lecun_normal_)
 from cross_attention_renderer_torch.models.resnet_fc import ResnetFC
 from cross_attention_renderer_torch.ops.epipolar_attention import (
-    epipolar_attention)
+    epipolar_attention, epipolar_attention_reference)
 from cross_attention_renderer_torch.ops.fused_mlp import fused_mlp2
 from cross_attention_renderer_torch.ops.fused_render import fused_render_core
 from cross_attention_renderer_torch.ops.gather_epilogue import (
@@ -125,8 +131,15 @@ class CrossAttentionRenderer(nn.Module):
       n_view: context views, 2 or 3.
       npoints: epipolar samples per view; 0 takes the reference's default,
         64 at V=2 and 48 at V=3 (models.py:47-54).
+      fused_attention: run both attention rounds as kernel K1. ``None``
+        (the default) and ``True`` take the kernel on the card and its
+        plain version on the CPU; ``False`` takes the plain version
+        everywhere (the JAX ``fused_attention``; the trainer's clone sets
+        it, ``train/trainer.py:_train_model``).
       fused_epilogue: take the fused exchange epilogue (K2 at V=2, K3 at
-        V=3). ``False`` takes the unfused exchange.
+        V=3); ``None`` (the default) as ``True``, which on the CPU runs the
+        epilogue's plain version. ``False`` takes the unfused exchange (the
+        JAX ``fused_epilogue``; the trainer's clone sets it).
       reference_exchange_compat: reproduce the reference's 3-view exchange
         index swap (DEVIATIONS.md), which the fused V=3 epilogue does not
         implement: at V=3 it implies the unfused exchange. No effect at V=2.
@@ -149,6 +162,9 @@ class CrossAttentionRenderer(nn.Module):
         ``CAR_PALLAS_GATHER`` switch) or ``'banded'`` (K8 on levels whose
         bf16 table is at most 4 MiB, else the take path; the JAX
         ``CAR_BANDED_GATHER`` switch).
+      remat: recompute each ViT block in the backward pass
+        (``torch.utils.checkpoint``; the JAX ``remat``): less activation
+        memory for a second forward of the blocks.
     """
 
     def __init__(self, n_view: int = 2, npoints: int = 0,
@@ -156,11 +172,12 @@ class CrossAttentionRenderer(nn.Module):
                  vit_depth: int = 12, vit_heads: int = 12,
                  resnet_layers: tuple[int, int, int] = (3, 4, 9),
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 device='cuda', fused_epilogue: bool = True,
+                 device='cuda', fused_attention: Optional[bool] = None,
+                 fused_epilogue: Optional[bool] = None,
                  reference_exchange_compat: bool = False,
                  fused_mlp: bool = False, fused_render: bool = False,
                  repeat_attention: bool = True, sorted_stream: bool = False,
-                 gather: str = 'take'):
+                 gather: str = 'take', remat: bool = False):
         super().__init__()
         if n_view not in (2, 3):
             raise ValueError(f'the port renders 2 or 3 context views, got '
@@ -174,6 +191,7 @@ class CrossAttentionRenderer(nn.Module):
         self.n_view = n_view
         self.n_samples = npoints or (64 if n_view <= 2 else 48)
         self.dtype = dtype
+        self.fused_attention = fused_attention
         self.fused_epilogue = fused_epilogue
         self.reference_exchange_compat = reference_exchange_compat
         self.fused_mlp = fused_mlp
@@ -184,7 +202,7 @@ class CrossAttentionRenderer(nn.Module):
         self.encoder = DPTHybridEncoder(
             features=fusion_features, vit_width=vit_width,
             vit_depth=vit_depth, vit_heads=vit_heads,
-            resnet_layers=resnet_layers, dtype=dtype)
+            resnet_layers=resnet_layers, dtype=dtype, remat=remat)
         self.conv_map = Conv(3, 64, 7, padding=3, dtype=dtype)
 
         base = 2 * fusion_features + 64     # pyramid width (576)
@@ -223,6 +241,12 @@ class CrossAttentionRenderer(nn.Module):
         return path2, path1, z_conv
 
     @property
+    def use_fused_epilogue(self) -> bool:
+        """Whether the exchange takes the fused epilogue (``fused_epilogue``
+        ``None`` or ``True``)."""
+        return self.fused_epilogue is not False
+
+    @property
     def uses_packed_tables(self) -> bool:
         """Whether a render reads the pyramid's packed cell tables: every
         V=2 path and the V=3 take paths do; the sorted stream and the V=3
@@ -230,7 +254,8 @@ class CrossAttentionRenderer(nn.Module):
         evaluation.py:94-106)."""
         if self.sorted_stream:
             return False
-        fused_v3 = self.fused_epilogue and not self.reference_exchange_compat
+        fused_v3 = (self.use_fused_epilogue
+                    and not self.reference_exchange_compat)
         return self.n_view == 2 or fused_v3 or self.gather == 'take'
 
     # ------------------------------------------------------------------
@@ -292,7 +317,7 @@ class CrossAttentionRenderer(nn.Module):
         elif fused_render:
             # K4 takes local_coords as well, so it runs once they exist.
             joint_latent = key_val = None
-        elif V == 2 and self.fused_epilogue:
+        elif V == 2 and self.use_fused_epilogue:
             joint_latent, key_val = self._fused_exchange_v2(*geo)
         elif V == 2:
             # [self, cross] for view 0, [cross, self] for view 1
@@ -305,7 +330,7 @@ class CrossAttentionRenderer(nn.Module):
                 [torch.relu(self.key_map(fs[:, 0], fc[:, 0])),
                  torch.relu(self.key_map(fc[:, 1], fs[:, 1]))], dim=1)
             key_val = self.key_map_2(kh)
-        elif (self.fused_epilogue and not self.reference_exchange_compat
+        elif (self.use_fused_epilogue and not self.reference_exchange_compat
               and not self.sorted_stream):
             joint_latent, key_val = self._fused_exchange_multi(*geo)
         else:
@@ -363,6 +388,14 @@ class CrossAttentionRenderer(nn.Module):
                 'valid_mask': valid_any, 'at_wt': at_wt,
                 'pixel_val': pixel_val.reshape(B, V, R, P, 2)}
 
+    def _attend(self, query: Tensor, key: Tensor, value: Tensor
+                ) -> tuple[Tensor, Tensor]:
+        """Joint (view, sample) attention: K1, or its plain version under
+        ``fused_attention=False`` (JAX ``_attend``)."""
+        if self.fused_attention is False:
+            return epipolar_attention_reference(query, key, value)
+        return epipolar_attention(query, key, value)
+
     def _attention_rounds(self, local_coords: Tensor, key_val: Tensor,
                           joint_latent: Tensor) -> tuple[Tensor, Tensor]:
         """The query MLP and the attention rounds (K1) on the exchange's
@@ -372,8 +405,7 @@ class CrossAttentionRenderer(nn.Module):
         coords_embed = self.query_embed_2(torch.relu(
             self.query_embed(local_coords)))
         # Round 1 over the joint (view, sample) axis (models.py:532-541).
-        z_sum, at_wt = epipolar_attention(coords_embed, key_val,
-                                          joint_latent)
+        z_sum, at_wt = self._attend(coords_embed, key_val, joint_latent)
         z_local = z_sum[:, None].expand(B, V, R, z_sum.shape[-1])
         if not self.repeat_attention:
             return z_local, at_wt
@@ -386,8 +418,8 @@ class CrossAttentionRenderer(nn.Module):
         query_embed_local = self.query_repeat_embed_2(torch.relu(
             self.query_repeat_embed(z_embed_local,
                                     local_coords.to(self.dtype))))
-        z_sum2, _ = epipolar_attention(query_embed_local, coords_embed,
-                                       joint_latent)
+        z_sum2, _ = self._attend(query_embed_local, coords_embed,
+                                 joint_latent)
         return ((z_sum2 + V * z_sum)[:, None].expand(B, V, R,
                                                       z_sum.shape[-1]),
                 at_wt)

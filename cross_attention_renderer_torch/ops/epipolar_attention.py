@@ -13,7 +13,10 @@ the weights sum the per-sample latents (reference models.py:532-541,555-565).
 
 On a CUDA tensor :func:`epipolar_attention` launches the hand-written kernel
 ``csrc/epipolar_attention.cu``; on a CPU tensor it runs the plain version
-:func:`epipolar_attention_reference`, which the kernel is held against.
+:func:`epipolar_attention_reference`, which the kernel is held against. The
+kernel's gradients, of both outputs, are those of the plain version,
+recomputed (:func:`~cross_attention_renderer_torch.ops._autograd.
+kernel_call`), as the JAX ``custom_vjp`` computes them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import ctypes
 import torch
 
 from cross_attention_renderer_torch.ops import _build
+from cross_attention_renderer_torch.ops._autograd import kernel_call
 
 ATTN_SCALE = 1.0 / 16.0   # models.py:532,555
 
@@ -51,7 +55,8 @@ def epipolar_attention(query: torch.Tensor, key: torch.Tensor,
     contiguous; they launch the kernel, and anything else raises."""
     if query.device.type == 'cpu':
         return epipolar_attention_reference(query, key, value)
-    return _launch(query, key, value)
+    return kernel_call(_launch, epipolar_attention_reference, query, key,
+                       value)
 
 
 epipolar_attention.launches = 0   # kernel launches, for the chip smoke test

@@ -9,7 +9,10 @@ features, x2 = tanh(pt/5).
 
 On a CUDA tensor :func:`fused_mlp2` launches the hand-written kernel
 ``csrc/fused_mlp.cu`` (the exchange core's MLP-only mode); on a CPU tensor it runs the plain version
-:func:`fused_mlp2_reference`, which mirrors the JAX off-TPU path.
+:func:`fused_mlp2_reference`, which mirrors the JAX off-TPU path. The
+kernel's gradients are the plain version's, every parameter cast to x1's
+type (the JAX ``_bwd``), recomputed (:func:`~cross_attention_renderer_torch.
+ops._autograd.kernel_call`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import ctypes
 import torch
 
 from cross_attention_renderer_torch.ops import _build
+from cross_attention_renderer_torch.ops._autograd import kernel_call
 from cross_attention_renderer_torch.ops import gather_epilogue as GE
 
 Tensor = torch.Tensor
@@ -52,7 +56,8 @@ def fused_mlp2(x1: Tensor, x2: Tensor, w1a: Tensor, w1b: Tensor, b1: Tensor,
     (``gather_epilogue.prepared_mlp``)."""
     if x1.device.type == 'cpu':
         return fused_mlp2_reference(x1, x2, w1a, w1b, b1, w2, b2)
-    return _launch(x1, x2, w1a, w1b, b1, w2, b2)
+    return kernel_call(_launch, fused_mlp2_reference, x1, x2, w1a, w1b, b1,
+                       w2, b2)
 
 
 fused_mlp2.launches = 0   # kernel launches, for the chip smoke test

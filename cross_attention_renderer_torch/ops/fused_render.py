@@ -17,7 +17,10 @@ On a CUDA tensor :func:`fused_render_core` launches ``csrc/fused_render.cu``,
 which takes the packed tables and the cell rows and fetches the rows itself;
 on a CPU tensor it runs the plain version :func:`fused_render_core_reference`
 (``index_select`` row take, then :func:`_reference`, which mirrors the JAX
-``_reference``).
+``_reference``). The kernel's gradients are the plain version's,
+recomputed (:func:`~cross_attention_renderer_torch.ops._autograd.
+kernel_call`), both outputs cast to the rows' type as the JAX ``_bwd``
+casts them.
 
 Layout contract: as the V=2 epilogue's (the renderer's (B, V, R, P)
 flattening, M = B * 2 * R * P samples): per level (2M,) int32 cell rows,
@@ -40,6 +43,7 @@ from typing import Sequence
 import torch
 
 from cross_attention_renderer_torch.ops import _build
+from cross_attention_renderer_torch.ops._autograd import kernel_call
 from cross_attention_renderer_torch.ops import gather_epilogue as GE
 from cross_attention_renderer_torch.ops.gather_epilogue import _combine
 
@@ -161,8 +165,9 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
         return fused_render_core_reference(tables, cells, aux_self,
                                            aux_cross, local_coords, params,
                                            B, R, P, repeat)
-    return _launch(tables, cells, aux_self, aux_cross, local_coords, params,
-                   B, R, P, repeat)
+    return kernel_call(_launch, fused_render_core_reference, tables, cells,
+                       aux_self, aux_cross, local_coords, params, B, R, P,
+                       repeat)
 
 
 fused_render_core.launches = 0  # kernel launches, for the smoke test

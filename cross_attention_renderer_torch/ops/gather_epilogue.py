@@ -21,7 +21,11 @@ Unlike the TPU kernels, whose row take ran outside the kernel, the CUDA
 kernels (``csrc/gather_epilogue.cu``, ``csrc/gather_epilogue_multi.cu``)
 take the packed tables and the cell rows and fetch the rows themselves. The
 plain versions do the row take with ``index_select`` and then mirror the
-JAX ``_reference`` / ``_reference_multi``.
+JAX ``_reference`` / ``_reference_multi``. The kernels' gradients are the
+plain versions', recomputed (:func:`~cross_attention_renderer_torch.ops.
+_autograd.kernel_call`): they reach the packed tables, and through
+``pack_pyramid`` the encoder, as the JAX ``custom_vjp``s' reach the taken
+rows.
 
 Layout contract (the renderer's (B, V, R, P) flattening): per level, the
 cell rows of all streams stacked stream-major, (S*M,) int32; one (M, 16)
@@ -36,8 +40,10 @@ import weakref
 from typing import Sequence
 
 import torch
+from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from cross_attention_renderer_torch.ops import _build
+from cross_attention_renderer_torch.ops._autograd import kernel_call
 
 Tensor = torch.Tensor
 
@@ -118,7 +124,8 @@ def fused_exchange_epilogue(tables: Sequence[Tensor],
     if aux_self.device.type == 'cpu':
         return fused_exchange_epilogue_reference(tables, cells, aux_self,
                                                  aux_cross, params, rp)
-    return _launch(tables, cells, aux_self, aux_cross, params, rp)
+    return kernel_call(_launch, fused_exchange_epilogue_reference, tables,
+                       cells, aux_self, aux_cross, params, rp)
 
 
 fused_exchange_epilogue.launches = 0  # kernel launches, for the smoke test
@@ -282,6 +289,16 @@ def layout_render(params: Sequence[Tensor], repeat: bool
 _PREPARED: dict = {}
 
 
+def _forget_prepared(optimizer, args, kwargs) -> None:
+    """Empties the cache after every optimizer step: a fused step
+    (``torch.optim.Adam(fused=True)``) rewrites the parameters without
+    bumping their version counters."""
+    _PREPARED.clear()
+
+
+register_optimizer_step_post_hook(_forget_prepared)
+
+
 def _identity(t: Tensor):
     """(the tensor a view was taken of, or t itself; t's place in it)."""
     base = t._base if t._base is not None else t
@@ -293,7 +310,7 @@ def _prepared(tag, params: Sequence[Tensor], device, build):
     """``build`` of ``params`` on ``device``, once per set of parameter
     tensors (or views of them, such as a slice of one): later calls with
     the same tensors, none of them changed in place since (their version
-    counters), reuse it. Inference tensors keep no version counter and are
+    counters) and no optimizer step taken since, reuse it. Inference tensors keep no version counter and are
     laid out on every call."""
     params = tuple(params)
     if any(p.is_inference() for p in params):
@@ -559,7 +576,8 @@ def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
     if aux_list[0].device.type == 'cpu':
         return fused_exchange_epilogue_multi_reference(tables, cells,
                                                        aux_list, params)
-    return _launch_multi(tables, cells, aux_list, params)
+    return kernel_call(_launch_multi, fused_exchange_epilogue_multi_reference,
+                       tables, cells, aux_list, params)
 
 
 fused_exchange_epilogue_multi.launches = 0  # kernel launches

@@ -16,7 +16,7 @@ import torch
 from cross_attention_renderer_torch.ops.grid_sample import (
     bilinear_corners, grid_sample)
 from cross_attention_renderer_torch.ops.sorted_gather import (launch_gather,
-                                                             take_gather)
+                                                             plain_gather)
 
 Tensor = torch.Tensor
 
@@ -56,7 +56,7 @@ def onehot_gather(fm_flat: Tensor, idx: Tensor, w: Tensor) -> Tensor:
     (:func:`~cross_attention_renderer_torch.ops.sorted_gather.take_gather`);
     CUDA tensors launch the kernel or raise."""
     if fm_flat.device.type == 'cpu':
-        return take_gather(fm_flat, idx, w).to(fm_flat.dtype)
+        return plain_gather(fm_flat, idx, w, fm_flat.dtype)
     return launch_gather(onehot_gather, 'onehot_gather_bf16', fm_flat, idx,
                          w, fm_flat.dtype)
 

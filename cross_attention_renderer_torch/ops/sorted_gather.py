@@ -13,7 +13,10 @@ and launch one CUDA routine, ``csrc/bilinear_gather.cu``, through
 :func:`launch_gather`, with the launch :func:`gather_plan` takes from the
 card's SM count and the shapes. On a CPU tensor each takes its plain
 version, :func:`take_gather`, cast to its output type; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. A launch's gradients, for the table and
+the corner weights, are the plain version's, recomputed
+(:func:`~cross_attention_renderer_torch.ops._autograd.kernel_call`), as
+the JAX ``custom_vjp``s take the VJP of the take path.
 
 The TPU kernels see a window of table rows per sample block, which the sort
 keeps small, and add the corners outside it in a residual take pass; the
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from cross_attention_renderer_torch.ops import _build
+from cross_attention_renderer_torch.ops._autograd import kernel_call
 from cross_attention_renderer_torch.ops.grid_sample import bilinear_corners
 
 Tensor = torch.Tensor
@@ -224,17 +228,29 @@ def card_plan(dev, M: int, C: int, out_dtype: torch.dtype) -> GatherPlan:
         dev, depth, out_dtype == torch.float32), depth=depth)
 
 
+def plain_gather(fm_flat: Tensor, idx: Tensor, w: Tensor,
+                 out_dtype: torch.dtype) -> Tensor:
+    """:func:`take_gather` in ``out_dtype``: the plain version of a launch
+    of :func:`launch_gather`."""
+    return take_gather(fm_flat, idx, w).to(out_dtype)
+
+
 def launch_gather(kernel, entry: str, fm_flat: Tensor, idx: Tensor,
                   w: Tensor, out_dtype: torch.dtype) -> Tensor:
     """Launches ``entry`` of ``csrc/bilinear_gather.cu`` for the wrapper
     ``kernel`` (whose ``launches`` it counts) and returns (M, C) in
-    ``out_dtype``.
+    ``out_dtype``, differentiable through :func:`plain_gather`.
 
     Takes a (rows, C) bf16 or f32 table with C % 8 == 0 (an f32 table is
     cast to bf16 first, as the TPU wrappers cast theirs), (M, 4) int32
     corners, (M, 4) f32 weights, all contiguous on one card, and a bf16 or
     f32 output; raises ValueError on anything else. The launch is
     :func:`gather_plan`'s, kept as ``kernel.last_plan``."""
+    return kernel_call(lambda *args: _launch_gather(kernel, entry, *args),
+                       plain_gather, fm_flat, idx, w, out_dtype)
+
+
+def _launch_gather(kernel, entry, fm_flat, idx, w, out_dtype):
     what = kernel.__name__
     dev = fm_flat.device
 
@@ -311,7 +327,7 @@ def resident_gather(fm_flat: Tensor, idx: Tensor, w: Tensor,
                          f'{window!r}')
     out_dtype = out_dtype or fm_flat.dtype
     if fm_flat.device.type == 'cpu':
-        return take_gather(fm_flat, idx, w).to(out_dtype)
+        return plain_gather(fm_flat, idx, w, out_dtype)
     return launch_gather(resident_gather, 'resident_gather_bf16', fm_flat,
                          idx, w, out_dtype)
 

@@ -1,1 +1,2 @@
-"""Image utilities."""
+"""Image utilities, metrics, profiling and ``params_io`` (flat ``.npz``
+parameter files)."""

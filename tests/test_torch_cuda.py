@@ -613,3 +613,135 @@ def test_row_gather_refuses_what_the_kernels_do_not_take(dev):
                  lambda: RG.block_fill(idx.long(), 4)):
         with pytest.raises(ValueError):
             call()
+
+
+# Gradients through the kernels' autograd Function (ops/_autograd.py): the
+# backward recomputes each kernel's plain version on the saved inputs, so
+# the gradients are the plain version's own. With PyTorch's deterministic
+# algorithms (index_select's backward then sums each table row's bf16
+# contributions in a fixed order, not by atomics, whose order changes the
+# rounding by up to ~2% of a row that takes 80 of them) both sides do the
+# same arithmetic: within 2^-8 of each tensor's largest gradient. The
+# parameters are f32, as the renderer's.
+
+def _f32(params):
+    return tuple(p.float() for p in params)
+
+
+def _grad_case(dev, key):
+    """(wrapper, plain version, arguments) of kernel ``key`` at a small
+    card shape."""
+    if key == 'K1':
+        g = torch.Generator().manual_seed(0)
+        q, k, v = (torch.randn(2, 2, 40, 16, d, generator=g).to(
+            dev, torch.bfloat16) for d in (32, 32, 40))
+        return EA.epipolar_attention, EA.epipolar_attention_reference, (
+            q, k, v)
+    if key == 'K2':
+        tables, cells, (a_s, a_c), params = _epilogue_case(
+            dev, (32, 32, 16), 80, 40, 16, 2, (4, 8, 16), 5 * 64 + 17)
+        return (GE.fused_exchange_epilogue,
+                GE.fused_exchange_epilogue_reference,
+                (tables, cells, a_s, a_c, _f32(params), 40))
+    if key == 'K3':
+        tables, cells, aux, params = _epilogue_case(
+            dev, (32, 32, 16), 80, 48, 16, 2, (4, 8, 16), 3 * 96 + 29, S=3)
+        return (GE.fused_exchange_epilogue_multi,
+                GE.fused_exchange_epilogue_multi_reference,
+                (tables, cells, aux, _f32(params)))
+    if key == 'K4':
+        tables, cells, a_s, a_c, lc, params = _render_case(
+            dev, (32, 32, 16), 80, 40, 16, (4, 8, 16), 1, 9, 16)
+        return (FR.fused_render_core, FR.fused_render_core_reference,
+                (tables, cells, a_s, a_c, lc, _f32(params), 1, 9, 16, True))
+    if key == 'K9':
+        rng = np.random.default_rng(2)
+        M, K1, Hd, O = 64 * 5 + 23, 96, 80, 40
+        w1 = rng.standard_normal((K1 + 3, Hd)) / np.sqrt(K1 + 3)
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        return FM.fused_mlp2, FM.fused_mlp2_reference, (
+            _bf(dev, rng.standard_normal((M, K1))),
+            _bf(dev, rng.uniform(-1, 1, (M, 3))), f32(w1[:K1]),
+            f32(w1[K1:]), f32(0.1 * rng.standard_normal(Hd)),
+            f32(rng.standard_normal((Hd, O)) / np.sqrt(Hd)),
+            f32(0.1 * rng.standard_normal(O)))
+    kernel, out = dict(zip(('K5', 'K6', 'K7', 'K8'), GATHER_KERNELS))[key]
+    table, idx, w = _gather_case(dev, 2 * 16 * 16, 32, 1003, seed=4,
+                                 sort=key == 'K5')
+    return (lambda t, i, x: kernel(t, i, x),
+            lambda t, i, x: SG.plain_gather(t, i, x, out), (table, idx, w))
+
+
+@pytest.mark.parametrize('key', ['K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K7',
+                                 'K8', 'K9'])
+def test_kernel_gradients_equal_plain_version(dev, key):
+    """Each kernel's outputs all carry a gradient; the forward launches the
+    kernel once and the backward none; the gradients of every floating
+    input (at_wt's cotangent included) equal the plain version's."""
+    from torch_grad_cases import max_rel_err, outputs_and_grads
+    fn, plain, args = _grad_case(dev, key)
+    counters = (EA.epipolar_attention, GE.fused_exchange_epilogue,
+                GE.fused_exchange_epilogue_multi, FR.fused_render_core,
+                FM.fused_mlp2, SG.resident_gather, SG.windowed_gather,
+                PG.onehot_gather, BG.banded_gather)
+    before = sum(c.launches for c in counters)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, grads = outputs_and_grads(fn, args)
+        torch.cuda.synchronize()
+        assert sum(c.launches for c in counters) == before + 1
+        _, want = outputs_and_grads(plain, args)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    assert len(grads) == len(want)
+    for i, (got, w) in enumerate(zip(grads, want)):
+        assert (got is None) == (w is None), i
+        if w is not None:
+            assert torch.isfinite(got.float()).all()
+            assert max_rel_err(got, w) <= 2 ** -8, (key, i)
+
+
+# A narrow model's bf16 train step on the kernel route against the default
+# route from the same parameters and batch: the kernel route's forward runs
+# K2 and K1 (f32 until each product's input), the default route's the
+# unfused exchange and the plain attention, so their rgb differ by a few
+# bf16 steps. The loss within 2^-5 relative; each tensor's gradient within
+# 0.25 of the larger of its norm and 1e-3 of the whole gradient's norm.
+NARROW = dict(npoints=16, fusion_features=32, vit_width=64, vit_depth=2,
+              vit_heads=2, resnet_layers=(1, 1, 1))
+
+
+def test_train_step_kernel_route_matches_default_route(dev):
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models.renderer import (
+        CrossAttentionRenderer)
+    from cross_attention_renderer_torch.tools import bench_train as BT
+    from cross_attention_renderer_torch.train import trainer as T
+    scene = make_scene(1, batch=2, H=64, W=64, n_rays=256, device=dev)
+    cfg = T.TrainConfig(clip_norm=1e9)
+    runs = {}
+    for route in BT.ROUTES:
+        model = CrossAttentionRenderer(dtype=torch.bfloat16, seed=1,
+                                       device=dev, **NARROW)
+        state = T.create_train_state(model, cfg)
+        k1, k2 = EA.epipolar_attention, GE.fused_exchange_epilogue
+        before = (k1.launches, k2.launches)
+        _, m = BT.make_route_step(model, cfg, route)(state, scene)
+        torch.cuda.synchronize()
+        launches = (k1.launches - before[0], k2.launches - before[1])
+        assert launches == ((2, 1) if route == 'kernels' else (0, 0))
+        runs[route] = (float(m['total_loss']),
+                       {n: p.grad.float() for n, p in
+                        model.named_parameters()})
+    (loss_d, g_d), (loss_k, g_k) = runs['default'], runs['kernels']
+    total = float(sum(g.norm() ** 2 for g in g_d.values())) ** 0.5
+    errs = {name: float((g_k[name] - g).norm()) / max(float(g.norm()),
+                                                      1e-3 * total)
+            for name, g in g_d.items()}
+    worst = max(errs, key=errs.get)
+    print(f'narrow train step, kernel vs default route: loss '
+          f'{abs(loss_k - loss_d) / abs(loss_d):.3e} relative, worst '
+          f'gradient {worst} {errs[worst]:.3e}')
+    assert abs(loss_k - loss_d) <= 2 ** -5 * abs(loss_d)
+    assert errs[worst] <= 0.25, (worst, errs[worst])
