@@ -108,8 +108,22 @@ no result):
      (mask 1) with the depth and LPIPS terms (phase 15's random VGG
      weights): ``lpips_loss`` above 0, and a nonzero finite gradient at
      the VGG input.
-Then it prints the ``train`` JSON line (phases 17-19), the ``kernels``
-JSON line (K1-K9, T1-T13), the card line and, last, the result line.
+ 20. f32 models: the flagship model in f32 (the JAX CLI's default type)
+     driven as phase 3 drives it on the V=2 (16 K1, 8 K2), V=2 fused render
+     (8 K4), V=3 default (16 K1, 8 K3) and V=3 compat (16 K1, 72 K9)
+     paths, the images checked as there; each kernel's f32 instantiation
+     against its plain version in f32 on the first block's inputs, with
+     the bf16 tolerances, and timed;
+ 21. the CLI's evaluation: a 2-scene corpus of 256x455 frames written by
+     ``tools/make_corpus.py``, then ``cli/eval.py`` at its defaults (f32,
+     8 ray blocks) on both scenes at ``--views 2`` and ``--views 3`` (16 K1
+     and 8 K2 or K3 launches an image), each run's first scene against
+     ``evaluate_scene`` of the same model and scene;
+ 22. ``cli/train.py`` at its defaults (f32, batch 12, 192 rays) for 3
+     steps from the same corpus: finite losses, the final checkpoint.
+Then it prints the ``train`` JSON line (phases 17-19), the ``cli`` line
+(phases 21-22), the ``kernels`` JSON line (K1-K9 and their f32
+instantiations, T1-T13), the card line and, last, the result line.
 """
 
 from __future__ import annotations
@@ -154,6 +168,7 @@ GATHER_TOL = 2 ** -5
 PATH_TOL = FUSED_VS_STAGED_TOL
 SMALL_TOL = 0.1     # bf16 card render vs f32 CPU render of the same model
 WIDE_FF = (384, 512)    # fusion_features past the 'smem' plan's widths
+CLI_CHUNKS = 8          # cli/eval.py's default --n_chunks
 WIDE_RAYS = 4096
 # evaluate_scene's metrics on the card against the CPU's, both f32 on the
 # same image: sums in another order (PSNR, SSIM) and cuDNN's f32
@@ -247,10 +262,13 @@ def exchange_work(tables, cells, aux_list, params):
 
 def epilogue_bound(tables, cells, aux_list, params):
     """(bound_ms, bound_by) of one exchange epilogue call: its reads and
-    products, and its (M, O) and (M, K) outputs written once."""
+    products, and its (M, O) and (M, K) outputs (in aux's type) written
+    once. The products at the bf16 tensor-core rate, which the f32
+    instantiation runs them at too."""
     nbytes, macs = exchange_work(tables, cells, aux_list, params)
     M, O, K = aux_list[0].shape[0], params[2].shape[1], params[8].shape[1]
-    return bound(nbytes + M * (O + K) * 2, 2 * macs, BF16_TENSOR_FLOPS)
+    return bound(nbytes + M * (O + K) * aux_list[0].element_size(),
+                 2 * macs, BF16_TENSOR_FLOPS)
 
 
 def render_core_bound(tables, cells, aux_self, aux_cross, lc, params, B, R,
@@ -267,8 +285,8 @@ def render_core_bound(tables, cells, aux_self, aux_cross, lc, params, B, R,
     M, O, K = aux_self.shape[0], params[2].shape[1], params[8].shape[1]
     rounds = 2 if repeat else 1
     query = params[10:14] + (params[14:] if repeat else ())
-    nbytes += (lc.numel() * 2 + sum(p.numel() * 2 for p in query)
-               + (B * R * O + M) * 2)
+    nbytes += (sum(p.numel() * 2 for p in query)
+               + (lc.numel() + B * R * O + M) * lc.element_size())
     macs += M * rounds * (16 * K + K * K + K + O)
     if repeat:
         macs += B * R * (O * K + K * K)
@@ -280,7 +298,7 @@ def mlp_bound(x1, x2, w1a, w1b, b1, w2, b2):
     the output moved once; the products of every row."""
     M, K1 = x1.shape
     H, O = w1a.shape[1], w2.shape[1]
-    nbytes = (x1.numel() + x2.numel() + M * O) * 2 + 2 * (
+    nbytes = (x1.numel() + x2.numel() + M * O) * x1.element_size() + 2 * (
         w1a.numel() + w1b.numel() + w2.numel()) + 4 * (H + O)
     return bound(nbytes, 2 * M * (K1 * H + 3 * H + H * O), BF16_TENSOR_FLOPS)
 
@@ -416,7 +434,7 @@ def drive(label, model, scene, RM, counted, expected, capture=None):
     log(f'{label} encode: {encode_ms:.3f} ms | image: {image_s * 1e3:.1f} ms '
         f'| {H * W / image_s:.1f} rays/s ({H * W:,} rays, {N_BLOCKS} blocks, '
         f'V={V}, '
-        f'{model.n_samples} samples, bf16)')
+        f'{model.n_samples} samples, {str(model.dtype)[6:]})')
 
     with torch.inference_mode():
         profile_device(f'{label} profile of one image',
@@ -462,6 +480,13 @@ def first_block(model, scene):
     return {k: out[k].float() for k in ('rgb', 'at_wt', 'depth_ray')}
 
 
+def check_dtype(label, outputs, dtype):
+    """A kernel's outputs are in its inputs' type (bf16 or f32)."""
+    got = {str(t.dtype) for t in outputs}
+    if got != {str(dtype)}:
+        raise RuntimeError(f'{label} returned {got} for {dtype} inputs')
+
+
 def check_render_core(FR, args):
     """K4 against its plain version on ``args``; returns its numbers. Its
     weights are laid out once (``prepared_render``) before the timed calls,
@@ -472,6 +497,7 @@ def check_render_core(FR, args):
     torch.cuda.synchronize()
     z, wt = FR.fused_render_core(*args)
     z_ref, wt_ref = FR.fused_render_core_reference(*args)
+    check_dtype('K4', (z, wt), args[2].dtype)
     err_z, err_wt = max_err(z, z_ref), max_err(wt, wt_ref)
     log(f'K4 fused_render_core (B, R, P) = {tuple(args[6:9])}, repeat '
         f'{args[9]}: max err z {err_z:.3e} (tol '
@@ -510,6 +536,7 @@ def check_attention(label, EA, q, k, v):
     """K1 against its plain version on (q, k, v); returns its numbers."""
     out, wt = EA.epipolar_attention(q, k, v)
     out_ref, wt_ref = EA.epipolar_attention_reference(q, k, v)
+    check_dtype(f'K1 ({label})', (out, wt), v.dtype)
     err_out, err_wt = max_err(out, out_ref), max_err(wt, wt_ref)
     log(f'K1 epipolar_attention {label} {tuple(q.shape)} x '
         f'{tuple(v.shape)}: max err out {err_out:.3e} (tol '
@@ -583,6 +610,7 @@ def check_epilogue(name, kernel, plain, args, aux_list, params, tol):
     torch.cuda.synchronize()
     jl, kv = kernel(*args)
     jl_ref, kv_ref = plain(*args)
+    check_dtype(name, (jl, kv), aux_list[0].dtype)
     err_jl, err_kv = max_err(jl, jl_ref), max_err(kv, kv_ref)
     log(f'{name} M={aux_list[0].shape[0]}: max err jl {err_jl:.3e} (tol '
         f'{tol * scale(jl_ref):.3e}), kv {err_kv:.3e} (tol '
@@ -658,6 +686,7 @@ def check_mlp(FM, args, label='K9 fused_mlp2'):
     torch.cuda.synchronize()
     out = FM.fused_mlp2(*args)
     ref = FM.fused_mlp2_reference(*args)
+    check_dtype(label, (out,), args[0].dtype)
     err = max_err(out, ref)
     log(f'{label} {tuple(args[0].shape)}: max err {err:.3e} (tol '
         f'{K9_TOL * scale(ref):.3e})')
@@ -1014,10 +1043,188 @@ def check_stage2(make_scene, dev, model_fn, npz):
     return {**metrics, 'vgg_input_grad_max': g_abs}
 
 
-def flagship(RM, dev, **kw):
-    """The 122M model in bf16 from seed 0, decoder output layer scaled."""
+def f32_paths(RM, EA, GE, FR, FM, make_scene, dev, attention, epilogue,
+              epilogue_multi, mlp, render_core):
+    """Phase 20: the flagship model in f32 (the JAX CLI's default type) on
+    the V=2, V=2 fused render, V=3 default and V=3 compat paths, each image
+    driven as phase 3 drives it (the launch counts of the bf16 paths), and
+    each f32 kernel instantiation (K1, K2, K4, K3, K9) against its plain
+    version in f32 on the first block's inputs, with the bf16 kernels'
+    tolerances. Returns the launches by path and each kernel's numbers."""
     import torch
-    model = RM.CrossAttentionRenderer(dtype=torch.bfloat16, seed=0,
+    f32 = torch.float32
+    by_path, out = {}, {}
+    scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
+                       device=dev)
+    for label, kw, counted, expected in (
+            ('V=2 f32', dict(npoints=64), dict([attention, epilogue]),
+             {'epipolar_attention': 2 * N_BLOCKS,
+              'fused_exchange_epilogue': N_BLOCKS}),
+            ('V=2 fused render f32', dict(npoints=64, fused_render=True),
+             dict([render_core, attention, epilogue]),
+             {'fused_render_core': N_BLOCKS, 'epipolar_attention': 0,
+              'fused_exchange_epilogue': 0}),
+            ('V=3 (Path A) f32', dict(n_view=3),
+             dict([attention, epilogue_multi]),
+             {'epipolar_attention': 2 * N_BLOCKS,
+              'fused_exchange_epilogue_multi': N_BLOCKS}),
+            ('V=3 compat (Path B) f32', dict(n_view=3, **PATH_B),
+             dict([attention, mlp]),
+             {'epipolar_attention': 2 * N_BLOCKS,
+              'fused_mlp2': 9 * N_BLOCKS})):
+        if kw.get('n_view') == 3 and scene['context']['rgb'].shape[1] != 3:
+            scene = make_scene(0, n_view=3, H=H, W=W, n_rays=H * W,
+                               full_image=True, device=dev)
+        model = flagship(RM, dev, f32, **kw)
+        captured, launches, rgb = drive(label, model, scene, RM, counted,
+                                        expected)
+        check_dtype(f'{label} image', (rgb,), f32)
+        by_path[label.replace(' ', '_').replace('(', '').replace(')', '')
+                .replace('=', '')] = launches
+        if label == 'V=2 f32':
+            out['K1'] = check_attention('V=2 f32', EA,
+                                        *captured['epipolar_attention'][0])
+            args = captured['fused_exchange_epilogue'][0]
+            out['K2'] = check_epilogue(
+                'K2 fused_exchange_epilogue f32', GE.fused_exchange_epilogue,
+                GE.fused_exchange_epilogue_reference, args, args[2:4],
+                args[4], K2_TOL)
+        elif label.startswith('V=2 fused'):
+            log(f'{label}:')
+            out['K4'] = check_render_core(FR,
+                                          captured['fused_render_core'][0])
+        elif label.startswith('V=3 (Path A)'):
+            out['K1']['at_v3'] = check_attention(
+                'V=3 f32', EA, *captured['epipolar_attention'][0])
+            args = captured['fused_exchange_epilogue_multi'][0]
+            out['K3'] = check_epilogue(
+                'K3 fused_exchange_epilogue_multi f32',
+                GE.fused_exchange_epilogue_multi,
+                GE.fused_exchange_epilogue_multi_reference, args, args[2],
+                args[3], K3_TOL)
+        else:
+            out['K9'] = check_mlp(FM, captured['fused_mlp2'][0],
+                                  'K9 fused_mlp2 f32')
+        del model, captured, rgb
+        torch.cuda.empty_cache()
+    return by_path, out
+
+
+def check_cli(dev, build_dir, counted_v2, counted_v3, by_path, extra=()):
+    """Phases 21-22: the port's CLI as a user runs it, with its defaults
+    (the 122M model in f32, 64 samples at V=2 and 48 at V=3, 8 ray blocks,
+    batch 12 of 192 rays): a 2-scene corpus of 256x455 frames written by
+    ``tools/make_corpus.py`` under ``build/``, ``cli/eval.py`` on both
+    scenes at ``--views 2`` (16 K1 and 8 K2 launches an image) and
+    ``--views 3`` (16 K1 and 8 K3), LPIPS from phase 15's random weights,
+    each scene's metrics finite and the first one's equal, within
+    EVAL_TOL, to ``evaluate_scene`` of the same model and scene; then
+    ``cli/train.py`` for 3 steps (the default route: no K1 or K2 launch),
+    its losses finite and its final checkpoint written. Adds the eval
+    launches to ``by_path``; returns the phases' numbers. ``extra``: flags
+    added to every CLI call (none on the card)."""
+    import os
+    import shutil
+
+    import torch
+    from cross_attention_renderer_torch.cli import common as CC
+    from cross_attention_renderer_torch.cli import eval as eval_cli
+    from cross_attention_renderer_torch.cli import train as train_cli
+    from cross_attention_renderer_torch.data.realestate import (
+        RealEstate10kVis)
+    from cross_attention_renderer_torch.losses.lpips import load_lpips
+    from cross_attention_renderer_torch.tools import make_corpus
+    from cross_attention_renderer_torch.train.evaluation import (
+        evaluate_scene)
+    corpus, logs = build_dir / 'smoke_corpus', build_dir / 'smoke_logs'
+    for d in (corpus, logs):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_corpus.main(['--root', str(corpus), '--scenes', '2',
+                      '--defects', '0'])
+    out = {'corpus_s': time.perf_counter() - t0}
+    frames, poses = corpus / 'frames', corpus / 'poses.mat'
+    os.environ['LPIPS_WEIGHTS'] = str(build_dir / 'lpips_random.npz')
+    data = ['--img_root', str(frames), '--pose_root', str(poses),
+            '--logging_root', str(logs), *extra]
+    for views, counted in ((2, counted_v2), (3, counted_v3)):
+        label = f'CLI eval --views {views}'
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = eval_cli.main([*data, '--max_scenes', '2', '--views',
+                             str(views), '--experiment_name',
+                             f'eval_v{views}'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        per_image = 2 * CLI_CHUNKS, CLI_CHUNKS
+        expected = dict(zip(counted, (2 * n for n in per_image)))
+        log(f'{label}: launches {launches} for 2 scenes, means '
+            f'{res["means"]}, seconds a scene '
+            f'{[round(r["seconds"], 3) for r in res["scenes"]]}, '
+            f'{wall:.1f} s in all')
+        if launches != expected:
+            raise RuntimeError(f'{label}: launches {launches}, expected '
+                               f'{expected}')
+        if len(res['scenes']) != 2 or not all(
+                np_isfinite(v) for r in res['scenes'] for v in r.values()):
+            raise RuntimeError(f'{label}: metrics {res["scenes"]}')
+        by_path[f'cli_eval_v{views}'] = launches
+        opt = CC.base_parser('x').parse_args(['--views', str(views),
+                                              *extra])
+        model = CC.build_model(opt).eval()
+        scene = CC.scene_batch(RealEstate10kVis(
+            frames, poses, num_ctxt_views=views)[0], opt.device)
+        size = scene['context']['rgb'].shape[2:4]
+        want = evaluate_scene(model, scene, *size, CLI_CHUNKS,
+                              lpips_fn=load_lpips(device=opt.device))
+        got = res['scenes'][0]
+        log(f'{label}: first scene {got}, evaluate_scene '
+            f'{ {k: float(want[k]) for k in ("psnr", "ssim", "lpips")} }')
+        if (abs(got['psnr'] - float(want['psnr'])) > EVAL_TOL['psnr']
+                or abs(got['ssim'] - float(want['ssim'])) > EVAL_TOL['ssim']
+                or abs(got['lpips'] - float(want['lpips']))
+                > EVAL_TOL['lpips_rel'] * abs(float(want['lpips']))):
+            raise RuntimeError(f'{label} disagrees with evaluate_scene')
+        out[f'eval_v{views}'] = {'launches': launches, 'means': res['means'],
+                                 'seconds': [r['seconds']
+                                             for r in res['scenes']],
+                                 'wall_s': wall}
+        del model, scene, res
+        torch.cuda.empty_cache()
+
+    counted = dict(counted_v2)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = train_cli.main([*data, '--max_steps', '3', '--steps_til_log', '1',
+                          '--experiment_name', 'train'])
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    steps = res['log']
+    log(f'CLI train (batch 12, 192 rays, f32): '
+        + '; '.join(f'step {r["step"]} loss {r["total_loss"]:.5f} '
+                    f'grad_norm {r["grad_norm"]:.4f} {r["ms"]:.1f} ms'
+                    for r in steps)
+        + f'; launches {launches}; {wall:.1f} s in all')
+    final = logs / 'train' / 'checkpoints' / 'final.pt'
+    if (res['state'].step != 3 or len(steps) != 3 or not final.exists()
+            or not all(np_isfinite(r['total_loss']) for r in steps)
+            or any(launches.values())):
+        raise RuntimeError(f'CLI train: step {res["state"].step}, log '
+                           f'{steps}, launches {launches}')
+    out['train'] = {'steps': steps, 'wall_s': wall, 'launches': launches}
+    del res
+    shutil.rmtree(logs, ignore_errors=True)
+    return out
+
+
+def flagship(RM, dev, dtype=None, **kw):
+    """The 122M model from seed 0 (bf16 compute unless ``dtype`` says
+    otherwise), decoder output layer scaled."""
+    import torch
+    model = RM.CrossAttentionRenderer(dtype=dtype or torch.bfloat16, seed=0,
                                       device=dev, **kw).eval()
     with torch.no_grad():
         model.phi.lin_out.weight.mul_(RGB_LAYER_SCALE)
@@ -1309,6 +1516,24 @@ def main() -> int:
                                'hw': H, 'views': 2, 'dtype': 'bf16'},
         'routes': routes, 'fit': fitted, 'stage2': stage2}}), flush=True)
 
+    # -- 20. f32 models through the kernels ---------------------------------
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        by_path_f32, k_f32 = f32_paths(RM, EA, GE, FR, FM, make_scene, dev,
+                                       attention, epilogue, epilogue_multi,
+                                       mlp, render_core)
+    log(f'f32 phases: {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+
+    # -- 21-22. the CLI: eval at V=2 and V=3, then 3 train steps ------------
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        cli = check_cli(dev, build_dir, dict([attention, epilogue]),
+                        dict([attention, epilogue_multi]), by_path_f32)
+    log(f'CLI phases: {time.perf_counter() - t0:.1f} s')
+    print(json.dumps({'cli': dict(cli, card=card)}), flush=True)
+    torch.cuda.empty_cache()
+
     kernels = []
     for (name, _), numbers, source, replaces in (
             (attention, k1, 'epipolar_attention.cu',
@@ -1326,6 +1551,25 @@ def main() -> int:
         paths = {p: n[name] for p, n in by_path.items() if n.get(name)}
         kernels.append({
             'name': name, 'route': 'cuda',
+            'source': f'cross_attention_renderer_torch/csrc/{source}',
+            'replaces': f'cross_attention_renderer_tpu/{replaces}',
+            'launches': sum(paths.values()), 'launches_by_path': paths,
+            'backward': 'the plain version, recomputed (ops/_autograd.py)',
+            'library_ms': None, **numbers})
+    for (name, _), numbers, source, replaces in (
+            (attention, k_f32['K1'], 'epipolar_attention.cu',
+             'ops/epipolar_attention.py:118'),
+            (epilogue, k_f32['K2'], 'gather_epilogue.cu',
+             'ops/gather_epilogue.py:220'),
+            (epilogue_multi, k_f32['K3'], 'gather_epilogue_multi.cu',
+             'ops/gather_epilogue.py:421'),
+            (mlp, k_f32['K9'], 'fused_mlp.cu',
+             'ops/experimental/fused_mlp.py:77'),
+            (render_core, k_f32['K4'], 'fused_render.cu',
+             'ops/fused_render.py:349')):
+        paths = {p: n[name] for p, n in by_path_f32.items() if n.get(name)}
+        kernels.append({
+            'name': f'{name}_f32', 'route': 'cuda',
             'source': f'cross_attention_renderer_torch/csrc/{source}',
             'replaces': f'cross_attention_renderer_tpu/{replaces}',
             'launches': sum(paths.values()), 'launches_by_path': paths,

@@ -22,6 +22,13 @@
 // (B, V, R, P) weights are written. Unlike the TPU launcher, R is not padded
 // to a ray block. Plain loads, no tensor cores: the dot products are 2
 // FLOP per byte read, far below the card's balance point.
+//
+// Element types: the kernel is a template of the inputs' and outputs' type,
+// bf16 (epipolar_attention_bf16) or f32 (epipolar_attention_f32), as the
+// TPU kernel runs in the value's type. Logits and softmax are f32 in both;
+// the f32 instantiation keeps the weights in f32 (no bf16 rounding before
+// the value sum) and writes f32 out and at_wt. Its loads are 16 bytes a
+// lane (four f32), so a warp reads a 512-byte q or k row in one step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,13 +37,33 @@
 
 namespace {
 
-__device__ __forceinline__ float4 load_bf16x4(const __nv_bfloat16* p) {
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
   const float2 a = __bfloat1622float2(lo);
   const float2 b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ float from_f32(float x) {
+  return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -72,15 +99,15 @@ __device__ float block_reduce(float x, float* red) {
   return out;
 }
 
+template <typename T>
 __global__ void epipolar_attention_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    __nv_bfloat16* __restrict__ wt, int V, int R, int P, int D, int C,
-    int slices, float scale) {
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out, T* __restrict__ wt, int V,
+    int R, int P, int D, int C, int slices, float scale) {
   extern __shared__ float smem[];
   __shared__ float red[32];
   const int VP = V * P;
-  float* weight = smem;       // (VP): logits, then bf16-rounded weights
+  float* weight = smem;       // (VP): logits, then the weights in T
   float* part = smem + VP;    // (slices, C) partial value sums
 
   const int ray = blockIdx.x;  // b * R + r
@@ -94,8 +121,8 @@ __global__ void epipolar_attention_kernel(
     const size_t off = ((size_t)((b * V + vi) * R + r) * P + p) * D;
     float s = 0.f;
     for (int d = 4 * lane; d < D; d += 128) {
-      const float4 a = load_bf16x4(q + off + d);
-      const float4 c = load_bf16x4(k + off + d);
+      const float4 a = load4(q + off + d);
+      const float4 c = load4(k + off + d);
       s += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
     }
     s = warp_sum(s);
@@ -116,9 +143,9 @@ __global__ void epipolar_attention_kernel(
   denom = block_reduce<false>(denom, red);
   for (int j = threadIdx.x; j < VP; j += blockDim.x) {
     const int vi = j / P, p = j - vi * P;
-    const __nv_bfloat16 w = __float2bfloat16(weight[j] / denom);
+    const T w = from_f32<T>(weight[j] / denom);
     wt[((size_t)(b * V + vi) * R + r) * P + p] = w;
-    weight[j] = __bfloat162float(w);
+    weight[j] = to_f32(w);
   }
   __syncthreads();
 
@@ -131,7 +158,7 @@ __global__ void epipolar_attention_kernel(
     for (int j = s; j < VP; j += slices) {
       const int vi = j / P, p = j - vi * P;
       const size_t off = ((size_t)((b * V + vi) * R + r) * P + p) * C + 4 * g;
-      const float4 x = load_bf16x4(v + off);
+      const float4 x = load4(v + off);
       const float w = weight[j];
       acc.x += w * x.x;
       acc.y += w * x.y;
@@ -148,18 +175,14 @@ __global__ void epipolar_attention_kernel(
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     float t = 0.f;
     for (int s = 0; s < slices; ++s) t += part[s * C + c];
-    out[(size_t)ray * C + c] = __float2bfloat16(t);
+    out[(size_t)ray * C + c] = from_f32<T>(t);
   }
 }
 
-}  // namespace
-
-// q, k: (B, V, R, P, D); v: (B, V, R, P, C); out: (B, R, C);
-// wt: (B, V, R, P). All bf16, contiguous. Returns a cudaError_t code.
-extern "C" int epipolar_attention_bf16(const void* q, const void* k,
-                                       const void* v, void* out, void* wt,
-                                       int B, int V, int R, int P, int D,
-                                       int C, float scale, void* stream) {
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, void* wt,
+           int B, int V, int R, int P, int D, int C, float scale,
+           void* stream) {
   if (D % 4 != 0 || C % 4 != 0 || C / 4 > 1024 || B * R <= 0)
     return (int)cudaErrorInvalidValue;
   const int groups = C / 4;
@@ -167,11 +190,31 @@ extern "C" int epipolar_attention_bf16(const void* q, const void* k,
   const int threads = ((groups * slices + 31) / 32) * 32;
   const size_t smem = sizeof(float) * ((size_t)V * P + (size_t)slices * C);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  epipolar_attention_kernel<<<B * R, threads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<__nv_bfloat16*>(wt), V, R, P, D, C, slices, scale);
+  epipolar_attention_kernel<T><<<B * R, threads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), static_cast<T*>(wt), V,
+      R, P, D, C, slices, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k: (B, V, R, P, D); v: (B, V, R, P, C); out: (B, R, C);
+// wt: (B, V, R, P). All bf16 (epipolar_attention_bf16) or all f32
+// (epipolar_attention_f32), contiguous, 16-byte aligned. Returns a
+// cudaError_t code.
+extern "C" int epipolar_attention_bf16(const void* q, const void* k,
+                                       const void* v, void* out, void* wt,
+                                       int B, int V, int R, int P, int D,
+                                       int C, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, out, wt, B, V, R, P, D, C, scale,
+                               stream);
+}
+
+extern "C" int epipolar_attention_f32(const void* q, const void* k,
+                                      const void* v, void* out, void* wt,
+                                      int B, int V, int R, int P, int D,
+                                      int C, float scale, void* stream) {
+  return launch<float>(q, k, v, out, wt, B, V, R, P, D, C, scale, stream);
 }

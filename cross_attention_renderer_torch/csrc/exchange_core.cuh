@@ -85,6 +85,24 @@
 // small reduction buffer stay in shared memory, so the plan has no
 // ceiling below widths whose vectors alone fill it (H1 in the tens of
 // thousands). The weight stream and the schedule are the same in both.
+//
+// Element types (template kF32). The bf16 instantiation reads and writes
+// bf16. The f32 one takes f32 tables, aux, x, x2 and local coordinates and
+// writes f32 outputs (jl, kv; K9's out; K4's z and at_wt), as the TPU
+// kernels run in their inputs' float type. Its products are still bf16
+// wgmma with f32 sums: every f32 operand is rounded to bf16 on its way in,
+// as the TPU's matrix unit rounds f32 operands at default precision. The
+// cell rows' combine runs in f32 on the f32 rows and the bf16-rounded slot
+// weights, and comb is rounded once; aux, x, x2 and the local coordinates
+// are rounded as they go to shared memory or the A fragments; the weights
+// were rounded once on the host when their stages were laid out (the
+// layout cache of ops/gather_epilogue.py); the outputs are written as f32
+// straight from the accumulators, and K4 keeps its softmax weights in f32.
+// Its internal rows (K4's jl and ce scratch, the f rows) stay bf16. So the
+// shared-memory plans are the same for both types ('smem' or 'global' at
+// the same widths); only the cell rows' gather moves twice the bytes (a
+// 16-byte chunk of comb is two 16-byte loads of each corner's row, 4C f32
+// being 16 C bytes, a multiple of 128 for C % 8 == 0).
 
 #pragma once
 
@@ -129,23 +147,24 @@ template <int kMode>
 using Vec = typename std::conditional<kMode == kMlp, float, bf16>::type;
 
 struct CoreArgs {
-  const bf16* table[kMaxLevels];     // packed cell tables (rows, 4 * C_l)
+  const void* table[kMaxLevels];     // packed cell tables (rows, 4 * C_l)
   const int32_t* cells[kMaxLevels];  // (S*M,) cell rows, stream-major
   int channels[kMaxLevels];
   int n_levels;
-  const bf16* aux[kMaxStreams];  // (M, 16) per stream: 12 slot weights,
+  const void* aux[kMaxStreams];  // (M, 16) per stream: 12 slot weights,
                                  // tanh(pt/5), pad
-  const bf16* x;                 // kMlp: (M, F) input rows
-  const bf16* x2;                // kMlp: (M, 3)
-  const bf16* lc;                // kRender: (M, 16) local coordinates
+  const void* x;                 // kMlp: (M, F) input rows
+  const void* x2;                // kMlp: (M, 3)
+  const void* lc;                // kRender: (M, 16) local coordinates
   const unsigned char* stages;   // the weight stages of one tile
   const float* vecs;             // [W1[F:F+3] | b1 | b2 | lvb | kmb | k2b |
                                  //  qe1b | qe2b | elb | qr1b | qr2b]
   const bf16* mats;              // kRender: el (O, K), qr1[:K] (K, K)
-  bf16* jl;                      // (M, O); kMlp: the output
-  bf16* kv;                      // (M, K)
-  bf16* z;                       // kRender: (B, R, O)
-  bf16* wt;                      // kRender: (B, 2, R, P)
+  void* jl;                      // (M, O); kMlp: the output
+  void* kv;                      // (M, K)
+  void* z;                       // kRender: (B, R, O)
+  void* wt;                      // kRender: (B, 2, R, P)
+                                 // (table to wt: bf16, or f32 with kF32)
   unsigned char* scratch;        // per block (scr_stride bytes): kRender
                                  // the ray's jl (2P, O) then its ce (2P,
                                  // K); then, with the 'global' plan, comb
@@ -187,6 +206,83 @@ __device__ __forceinline__ uint4 ldg_row(const void* p) {
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(p));
   return v;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Elements [idx, idx + 8) of a bf16 or (kF32) f32 array as eight bf16
+// values in 16 bytes; kNoL1: loaded past L1, as ldg_row.
+template <bool kF32, bool kNoL1>
+__device__ __forceinline__ uint4 load8(const void* base, size_t idx) {
+  if (kF32) {
+    const float* f = static_cast<const float*>(base) + idx;
+    const uint4 a =
+        kNoL1 ? ldg_row(f) : __ldg(reinterpret_cast<const uint4*>(f));
+    const uint4 b = kNoL1 ? ldg_row(f + 4)
+                          : __ldg(reinterpret_cast<const uint4*>(f + 4));
+    return make_uint4(pack_bf16(__uint_as_float(a.x), __uint_as_float(a.y)),
+                      pack_bf16(__uint_as_float(a.z), __uint_as_float(a.w)),
+                      pack_bf16(__uint_as_float(b.x), __uint_as_float(b.y)),
+                      pack_bf16(__uint_as_float(b.z), __uint_as_float(b.w)));
+  }
+  const bf16* h = static_cast<const bf16*>(base) + idx;
+  return kNoL1 ? ldg_row(h) : __ldg(reinterpret_cast<const uint4*>(h));
+}
+
+// Element idx of a bf16 or (kF32) f32 array, as bf16.
+template <bool kF32>
+__device__ __forceinline__ bf16 load1(const void* base, size_t idx) {
+  return kF32 ? __float2bfloat16(static_cast<const float*>(base)[idx])
+              : static_cast<const bf16*>(base)[idx];
+}
+
+// Stores (lo, hi) as elements idx, idx + 1 (idx even) of a bf16 or (kF32)
+// f32 output.
+template <bool kF32>
+__device__ __forceinline__ void store2(void* out, size_t idx, float lo,
+                                       float hi) {
+  if (kF32)
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) =
+        make_float2(lo, hi);
+  else
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + idx) =
+        pack_bf16(lo, hi);
+}
+
+template <bool kF32>
+__device__ __forceinline__ void store1(void* out, size_t idx, float x) {
+  if (kF32)
+    static_cast<float*>(out)[idx] = x;
+  else
+    static_cast<bf16*>(out)[idx] = __float2bfloat16(x);
+}
+
+// The f32 tables' combine of one 8-column chunk: sum_k w[k] * row_k[0:8]
+// in f32, in corner order, over the four corners' rows (C apart, two
+// 16-byte loads each, past L1) and their bf16 slot weights w; rounded to
+// bf16 once.
+__device__ __forceinline__ uint4 combine_f32(const float* src, int C,
+                                             const bf16* w) {
+  uint4 x[4][2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[k][0] = ldg_row(src + k * C);
+    x[k][1] = ldg_row(src + k * C + 4);
+  }
+  float a[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float wk = __bfloat162float(w[k]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float term = wk * __uint_as_float(word(x[k][e >> 2], e & 3));
+      a[e] = k == 0 ? term : a[e] + term;
+    }
+  }
+  return make_uint4(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
+                    pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7]));
 }
 
 // The 'global' plan's tiles: a (64, 64 n) bf16 tile in the order of the
@@ -359,7 +455,8 @@ __device__ void produce(const CoreArgs& p, int w, uint32_t slots,
 // k-blocks of 64 columns; copies the tile's aux rows to aux (64, 16). Rows
 // past n_live get zeros. Run by the kConsumers threads, t = threadIdx.x.
 // kWide: comb goes to the fragment-order tile gcomb in device memory.
-template <bool kWide>
+// kF32: the tables and aux are f32 (aux rounded to bf16 here).
+template <bool kWide, bool kF32>
 __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
                             unsigned char* comb, uint32_t* gcomb, bf16* aux,
                             int* cell) {
@@ -368,9 +465,7 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
     const int r = i >> 1, half = i & 1;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < n_live)
-      val = __ldg(reinterpret_cast<const uint4*>(p.aux[s] +
-                                                 (size_t)(m0 + r) * 16) +
-                  half);
+      val = load8<kF32, false>(p.aux[s], (size_t)(m0 + r) * 16 + 8 * half);
     reinterpret_cast<uint4*>(aux + r * 16)[half] = val;
   }
   // The tile's cell rows of every level first, so that the row loads below
@@ -381,11 +476,11 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
   }
   bar_sync(kGatherBar, kConsumers);
   // One pass over the 16-byte chunks of all the tile's comb rows, eight per
-  // thread in flight; chunk q of a row is column 8q, of the level whose
-  // columns hold it.
+  // thread in flight (f32: four, each twice the loads); chunk q of a row is
+  // column 8q, of the level whose columns hold it.
   const int ch8 = p.F / 8, off1 = p.channels[0],
             off2 = p.n_levels > 2 ? off1 + p.channels[1] : p.F;
-#pragma unroll 8
+#pragma unroll (kF32 ? 4 : 8)
   for (int i = t; i < kRows * ch8; i += kConsumers) {
     const int r = i / ch8, col = (i - r * ch8) * 8;
     const int l = (col >= off1) + (col >= off2);
@@ -393,8 +488,13 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
     const int c0 = col - (l == 0 ? 0 : l == 1 ? off1 : off2);
     const int row = cell[l * kRows + r];
     uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (row >= 0) {
-      const bf16* src = p.table[l] + (size_t)row * 4 * C + c0;
+    if (row >= 0 && kF32) {
+      out = combine_f32(static_cast<const float*>(p.table[l]) +
+                            (size_t)row * 4 * C + c0,
+                        C, aux + r * 16 + l * 4);
+    } else if (row >= 0) {
+      const bf16* src =
+          static_cast<const bf16*>(p.table[l]) + (size_t)row * 4 * C + c0;
       uint4 x[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) x[k] = ldg_row(src + k * C);
@@ -420,22 +520,25 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
 
 // K9's tile: rows m0 + r (r < n_live) of x (M, F) into comb as they are,
 // and x2's three columns into aux's tanh columns 12-14. Rows past n_live
-// get zeros. kWide: comb goes to gcomb, as in gather_tile.
-template <bool kWide>
+// get zeros. kWide: comb goes to gcomb, as in gather_tile. kF32: x and
+// x2 are f32, rounded to bf16 here.
+template <bool kWide, bool kF32>
 __device__ void load_rows(const CoreArgs& p, int m0, int n_live,
                           unsigned char* comb, uint32_t* gcomb, bf16* aux) {
   const int t = threadIdx.x;
   for (int i = t; i < kRows * 3; i += kConsumers) {
     const int r = i / 3, e = i - 3 * r;
-    aux[r * 16 + 12 + e] = r < n_live ? p.x2[(size_t)(m0 + r) * 3 + e]
-                                      : __float2bfloat16(0.f);
+    aux[r * 16 + 12 + e] = r < n_live
+                               ? load1<kF32>(p.x2, (size_t)(m0 + r) * 3 + e)
+                               : __float2bfloat16(0.f);
   }
   const int ch8 = p.F / 8;
 #pragma unroll 8
   for (int i = t; i < kRows * ch8; i += kConsumers) {
     const int r = i / ch8, col = (i - r * ch8) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_live) val = ldg_row(p.x + (size_t)(m0 + r) * p.F + col);
+    if (r < n_live)
+      val = load8<kF32, true>(p.x, (size_t)(m0 + r) * p.F + col);
     put_chunk<kWide>(comb, gcomb, r, col, val);
   }
   fence_proxy_async();
@@ -562,7 +665,9 @@ struct Smem {
 
 // The local coordinates of the tile's rows m0 + r (r < n_live, else zeros)
 // as the register A operand of one k-step (16 columns): words (row, cols
-// tq, tq + 1) of rows r0 and r0 + 8, then of cols 8 + tq, 9 + tq.
+// tq, tq + 1) of rows r0 and r0 + 8, then of cols 8 + tq, 9 + tq (kF32:
+// f32 coordinates, rounded to bf16).
+template <bool kF32>
 __device__ __forceinline__ void load_lc(const CoreArgs& p, int m0, int n_live,
                                         uint32_t (&la)[4]) {
   const int lane = threadIdx.x & 31;
@@ -572,9 +677,16 @@ __device__ __forceinline__ void load_lc(const CoreArgs& p, int m0, int n_live,
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
     la[h] = la[2 + h] = 0u;
-    if (row < n_live) {
-      const uint32_t* src =
-          reinterpret_cast<const uint32_t*>(p.lc + (size_t)(m0 + row) * 16);
+    if (row < n_live && kF32) {
+      const float* src =
+          static_cast<const float*>(p.lc) + (size_t)(m0 + row) * 16;
+      const float2 lo = __ldg(reinterpret_cast<const float2*>(src + tq));
+      const float2 hi = __ldg(reinterpret_cast<const float2*>(src + 8 + tq));
+      la[h] = pack_bf16(lo.x, lo.y);
+      la[2 + h] = pack_bf16(hi.x, hi.y);
+    } else if (row < n_live) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(
+          static_cast<const bf16*>(p.lc) + (size_t)(m0 + row) * 16);
       la[h] = __ldg(src + tq / 2);
       la[2 + h] = __ldg(src + 4 + tq / 2);
     }
@@ -690,8 +802,9 @@ __device__ __forceinline__ void store_logits(float (&lg)[2], int j0,
 
 // One tile of warpgroup w: rows m0 + r, r < n_live. K4 (view: the tile's
 // view; j0: the ray's joint index of row 0) keeps jl and ce in the block's
-// scratch (scr_jl, scr_ce) and writes the tile's round-1 logits.
-template <int kMode, bool kWide>
+// scratch (scr_jl, scr_ce) and writes the tile's round-1 logits. kF32:
+// f32 inputs and outputs.
+template <int kMode, bool kWide, bool kF32>
 __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
                          Ring& ring, int w, int m0, int n_live, int view,
                          int j0, bf16* scr_jl, bf16* scr_ce) {
@@ -708,9 +821,9 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
     const int s = kMode == kRender ? (si == 0 ? view : 1 - view) : si;
     bar_sync(kGatherBar, kConsumers);  // comb and aux are free
     if (kMode == kMlp)
-      load_rows<kWide>(p, m0, n_live, sm.comb, sm.gcomb, sm.aux);
+      load_rows<kWide, kF32>(p, m0, n_live, sm.comb, sm.gcomb, sm.aux);
     else
-      gather_tile<kWide>(p, s, m0, n_live, sm.comb, sm.gcomb, sm.aux,
+      gather_tile<kWide, kF32>(p, s, m0, n_live, sm.comb, sm.gcomb, sm.aux,
                          sm.cell);
     for (int g0 = t0; g0 < t1; g0 += kMaxOT) {
       const int g1 = min(g0 + kMaxOT, t1);
@@ -775,12 +888,13 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
               const int col = (g0 + nt) * kNO + j * 8 + tq;
               if (g0 + nt < g1 && col < p.O) {
                 const float2 b = lds2(b2 + col);
-                const uint32_t v = pack_bf16(acc[nt][4 * j + 2 * h] + b.x,
-                                             acc[nt][4 * j + 2 * h + 1] + b.y);
+                const float f0 = acc[nt][4 * j + 2 * h] + b.x,
+                            f1 = acc[nt][4 * j + 2 * h + 1] + b.y;
+                const uint32_t v = pack_bf16(f0, f1);
                 if (kMode == kMlp) {
                   if (row < n_live)
-                    *reinterpret_cast<uint32_t*>(
-                        p.jl + (size_t)(m0 + row) * p.O + col) = v;
+                    store2<kF32>(p.jl, (size_t)(m0 + row) * p.O + col, f0,
+                                 f1);
                 } else if (kWide) {
                   __stcg(sm.gf + frag_word(row, slot * p.O + col), v);
                 } else {
@@ -850,17 +964,19 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = r0 + 8 * h;
-        bf16* dst = kMode == kRender
-                        ? scr_jl + (size_t)(j0 + row) * p.O
-                        : p.jl + (size_t)(m0 + row) * p.O;
+        const size_t dst = (size_t)((kMode == kRender ? j0 : m0) + row) * p.O;
 #pragma unroll
         for (int j = 0; j < kNO / 8; ++j) {
           const int col = (g0 + nt) * kNO + j * 8 + tq;
           if (g0 + nt < g1 && col < p.O && row < n_live) {
             const float2 b = lds2(lvb + col);
-            *reinterpret_cast<uint32_t*>(dst + col) =
-                pack_bf16(acc[nt][4 * j + 2 * h] + b.x,
-                          acc[nt][4 * j + 2 * h + 1] + b.y);
+            const float x0 = acc[nt][4 * j + 2 * h] + b.x,
+                        x1 = acc[nt][4 * j + 2 * h + 1] + b.y;
+            if (kMode == kRender)
+              *reinterpret_cast<uint32_t*>(scr_jl + dst + col) =
+                  pack_bf16(x0, x1);
+            else
+              store2<kF32>(p.jl, dst + col, x0, x1);
           }
         }
       }
@@ -965,10 +1081,9 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
               const int col = nt * kNK + j * 8 + tq;
               if (col < p.K && row < n_live) {
                 const float2 b = lds2(k2b + col);
-                *reinterpret_cast<uint32_t*>(p.kv + (size_t)(m0 + row) * p.K +
-                                             col) =
-                    pack_bf16(av[4 * j + 2 * h] + b.x,
-                              av[4 * j + 2 * h + 1] + b.y);
+                store2<kF32>(p.kv, (size_t)(m0 + row) * p.K + col,
+                             av[4 * j + 2 * h] + b.x,
+                             av[4 * j + 2 * h + 1] + b.y);
               }
             }
           }
@@ -979,7 +1094,7 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
   } else if (kMode == kRender) {
     // ce = bf16(relu(lc @ qe1 + qe1b)) @ qe2 + qe2b, bf16 to the scratch
     uint32_t la[4];
-    load_lc(p, m0, n_live, la);
+    load_lc<kF32>(p, m0, n_live, la);
     const Vec<kMode>* qe1b = sm.vsm + p.v_q;
     const Vec<kMode>* qe2b = qe1b + p.KT * kNK;
     query_mlp(
@@ -1025,8 +1140,9 @@ __device__ float consumers_reduce(float x, float* red8) {
 }
 
 // Joint softmax of x[0:n] in f32, in place, each weight rounded to bf16
-// (the value type, as the attention sums it).
-__device__ void softmax_bf16(float* x, int n, float* red8) {
+// (the value type, as the attention sums it) unless kF32.
+template <bool kF32>
+__device__ void softmax(float* x, int n, float* red8) {
   const int t = threadIdx.x;
   float m = -INFINITY;
   for (int j = t; j < n; j += kConsumers) m = fmaxf(m, x[j]);
@@ -1038,7 +1154,8 @@ __device__ void softmax_bf16(float* x, int n, float* red8) {
     den += e;
   }
   den = consumers_reduce<false>(den, red8);
-  for (int j = t; j < n; j += kConsumers) x[j] = bf16_round(x[j] / den);
+  for (int j = t; j < n; j += kConsumers)
+    x[j] = kF32 ? x[j] / den : bf16_round(x[j] / den);
   bar_sync(kPairBar, kConsumers);
 }
 
@@ -1125,8 +1242,8 @@ __device__ void vecmat(const float* x, bool round_x, const bf16* W, int n_in,
 // bf16(q2) . ce / 16, the softmax, z2 = sum_j bf16(w2_j) jl_j and
 // z = bf16(z2 + 2 z1). The per-ray sums are warp-parallel reductions into
 // comb and fbuf, which the next tile overwrites, and which are zeroed
-// after.
-template <int kMode>
+// after. kF32: f32 weights (not rounded), z and at_wt.
+template <int kMode, bool kF32>
 __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
                          Ring& ring, int w, int unit, const bf16* scr_jl,
                          const bf16* scr_ce) {
@@ -1141,17 +1258,17 @@ __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
   float* red8 = u + Kp;
   float* red = reinterpret_cast<float*>(sm.comb);
   bar_sync(kPairBar, kConsumers);  // the ray's logits, jl and ce are there
-  softmax_bf16(logit, n, red8);
+  softmax<kF32>(logit, n, red8);
   for (int j = t; j < n; j += kConsumers) {
     const int v = j >= p.P;
-    p.wt[((size_t)(b * 2 + v) * p.R + r) * p.P + (j - v * p.P)] =
-        __float2bfloat16(logit[j]);
+    store1<kF32>(p.wt, ((size_t)(b * 2 + v) * p.R + r) * p.P + (j - v * p.P),
+                 logit[j]);
   }
   weighted_sum(scr_jl, logit, n, p.O, red, ldr, z1);
-  bf16* z_out = p.z + (size_t)unit * p.O;
+  const size_t z_out = (size_t)unit * p.O;
   if (!p.repeat) {
     for (int c = t; c < p.O; c += kConsumers)
-      z_out[c] = __float2bfloat16(z1[c]);
+      store1<kF32>(p.z, z_out + c, z1[c]);
   } else {
     const Vec<kMode>* elb = sm.vsm + p.v_q + 2 * Kp;
     const Vec<kMode>* qr1b = elb + Kp;
@@ -1167,7 +1284,7 @@ __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
       const int n_live = min(kRows, p.P - sub * kRows);
       const int j0 = v * p.P + sub * kRows;
       uint32_t la[4];
-      load_lc(p, m0, n_live, la);
+      load_lc<kF32>(p, m0, n_live, la);
       float lg[2] = {0.f, 0.f};
       query_mlp(
           p, ring, la, [&](int col) { return make_float2(u[col], u[col + 1]); },
@@ -1177,10 +1294,10 @@ __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
       store_logits(lg, j0, n_live, logit);
     }
     bar_sync(kPairBar, kConsumers);  // the round-2 logits are there
-    softmax_bf16(logit, n, red8);
+    softmax<kF32>(logit, n, red8);
     weighted_sum(scr_jl, logit, n, p.O, red, ldr, z2);
     for (int c = t; c < p.O; c += kConsumers)
-      z_out[c] = __float2bfloat16(z2[c] + 2.f * z1[c]);
+      store1<kF32>(p.z, z_out + c, z2[c] + 2.f * z1[c]);
   }
   // Padding columns of comb and the f rows are read again by products with
   // zero weights, so they must not keep f32 bits.
@@ -1189,7 +1306,7 @@ __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
   fence_proxy_async();
 }
 
-template <int kMode, bool kWide>
+template <int kMode, bool kWide, bool kF32>
 __global__ void __launch_bounds__(kThreads, 1)
     exchange_core_kernel(const CoreArgs p) {
   using V = Vec<kMode>;
@@ -1262,16 +1379,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int b = unit / p.R, r = unit - b * p.R;
         for (int k = 0; k < 2 * p.tv; ++k) {
           const int v = k / p.tv, sub = k - v * p.tv;
-          run_tile<kMode, kWide>(p, sm, ring, w,
-                                 ((b * 2 + v) * p.R + r) * p.P + sub * kRows,
-                                 min(kRows, p.P - sub * kRows), v,
-                                 v * p.P + sub * kRows, scr_jl, scr_ce);
+          run_tile<kMode, kWide, kF32>(
+              p, sm, ring, w, ((b * 2 + v) * p.R + r) * p.P + sub * kRows,
+              min(kRows, p.P - sub * kRows), v, v * p.P + sub * kRows,
+              scr_jl, scr_ce);
         }
-        ray_tail<kMode>(p, sm, ring, w, unit, scr_jl, scr_ce);
+        ray_tail<kMode, kF32>(p, sm, ring, w, unit, scr_jl, scr_ce);
       } else {
         const int m0 = unit * kRows;
-        run_tile<kMode, kWide>(p, sm, ring, w, m0, min(kRows, p.M - m0), 0,
-                               0, nullptr, nullptr);
+        run_tile<kMode, kWide, kF32>(p, sm, ring, w, m0,
+                                     min(kRows, p.M - m0), 0, 0, nullptr,
+                                     nullptr);
       }
     }
   }
@@ -1287,7 +1405,7 @@ inline int fill_levels(CoreArgs& a, int n_levels, void* const* tables,
   *F = 0;
   for (int l = 0; l < kMaxLevels; ++l) {
     const bool used = l < n_levels;
-    a.table[l] = used ? static_cast<const bf16*>(tables[l]) : nullptr;
+    a.table[l] = used ? tables[l] : nullptr;
     a.cells[l] = used ? static_cast<const int32_t*>(cells[l]) : nullptr;
     a.channels[l] = used ? channels[l] : 0;
     if (used && (channels[l] <= 0 || channels[l] % 8 != 0))
@@ -1372,8 +1490,9 @@ inline int fill_sizes(CoreArgs& a, int mode, int S, int M, int F, int H1,
 // grid blocks of scr_stride bytes: K4's 2P * (O + K) * 2, plus with the
 // 'global' plan (nkbF + nkbf) * 8 KB. info receives the launch's (grid,
 // stage slots, shared bytes, threads a block, cluster x, y, z, plan:
-// 0 'smem', 1 'global').
-template <int kMode>
+// 0 'smem', 1 'global'). kF32: the f32 instantiation (f32 inputs and
+// outputs, the same shared memory).
+template <int kMode, bool kF32>
 int launch_core(CoreArgs& a, int* info, void* stream,
                 long long scratch_bytes) {
   int device = 0, optin = 0, n_sm = 0;
@@ -1422,8 +1541,8 @@ int launch_core(CoreArgs& a, int* info, void* stream,
       a.scr_wide0 + (a.wide ? (long long)(a.nkbF + a.nkbf) * kKBlock : 0);
   if (scratch_bytes < (long long)grid * a.scr_stride)
     return (int)cudaErrorInvalidValue;
-  const auto kernel = a.wide ? exchange_core_kernel<kMode, true>
-                             : exchange_core_kernel<kMode, false>;
+  const auto kernel = a.wide ? exchange_core_kernel<kMode, true, kF32>
+                             : exchange_core_kernel<kMode, false, kF32>;
   const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;

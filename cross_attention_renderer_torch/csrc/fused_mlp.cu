@@ -30,29 +30,53 @@
 
 #include "exchange_core.cuh"
 
+namespace {
+
+template <bool kF32>
+int launch_mlp(const void* x1, const void* x2, const void* stages,
+               long long stage_bytes, const void* vecs, void* out, int M,
+               int K1, int H, int O, void* scratch, long long scratch_bytes,
+               int* info, void* stream) {
+  using namespace exchange_core;
+  CoreArgs a = {};
+  a.x = x1;
+  a.x2 = x2;
+  a.stages = static_cast<const unsigned char*>(stages);
+  a.vecs = static_cast<const float*>(vecs);
+  a.jl = out;
+  a.scratch = static_cast<unsigned char*>(scratch);
+  const int err = fill_sizes(a, kMlp, 1, M, K1, H, O, 0, stage_bytes, 0, 0,
+                             0, 0);
+  if (err) return err;
+  return launch_core<kMlp, kF32>(a, info, stream, scratch_bytes);
+}
+
+}  // namespace
+
 // x1: (M, K1), x2: (M, 3), out: (M, O) bf16, contiguous; stages
 // (stage_bytes) and vecs: the prepared weights (layout_mlp in
 // ops/gather_epilogue.py: W1b (3, H rounded up to 64) | b1 | b2 (O rounded
 // up to 96), f32). scratch: scratch_bytes of device memory, which the
 // 'global' plan needs (launch_core; null and 0 do for the 'smem' plan).
 // info (8 ints) receives the launch's shape and plan, as launch_core gives
-// them. Returns a cudaError_t code.
+// them. Returns a cudaError_t code. fused_mlp2_f32 takes the same with f32
+// x1, x2 and out (exchange_core.cuh, "Element types").
 extern "C" int fused_mlp2_bf16(const void* x1, const void* x2,
                                const void* stages, long long stage_bytes,
                                const void* vecs, void* out, int M, int K1,
                                int H, int O, void* scratch,
                                long long scratch_bytes, int* info,
                                void* stream) {
-  using namespace exchange_core;
-  CoreArgs a = {};
-  a.x = static_cast<const bf16*>(x1);
-  a.x2 = static_cast<const bf16*>(x2);
-  a.stages = static_cast<const unsigned char*>(stages);
-  a.vecs = static_cast<const float*>(vecs);
-  a.jl = static_cast<bf16*>(out);
-  a.scratch = static_cast<unsigned char*>(scratch);
-  const int err = fill_sizes(a, kMlp, 1, M, K1, H, O, 0, stage_bytes, 0, 0,
-                             0, 0);
-  if (err) return err;
-  return launch_core<kMlp>(a, info, stream, scratch_bytes);
+  return launch_mlp<false>(x1, x2, stages, stage_bytes, vecs, out, M, K1, H,
+                           O, scratch, scratch_bytes, info, stream);
+}
+
+extern "C" int fused_mlp2_f32(const void* x1, const void* x2,
+                              const void* stages, long long stage_bytes,
+                              const void* vecs, void* out, int M, int K1,
+                              int H, int O, void* scratch,
+                              long long scratch_bytes, int* info,
+                              void* stream) {
+  return launch_mlp<true>(x1, x2, stages, stage_bytes, vecs, out, M, K1, H,
+                          O, scratch, scratch_bytes, info, stream);
 }

@@ -51,6 +51,42 @@
 
 #include "exchange_core.cuh"
 
+namespace {
+
+template <bool kF32>
+int launch_render(int n_levels, void* const* tables, void* const* cells,
+                  const int* channels, const void* aux_self,
+                  const void* aux_cross, const void* lc, const void* stages,
+                  long long stage_bytes, const void* vecs, const void* mats,
+                  void* scratch, long long scratch_bytes, void* z, void* wt,
+                  int B, int R, int P, int F, int H1, int O, int K,
+                  int repeat, int* info, void* stream) {
+  using namespace exchange_core;
+  CoreArgs a = {};
+  int F_sum = 0;
+  int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
+  if (err) return err;
+  if (F_sum != F) return (int)cudaErrorInvalidValue;
+  a.aux[0] = aux_self;
+  a.aux[1] = aux_cross;
+  a.lc = lc;
+  a.stages = static_cast<const unsigned char*>(stages);
+  a.vecs = static_cast<const float*>(vecs);
+  a.mats = static_cast<const bf16*>(mats);
+  a.scratch = static_cast<unsigned char*>(scratch);
+  a.z = z;
+  a.wt = wt;
+  a.rp = R * P;
+  const long long M = (long long)B * 2 * R * P;
+  if (M > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  err = fill_sizes(a, kRender, 2, (int)M, F, H1, O, K, stage_bytes, B, R, P,
+                   repeat);
+  if (err) return err;
+  return launch_core<kRender, kF32>(a, info, stream, scratch_bytes);
+}
+
+}  // namespace
+
 // tables[l]: (rows_l, 4 * channels[l]) bf16; cells[l]: (2M,) int32, the
 // self stream's rows then the cross stream's, M = B * 2 * R * P;
 // aux_self, aux_cross, lc: (M, 16) bf16; stages (stage_bytes), vecs and
@@ -59,7 +95,9 @@
 // 2 (grid: min(B * R, SMs)), and with the 'global' plan grid * (nkbF +
 // nkbf) * 8 KB more (launch_core). z: (B, R, O), wt: (B, 2, R, P) bf16.
 // All contiguous. info (8 ints) receives the launch's shape and plan, as
-// launch_core gives them. Returns a cudaError_t code.
+// launch_core gives them. Returns a cudaError_t code. fused_render_core_f32
+// takes the same with f32 tables, aux, lc, z and wt (exchange_core.cuh,
+// "Element types"; mats stays bf16).
 extern "C" int fused_render_core_bf16(
     int n_levels, void* const* tables, void* const* cells,
     const int* channels, const void* aux_self, const void* aux_cross,
@@ -67,26 +105,21 @@ extern "C" int fused_render_core_bf16(
     const void* vecs, const void* mats, void* scratch,
     long long scratch_bytes, void* z, void* wt, int B, int R, int P, int F,
     int H1, int O, int K, int repeat, int* info, void* stream) {
-  using namespace exchange_core;
-  CoreArgs a = {};
-  int F_sum = 0;
-  int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
-  if (err) return err;
-  if (F_sum != F) return (int)cudaErrorInvalidValue;
-  a.aux[0] = static_cast<const bf16*>(aux_self);
-  a.aux[1] = static_cast<const bf16*>(aux_cross);
-  a.lc = static_cast<const bf16*>(lc);
-  a.stages = static_cast<const unsigned char*>(stages);
-  a.vecs = static_cast<const float*>(vecs);
-  a.mats = static_cast<const bf16*>(mats);
-  a.scratch = static_cast<unsigned char*>(scratch);
-  a.z = static_cast<bf16*>(z);
-  a.wt = static_cast<bf16*>(wt);
-  a.rp = R * P;
-  const long long M = (long long)B * 2 * R * P;
-  if (M > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  err = fill_sizes(a, kRender, 2, (int)M, F, H1, O, K, stage_bytes, B, R, P,
-                   repeat);
-  if (err) return err;
-  return launch_core<kRender>(a, info, stream, scratch_bytes);
+  return launch_render<false>(n_levels, tables, cells, channels, aux_self,
+                              aux_cross, lc, stages, stage_bytes, vecs, mats,
+                              scratch, scratch_bytes, z, wt, B, R, P, F, H1,
+                              O, K, repeat, info, stream);
+}
+
+extern "C" int fused_render_core_f32(
+    int n_levels, void* const* tables, void* const* cells,
+    const int* channels, const void* aux_self, const void* aux_cross,
+    const void* lc, const void* stages, long long stage_bytes,
+    const void* vecs, const void* mats, void* scratch,
+    long long scratch_bytes, void* z, void* wt, int B, int R, int P, int F,
+    int H1, int O, int K, int repeat, int* info, void* stream) {
+  return launch_render<true>(n_levels, tables, cells, channels, aux_self,
+                             aux_cross, lc, stages, stage_bytes, vecs, mats,
+                             scratch, scratch_bytes, z, wt, B, R, P, F, H1, O,
+                             K, repeat, info, stream);
 }

@@ -32,6 +32,36 @@
 
 #include "exchange_core.cuh"
 
+namespace {
+
+template <bool kF32>
+int launch_pair(int n_levels, void* const* tables, void* const* cells,
+                const int* channels, const void* aux_self,
+                const void* aux_cross, const void* stages,
+                long long stage_bytes, const void* vecs, void* jl, void* kv,
+                int M, int F, int H1, int O, int K, int rp, void* scratch,
+                long long scratch_bytes, int* info, void* stream) {
+  using namespace exchange_core;
+  CoreArgs a = {};
+  int F_sum = 0;
+  int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
+  if (err) return err;
+  if (F_sum != F || rp <= 0) return (int)cudaErrorInvalidValue;
+  a.aux[0] = aux_self;
+  a.aux[1] = aux_cross;
+  a.stages = static_cast<const unsigned char*>(stages);
+  a.vecs = static_cast<const float*>(vecs);
+  a.jl = jl;
+  a.kv = kv;
+  a.rp = rp;
+  a.scratch = static_cast<unsigned char*>(scratch);
+  err = fill_sizes(a, kPair, 2, M, F, H1, O, K, stage_bytes, 0, 0, 0, 0);
+  if (err) return err;
+  return launch_core<kPair, kF32>(a, info, stream, scratch_bytes);
+}
+
+}  // namespace
+
 // tables[l]: (rows_l, 4 * channels[l]) bf16; cells[l]: (2M,) int32, the
 // self stream's rows then the cross stream's; aux_self, aux_cross: (M, 16)
 // bf16; stages (stage_bytes) and vecs: the prepared weights
@@ -39,29 +69,29 @@
 // All contiguous. scratch: scratch_bytes of device memory, which the
 // 'global' plan needs (launch_core; null and 0 do for the 'smem' plan).
 // info (8 ints) receives the launch's shape and plan, as launch_core gives
-// them. Returns a cudaError_t code.
+// them. Returns a cudaError_t code. fused_exchange_epilogue_f32 takes the
+// same with f32 tables, aux, jl and kv (exchange_core.cuh, "Element
+// types").
 extern "C" int fused_exchange_epilogue_bf16(
     int n_levels, void* const* tables, void* const* cells,
     const int* channels, const void* aux_self, const void* aux_cross,
     const void* stages, long long stage_bytes, const void* vecs, void* jl,
     void* kv, int M, int F, int H1, int O, int K, int rp, void* scratch,
     long long scratch_bytes, int* info, void* stream) {
-  using namespace exchange_core;
-  const void* const aux[2] = {aux_self, aux_cross};
-  CoreArgs a = {};
-  int F_sum = 0;
-  int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
-  if (err) return err;
-  if (F_sum != F || rp <= 0) return (int)cudaErrorInvalidValue;
-  for (int s = 0; s < kMaxStreams; ++s)
-    a.aux[s] = s < 2 ? static_cast<const bf16*>(aux[s]) : nullptr;
-  a.stages = static_cast<const unsigned char*>(stages);
-  a.vecs = static_cast<const float*>(vecs);
-  a.jl = static_cast<bf16*>(jl);
-  a.kv = static_cast<bf16*>(kv);
-  a.rp = rp;
-  a.scratch = static_cast<unsigned char*>(scratch);
-  err = fill_sizes(a, kPair, 2, M, F, H1, O, K, stage_bytes, 0, 0, 0, 0);
-  if (err) return err;
-  return launch_core<kPair>(a, info, stream, scratch_bytes);
+  return launch_pair<false>(n_levels, tables, cells, channels, aux_self,
+                            aux_cross, stages, stage_bytes, vecs, jl, kv, M,
+                            F, H1, O, K, rp, scratch, scratch_bytes, info,
+                            stream);
+}
+
+extern "C" int fused_exchange_epilogue_f32(
+    int n_levels, void* const* tables, void* const* cells,
+    const int* channels, const void* aux_self, const void* aux_cross,
+    const void* stages, long long stage_bytes, const void* vecs, void* jl,
+    void* kv, int M, int F, int H1, int O, int K, int rp, void* scratch,
+    long long scratch_bytes, int* info, void* stream) {
+  return launch_pair<true>(n_levels, tables, cells, channels, aux_self,
+                           aux_cross, stages, stage_bytes, vecs, jl, kv, M,
+                           F, H1, O, K, rp, scratch, scratch_bytes, info,
+                           stream);
 }

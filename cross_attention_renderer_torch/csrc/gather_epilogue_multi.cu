@@ -33,6 +33,35 @@
 
 #include "exchange_core.cuh"
 
+namespace {
+
+template <bool kF32>
+int launch_streams(int n_levels, void* const* tables, void* const* cells,
+                   const int* channels, int S, const void* const* aux,
+                   const void* stages, long long stage_bytes,
+                   const void* vecs, void* jl, void* kv, int M, int F,
+                   int H1, int O, int K, void* scratch,
+                   long long scratch_bytes, int* info, void* stream) {
+  using namespace exchange_core;
+  CoreArgs a = {};
+  int F_sum = 0;
+  int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
+  if (err) return err;
+  if (F_sum != F || S < 2) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < kMaxStreams; ++s) a.aux[s] = s < S ? aux[s] : nullptr;
+  a.stages = static_cast<const unsigned char*>(stages);
+  a.vecs = static_cast<const float*>(vecs);
+  a.jl = jl;
+  a.kv = kv;
+  a.rp = 1;
+  a.scratch = static_cast<unsigned char*>(scratch);
+  err = fill_sizes(a, kStreams, S, M, F, H1, O, K, stage_bytes, 0, 0, 0, 0);
+  if (err) return err;
+  return launch_core<kStreams, kF32>(a, info, stream, scratch_bytes);
+}
+
+}  // namespace
+
 // tables[l]: (rows_l, 4 * channels[l]) bf16; cells[l]: (S*M,) int32,
 // stream-major; aux[s]: (M, 16) bf16 per stream, 2 <= S <= 4; stages
 // (stage_bytes) and vecs: the prepared weights (layout_stages in
@@ -40,28 +69,26 @@
 // scratch: scratch_bytes of device memory, which the 'global' plan needs
 // (launch_core; null and 0 do for the 'smem' plan). info (8 ints) receives
 // the launch's shape and plan, as launch_core gives them. Returns a
-// cudaError_t code.
+// cudaError_t code. fused_exchange_epilogue_multi_f32 takes the same with
+// f32 tables, aux, jl and kv (exchange_core.cuh, "Element types").
 extern "C" int fused_exchange_epilogue_multi_bf16(
     int n_levels, void* const* tables, void* const* cells,
     const int* channels, int S, const void* const* aux, const void* stages,
     long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
     int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
     int* info, void* stream) {
-  using namespace exchange_core;
-  CoreArgs a = {};
-  int F_sum = 0;
-  int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
-  if (err) return err;
-  if (F_sum != F || S < 2) return (int)cudaErrorInvalidValue;
-  for (int s = 0; s < kMaxStreams; ++s)
-    a.aux[s] = s < S ? static_cast<const bf16*>(aux[s]) : nullptr;
-  a.stages = static_cast<const unsigned char*>(stages);
-  a.vecs = static_cast<const float*>(vecs);
-  a.jl = static_cast<bf16*>(jl);
-  a.kv = static_cast<bf16*>(kv);
-  a.rp = 1;
-  a.scratch = static_cast<unsigned char*>(scratch);
-  err = fill_sizes(a, kStreams, S, M, F, H1, O, K, stage_bytes, 0, 0, 0, 0);
-  if (err) return err;
-  return launch_core<kStreams>(a, info, stream, scratch_bytes);
+  return launch_streams<false>(n_levels, tables, cells, channels, S, aux,
+                               stages, stage_bytes, vecs, jl, kv, M, F, H1,
+                               O, K, scratch, scratch_bytes, info, stream);
+}
+
+extern "C" int fused_exchange_epilogue_multi_f32(
+    int n_levels, void* const* tables, void* const* cells,
+    const int* channels, int S, const void* const* aux, const void* stages,
+    long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
+    int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
+    int* info, void* stream) {
+  return launch_streams<true>(n_levels, tables, cells, channels, S, aux,
+                              stages, stage_bytes, vecs, jl, kv, M, F, H1, O,
+                              K, scratch, scratch_bytes, info, stream);
 }

@@ -1,9 +1,13 @@
-"""Synthetic posed scenes for tests and the smoke run.
+"""Synthetic posed scenes for tests, the smoke run and the corpus writers.
 
-Port of ``make_scene``, ``look_at_cam2world`` and ``make_intrinsics`` of
-``cross_attention_renderer_tpu/data/synthetic.py``: the same numpy draws
-from the same seed, returned as torch tensors on the requested device, in
-the scene-dict layout the renderer consumes.
+Port of ``cross_attention_renderer_tpu/data/synthetic.py``: random scenes
+(:func:`make_scene`) and the analytic worlds, multi-view consistent
+renders of a textured plane (:func:`make_plane_scene`) or of textured
+rectangles floating over it (:func:`make_boxes_scene`). The same numpy
+draws and arithmetic from the same seed, returned as torch tensors on the
+requested device, in the scene-dict layout the renderer consumes.
+``_render_boxes`` and ``_world_rects`` also draw the frames of the corpus
+writers (``tools/make_corpus.py``, ``tools/make_co3d_corpus.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,156 @@ def make_intrinsics(H: int, W: int, focal_scale: float = 1.0) -> np.ndarray:
     k[0, 0] = k[1, 1] = 0.98 * H * focal_scale
     k[0, 2], k[1, 2] = W / 2.0, H / 2.0
     return k
+
+
+def _tensor(x, dtype, device):
+    return torch.tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+
+def _plane_color(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Deterministic multi-octave texture on the z=0 plane, range [-1, 1]:
+    a smooth base octave and two fine ones (periods ~40 px and ~12 px at the
+    256x256 operating distance), so that frames carry real high-frequency
+    content."""
+    r = np.sin(2.1 * x) * np.cos(1.3 * y)
+    g = np.sin(1.7 * x + 0.5) * np.sin(2.9 * y)
+    b = np.cos(1.1 * x * y + 1.0)
+    fine = (0.6 * np.sin(16.3 * x + 0.7) * np.cos(14.9 * y)
+            + 0.4 * np.sin(61.0 * x + 2.0 * y + 0.3)
+            * np.cos(57.0 * y - 3.0 * x))
+    fine2 = (0.6 * np.cos(15.1 * y - 1.1) * np.sin(17.7 * x)
+             + 0.4 * np.cos(63.0 * y + 1.7 * x) * np.sin(55.0 * x + 0.9))
+    base = np.stack([r, g, b], -1)
+    detail = np.stack([fine, fine2, 0.5 * (fine - fine2)], -1)
+    return 0.7 * base + 0.3 * detail
+
+
+def _render_plane(c2w: np.ndarray, K: np.ndarray, H: int, W: int
+                  ) -> np.ndarray:
+    """The textured z=0 plane rendered analytically from a camera."""
+    i, j = np.meshgrid(np.arange(W), np.arange(H), indexing='xy')
+    x = (i - K[0, 2]) / K[0, 0]
+    y = (j - K[1, 2]) / K[1, 1]
+    dirs_cam = np.stack([x, y, np.ones_like(x)], -1)
+    dirs = dirs_cam @ c2w[:3, :3].T
+    origin = c2w[:3, 3]
+    t = -origin[2] / np.where(np.abs(dirs[..., 2]) < 1e-6, 1e-6,
+                              dirs[..., 2])
+    pts = origin[None, None] + t[..., None] * dirs
+    rgb = _plane_color(pts[..., 0], pts[..., 1])
+    return np.where((t > 0)[..., None], rgb, -1.0)
+
+
+def _analytic_scene(render, seed: int, n_view: int, H: int, W: int,
+                    n_rays: int, dtype, device) -> dict:
+    """The scene dict of an analytic world; ``render(c2w) -> (H, W, 3)``
+    is a function of the world alone."""
+    rng = np.random.default_rng(seed)
+    K = make_intrinsics(H, W)
+
+    def cam(eye_seed):
+        r = np.random.default_rng(eye_seed)
+        eye = np.array([r.uniform(-0.6, 0.6), r.uniform(-0.6, 0.6),
+                        -2.0 + r.uniform(-0.3, 0.3)])
+        return look_at_cam2world(eye, np.array([0.0, 0.0, 0.0]),
+                                 up=(0.0, 1.0, 0.0))
+
+    ctx_c2w = np.stack([cam(1000 * seed + v) for v in range(n_view)])
+    qry_c2w = cam(1000 * seed + 777)[None]
+    ctx_rgb = np.stack([render(c) for c in ctx_c2w])
+    qry_img = render(qry_c2w[0])
+
+    i, j = np.meshgrid(np.arange(W), np.arange(H), indexing='xy')
+    uv_full = np.stack([i, j], -1).reshape(-1, 2).astype(np.float64)
+    rgb_full = qry_img.reshape(-1, 3)
+    if n_rays:
+        sel = rng.permutation(H * W)[:n_rays]
+        uv, gt = uv_full[sel], rgb_full[sel]
+    else:
+        uv, gt = uv_full, rgb_full
+
+    def f(x):
+        return _tensor(x, dtype, device)
+
+    return {
+        'context': {'rgb': f(ctx_rgb[None]),
+                    'cam2world': f(ctx_c2w[None]),
+                    'intrinsics': f(np.broadcast_to(K, (1, n_view, 4, 4)))},
+        'query': {'cam2world': f(qry_c2w[None]),
+                  'intrinsics': f(K[None, None]),
+                  'uv': f(uv[None, None]), 'rgb': f(gt[None, None]),
+                  'mask': torch.zeros((1,), dtype=dtype, device=device)},
+    }
+
+
+def make_plane_scene(seed: int, n_view: int = 2, H: int = 64, W: int = 64,
+                     n_rays: int = 0, dtype: torch.dtype = torch.float32,
+                     device='cuda') -> dict:
+    """A multi-view consistent scene: every view is an analytic render of
+    one textured plane, so a correct renderer can learn to synthesise
+    held-out views (unlike :func:`make_scene`'s noise)."""
+    K = make_intrinsics(H, W)
+    return _analytic_scene(lambda c: _render_plane(c, K, H, W), seed,
+                           n_view, H, W, n_rays, dtype, device)
+
+
+def _world_rects(seed: int, n_rects: int) -> list:
+    """The floating rectangles of one boxes world: (z, x0, x1, y0, y1,
+    texture shift), z in (-1.1, -0.25), between the cameras (z ~ -2) and
+    the base plane (z = 0)."""
+    r = np.random.default_rng(31 * seed + 7)
+    rects = []
+    for _ in range(n_rects):
+        z = float(r.uniform(-1.1, -0.25))
+        cx, cy = r.uniform(-0.9, 0.9, 2)
+        hw, hh = r.uniform(0.15, 0.55, 2)
+        shift = float(r.uniform(0.0, 20.0))
+        rects.append((z, cx - hw, cx + hw, cy - hh, cy + hh, shift))
+    return rects
+
+
+def _render_boxes(c2w: np.ndarray, K: np.ndarray, H: int, W: int,
+                  rects: list) -> np.ndarray:
+    """The textured base plane with textured rectangles floating over it
+    at several depths (occlusion, depth discontinuities), rendered
+    analytically from a camera; the nearest hit wins."""
+    i, j = np.meshgrid(np.arange(W), np.arange(H), indexing='xy')
+    x = (i - K[0, 2]) / K[0, 0]
+    y = (j - K[1, 2]) / K[1, 1]
+    dirs = np.stack([x, y, np.ones_like(x)], -1) @ c2w[:3, :3].T
+    origin = c2w[:3, 3]
+    dz = np.where(np.abs(dirs[..., 2]) < 1e-6, 1e-6, dirs[..., 2])
+
+    t_base = -origin[2] / dz
+    base_hit = t_base > 0
+    pts = origin[None, None] + t_base[..., None] * dirs
+    rgb = np.where(base_hit[..., None],
+                   _plane_color(pts[..., 0], pts[..., 1]), -1.0)
+    best_t = np.where(base_hit, t_base, np.inf)
+
+    for (z, x0, x1, y0, y1, shift) in rects:
+        t_k = (z - origin[2]) / dz
+        p = origin[None, None] + t_k[..., None] * dirs
+        hit = ((t_k > 1e-6) & (t_k < best_t)
+               & (p[..., 0] >= x0) & (p[..., 0] <= x1)
+               & (p[..., 1] >= y0) & (p[..., 1] <= y1))
+        rgb = np.where(hit[..., None],
+                       _plane_color(p[..., 0] + shift, p[..., 1] - shift),
+                       rgb)
+        best_t = np.where(hit, t_k, best_t)
+    return rgb
+
+
+def make_boxes_scene(seed: int, n_view: int = 2, H: int = 64, W: int = 64,
+                     n_rays: int = 0, n_rects: int = 4,
+                     dtype: torch.dtype = torch.float32,
+                     device='cuda') -> dict:
+    """A multi-view consistent world with occlusion: ``n_rects`` floating
+    textured rectangles over the textured base plane."""
+    K = make_intrinsics(H, W)
+    rects = _world_rects(seed, n_rects)
+    return _analytic_scene(lambda c: _render_boxes(c, K, H, W, rects), seed,
+                           n_view, H, W, n_rays, dtype, device)
 
 
 def make_scene(seed: int, batch: int = 1, n_view: int = 2, H: int = 64,
@@ -62,8 +216,7 @@ def make_scene(seed: int, batch: int = 1, n_view: int = 2, H: int = 64,
         gt = rng.uniform(-1, 1, (batch, 1, n_rays, 3))
 
     def f(x):
-        return torch.tensor(np.ascontiguousarray(x), dtype=dtype,
-                            device=device)
+        return _tensor(x, dtype, device)
 
     return {
         'context': {'rgb': f(rgb), 'cam2world': f(ctx_c2w),

@@ -51,8 +51,9 @@ def epipolar_attention(query: torch.Tensor, key: torch.Tensor,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Joint-softmax attention; see the module docstring.
 
-    CPU tensors take the plain version. CUDA tensors must be bf16 and
-    contiguous; they launch the kernel, and anything else raises."""
+    CPU tensors take the plain version. CUDA tensors must be contiguous and
+    all bf16 or all f32; they launch the kernel's instantiation of that
+    type (outputs in it too), and anything else raises."""
     if query.device.type == 'cpu':
         return epipolar_attention_reference(query, key, value)
     return kernel_call(_launch, epipolar_attention_reference, query, key,
@@ -62,14 +63,21 @@ def epipolar_attention(query: torch.Tensor, key: torch.Tensor,
 epipolar_attention.launches = 0   # kernel launches, for the chip smoke test
 
 
+ENTRY = {torch.bfloat16: 'epipolar_attention_bf16',
+         torch.float32: 'epipolar_attention_f32'}
+
+
 def _launch(query, key, value):
     B, V, R, P, D = query.shape
     C = value.shape[-1]
+    dt = value.dtype
+    if dt not in ENTRY:
+        raise ValueError(f'epipolar_attention: bf16 or f32 inputs, got {dt}')
     for name, t, shape in (('query', query, (B, V, R, P, D)),
                            ('key', key, (B, V, R, P, D)),
                            ('value', value, (B, V, R, P, C))):
-        if t.device != query.device or t.dtype != torch.bfloat16:
-            raise ValueError(f'epipolar_attention: {name} must be bf16 on '
+        if t.device != query.device or t.dtype != dt:
+            raise ValueError(f'epipolar_attention: {name} must be {dt} on '
                              f'{query.device}, got {t.dtype} on {t.device}')
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f'epipolar_attention: {name} must be a '
@@ -82,7 +90,7 @@ def _launch(query, key, value):
     out = torch.empty((B, R, C), dtype=value.dtype, device=value.device)
     at_wt = torch.empty((B, V, R, P), dtype=value.dtype, device=value.device)
     lib = _build.load('epipolar_attention')
-    fn = lib.epipolar_attention_bf16
+    fn = getattr(lib, ENTRY[dt])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])

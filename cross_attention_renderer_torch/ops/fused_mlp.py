@@ -47,11 +47,13 @@ def fused_mlp2(x1: Tensor, x2: Tensor, w1a: Tensor, w1b: Tensor, b1: Tensor,
       w1a: (K1, H); w1b: (K2, H); b1: (H,); w2: (H, O); b2: (O,).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
-    which takes x1 bf16 and contiguous with K1 % 16 == 0, x2 contiguous
-    (M, 3) in bf16, H % 16 == 0 and O % 8 == 0 (at any width a renderer
+    which takes x1 bf16 or f32 and contiguous with K1 % 16 == 0, x2
+    contiguous (M, 3) in x1's type (the output too), H % 16 == 0 and O % 8 == 0 (at any width a renderer
     has; ``gather_epilogue.check_core_widths``); anything else raises. The kernel rounds its inputs as the
     TPU kernel does: x2 and the weight matrices to bf16, biases kept in f32,
-    the hidden layer rounded to bf16 before the second product. The weights
+    the hidden layer rounded to bf16 before the second product; f32 x1 is
+    rounded to bf16 on its way to the products (``csrc/exchange_core.cuh``,
+    "Element types"). The weights
     are laid out once per set of parameter tensors, or views of them
     (``gather_epilogue.prepared_mlp``)."""
     if x1.device.type == 'cpu':
@@ -68,7 +70,7 @@ fused_mlp2.last_plan = None
 
 
 def _launch(x1, x2, w1a, w1b, b1, w2, b2):
-    dev, dt = x1.device, torch.bfloat16
+    dev, dt = x1.device, x1.dtype
     M, K1 = x1.shape
     H, O = w1a.shape[1], w2.shape[1]
 
@@ -76,11 +78,11 @@ def _launch(x1, x2, w1a, w1b, b1, w2, b2):
         if not cond:
             raise ValueError(f'fused_mlp2: {msg}')
 
-    require(x1.dtype == dt and x1.is_contiguous() and x1.data_ptr() % 16 == 0
-            and K1 % 16 == 0 and M > 0, 'x1 must be contiguous aligned '
-            'bf16, K1 % 16 == 0')
+    require(dt in GE.CORE_TYPES and x1.is_contiguous()
+            and x1.data_ptr() % 16 == 0 and K1 % 16 == 0 and M > 0,
+            'x1 must be contiguous aligned bf16 or f32, K1 % 16 == 0')
     require(x2.device == dev and x2.dtype == dt and x2.is_contiguous()
-            and tuple(x2.shape) == (M, 3), f'x2 must be contiguous bf16 '
+            and tuple(x2.shape) == (M, 3), f'x2 must be contiguous {dt} '
             f'({M}, 3) on {dev}')
     require(tuple(w1a.shape) == (K1, H) and tuple(w1b.shape) == (3, H)
             and tuple(w2.shape) == (H, O) and H % 16 == 0 and O % 8 == 0,
@@ -90,7 +92,7 @@ def _launch(x1, x2, w1a, w1b, b1, w2, b2):
     scratch = GE.core_scratch('mlp', 1, K1, H, O, 0, -(-M // 64), dev)
     out = torch.empty((M, O), dtype=dt, device=dev)
 
-    fn = _build.load('fused_mlp').fused_mlp2_bf16
+    fn = GE.core_entry('fused_mlp', 'fused_mlp2', dt)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4

@@ -155,8 +155,9 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
       B, R, P: batch, rays, samples per view; M = B * 2 * R * P.
       repeat: run round 2 and return ``z2 + 2 z1``; else ``z1``.
 
-    CPU tensors take the plain version. CUDA tensors must be bf16 (cells
-    int32) and contiguous, any B, R and P (up to what a block's shared
+    CPU tensors take the plain version. CUDA tensors must be contiguous,
+    tables, aux and local_coords all bf16 or all f32 (cells int32; outputs
+    in that type), any B, R and P (up to what a block's shared
     memory holds of the ray's 2P logits) and any width a renderer has
     (``gather_epilogue.check_core_widths``); they launch the kernel, and
     anything else raises. The weights are laid out once per set of
@@ -183,7 +184,7 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
     levels, (M, F, H1, O, K) = GE._checked_args(
         what, tables, cells, (aux_self, aux_cross), params[:10])
     (qe1, qe1b, qe2, qe2b) = params[10:14]
-    dev, dt = aux_self.device, torch.bfloat16
+    dev, dt = aux_self.device, aux_self.dtype
     shapes = [tuple(qe1.shape) == (16, K), tuple(qe2.shape) == (K, K)]
     if repeat:
         el, elb, qr1, qr1b, qr2, qr2b = params[14:20]
@@ -196,7 +197,7 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
             or not lc.is_contiguous() or lc.data_ptr() % 16):
         raise ValueError(f'{what}: M = {M} samples must be B*2*R*P with '
                          f'(B, R, P) = {(B, R, P)}, local_coords a '
-                         f'contiguous bf16 ({M}, 16) on {dev}, and the '
+                         f'contiguous {dt} ({M}, 16) on {dev}, and the '
                          'query weights (16, K), (K, K) and with repeat '
                          '(O, K), (K+16, K), (K, K)')
     GE.check_core_widths(what, 'render', 2, F, H1, O, K, P)
@@ -206,7 +207,7 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
     scratch = GE.core_scratch('render', 2, F, H1, O, K, B * R, dev, P)
     z = torch.empty((B, R, O), dtype=dt, device=dev)
     at_wt = torch.empty((B, 2, R, P), dtype=dt, device=dev)
-    fn = _build.load('fused_render').fused_render_core_bf16
+    fn = GE.core_entry('fused_render', 'fused_render_core', dt)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 3

@@ -118,8 +118,10 @@ def fused_exchange_epilogue(tables: Sequence[Tensor],
       params: as :func:`_reference`.
       rp: R * P, the per-(batch, view) sample count.
 
-    CPU tensors take the plain version. CUDA tensors must be bf16 (cells
-    int32) and contiguous; they launch the kernel, and anything else
+    CPU tensors take the plain version. CUDA tensors must be contiguous,
+    tables and aux all bf16 or all f32 (cells int32); they launch the
+    kernel's instantiation of that type (``csrc/exchange_core.cuh``,
+    "Element types"), which writes its outputs in it, and anything else
     raises."""
     if aux_self.device.type == 'cpu':
         return fused_exchange_epilogue_reference(tables, cells, aux_self,
@@ -436,16 +438,29 @@ def _scratch_args(scratch: Tensor | None) -> tuple[int | None, int]:
     return scratch.data_ptr(), scratch.numel()
 
 
+# The element types the exchange core is instantiated for, and the suffix
+# of their entry points.
+CORE_TYPES = {torch.bfloat16: 'bf16', torch.float32: 'f32'}
+
+
+def core_entry(lib: str, name: str, dtype: torch.dtype):
+    """Entry point ``name`` of kernel library ``lib`` for inputs of
+    ``dtype`` (``<name>_bf16`` or ``<name>_f32``)."""
+    return getattr(_build.load(lib), f'{name}_{CORE_TYPES[dtype]}')
+
+
 def _checked_args(what, tables, cells, aux, params):
     """Checks the kernels' inputs and packs the launch arguments shared by
-    K2, K3 and K4: (level arrays, (M, F, H1, O, K)). Raises ValueError on
-    what the kernels do not take."""
+    K2, K3 and K4: (level arrays, (M, F, H1, O, K)). Tables and aux are
+    all bf16 or all f32 (``CORE_TYPES``). Raises ValueError on what the
+    kernels do not take."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f'{what}: {msg}')
 
     (w1, b1, w2, b2, lv, lv_bias, km, km_bias, k2, k2_bias) = params
-    dev, dt = aux[0].device, torch.bfloat16
+    dev, dt = aux[0].device, aux[0].dtype
+    require(dt in CORE_TYPES, f'bf16 or f32 inputs, got {dt}')
     S, M = len(aux), aux[0].shape[0]
     channels = [t.shape[-1] // 4 for t in tables]
     F, H1 = sum(channels), w1.shape[1]
@@ -457,14 +472,14 @@ def _checked_args(what, tables, cells, aux, params):
     for t, c in zip(tables, cells):
         require(t.device == dev and t.dtype == dt and t.is_contiguous()
                 and t.shape[-1] % 32 == 0 and t.data_ptr() % 16 == 0,
-                f'tables must be contiguous bf16 on {dev}, 4C % 32 == 0')
+                f'tables must be contiguous {dt} on {dev}, 4C % 32 == 0')
         require(c.device == dev and c.dtype == torch.int32
                 and c.is_contiguous() and tuple(c.shape) == (S * M,),
                 f'cells must be contiguous int32 ({S * M},) on {dev}')
     for a in aux:
         require(a.device == dev and a.dtype == dt and a.is_contiguous()
                 and tuple(a.shape) == (M, 16) and a.data_ptr() % 16 == 0,
-                f'aux must be contiguous bf16 ({M}, 16) on {dev}')
+                f'aux must be contiguous {dt} ({M}, 16) on {dev}')
     n = len(tables)
     levels = ((ctypes.c_void_p * n)(*[t.data_ptr() for t in tables]),
               (ctypes.c_void_p * n)(*[c.data_ptr() for c in cells]),
@@ -487,10 +502,10 @@ def _core_args(what, mode, tables, cells, aux, params):
 
 
 def _outputs(aux, sizes):
-    """Empty (jl (M, O), kv (M, K)) bf16 for K2 and K3."""
+    """Empty (jl (M, O), kv (M, K)) in aux's type for K2 and K3."""
     M, _, _, O, K = sizes
-    return (torch.empty((M, O), dtype=torch.bfloat16, device=aux.device),
-            torch.empty((M, K), dtype=torch.bfloat16, device=aux.device))
+    return (torch.empty((M, O), dtype=aux.dtype, device=aux.device),
+            torch.empty((M, K), dtype=aux.dtype, device=aux.device))
 
 
 def _launch(tables, cells, aux_self, aux_cross, params, rp):
@@ -498,7 +513,8 @@ def _launch(tables, cells, aux_self, aux_cross, params, rp):
         'fused_exchange_epilogue', 'pair', tables, cells,
         (aux_self, aux_cross), params)
     jl, kv = _outputs(aux_self, sizes)
-    fn = _build.load('gather_epilogue').fused_exchange_epilogue_bf16
+    fn = core_entry('gather_epilogue', 'fused_exchange_epilogue',
+                    aux_self.dtype)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
@@ -570,9 +586,10 @@ def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
         :func:`fused_exchange_epilogue`.
       params: as :func:`_reference_multi`.
 
-    CPU tensors take the plain version. CUDA tensors must be bf16 (cells
-    int32) and contiguous, with 2 to 4 streams; they launch the kernel, and
-    anything else raises."""
+    CPU tensors take the plain version. CUDA tensors must be contiguous,
+    tables and aux all bf16 or all f32 (cells int32), with 2 to 4 streams;
+    they launch the kernel's instantiation of that type, and anything else
+    raises."""
     if aux_list[0].device.type == 'cpu':
         return fused_exchange_epilogue_multi_reference(tables, cells,
                                                        aux_list, params)
@@ -594,8 +611,8 @@ def _launch_multi(tables, cells, aux_list, params):
         'fused_exchange_epilogue_multi', 'streams', tables, cells, aux_list,
         params)
     jl, kv = _outputs(aux_list[0], sizes)
-    fn = _build.load(
-        'gather_epilogue_multi').fused_exchange_epilogue_multi_bf16
+    fn = core_entry('gather_epilogue_multi', 'fused_exchange_epilogue_multi',
+                    aux_list[0].dtype)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]

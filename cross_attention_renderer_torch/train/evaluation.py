@@ -2,9 +2,10 @@
 per scene, and the reference's per-scene metrics.
 
 Port of ``make_chunk_renderer``, ``render_full_image``,
-``make_scan_renderer``, ``make_image_renderer`` (its dense renderer) and
-``evaluate_scene`` of ``cross_attention_renderer_tpu/train/evaluation.py``
-(reference eval protocol, eval_realestate10k.py:131-199). PyTorch runs
+``make_scan_renderer``, ``make_summary_renderer``, ``make_image_renderer``
+(its dense renderer) and ``evaluate_scene`` of
+``cross_attention_renderer_tpu/train/evaluation.py`` (reference eval
+protocol, eval_realestate10k.py:131-199). PyTorch runs
 eagerly, so the JAX ``lax.scan`` over ray blocks is a Python loop; the
 packed cell tables, where the model reads them, are still built once per
 image. The parameters live in the model, so no entry point takes them.
@@ -76,6 +77,41 @@ def make_scan_renderer(model, n_chunks: int) -> Callable:
             return out['rgb'], out['valid_mask']
 
         return render_full_image(render_chunk, scene, z, uv_full, n_chunks)
+
+    return render_image
+
+
+def make_summary_renderer(model, n_chunks: int) -> Callable:
+    """Whole-image renderer that also returns the per-ray fields the
+    training summaries read: ``fn(scene, z, uv_full) -> model output dict``
+    with the entries of one forward over all rays, rgb (B, Q, R, 3),
+    valid_mask and depth_ray (B, R, 1), at_wt (B, V, R, P) and pixel_val
+    (B, V, R, P, 2) (JAX ``make_summary_renderer``,
+    evaluation.py:130-173). The rays render in ``n_chunks`` blocks, with
+    the cell tables, where the model reads them, packed once per image as
+    :func:`make_scan_renderer` packs them."""
+    keys = ('rgb', 'valid_mask', 'depth_ray', 'at_wt', 'pixel_val')
+    # the axis along which each field's rays lie
+    ray_axis = {'rgb': 2, 'valid_mask': 1, 'depth_ray': 1, 'at_wt': 2,
+                'pixel_val': 2}
+
+    @torch.inference_mode()
+    def render_image(scene, z, uv_full):
+        n_rays = uv_full.shape[2]
+        if n_rays % n_chunks:
+            raise ValueError(f'{n_chunks} chunks do not divide {n_rays} '
+                             'rays')
+        size = n_rays // n_chunks
+        zp = pack_pyramid(z) if model.uses_packed_tables else None
+        parts = {k: [] for k in keys}
+        for i in range(n_chunks):
+            s = dict(scene)
+            s['query'] = dict(scene['query'],
+                              uv=uv_full[:, :, i * size:(i + 1) * size])
+            out = model(s, z=z, z_packed=zp)
+            for k in keys:
+                parts[k].append(out[k])
+        return {k: torch.cat(v, dim=ray_axis[k]) for k, v in parts.items()}
 
     return render_image
 

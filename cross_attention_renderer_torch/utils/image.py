@@ -14,6 +14,17 @@ import functools
 import numpy as np
 import torch
 
+def imageio_v2(purpose: str):
+    """``imageio.v2``; raises an ImportError saying that ``purpose`` needs
+    it where the package is not installed (the card machine has none)."""
+    try:
+        import imageio.v2 as imageio
+    except ImportError as e:
+        raise ImportError(f'{purpose} needs the imageio package, which is '
+                          'not installed') from e
+    return imageio
+
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 

@@ -42,18 +42,19 @@ OUT = ROOT / 'cross_attention_renderer_torch' / 'build' / 'ablation'
 LIBS = ('gather_epilogue', 'gather_epilogue_multi', 'fused_mlp',
         'fused_render')
 
-NO_GATHER = ('    if (row >= 0) {\n      const bf16* src',
-             '    if (row < -1) {\n      const bf16* src')
-NO_ROWS = ('    if (r < n_live) val = ldg_row(',
-           '    if (r < -1) val = ldg_row(')
+NO_GATHER = ('    if (row >= 0 && kF32) {', '    if (row < -1 && kF32) {')
+NO_GATHER_BF16 = ('    } else if (row >= 0) {\n      const bf16* src',
+                  '    } else if (row < -1) {\n      const bf16* src')
+NO_ROWS = ('    if (r < n_live)\n      val = load8<kF32, true>(',
+           '    if (r < -1)\n      val = load8<kF32, true>(')
 NO_COPY = ('    mbar_expect_tx(full + 8 * idx, bytes);\n'
            '    bulk_copy(slots + idx * kLargeStage, p.stages + off, bytes,\n'
            '              full + 8 * idx);',
            '    mbar_arrive(full + 8 * idx);')
 FORCE_GLOBAL = ('  if ((size_t)a.nkb_tiles * kKBlock < red ||',
                 '  if (true ||')
-VARIANTS = {'no_gather': [NO_GATHER, NO_ROWS],
-            'no_copy': [NO_GATHER, NO_ROWS, NO_COPY],
+VARIANTS = {'no_gather': [NO_GATHER, NO_GATHER_BF16, NO_ROWS],
+            'no_copy': [NO_GATHER, NO_GATHER_BF16, NO_ROWS, NO_COPY],
             'global': [FORCE_GLOBAL]}
 
 

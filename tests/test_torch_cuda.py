@@ -421,14 +421,201 @@ def test_kernels_count_launches(dev):
 
 
 def test_kernels_refuse_f32(dev):
+    """The kernels take all-bf16 or all-f32 inputs (their two
+    instantiations): f32 mixed with bf16, and f16, are refused."""
     q = torch.zeros(1, 2, 8, 4, 8, device=dev)
-    with pytest.raises(ValueError):
-        EA.epipolar_attention(q, q, q)
+    for args in ((q, q, q.bfloat16()), (q.bfloat16(), q, q),
+                 (q.half(), q.half(), q.half())):
+        with pytest.raises(ValueError):
+            EA.epipolar_attention(*args)
     tables, cells, a_s, a_c, lc, params = _render_case(
         dev, (32, 32, 16), 80, 40, 16, (4, 8, 16), 1, 3, 4)
     with pytest.raises(ValueError):
-        FR.fused_render_core([t.float() for t in tables], cells, a_s.float(),
-                             a_c.float(), lc.float(), params, 1, 3, 4, True)
+        FR.fused_render_core([t.float() for t in tables], cells, a_s,
+                             a_c, lc, params, 1, 3, 4, True)
+    with pytest.raises(ValueError):
+        FR.fused_render_core(tables, cells, a_s.float(), a_c.float(),
+                             lc.float(), params, 1, 3, 4, True)
+    with pytest.raises(ValueError):
+        GE.fused_exchange_epilogue([t.half() for t in tables], cells,
+                                   a_s.half(), a_c.half(), params[:10], 12)
+
+
+# f32 inputs (an f32 model's): each kernel's f32 instantiation against its
+# plain version in f32. The kernel rounds its f32 operands to bf16 on their
+# way into the products (csrc/exchange_core.cuh, "Element types"; K1 keeps
+# f32 throughout), where the plain version multiplies in f32, so the
+# tolerances are the bf16 tests' above. Shapes: the flagship widths
+# (fusion_features 256, 'smem' plan), and fusion_features 384 and 512,
+# where K2, K3 and K4 (at 512) take the 'global' plan.
+def _f32_case(dev, key, ff):
+    def f32(t):
+        return tuple(f32(x) for x in t) if isinstance(t, tuple) else (
+            t.float() if t.is_floating_point() else t)
+
+    channels, H1, O, K = (ff, ff, 64), 2 * ff + 64, ff + 32, 128
+    hw = (8, 16, 32)
+    if key == 'K1':
+        g = torch.Generator().manual_seed(0)
+        q, k, v = (torch.randn(1, 2, 300, 64, d, generator=g).to(dev)
+                   for d in (128, 128, O))
+        return (EA.epipolar_attention, EA.epipolar_attention_reference,
+                (q, k, v), {0: 2 ** -7, 1: 2 ** -8})
+    if key == 'K2':
+        t, c, (a_s, a_c), prm = _epilogue_case(dev, channels, H1, O, K, 2,
+                                               hw, 3 * 64 + 37)
+        return (GE.fused_exchange_epilogue,
+                GE.fused_exchange_epilogue_reference,
+                f32((t, c, a_s, a_c, prm)) + (100,), {0: 2 ** -5, 1: 2 ** -5})
+    if key == 'K3':
+        t, c, aux, prm = _epilogue_case(dev, channels, H1, O, K, 3, hw,
+                                        3 * 64 + 5, S=3, seed=1)
+        return (GE.fused_exchange_epilogue_multi,
+                GE.fused_exchange_epilogue_multi_reference,
+                f32((t, c, aux, prm)), {0: 2 ** -5, 1: 2 ** -5})
+    if key == 'K4':
+        case = _render_case(dev, channels, H1, O, K, hw, 1, 5, 64)
+        return (FR.fused_render_core, FR.fused_render_core_reference,
+                f32(case) + (1, 5, 64, True), {0: 2 ** -5, 1: 2 ** -8})
+    rng = np.random.default_rng(2)
+    M = 64 * 3 + 9
+    lecun = lambda i, o: rng.standard_normal((i, o)) / np.sqrt(i)
+    w1 = lecun(H1 + 3, H1)
+    arrays = (rng.standard_normal((M, H1)), rng.uniform(-1, 1, (M, 3)),
+              w1[:H1], w1[H1:], 0.1 * rng.standard_normal(H1),
+              lecun(H1, O), 0.1 * rng.standard_normal(O))
+    return (FM.fused_mlp2, FM.fused_mlp2_reference,
+            tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in arrays), {0: 2 ** -5})
+
+
+@pytest.mark.parametrize('ff', [256, 384, 512])
+@pytest.mark.parametrize('key', ['K1', 'K2', 'K3', 'K4', 'K9'])
+def test_f32_kernels_against_plain_f32(dev, key, ff):
+    """Each f32 instantiation launches (one counted launch), returns f32
+    outputs of the plain version's shapes, finite, within the stated
+    fraction of max(1, max |plain|) (K1's and K4's weights within an
+    absolute 2^-8)."""
+    fn, plain, args, tols = _f32_case(dev, key, ff)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if hasattr(fn, 'last_plan'):
+        print(f'{key} ff={ff}: plan {fn.last_plan}')
+    for i, tol in tols.items():
+        g, w = got[i], want[i]
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        bound = tol if (key, i) in (('K1', 1), ('K4', 1)) else (
+            tol * _scale(w))
+        err = _max_err(g, w)
+        print(f'{key} ff={ff} output {i}: max err {err:.3e} (tol '
+              f'{bound:.3e})')
+        assert err <= bound, (key, ff, i, err, bound)
+
+
+# A narrow f32 model renders on every forward path on the card, through
+# that path's kernels in f32, within 0.1 of max(1, max |rgb|) of its f32
+# render on the CPU (the plain versions): chip_smoke.py's small-input gate.
+# NARROW (below) is the model's size.
+F32_PATHS = {
+    'v2': (dict(), {'epipolar_attention': 2, 'fused_exchange_epilogue': 1}),
+    'v2_fused_render': (dict(fused_render=True), {'fused_render_core': 1}),
+    'v3': (dict(n_view=3), {'epipolar_attention': 2,
+                            'fused_exchange_epilogue_multi': 1}),
+    'v3_compat': (dict(n_view=3, reference_exchange_compat=True,
+                       fused_mlp=True),
+                  {'epipolar_attention': 2, 'fused_mlp2': 9}),
+    'v2_sorted': (dict(sorted_stream=True), {'resident_gather': 6,
+                                             'epipolar_attention': 2}),
+    'v3_sorted': (dict(n_view=3, sorted_stream=True),
+                  {'resident_gather': 6, 'epipolar_attention': 2}),
+    'v3_compat_onehot': (dict(n_view=3, reference_exchange_compat=True,
+                              fused_mlp=True, gather='onehot'),
+                         {'onehot_gather': 6, 'epipolar_attention': 2,
+                          'fused_mlp2': 9}),
+    # every level of the narrow 64x64 model is small enough for K8
+    'v3_compat_banded': (dict(n_view=3, reference_exchange_compat=True,
+                              fused_mlp=True, gather='banded'),
+                         {'banded_gather': 6, 'epipolar_attention': 2,
+                          'fused_mlp2': 9}),
+}
+
+
+@pytest.mark.parametrize('path', sorted(F32_PATHS))
+def test_f32_model_renders_on_every_path(dev, path):
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models.renderer import (
+        CrossAttentionRenderer)
+    kw, want_launches = F32_PATHS[path]
+    n_view = kw.get('n_view', 2)
+    wrappers = {w.__name__: w for w in (
+        EA.epipolar_attention, GE.fused_exchange_epilogue,
+        GE.fused_exchange_epilogue_multi, FR.fused_render_core,
+        FM.fused_mlp2, SG.resident_gather, PG.onehot_gather,
+        BG.banded_gather)}
+    ref = CrossAttentionRenderer(seed=1, device='cpu', **NARROW, **kw)
+    model = CrossAttentionRenderer(dtype=torch.float32, seed=1, device=dev,
+                                   **NARROW, **kw)
+    s_cpu = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512,
+                       device='cpu')
+    s_dev = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512, device=dev)
+    with torch.inference_mode():
+        want = ref(s_cpu)['rgb']
+        for w in wrappers.values():
+            w.launches = 0
+        got = model(s_dev)['rgb']
+        torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    assert launches == want_launches, launches
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = _max_err(got.cpu(), want)
+    print(f'{path}: f32 card render vs f32 CPU render, max err {err:.3e}')
+    assert err <= 0.1 * _scale(want)
+
+
+def test_f32_train_step_kernel_route(dev, monkeypatch):
+    """A narrow f32 model's train step through the kernels
+    (CAR_TRAIN_KERNELS=1: K2 and 2 K1 in f32) against the default route
+    from the same parameters and batch: losses within 2^-5 relative, each
+    gradient as in the bf16 route test."""
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models.renderer import (
+        CrossAttentionRenderer)
+    from cross_attention_renderer_torch.train import trainer as T
+    scene = make_scene(1, batch=2, H=64, W=64, n_rays=256, device=dev)
+    cfg = T.TrainConfig(clip_norm=1e9)
+    runs = {}
+    for route in ('default', 'kernels'):
+        monkeypatch.setenv('CAR_TRAIN_KERNELS',
+                           '1' if route == 'kernels' else '0')
+        model = CrossAttentionRenderer(dtype=torch.float32, seed=1,
+                                       device=dev, **NARROW)
+        state = T.create_train_state(model, cfg)
+        k1, k2 = EA.epipolar_attention, GE.fused_exchange_epilogue
+        before = (k1.launches, k2.launches)
+        _, m = T.make_train_step(model, cfg)(state, scene)
+        torch.cuda.synchronize()
+        launches = (k1.launches - before[0], k2.launches - before[1])
+        assert launches == ((2, 1) if route == 'kernels' else (0, 0))
+        runs[route] = (float(m['total_loss']),
+                       {n: p.grad.float() for n, p in
+                        model.named_parameters()})
+    (loss_d, g_d), (loss_k, g_k) = runs['default'], runs['kernels']
+    total = float(sum(g.norm() ** 2 for g in g_d.values())) ** 0.5
+    errs = {name: float((g_k[name] - g).norm()) / max(float(g.norm()),
+                                                      1e-3 * total)
+            for name, g in g_d.items()}
+    worst = max(errs, key=errs.get)
+    print(f'narrow f32 train step, kernel vs default route: loss '
+          f'{abs(loss_k - loss_d) / abs(loss_d):.3e} relative, worst '
+          f'gradient {worst} {errs[worst]:.3e}')
+    assert abs(loss_k - loss_d) <= 2 ** -5 * abs(loss_d)
+    assert errs[worst] <= 0.25, (worst, errs[worst])
 
 
 # The row-gather probes' instantiations (T1-T13): (entry point, options,
