@@ -8,7 +8,8 @@ no result):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every CUDA kernel from ``cross_attention_renderer_torch/
      csrc`` with one ``nvcc`` each, all at once, and prints what ``ptxas -v``
-     says of the exchange core's four instantiations, K2, K3, K9 and K4
+     says of the exchange core's instantiations, K2, K3, K9 and K4 (each
+     in both plans and types, and K2, K3 and K4 with int8 tables too)
      (registers, barriers, spills, any note of serialised wgmma), and of
      the row gathers' (the copy and bulk gathers of T1-T5, T7-T10, T12,
      T13, and the block fill of T6 and T11) and the bilinear gather's
@@ -120,10 +121,25 @@ no result):
      and 8 K2 or K3 launches an image), each run's first scene against
      ``evaluate_scene`` of the same model and scene;
  22. ``cli/train.py`` at its defaults (f32, batch 12, 192 rays) for 3
-     steps from the same corpus: finite losses, the final checkpoint.
+     steps from the same corpus: finite losses, the final checkpoint;
+ 23. fast evaluation: ``make_fast_renderer`` (``train/evaluation.py``) with
+     each lever alone (pruned 16,24 and 8,16; narrow 128,128,64; q8) and
+     the CLI's ``--fast`` composition on the V=2, V=2 fused render and V=3
+     default paths of the flagship in bf16, and q8 on the f32 flagship,
+     each image driven as phase 3 drives it (per image: pruned 24 K1 and
+     16 K2, or 16 K4, or 24 K1 and 16 K3; the other levers as dense),
+     beside the dense image of the same model; the q8 image against the
+     dense image of the dequantized pyramid and narrow at the full widths
+     against the dense image (the path-vs-path tolerance); K2, K3 and K4's
+     int8 instantiations, with bf16 and with f32 slot weights, against
+     their plain versions at the flagship's shapes and at the pruned
+     shapes of ``--fast``, and K1, K2, K3 and K4 at the pruned renderer's
+     shapes (both passes), each timed.
 Then it prints the ``train`` JSON line (phases 17-19), the ``cli`` line
-(phases 21-22), the ``kernels`` JSON line (K1-K9 and their f32
-instantiations, T1-T13), the card line and, last, the result line.
+(phases 21-22), the ``fast_eval`` line (phase 23: each image's ms, rays/s
+and device busy, each path's launches), the ``kernels`` JSON line (K1-K9,
+their f32 and int8 instantiations, T1-T13), the card line and, last, the
+result line.
 """
 
 from __future__ import annotations
@@ -182,6 +198,20 @@ RGB_LAYER_SCALE = 1.0 / 64
 SMALL = dict(npoints=16, fusion_features=32, vit_width=64, vit_depth=2,
              vit_heads=2, resnet_layers=(1, 1, 1))
 PATH_B = dict(reference_exchange_compat=True, fused_mlp=True)
+# Phase 23, fast evaluation: each lever of train/evaluation.py's fast
+# renderer alone (the JAX tools' pruned 16,24, the CLI preset's pruned
+# 8,16, narrow 128,128,64, q8) and the CLI's --fast composition, on the
+# paths with a packed-table exchange.
+FAST_LEVERS = (('pruned 16,24', dict(pruned=(16, 24))),
+               ('pruned 8,16', dict(pruned=(8, 16))),
+               ('narrow 128,128,64', dict(narrow=(128, 128, 64))),
+               ('q8', dict(q8=True)),
+               ('fast', dict(pruned=(8, 16), narrow=(128, 128, 64),
+                             q8=True)))
+FAST_PATHS = (('V=2', dict(npoints=64), 'fused_exchange_epilogue'),
+              ('V=2 fused render', dict(npoints=64, fused_render=True),
+               'fused_render_core'),
+              ('V=3', dict(n_view=3), 'fused_exchange_epilogue_multi'))
 # Training phases (17-19). The kernel route against the default route of
 # the same flagship step: both run in bf16 from the same parameters, the
 # kernel route's forward through K2 and K1 (f32 until each product's
@@ -368,19 +398,25 @@ def check_gather(label, kernel, cases, out_dtype):
                        'plan': r[6]} for c, r in zip(cases, rows)]}
 
 
-def drive(label, model, scene, RM, counted, expected, capture=None):
-    """Renders the full image through ``make_scan_renderer`` with the launch
-    counters of ``counted`` ({name: kernel wrapper}) set to 0 just before
-    and read just after, and checks the image. Then times encode and the
-    whole image and profiles one image. Records the arguments of the first
-    ``n`` calls of each ``capture`` entry ({key: (module, name, n)}; by
-    default the first call of every counted kernel the renderer module
-    calls). Returns the recorded arguments, the launches and the image."""
+def drive(label, model, scene, RM, counted, expected, capture=None,
+          render_image=None, times=None, timed=True):
+    """Renders the full image through ``render_image`` (by default
+    ``make_scan_renderer``'s) with the launch counters of ``counted``
+    ({name: kernel wrapper}) set to 0 just before and read just after, and
+    checks the image. Then, where ``timed``, times encode and the whole
+    image and profiles one image; ``times`` (a dict), where given,
+    receives the image's ms, rays/s and the profiled image's wall and
+    device busy ms. Records the
+    arguments of the first ``n`` calls of each ``capture`` entry ({key:
+    (module, name, n)}; by default the first call of every counted kernel
+    the renderer module calls). Returns the recorded arguments, the
+    launches and the image."""
     import torch
     from cross_attention_renderer_torch.train.evaluation import (
         make_scan_renderer)
     uv_full = scene['query']['uv']
-    render_image = make_scan_renderer(model, N_BLOCKS)
+    if render_image is None:
+        render_image = make_scan_renderer(model, N_BLOCKS)
     if capture is None:
         capture = {name: (RM, name, 1) for name in counted
                    if hasattr(RM, name)}
@@ -421,6 +457,8 @@ def drive(label, model, scene, RM, counted, expected, capture=None):
                            f'{valid_frac}')
     log(f'{label} image: rgb in [{lo:.4f}, {hi:.4f}], valid fraction '
         f'{valid_frac:.4f}')
+    if not timed:
+        return captured, launches, rgb
 
     V = scene['context']['rgb'].shape[1]
     with torch.inference_mode():
@@ -437,8 +475,12 @@ def drive(label, model, scene, RM, counted, expected, capture=None):
         f'{model.n_samples} samples, {str(model.dtype)[6:]})')
 
     with torch.inference_mode():
-        profile_device(f'{label} profile of one image',
-                       lambda: render_image(scene, z, uv_full))
+        profiled = profile_device(f'{label} profile of one image',
+                                  lambda: render_image(scene, z, uv_full))
+    if times is not None:
+        times.update(image_ms=image_s * 1e3, rays_per_s=H * W / image_s,
+                     profiled_wall_ms=profiled['wall_ms'],
+                     device_busy_ms=profiled['device_busy_ms'])
     return captured, launches, rgb
 
 
@@ -1110,6 +1152,192 @@ def f32_paths(RM, EA, GE, FR, FM, make_scene, dev, attention, epilogue,
     return by_path, out
 
 
+def fast_launches(exchange, lever):
+    """The launches per image of the fast renderer with ``lever`` (its
+    keywords) on the path whose exchange is ``exchange``: the pruned
+    renderer runs a coarse pass without round 2 (one K1, or one K4 without
+    it) and the fine pass per ray block."""
+    pruned = lever.get('pruned') is not None
+    if exchange == 'fused_render_core':
+        return {'fused_render_core': (2 if pruned else 1) * N_BLOCKS,
+                'epipolar_attention': 0, 'fused_exchange_epilogue': 0}
+    out = {'epipolar_attention': (3 if pruned else 2) * N_BLOCKS,
+           exchange: (2 if pruned else 1) * N_BLOCKS}
+    if exchange == 'fused_exchange_epilogue':
+        out['fused_render_core'] = 0
+    return out
+
+
+# Where aux and the local coordinates sit in K2's, K3's and K4's
+# arguments.
+F32_ARGS = {'fused_exchange_epilogue': (2, 3),
+            'fused_exchange_epilogue_multi': (2,),
+            'fused_render_core': (2, 3, 4)}
+
+
+def as_f32(exchange, args):
+    """A core kernel's captured arguments with aux and the local
+    coordinates in f32 (tables, cells, weights and sizes as they are): the
+    inputs of its f32 instantiation."""
+    args = list(args)
+    for i in F32_ARGS[exchange]:
+        args[i] = (tuple(a.float() for a in args[i])
+                   if isinstance(args[i], (tuple, list)) else args[i].float())
+    return tuple(args)
+
+
+def check_core(key, GE, FR, args, label):
+    """K2, K3 or K4 (``key``) against its plain version on ``args``."""
+    if key == 'fused_render_core':
+        log(f'{label}:')
+        return check_render_core(FR, args)
+    if key == 'fused_exchange_epilogue':
+        return check_epilogue(label, GE.fused_exchange_epilogue,
+                              GE.fused_exchange_epilogue_reference, args,
+                              args[2:4], args[4], K2_TOL)
+    return check_epilogue(label, GE.fused_exchange_epilogue_multi,
+                          GE.fused_exchange_epilogue_multi_reference, args,
+                          args[2], args[3], K3_TOL)
+
+
+def fast_eval(RM, EA, GE, FR, make_scene, dev, counted):
+    """Phase 23: ``make_fast_renderer`` at full width (seed-0 weights,
+    ``make_scene(0)``) on the V=2, V=2 fused render and V=3 default paths
+    in bf16, with each lever of FAST_LEVERS, each image driven as phase 3
+    drives it (the launch counts of ``fast_launches``) beside the dense
+    image of the same model; the f32 model with q8 on the same paths
+    (launches and kernels checked, not timed). The
+    q8 image equals the dense image of the dequantized pyramid (q * s),
+    narrow at the full widths equals the dense image, within PATH_TOL.
+    Each kernel's int8 instantiations (bf16 and f32 slot weights) against
+    their plain versions at the flagship's shapes (q8) and at the pruned
+    shapes (--fast, narrow), and K1, K2, K3 and K4 at the pruned renderer's
+    shapes. Returns (launches by path, times by path and mode, the checks'
+    numbers by kernel)."""
+    import torch
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_fast_renderer)
+    by_path, times = {}, {}
+    numbers = {'K1': {}, 'pruned': {}, 'int8': {}, 'int8_f32': {}}
+    for path, kw, exchange in FAST_PATHS:
+        V = kw.get('n_view', 2)
+        scene = make_scene(0, n_view=V, H=H, W=W, n_rays=H * W,
+                           full_image=True, device=dev)
+        uv = scene['query']['uv']
+        names = ['epipolar_attention', exchange] + (
+            ['fused_exchange_epilogue', 'fused_render_core'] if V == 2
+            else [])
+        cnt = {n: counted[n] for n in dict.fromkeys(names)}
+        key = path.replace('=', '').replace(' ', '_').lower()
+        for dtype in (torch.bfloat16, torch.float32):
+            model = flagship(RM, dev, dtype, **kw)
+            levers = FAST_LEVERS if dtype == torch.bfloat16 else (
+                ('q8', dict(q8=True)),)
+            suffix = '' if dtype == torch.bfloat16 else ' f32'
+            if dtype == torch.bfloat16:
+                t = times.setdefault(f'{path} dense', {})
+                _, by_path[f'fast_{key}_dense'], rgb_dense = drive(
+                    f'{path} dense', model, scene, RM, cnt,
+                    fast_launches(exchange, {}), capture={}, times=t)
+            for name, lever in levers:
+                label = f'{path} {name}{suffix}'
+                capture = {exchange: (RM, exchange, 2)}
+                if exchange != 'fused_render_core':
+                    capture['epipolar_attention'] = (
+                        RM, 'epipolar_attention', 2)
+                # the f32 runs check the kernels; the levers' times are
+                # the bf16 model's
+                timed = dtype == torch.bfloat16
+                captured, launches, rgb = drive(
+                    label, model, scene, RM, cnt,
+                    fast_launches(exchange, lever), capture=capture,
+                    render_image=make_fast_renderer(model, N_BLOCKS,
+                                                    **lever),
+                    times=times.setdefault(label, {}) if timed else None,
+                    timed=timed)
+                if dtype == torch.float32:
+                    check_dtype(f'{label} image', (rgb,), dtype)
+                tag = name.replace(' ', '_').replace(',', '_')
+                by_path[f'fast_{key}_{tag}{suffix.replace(" ", "_")}'] = (
+                    launches)
+                calls = captured[exchange]
+                if dtype == torch.float32:
+                    numbers['int8_f32'].setdefault(exchange, {})[path] = (
+                        check_core(exchange, GE, FR, calls[0],
+                                   f'{label}: {exchange} int8 f32'))
+                elif name == 'q8':
+                    numbers['int8'].setdefault(exchange, {})[path] = (
+                        check_core(exchange, GE, FR, calls[0],
+                                   f'{label}: {exchange} int8'))
+                    check_q8_image(label, model, scene, rgb, RM)
+                elif name == 'fast':
+                    for i, when in enumerate(('coarse', 'fine')):
+                        shape = f'{path} {when}'
+                        numbers['int8'].setdefault(
+                            f'{exchange} pruned', {})[shape] = check_core(
+                                exchange, GE, FR, calls[i],
+                                f'{label} {when}: {exchange} int8')
+                        numbers['int8_f32'].setdefault(
+                            f'{exchange} pruned', {})[shape] = check_core(
+                                exchange, GE, FR,
+                                as_f32(exchange, calls[i]),
+                                f'{label} {when}: {exchange} int8 f32')
+                elif name.startswith('pruned'):
+                    for i, when in enumerate(('coarse', 'fine')):
+                        shape = f'{path} {name} {when}'
+                        numbers['pruned'].setdefault(exchange, {})[
+                            shape] = check_core(exchange, GE, FR, calls[i],
+                                                f'{label} {when}: {exchange}')
+                        if exchange != 'fused_render_core':
+                            numbers['K1'][shape] = check_attention(
+                                shape, EA,
+                                *captured['epipolar_attention'][i])
+                else:
+                    # every level at its full width passes unchanged
+                    with torch.inference_mode():
+                        z = model.encode(scene)
+                    rgb_full, _ = make_fast_renderer(
+                        model, N_BLOCKS,
+                        narrow=tuple(f.shape[-1] for f in z))(scene, z, uv)
+                    check_paths(f'{path} narrow at the full widths vs dense',
+                                PATH_TOL, rgb_full, rgb_dense)
+                del captured, calls, rgb
+                torch.cuda.empty_cache()
+            del model
+            torch.cuda.empty_cache()
+        for label in [k for k in times if k.startswith(path)]:
+            t = times[label]
+            log(f'fast {label}: {t["image_ms"]:.1f} ms an image, '
+                f'{t["rays_per_s"]:.1f} rays/s, device busy '
+                f'{t["device_busy_ms"]:.1f} ms of a profiled '
+                f'{t["profiled_wall_ms"]:.1f} ms')
+        del scene, rgb_dense
+    return by_path, times, numbers
+
+
+def check_q8_image(label, model, scene, rgb_q8, RM):
+    """The q8 image against the dense image of the same model rendered from
+    the dequantized pyramid q * s (train/evaluation.py:quantize_pyramid's
+    int8 levels and scales), within PATH_TOL: the scales' fold into W1 is
+    the only difference."""
+    import torch
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_scan_renderer, quantize_pyramid)
+    with torch.inference_mode():
+        z = model.encode(scene)
+    z_q, _ = quantize_pyramid(model, z)
+    z_deq = []
+    for x, q in zip(z, z_q):
+        x = x.float()
+        s = torch.clamp(x.abs().amax(dim=tuple(range(x.ndim - 1))) / 127.0,
+                        min=1e-8)
+        z_deq.append((q.float() * s).to(model.dtype))
+    rgb_deq, _ = make_scan_renderer(model, N_BLOCKS)(
+        scene, tuple(z_deq), scene['query']['uv'])
+    check_paths(f'{label} vs dense on the dequantized pyramid', PATH_TOL,
+                rgb_q8, rgb_deq)
+
+
 def check_cli(dev, build_dir, counted_v2, counted_v3, by_path, extra=()):
     """Phases 21-22: the port's CLI as a user runs it, with its defaults
     (the 122M model in f32, 64 samples at V=2 and 48 at V=3, 8 ray blocks,
@@ -1534,6 +1762,29 @@ def main() -> int:
     print(json.dumps({'cli': dict(cli, card=card)}), flush=True)
     torch.cuda.empty_cache()
 
+    # -- 23. fast evaluation -------------------------------------------------
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fast_paths, fast_times, fast = fast_eval(
+            RM, EA, GE, FR, make_scene, dev,
+            dict([attention, epilogue, epilogue_multi, render_core]))
+    log(f'fast-eval phase: {time.perf_counter() - t0:.1f} s')
+    print(json.dumps({'fast_eval': {'card': card, 'images': fast_times,
+                                    'launches': fast_paths}}), flush=True)
+    torch.cuda.empty_cache()
+    # Its launches by instantiation: bf16 tables (dense, pruned, narrow),
+    # int8 tables beside bf16 (q8, fast) and beside f32 (the f32 model).
+    fast_f32 = {p: n for p, n in fast_paths.items() if p.endswith('_f32')}
+    fast_i8 = {p: n for p, n in fast_paths.items()
+               if p not in fast_f32 and ('_q8' in p or '_fast' in p)}
+    fast_bf16 = {p: n for p, n in fast_paths.items()
+                 if p not in fast_f32 and p not in fast_i8}
+    k1['pruned'] = fast['K1']
+    for key, numbers in (('fused_exchange_epilogue', k2),
+                         ('fused_exchange_epilogue_multi', k3),
+                         ('fused_render_core', k4)):
+        numbers['pruned'] = fast['pruned'][key]
+
     kernels = []
     for (name, _), numbers, source, replaces in (
             (attention, k1, 'epipolar_attention.cu',
@@ -1548,7 +1799,10 @@ def main() -> int:
             (onehot, k7, 'bilinear_gather.cu', 'ops/pallas_gather.py:70'),
             (banded, k8, 'bilinear_gather.cu',
              'ops/experimental/banded_gather.py:106')):
-        paths = {p: n[name] for p, n in by_path.items() if n.get(name)}
+        fast_runs = dict(fast_bf16, **(fast_i8 if name == attention[0]
+                                       else {}))
+        paths = {p: n[name] for p, n in dict(by_path, **fast_runs).items()
+                 if n.get(name)}
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': f'cross_attention_renderer_torch/csrc/{source}',
@@ -1567,7 +1821,10 @@ def main() -> int:
              'ops/experimental/fused_mlp.py:77'),
             (render_core, k_f32['K4'], 'fused_render.cu',
              'ops/fused_render.py:349')):
-        paths = {p: n[name] for p, n in by_path_f32.items() if n.get(name)}
+        fast_runs = fast_f32 if name == attention[0] else {}
+        paths = {p: n[name] for p, n in dict(by_path_f32,
+                                              **fast_runs).items()
+                 if n.get(name)}
         kernels.append({
             'name': f'{name}_f32', 'route': 'cuda',
             'source': f'cross_attention_renderer_torch/csrc/{source}',
@@ -1575,6 +1832,24 @@ def main() -> int:
             'launches': sum(paths.values()), 'launches_by_path': paths,
             'backward': 'the plain version, recomputed (ops/_autograd.py)',
             'library_ms': None, **numbers})
+    for (name, _), source, replaces in (
+            (epilogue, 'gather_epilogue.cu', 'ops/gather_epilogue.py:220'),
+            (epilogue_multi, 'gather_epilogue_multi.cu',
+             'ops/gather_epilogue.py:421'),
+            (render_core, 'fused_render.cu', 'ops/fused_render.py:349')):
+        for suffix, runs, numbers in (('_i8', fast_i8, fast['int8']),
+                                      ('_i8_f32', fast_f32,
+                                       fast['int8_f32'])):
+            paths = {p: n[name] for p, n in runs.items() if n.get(name)}
+            (flagship_numbers,) = numbers[name].values()
+            kernels.append({
+                'name': f'{name}{suffix}', 'route': 'cuda',
+                'source': f'cross_attention_renderer_torch/csrc/{source}',
+                'replaces': f'cross_attention_renderer_tpu/{replaces}',
+                'launches': sum(paths.values()), 'launches_by_path': paths,
+                'backward': 'none: int8 tables take no gradient',
+                'library_ms': None, **flagship_numbers,
+                'pruned': numbers[f'{name} pruned']})
     kernels += probes
     for kern in kernels:
         log(f'{kern["name"]}: {kern["ms"]:.3f} ms, plain '

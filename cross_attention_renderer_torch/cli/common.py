@@ -5,8 +5,9 @@ the same defaults (``--dtype float32`` among them), plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the plain versions of the kernels
 on the CPU). What the port does not have yet is refused where it is asked
 for: ``--model resnet|unet``, the four ablation flags and ``--views``
-outside 2-3 raise in :func:`build_model` (ROADMAP.md Queue A 5), and the
-fast-eval flags parse and then raise in ``make_image_renderer`` (Queue A 6).
+outside 2-3 raise in :func:`build_model` (ROADMAP.md Queue A 5). The
+fast-eval flags (``--pruned``, ``--narrow``, ``--q8``, ``--fast``) select
+``train/evaluation.py``'s fast renderers, with JAX's defaults.
 """
 
 from __future__ import annotations
@@ -65,8 +66,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument('--device', type=str, default='cuda',
                    help="where the model runs: 'cuda' (the default) or "
                         "'cpu'")
-    # fast-eval levers (eval/traj only; not ported yet: they parse, and
-    # make_image_renderer refuses them)
+    # fast-eval levers (eval/traj only; their images differ from the
+    # reference protocol's)
     p.add_argument('--pruned', type=str, default=None, metavar='C,F',
                    help='coarse-to-fine fast-eval sampling: C coarse + F '
                         'attention-guided fine samples instead of the '

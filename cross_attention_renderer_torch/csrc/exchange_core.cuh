@@ -103,6 +103,18 @@
 // the same widths); only the cell rows' gather moves twice the bytes (a
 // 16-byte chunk of comb is two 16-byte loads of each corner's row, 4C f32
 // being 16 C bytes, a multiple of 128 for C % 8 == 0).
+//
+// Table types (template kI8). K2, K3 and K4 also take int8 cell tables
+// (the quantized pyramid of fast evaluation, train/evaluation.py
+// quantize_pyramid), in both instantiations above: aux, the local
+// coordinates and the outputs stay bf16 or f32, and only the cell rows are
+// int8. A 16-byte chunk of comb (8 columns) is one 8-byte load of each
+// corner's row (4C int8 being 4 C bytes, a multiple of 32), its values
+// converted exactly (|q| <= 127 fits bf16's 8 bits of mantissa); they are
+// combined as that instantiation combines float rows: in bf16, each product
+// and partial sum rounded (the bf16 one), or in f32 with comb rounded once
+// (kF32). The dequantization scales are folded into W1 by the caller, so
+// the kernel does nothing else differently. K9 reads no table.
 
 #pragma once
 
@@ -285,6 +297,62 @@ __device__ __forceinline__ uint4 combine_f32(const float* src, int C,
                     pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7]));
 }
 
+// 8 bytes of an int8 table row, past L1 (as ldg_row).
+__device__ __forceinline__ uint2 ldg_row8(const void* p) {
+  uint2 v;
+  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p));
+  return v;
+}
+
+// Element e (0-7) of eight int8 values in two words, as f32 (exact).
+__device__ __forceinline__ float i8_at(const uint2& x, int e) {
+  const uint32_t w = e < 4 ? x.x : x.y;
+  return (float)(int)(int8_t)(w >> (8 * (e & 3)));
+}
+
+// The int8 tables' combine of one 8-column chunk: the four corners' rows
+// (C apart, one 8-byte load each, past L1), converted exactly, times their
+// bf16 slot weights w, summed in corner order: in f32 and rounded to bf16
+// once (kF32), else in bf16 with each product and sum rounded, as the bf16
+// rows' combine.
+template <bool kF32>
+__device__ __forceinline__ uint4 combine_i8(const int8_t* src, int C,
+                                            const bf16* w) {
+  uint2 x[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x[k] = ldg_row8(src + k * C);
+  if (kF32) {
+    float a[8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float wk = __bfloat162float(w[k]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float term = wk * i8_at(x[k], e);
+        a[e] = k == 0 ? term : a[e] + term;
+      }
+    }
+    return make_uint4(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
+                      pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7]));
+  }
+  uint4 out;
+  __nv_bfloat162* acc = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 w2 = __halves2bfloat162(w[k], w[k]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 xv = __floats2bfloat162_rn(
+          i8_at(x[k], 2 * e), i8_at(x[k], 2 * e + 1));
+      const __nv_bfloat162 term = __hmul2(xv, w2);
+      acc[e] = k == 0 ? term : __hadd2(acc[e], term);
+    }
+  }
+  return out;
+}
+
 // The 'global' plan's tiles: a (64, 64 n) bf16 tile in the order of the
 // register A operand, the four words that thread `lane` of warp g of a
 // warpgroup holds for k-step ks being 16 contiguous bytes. Word of element
@@ -455,8 +523,9 @@ __device__ void produce(const CoreArgs& p, int w, uint32_t slots,
 // k-blocks of 64 columns; copies the tile's aux rows to aux (64, 16). Rows
 // past n_live get zeros. Run by the kConsumers threads, t = threadIdx.x.
 // kWide: comb goes to the fragment-order tile gcomb in device memory.
-// kF32: the tables and aux are f32 (aux rounded to bf16 here).
-template <bool kWide, bool kF32>
+// kF32: aux (rounded to bf16 here) and, unless kI8, the tables are f32.
+// kI8: the tables are int8.
+template <bool kWide, bool kF32, bool kI8>
 __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
                             unsigned char* comb, uint32_t* gcomb, bf16* aux,
                             int* cell) {
@@ -476,11 +545,11 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
   }
   bar_sync(kGatherBar, kConsumers);
   // One pass over the 16-byte chunks of all the tile's comb rows, eight per
-  // thread in flight (f32: four, each twice the loads); chunk q of a row is
-  // column 8q, of the level whose columns hold it.
+  // thread in flight (f32 rows: four, each twice the loads); chunk q of a
+  // row is column 8q, of the level whose columns hold it.
   const int ch8 = p.F / 8, off1 = p.channels[0],
             off2 = p.n_levels > 2 ? off1 + p.channels[1] : p.F;
-#pragma unroll (kF32 ? 4 : 8)
+#pragma unroll (kF32 && !kI8 ? 4 : 8)
   for (int i = t; i < kRows * ch8; i += kConsumers) {
     const int r = i / ch8, col = (i - r * ch8) * 8;
     const int l = (col >= off1) + (col >= off2);
@@ -489,9 +558,16 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
     const int row = cell[l * kRows + r];
     uint4 out = make_uint4(0u, 0u, 0u, 0u);
     if (row >= 0 && kF32) {
-      out = combine_f32(static_cast<const float*>(p.table[l]) +
-                            (size_t)row * 4 * C + c0,
-                        C, aux + r * 16 + l * 4);
+      out = kI8 ? combine_i8<true>(static_cast<const int8_t*>(p.table[l]) +
+                                       (size_t)row * 4 * C + c0,
+                                   C, aux + r * 16 + l * 4)
+                : combine_f32(static_cast<const float*>(p.table[l]) +
+                                  (size_t)row * 4 * C + c0,
+                              C, aux + r * 16 + l * 4);
+    } else if (row >= 0 && kI8) {
+      out = combine_i8<false>(static_cast<const int8_t*>(p.table[l]) +
+                                  (size_t)row * 4 * C + c0,
+                              C, aux + r * 16 + l * 4);
     } else if (row >= 0) {
       const bf16* src =
           static_cast<const bf16*>(p.table[l]) + (size_t)row * 4 * C + c0;
@@ -803,8 +879,8 @@ __device__ __forceinline__ void store_logits(float (&lg)[2], int j0,
 // One tile of warpgroup w: rows m0 + r, r < n_live. K4 (view: the tile's
 // view; j0: the ray's joint index of row 0) keeps jl and ce in the block's
 // scratch (scr_jl, scr_ce) and writes the tile's round-1 logits. kF32:
-// f32 inputs and outputs.
-template <int kMode, bool kWide, bool kF32>
+// f32 inputs and outputs; kI8: int8 tables.
+template <int kMode, bool kWide, bool kF32, bool kI8>
 __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
                          Ring& ring, int w, int m0, int n_live, int view,
                          int j0, bf16* scr_jl, bf16* scr_ce) {
@@ -823,8 +899,8 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
     if (kMode == kMlp)
       load_rows<kWide, kF32>(p, m0, n_live, sm.comb, sm.gcomb, sm.aux);
     else
-      gather_tile<kWide, kF32>(p, s, m0, n_live, sm.comb, sm.gcomb, sm.aux,
-                         sm.cell);
+      gather_tile<kWide, kF32, kI8>(p, s, m0, n_live, sm.comb, sm.gcomb,
+                                    sm.aux, sm.cell);
     for (int g0 = t0; g0 < t1; g0 += kMaxOT) {
       const int g1 = min(g0 + kMaxOT, t1);
       stream_mlp<kWide>(p, p.osplit ? 0 : w ^ (si & 1), p.osplit ? 1 : 2, g0,
@@ -1306,7 +1382,7 @@ __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
   fence_proxy_async();
 }
 
-template <int kMode, bool kWide, bool kF32>
+template <int kMode, bool kWide, bool kF32, bool kI8>
 __global__ void __launch_bounds__(kThreads, 1)
     exchange_core_kernel(const CoreArgs p) {
   using V = Vec<kMode>;
@@ -1379,7 +1455,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int b = unit / p.R, r = unit - b * p.R;
         for (int k = 0; k < 2 * p.tv; ++k) {
           const int v = k / p.tv, sub = k - v * p.tv;
-          run_tile<kMode, kWide, kF32>(
+          run_tile<kMode, kWide, kF32, kI8>(
               p, sm, ring, w, ((b * 2 + v) * p.R + r) * p.P + sub * kRows,
               min(kRows, p.P - sub * kRows), v, v * p.P + sub * kRows,
               scr_jl, scr_ce);
@@ -1387,9 +1463,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         ray_tail<kMode, kF32>(p, sm, ring, w, unit, scr_jl, scr_ce);
       } else {
         const int m0 = unit * kRows;
-        run_tile<kMode, kWide, kF32>(p, sm, ring, w, m0,
-                                     min(kRows, p.M - m0), 0, 0, nullptr,
-                                     nullptr);
+        run_tile<kMode, kWide, kF32, kI8>(p, sm, ring, w, m0,
+                                          min(kRows, p.M - m0), 0, 0,
+                                          nullptr, nullptr);
       }
     }
   }
@@ -1491,8 +1567,8 @@ inline int fill_sizes(CoreArgs& a, int mode, int S, int M, int F, int H1,
 // 'global' plan (nkbF + nkbf) * 8 KB. info receives the launch's (grid,
 // stage slots, shared bytes, threads a block, cluster x, y, z, plan:
 // 0 'smem', 1 'global'). kF32: the f32 instantiation (f32 inputs and
-// outputs, the same shared memory).
-template <int kMode, bool kF32>
+// outputs, the same shared memory); kI8: int8 tables (K2, K3, K4).
+template <int kMode, bool kF32, bool kI8 = false>
 int launch_core(CoreArgs& a, int* info, void* stream,
                 long long scratch_bytes) {
   int device = 0, optin = 0, n_sm = 0;
@@ -1541,8 +1617,9 @@ int launch_core(CoreArgs& a, int* info, void* stream,
       a.scr_wide0 + (a.wide ? (long long)(a.nkbF + a.nkbf) * kKBlock : 0);
   if (scratch_bytes < (long long)grid * a.scr_stride)
     return (int)cudaErrorInvalidValue;
-  const auto kernel = a.wide ? exchange_core_kernel<kMode, true, kF32>
-                             : exchange_core_kernel<kMode, false, kF32>;
+  static_assert(!(kI8 && kMode == kMlp), "K9 reads no table");
+  const auto kernel = a.wide ? exchange_core_kernel<kMode, true, kF32, kI8>
+                             : exchange_core_kernel<kMode, false, kF32, kI8>;
   const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;

@@ -53,7 +53,7 @@
 
 namespace {
 
-template <bool kF32>
+template <bool kF32, bool kI8>
 int launch_render(int n_levels, void* const* tables, void* const* cells,
                   const int* channels, const void* aux_self,
                   const void* aux_cross, const void* lc, const void* stages,
@@ -82,7 +82,7 @@ int launch_render(int n_levels, void* const* tables, void* const* cells,
   err = fill_sizes(a, kRender, 2, (int)M, F, H1, O, K, stage_bytes, B, R, P,
                    repeat);
   if (err) return err;
-  return launch_core<kRender, kF32>(a, info, stream, scratch_bytes);
+  return launch_core<kRender, kF32, kI8>(a, info, stream, scratch_bytes);
 }
 
 }  // namespace
@@ -97,7 +97,8 @@ int launch_render(int n_levels, void* const* tables, void* const* cells,
 // All contiguous. info (8 ints) receives the launch's shape and plan, as
 // launch_core gives them. Returns a cudaError_t code. fused_render_core_f32
 // takes the same with f32 tables, aux, lc, z and wt (exchange_core.cuh,
-// "Element types"; mats stays bf16).
+// "Element types"; mats stays bf16); fused_render_core_i8_bf16 and _i8_f32
+// the same as _bf16 and _f32 with int8 tables ("Table types").
 extern "C" int fused_render_core_bf16(
     int n_levels, void* const* tables, void* const* cells,
     const int* channels, const void* aux_self, const void* aux_cross,
@@ -105,10 +106,11 @@ extern "C" int fused_render_core_bf16(
     const void* vecs, const void* mats, void* scratch,
     long long scratch_bytes, void* z, void* wt, int B, int R, int P, int F,
     int H1, int O, int K, int repeat, int* info, void* stream) {
-  return launch_render<false>(n_levels, tables, cells, channels, aux_self,
-                              aux_cross, lc, stages, stage_bytes, vecs, mats,
-                              scratch, scratch_bytes, z, wt, B, R, P, F, H1,
-                              O, K, repeat, info, stream);
+  return launch_render<false, false>(n_levels, tables, cells, channels,
+                                     aux_self, aux_cross, lc, stages,
+                                     stage_bytes, vecs, mats, scratch,
+                                     scratch_bytes, z, wt, B, R, P, F, H1, O, K,
+                                     repeat, info, stream);
 }
 
 extern "C" int fused_render_core_f32(
@@ -118,8 +120,34 @@ extern "C" int fused_render_core_f32(
     const void* vecs, const void* mats, void* scratch,
     long long scratch_bytes, void* z, void* wt, int B, int R, int P, int F,
     int H1, int O, int K, int repeat, int* info, void* stream) {
-  return launch_render<true>(n_levels, tables, cells, channels, aux_self,
-                             aux_cross, lc, stages, stage_bytes, vecs, mats,
-                             scratch, scratch_bytes, z, wt, B, R, P, F, H1, O,
-                             K, repeat, info, stream);
+  return launch_render<true, false>(n_levels, tables, cells, channels, aux_self,
+                                    aux_cross, lc, stages, stage_bytes, vecs,
+                                    mats, scratch, scratch_bytes, z, wt, B, R,
+                                    P, F, H1, O, K, repeat, info, stream);
+}
+
+extern "C" int fused_render_core_i8_bf16(
+    int n_levels, void* const* tables, void* const* cells,
+    const int* channels, const void* aux_self, const void* aux_cross,
+    const void* lc, const void* stages, long long stage_bytes,
+    const void* vecs, const void* mats, void* scratch,
+    long long scratch_bytes, void* z, void* wt, int B, int R, int P, int F,
+    int H1, int O, int K, int repeat, int* info, void* stream) {
+  return launch_render<false, true>(n_levels, tables, cells, channels, aux_self,
+                                    aux_cross, lc, stages, stage_bytes, vecs,
+                                    mats, scratch, scratch_bytes, z, wt, B, R,
+                                    P, F, H1, O, K, repeat, info, stream);
+}
+
+extern "C" int fused_render_core_i8_f32(
+    int n_levels, void* const* tables, void* const* cells,
+    const int* channels, const void* aux_self, const void* aux_cross,
+    const void* lc, const void* stages, long long stage_bytes,
+    const void* vecs, const void* mats, void* scratch,
+    long long scratch_bytes, void* z, void* wt, int B, int R, int P, int F,
+    int H1, int O, int K, int repeat, int* info, void* stream) {
+  return launch_render<true, true>(n_levels, tables, cells, channels, aux_self,
+                                   aux_cross, lc, stages, stage_bytes, vecs,
+                                   mats, scratch, scratch_bytes, z, wt, B, R, P,
+                                   F, H1, O, K, repeat, info, stream);
 }

@@ -34,7 +34,7 @@
 
 namespace {
 
-template <bool kF32>
+template <bool kF32, bool kI8>
 int launch_pair(int n_levels, void* const* tables, void* const* cells,
                 const int* channels, const void* aux_self,
                 const void* aux_cross, const void* stages,
@@ -57,7 +57,7 @@ int launch_pair(int n_levels, void* const* tables, void* const* cells,
   a.scratch = static_cast<unsigned char*>(scratch);
   err = fill_sizes(a, kPair, 2, M, F, H1, O, K, stage_bytes, 0, 0, 0, 0);
   if (err) return err;
-  return launch_core<kPair, kF32>(a, info, stream, scratch_bytes);
+  return launch_core<kPair, kF32, kI8>(a, info, stream, scratch_bytes);
 }
 
 }  // namespace
@@ -71,17 +71,18 @@ int launch_pair(int n_levels, void* const* tables, void* const* cells,
 // info (8 ints) receives the launch's shape and plan, as launch_core gives
 // them. Returns a cudaError_t code. fused_exchange_epilogue_f32 takes the
 // same with f32 tables, aux, jl and kv (exchange_core.cuh, "Element
-// types").
+// types"); fused_exchange_epilogue_i8_bf16 and _i8_f32 the same as _bf16
+// and _f32 with int8 tables ("Table types").
 extern "C" int fused_exchange_epilogue_bf16(
     int n_levels, void* const* tables, void* const* cells,
     const int* channels, const void* aux_self, const void* aux_cross,
     const void* stages, long long stage_bytes, const void* vecs, void* jl,
     void* kv, int M, int F, int H1, int O, int K, int rp, void* scratch,
     long long scratch_bytes, int* info, void* stream) {
-  return launch_pair<false>(n_levels, tables, cells, channels, aux_self,
-                            aux_cross, stages, stage_bytes, vecs, jl, kv, M,
-                            F, H1, O, K, rp, scratch, scratch_bytes, info,
-                            stream);
+  return launch_pair<false, false>(n_levels, tables, cells, channels, aux_self,
+                                   aux_cross, stages, stage_bytes, vecs, jl, kv,
+                                   M, F, H1, O, K, rp, scratch, scratch_bytes,
+                                   info, stream);
 }
 
 extern "C" int fused_exchange_epilogue_f32(
@@ -90,8 +91,32 @@ extern "C" int fused_exchange_epilogue_f32(
     const void* stages, long long stage_bytes, const void* vecs, void* jl,
     void* kv, int M, int F, int H1, int O, int K, int rp, void* scratch,
     long long scratch_bytes, int* info, void* stream) {
-  return launch_pair<true>(n_levels, tables, cells, channels, aux_self,
-                           aux_cross, stages, stage_bytes, vecs, jl, kv, M,
-                           F, H1, O, K, rp, scratch, scratch_bytes, info,
-                           stream);
+  return launch_pair<true, false>(n_levels, tables, cells, channels, aux_self,
+                                  aux_cross, stages, stage_bytes, vecs, jl, kv,
+                                  M, F, H1, O, K, rp, scratch, scratch_bytes,
+                                  info, stream);
+}
+
+extern "C" int fused_exchange_epilogue_i8_bf16(
+    int n_levels, void* const* tables, void* const* cells,
+    const int* channels, const void* aux_self, const void* aux_cross,
+    const void* stages, long long stage_bytes, const void* vecs, void* jl,
+    void* kv, int M, int F, int H1, int O, int K, int rp, void* scratch,
+    long long scratch_bytes, int* info, void* stream) {
+  return launch_pair<false, true>(n_levels, tables, cells, channels, aux_self,
+                                  aux_cross, stages, stage_bytes, vecs, jl, kv,
+                                  M, F, H1, O, K, rp, scratch, scratch_bytes,
+                                  info, stream);
+}
+
+extern "C" int fused_exchange_epilogue_i8_f32(
+    int n_levels, void* const* tables, void* const* cells,
+    const int* channels, const void* aux_self, const void* aux_cross,
+    const void* stages, long long stage_bytes, const void* vecs, void* jl,
+    void* kv, int M, int F, int H1, int O, int K, int rp, void* scratch,
+    long long scratch_bytes, int* info, void* stream) {
+  return launch_pair<true, true>(n_levels, tables, cells, channels, aux_self,
+                                 aux_cross, stages, stage_bytes, vecs, jl, kv,
+                                 M, F, H1, O, K, rp, scratch, scratch_bytes,
+                                 info, stream);
 }

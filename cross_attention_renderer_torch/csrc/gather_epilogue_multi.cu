@@ -35,7 +35,7 @@
 
 namespace {
 
-template <bool kF32>
+template <bool kF32, bool kI8>
 int launch_streams(int n_levels, void* const* tables, void* const* cells,
                    const int* channels, int S, const void* const* aux,
                    const void* stages, long long stage_bytes,
@@ -57,7 +57,7 @@ int launch_streams(int n_levels, void* const* tables, void* const* cells,
   a.scratch = static_cast<unsigned char*>(scratch);
   err = fill_sizes(a, kStreams, S, M, F, H1, O, K, stage_bytes, 0, 0, 0, 0);
   if (err) return err;
-  return launch_core<kStreams, kF32>(a, info, stream, scratch_bytes);
+  return launch_core<kStreams, kF32, kI8>(a, info, stream, scratch_bytes);
 }
 
 }  // namespace
@@ -70,16 +70,19 @@ int launch_streams(int n_levels, void* const* tables, void* const* cells,
 // (launch_core; null and 0 do for the 'smem' plan). info (8 ints) receives
 // the launch's shape and plan, as launch_core gives them. Returns a
 // cudaError_t code. fused_exchange_epilogue_multi_f32 takes the same with
-// f32 tables, aux, jl and kv (exchange_core.cuh, "Element types").
+// f32 tables, aux, jl and kv (exchange_core.cuh, "Element types");
+// fused_exchange_epilogue_multi_i8_bf16 and _i8_f32 the same as _bf16 and
+// _f32 with int8 tables ("Table types").
 extern "C" int fused_exchange_epilogue_multi_bf16(
     int n_levels, void* const* tables, void* const* cells,
     const int* channels, int S, const void* const* aux, const void* stages,
     long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
     int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
     int* info, void* stream) {
-  return launch_streams<false>(n_levels, tables, cells, channels, S, aux,
-                               stages, stage_bytes, vecs, jl, kv, M, F, H1,
-                               O, K, scratch, scratch_bytes, info, stream);
+  return launch_streams<false, false>(n_levels, tables, cells, channels, S, aux,
+                                      stages, stage_bytes, vecs, jl, kv, M, F,
+                                      H1, O, K, scratch, scratch_bytes, info,
+                                      stream);
 }
 
 extern "C" int fused_exchange_epilogue_multi_f32(
@@ -88,7 +91,31 @@ extern "C" int fused_exchange_epilogue_multi_f32(
     long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
     int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
     int* info, void* stream) {
-  return launch_streams<true>(n_levels, tables, cells, channels, S, aux,
-                              stages, stage_bytes, vecs, jl, kv, M, F, H1, O,
-                              K, scratch, scratch_bytes, info, stream);
+  return launch_streams<true, false>(n_levels, tables, cells, channels, S, aux,
+                                     stages, stage_bytes, vecs, jl, kv, M, F,
+                                     H1, O, K, scratch, scratch_bytes, info,
+                                     stream);
+}
+
+extern "C" int fused_exchange_epilogue_multi_i8_bf16(
+    int n_levels, void* const* tables, void* const* cells,
+    const int* channels, int S, const void* const* aux, const void* stages,
+    long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
+    int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
+    int* info, void* stream) {
+  return launch_streams<false, true>(n_levels, tables, cells, channels, S, aux,
+                                     stages, stage_bytes, vecs, jl, kv, M, F,
+                                     H1, O, K, scratch, scratch_bytes, info,
+                                     stream);
+}
+
+extern "C" int fused_exchange_epilogue_multi_i8_f32(
+    int n_levels, void* const* tables, void* const* cells,
+    const int* channels, int S, const void* const* aux, const void* stages,
+    long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
+    int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
+    int* info, void* stream) {
+  return launch_streams<true, true>(n_levels, tables, cells, channels, S, aux,
+                                    stages, stage_bytes, vecs, jl, kv, M, F, H1,
+                                    O, K, scratch, scratch_bytes, info, stream);
 }

@@ -22,6 +22,12 @@ branches (renderer.py:344-528):
 The unfused and sorted exchanges' fuse MLP runs as kernel K9 when
 ``fused_mlp`` is set (renderer.py:835-853).
 
+Fast evaluation (``train/evaluation.py``) renders through the same paths:
+``forward(t_vals=...)`` places each ray's samples on its segment,
+``narrow_features`` narrows the pyramid the exchange gathers, and
+:meth:`CrossAttentionRenderer.clone` gives the renderers a sibling of the
+model on the same weights.
+
   1. ``encode``: DPT-hybrid multi-view encoder + full-res 7x7 conv branch
      -> feature pyramid z (models.py:148-188).
   2. Query rays -> Plücker coords in each context frame; epipolar segment
@@ -53,6 +59,7 @@ camera input here ever requires a gradient, so the port needs no
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import torch
@@ -165,6 +172,12 @@ class CrossAttentionRenderer(nn.Module):
       remat: recompute each ViT block in the backward pass
         (``torch.utils.checkpoint``; the JAX ``remat``): less activation
         memory for a second forward of the blocks.
+      narrow_features: the widths of the pyramid's three levels as the
+        exchange gathers them, after a per-scene projection
+        (``train/evaluation.py:narrow_pyramid``); only
+        ``query_encode_latent`` changes, to ``sum(narrow_features) + 3``
+        input rows (JAX renderer.py:139, :193-199). ``None``: the full
+        widths.
     """
 
     def __init__(self, n_view: int = 2, npoints: int = 0,
@@ -177,7 +190,8 @@ class CrossAttentionRenderer(nn.Module):
                  reference_exchange_compat: bool = False,
                  fused_mlp: bool = False, fused_render: bool = False,
                  repeat_attention: bool = True, sorted_stream: bool = False,
-                 gather: str = 'take', remat: bool = False):
+                 gather: str = 'take', remat: bool = False,
+                 narrow_features: Optional[Sequence[int]] = None):
         super().__init__()
         if n_view not in (2, 3):
             raise ValueError(f'the port renders 2 or 3 context views, got '
@@ -199,6 +213,8 @@ class CrossAttentionRenderer(nn.Module):
         self.repeat_attention = repeat_attention
         self.sorted_stream = sorted_stream
         self.gather = gather
+        self.narrow_features = (tuple(narrow_features) if narrow_features
+                                else None)
         self.encoder = DPTHybridEncoder(
             features=fusion_features, vit_width=vit_width,
             vit_depth=vit_depth, vit_heads=vit_heads,
@@ -208,7 +224,8 @@ class CrossAttentionRenderer(nn.Module):
         base = 2 * fusion_features + 64     # pyramid width (576)
         ld = base // 2                      # latent width (288)
         self.latent_dim = ld
-        self.query_encode_latent = SplitDense(base + 3, base, dtype)
+        d_feat = sum(self.narrow_features) if narrow_features else base
+        self.query_encode_latent = SplitDense(d_feat + 3, base, dtype)
         self.query_encode_latent_2 = SplitDense(base, ld, dtype)
         self.latent_value = SplitDense(ld * n_view, ld, dtype)
         self.key_map = SplitDense(ld * n_view, HIDDEN_DIM, dtype)
@@ -258,20 +275,74 @@ class CrossAttentionRenderer(nn.Module):
                     and not self.reference_exchange_compat)
         return self.n_view == 2 or fused_v3 or self.gather == 'take'
 
+    def clone(self, repeat_attention: Optional[bool] = None,
+              fuse_kernel: Optional[Tensor] = None,
+              narrow_features: Optional[Sequence[int]] = None
+              ) -> 'CrossAttentionRenderer':
+        """A sibling of the model that shares every parameter tensor with
+        it (the JAX ``model.clone``, for the fast-eval renderers). Neither
+        the model nor a weight is copied or changed.
+
+        Args:
+          repeat_attention: ``False`` gives a sibling without the second
+            attention round (its modules stay, unused).
+          fuse_kernel: ``query_encode_latent``'s kernel in the sibling,
+            (d + 3, pyramid width) for gathered widths d: a per-scene fold
+            (``narrow_pyramid``, ``quantize_pyramid``); its bias stays
+            shared.
+          narrow_features: the gathered widths ``fuse_kernel`` is for
+            (default: the model's).
+        """
+        c = copy.copy(self)
+        c._parameters = dict(self._parameters)
+        c._buffers = dict(self._buffers)
+        c._modules = dict(self._modules)
+        if repeat_attention is not None:
+            if repeat_attention and not self.repeat_attention:
+                raise ValueError('the model has no round-2 modules to '
+                                 'repeat the attention with')
+            c.repeat_attention = repeat_attention
+        if narrow_features is not None or fuse_kernel is not None:
+            widths = (tuple(narrow_features) if narrow_features is not None
+                      else self.narrow_features)
+            base = self.query_encode_latent.kernel.shape[1]
+            rows = (sum(widths) if widths else base) + 3
+            if fuse_kernel is None or tuple(fuse_kernel.shape) != (rows,
+                                                                   base):
+                got = (None if fuse_kernel is None
+                       else tuple(fuse_kernel.shape))
+                raise ValueError(
+                    f'narrow_features {widths} need a fuse_kernel of shape '
+                    f'{(rows, base)}, got {got}')
+            qel = copy.copy(self.query_encode_latent)
+            qel._parameters = dict(qel._parameters)
+            qel._parameters.pop('kernel', None)
+            qel.kernel = fuse_kernel
+            c._modules['query_encode_latent'] = qel
+            c.narrow_features = widths
+        return c
+
     # ------------------------------------------------------------------
     def forward(self, scene: dict, z: Optional[Sequence[Tensor]] = None,
-                z_packed: Optional[Sequence[Tensor]] = None) -> dict:
+                z_packed: Optional[Sequence[Tensor]] = None,
+                t_vals: Optional[Tensor] = None) -> dict:
         """Renders the query rays. ``z`` is the pyramid from :meth:`encode`
         (computed when absent); ``z_packed`` its cell tables, which callers
         rendering many ray blocks build once per image (ignored where the
-        render reads no packed table, see :attr:`uses_packed_tables`)."""
+        render reads no packed table, see :attr:`uses_packed_tables`).
+        ``t_vals`` (B, V, R, P): each ray's sample positions on its
+        epipolar segment, in [0, 1], in place of ``n_samples`` uniform ones
+        (the pruned renderer's fine pass; JAX renderer.py:256-322)."""
         ctx, qry = scene['context'], scene['query']
         B, V, H, W, _ = ctx['rgb'].shape
         if V != self.n_view:
             raise ValueError(f'the model was built for {self.n_view} '
                              f'context views, the scene has {V}')
         R = qry['uv'].shape[2]
-        P = self.n_samples
+        P = t_vals.shape[-1] if t_vals is not None else self.n_samples
+        if t_vals is not None and tuple(t_vals.shape) != (B, V, R, P):
+            raise ValueError(f't_vals must be (B, V, R, P) = '
+                             f'{(B, V, R, P)}, got {tuple(t_vals.shape)}')
         dev = ctx['rgb'].device
         if z is None:
             z = self.encode(scene)
@@ -299,9 +370,15 @@ class CrossAttentionRenderer(nn.Module):
         intr_norm = torch.cat([ctx_intr[:, :2] / H, ctx_intr[:, 2:]], dim=1)
         start, end, valid = E.epipolar_segments_ndc(origins, ray_dir,
                                                     intr_norm)
-        interval = torch.arange(P, dtype=start.dtype, device=dev) / (P - 1)
-        pixel_val = (start[..., None, :] + (end - start)[..., None, :]
-                     * interval[:, None])                  # (B*V, R, P, 2)
+        if t_vals is not None:
+            interval = t_vals.reshape(B * V, R, P).to(start.dtype)
+            pixel_val = (start[..., None, :] + (end - start)[..., None, :]
+                         * interval[..., None])            # (B*V, R, P, 2)
+        else:
+            interval = torch.linspace(0.0, 1.0, P, dtype=start.dtype,
+                                      device=dev)
+            pixel_val = (start[..., None, :] + (end - start)[..., None, :]
+                         * interval[:, None])              # (B*V, R, P, 2)
 
         eye = torch.eye(4, device=dev).expand(B * V, 4, 4)
         pt, _, _ = G.epipolar_point_3d(lf_coords, pixel_val, eye, H, W,

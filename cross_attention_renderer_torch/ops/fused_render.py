@@ -27,6 +27,11 @@ flattening, M = B * 2 * R * P samples): per level (2M,) int32 cell rows,
 the self stream's M over the cross stream's; (M, 16) aux arrays for each
 stream; (M, 16) local coordinates.
 
+Tables are in the model's float type (that of aux) or int8, whose rows are
+cast to aux's type and combined in it; every later product then runs in
+aux's type (the JAX ``_combine`` and ``_float_dtype``, fused_render.py:
+55-72).
+
 params is a 20-tuple of (in, out) kernels and biases: the 10 epilogue
 weights of ``gather_epilogue._reference`` (w1, b1, w2, b2, lv, lvb, km,
 kmb, k2, k2b), then qe1 (16, K), qe1b, qe2 (K, K), qe2b (``query_embed``
@@ -45,7 +50,8 @@ import torch
 from cross_attention_renderer_torch.ops import _build
 from cross_attention_renderer_torch.ops._autograd import kernel_call
 from cross_attention_renderer_torch.ops import gather_epilogue as GE
-from cross_attention_renderer_torch.ops.gather_epilogue import _combine
+from cross_attention_renderer_torch.ops.gather_epilogue import (
+    _combine, _compute_dtype)
 
 Tensor = torch.Tensor
 
@@ -55,8 +61,8 @@ ATTN_SCALE = 1.0 / 16.0     # models.py:532,555
 def _fuse_stream(vals: Sequence[Tensor], aux: Tensor, w1: Tensor, b1: Tensor,
                  w2: Tensor, b2: Tensor) -> Tensor:
     """One stream's fuse MLP, f32 out (JAX ``_fuse_stream``): the combine
-    in the rows' type, both products with f32 sums."""
-    dt = vals[0].dtype
+    in the compute type, both products with f32 sums."""
+    dt = _compute_dtype(vals, aux)
     comb = _combine(vals, aux)
     F = comb.shape[-1]
     h = comb.float() @ w1[:F].to(dt).float()
@@ -87,11 +93,12 @@ def _reference(vals_both: Sequence[Tensor], aux_self: Tensor,
 
     vals_both: per-level (2M, 4C) rows, self over cross. Fuse outputs stay
     f32 and then take the model type; the other products run in the model
-    type. Returns (z (B, R, O) in the rows' type, at_wt (B, 2, R, P) f32).
+    type. Returns (z (B, R, O) in the compute type, at_wt (B, 2, R, P)
+    f32).
     """
     (w1, b1, w2, b2, lv, lvb, km, kmb, k2, k2b,
      qe1, qe1b, qe2, qe2b) = params[:14]
-    dt = vals_both[0].dtype
+    dt = _compute_dtype(vals_both, aux_self)
     M = B * 2 * R * P
     O = w2.shape[1]
     fs = _fuse_stream([v[:M] for v in vals_both], aux_self, w1, b1, w2, b2)
@@ -127,12 +134,14 @@ def _reference(vals_both: Sequence[Tensor], aux_self: Tensor,
 def fused_render_core_reference(tables, cells, aux_self, aux_cross,
                                 local_coords, params, B, R, P, repeat):
     """Plain version: ``index_select`` row take, then :func:`_reference`;
-    both outputs in the tables' type, as the JAX wrapper returns them."""
+    both outputs in the compute type (the float tables' type, as the JAX
+    wrapper returns them; aux's type for int8 tables, as the TPU kernel
+    writes them)."""
     vals_both = [t.reshape(-1, t.shape[-1]).index_select(0, c.long())
                  for t, c in zip(tables, cells)]
     z, at_wt = _reference(vals_both, aux_self, aux_cross, local_coords,
                           params, B, R, P, repeat)
-    dt = vals_both[0].dtype
+    dt = _compute_dtype(vals_both, aux_self)
     return z.to(dt), at_wt.to(dt)
 
 
@@ -156,9 +165,10 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
       repeat: run round 2 and return ``z2 + 2 z1``; else ``z1``.
 
     CPU tensors take the plain version. CUDA tensors must be contiguous,
-    tables, aux and local_coords all bf16 or all f32 (cells int32; outputs
-    in that type), any B, R and P (up to what a block's shared
-    memory holds of the ray's 2P logits) and any width a renderer has
+    aux and local_coords bf16 or f32, the tables in their type or int8
+    (cells int32; outputs in aux's type), any B, R and P (up to what a
+    block's shared memory holds of the ray's 2P logits) and any width a
+    renderer has
     (``gather_epilogue.check_core_widths``); they launch the kernel, and
     anything else raises. The weights are laid out once per set of
     parameter tensors (``gather_epilogue.prepared_render``)."""
@@ -207,7 +217,8 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
     scratch = GE.core_scratch('render', 2, F, H1, O, K, B * R, dev, P)
     z = torch.empty((B, R, O), dtype=dt, device=dev)
     at_wt = torch.empty((B, 2, R, P), dtype=dt, device=dev)
-    fn = GE.core_entry('fused_render', 'fused_render_core', dt)
+    fn = GE.core_entry('fused_render', 'fused_render_core', dt,
+                       tables[0].dtype)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 3

@@ -31,6 +31,12 @@ Layout contract (the renderer's (B, V, R, P) flattening): per level, the
 cell rows of all streams stacked stream-major, (S*M,) int32; one (M, 16)
 aux array per stream packing [12 slot weights (4 per level), tanh(pt/5)
 (3), pad]; at V=2 sample m belongs to view (m // rp) % 2.
+
+Tables are in the model's float type (bf16 or f32, that of aux) or int8
+(the quantized pyramid of fast evaluation, ``train/evaluation.py``
+``quantize_pyramid``, whose scales the caller folds into W1). int8 rows are
+cast to aux's type and combined in it, and every later product runs in it
+(the JAX ``_combine`` and ``_compute_dtype``, gather_epilogue.py:54-79).
 """
 
 from __future__ import annotations
@@ -48,15 +54,24 @@ from cross_attention_renderer_torch.ops._autograd import kernel_call
 Tensor = torch.Tensor
 
 
+def _compute_dtype(vals: Sequence[Tensor], aux: Tensor) -> torch.dtype:
+    """The type the epilogue computes in: the rows' float type, or aux's
+    for int8 rows."""
+    dt = vals[0].dtype
+    return dt if dt.is_floating_point else aux.dtype
+
+
 def _combine(vals: Sequence[Tensor], aux: Tensor) -> Tensor:
-    """Bilinear combine of per-level packed rows, in the rows' type."""
+    """Bilinear combine of per-level packed rows, in the rows' float type;
+    int8 rows are cast to aux's type and combined in it."""
     parts = []
     for l, v in enumerate(vals):
+        cdt = _compute_dtype((v,), aux)
         C = v.shape[-1] // 4
         acc = None
         for k in range(4):
-            term = (v[:, k * C:(k + 1) * C]
-                    * aux[:, l * 4 + k:l * 4 + k + 1].to(v.dtype))
+            term = (v[:, k * C:(k + 1) * C].to(cdt)
+                    * aux[:, l * 4 + k:l * 4 + k + 1].to(cdt))
             acc = term if acc is None else acc + term
         parts.append(acc)
     return torch.cat(parts, dim=-1)
@@ -64,8 +79,8 @@ def _combine(vals: Sequence[Tensor], aux: Tensor) -> Tensor:
 
 def _fuse(vals: Sequence[Tensor], aux: Tensor, w1: Tensor, b1: Tensor,
           w2: Tensor, b2: Tensor) -> Tensor:
-    """One stream's fuse MLP on its combined rows, in the rows' type."""
-    dt = vals[0].dtype
+    """One stream's fuse MLP on its combined rows, in the compute type."""
+    dt = _compute_dtype(vals, aux)
     x = torch.cat([_combine(vals, aux), aux[:, 12:15].to(dt)], dim=-1)
     h = torch.relu(x @ w1.to(dt) + b1.to(dt))
     return h @ w2.to(dt) + b2.to(dt)
@@ -80,7 +95,7 @@ def _reference(vals_both: Sequence[Tensor], aux_self: Tensor,
     stream's M. params: (w1 (F+3, H1), b1, w2 (H1, O), b2, lv (2O, O), lvb,
     km (2O, K), kmb, k2 (K, K), k2b), kernels in (in, out) layout."""
     (w1, b1, w2, b2, lv, lv_bias, km, km_bias, k2, k2_bias) = params
-    dt = vals_both[0].dtype
+    dt = _compute_dtype(vals_both, aux_self)
     M = vals_both[0].shape[0] // 2
     O = w2.shape[1]
     fs = _fuse([v[:M] for v in vals_both], aux_self, w1, b1, w2, b2)
@@ -119,10 +134,10 @@ def fused_exchange_epilogue(tables: Sequence[Tensor],
       rp: R * P, the per-(batch, view) sample count.
 
     CPU tensors take the plain version. CUDA tensors must be contiguous,
-    tables and aux all bf16 or all f32 (cells int32); they launch the
-    kernel's instantiation of that type (``csrc/exchange_core.cuh``,
-    "Element types"), which writes its outputs in it, and anything else
-    raises."""
+    aux bf16 or f32 and the tables in aux's type or int8 (cells int32);
+    they launch the kernel's instantiation of those types
+    (``csrc/exchange_core.cuh``, "Element types" and "Table types"), which
+    writes its outputs in aux's type, and anything else raises."""
     if aux_self.device.type == 'cpu':
         return fused_exchange_epilogue_reference(tables, cells, aux_self,
                                                  aux_cross, params, rp)
@@ -443,17 +458,21 @@ def _scratch_args(scratch: Tensor | None) -> tuple[int | None, int]:
 CORE_TYPES = {torch.bfloat16: 'bf16', torch.float32: 'f32'}
 
 
-def core_entry(lib: str, name: str, dtype: torch.dtype):
+def core_entry(lib: str, name: str, dtype: torch.dtype,
+               table_dtype: torch.dtype | None = None):
     """Entry point ``name`` of kernel library ``lib`` for inputs of
-    ``dtype`` (``<name>_bf16`` or ``<name>_f32``)."""
-    return getattr(_build.load(lib), f'{name}_{CORE_TYPES[dtype]}')
+    ``dtype`` (``<name>_bf16`` or ``<name>_f32``), or for int8 tables
+    beside them (``table_dtype`` int8: ``<name>_i8_bf16``,
+    ``<name>_i8_f32``)."""
+    i8 = 'i8_' if table_dtype == torch.int8 else ''
+    return getattr(_build.load(lib), f'{name}_{i8}{CORE_TYPES[dtype]}')
 
 
 def _checked_args(what, tables, cells, aux, params):
     """Checks the kernels' inputs and packs the launch arguments shared by
-    K2, K3 and K4: (level arrays, (M, F, H1, O, K)). Tables and aux are
-    all bf16 or all f32 (``CORE_TYPES``). Raises ValueError on what the
-    kernels do not take."""
+    K2, K3 and K4: (level arrays, (M, F, H1, O, K)). aux is bf16 or f32
+    (``CORE_TYPES``), the tables all in aux's type or all int8. Raises
+    ValueError on what the kernels do not take."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f'{what}: {msg}')
@@ -461,6 +480,9 @@ def _checked_args(what, tables, cells, aux, params):
     (w1, b1, w2, b2, lv, lv_bias, km, km_bias, k2, k2_bias) = params
     dev, dt = aux[0].device, aux[0].dtype
     require(dt in CORE_TYPES, f'bf16 or f32 inputs, got {dt}')
+    tdt = tables[0].dtype
+    require(tdt in (dt, torch.int8),
+            f'tables in the inputs\' type {dt} or int8, got {tdt}')
     S, M = len(aux), aux[0].shape[0]
     channels = [t.shape[-1] // 4 for t in tables]
     F, H1 = sum(channels), w1.shape[1]
@@ -470,9 +492,9 @@ def _checked_args(what, tables, cells, aux, params):
     require(tuple(w1.shape) == (F + 3, H1) and tuple(lv.shape) == (S * O, O)
             and tuple(km.shape) == (S * O, K), 'weight shapes')
     for t, c in zip(tables, cells):
-        require(t.device == dev and t.dtype == dt and t.is_contiguous()
+        require(t.device == dev and t.dtype == tdt and t.is_contiguous()
                 and t.shape[-1] % 32 == 0 and t.data_ptr() % 16 == 0,
-                f'tables must be contiguous {dt} on {dev}, 4C % 32 == 0')
+                f'tables must be contiguous {tdt} on {dev}, 4C % 32 == 0')
         require(c.device == dev and c.dtype == torch.int32
                 and c.is_contiguous() and tuple(c.shape) == (S * M,),
                 f'cells must be contiguous int32 ({S * M},) on {dev}')
@@ -514,7 +536,7 @@ def _launch(tables, cells, aux_self, aux_cross, params, rp):
         (aux_self, aux_cross), params)
     jl, kv = _outputs(aux_self, sizes)
     fn = core_entry('gather_epilogue', 'fused_exchange_epilogue',
-                    aux_self.dtype)
+                    aux_self.dtype, tables[0].dtype)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
@@ -544,11 +566,11 @@ def _reference_multi(vals_stacked: Sequence[Tensor],
 
     vals_stacked: per-level (S*M, 4C) rows, stream-major. aux_list: S
     arrays (M, 16). params: as :func:`_reference`, with lv (S*O, O) and
-    km (S*O, K). Each stream's products round to the rows' type, as in the
+    km (S*O, K). Each stream's products round to the compute type, as in the
     JAX reference."""
     (w1, b1, w2, b2, lv, lv_bias, km, km_bias, k2, k2_bias) = params
     S = len(aux_list)
-    dt = vals_stacked[0].dtype
+    dt = _compute_dtype(vals_stacked, aux_list[0])
     M = vals_stacked[0].shape[0] // S
     O = w2.shape[1]
     jl = lv_bias.to(dt)
@@ -587,9 +609,9 @@ def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
       params: as :func:`_reference_multi`.
 
     CPU tensors take the plain version. CUDA tensors must be contiguous,
-    tables and aux all bf16 or all f32 (cells int32), with 2 to 4 streams;
-    they launch the kernel's instantiation of that type, and anything else
-    raises."""
+    aux bf16 or f32 and the tables in aux's type or int8 (cells int32),
+    with 2 to 4 streams; they launch the kernel's instantiation of those
+    types, and anything else raises."""
     if aux_list[0].device.type == 'cpu':
         return fused_exchange_epilogue_multi_reference(tables, cells,
                                                        aux_list, params)
@@ -612,7 +634,7 @@ def _launch_multi(tables, cells, aux_list, params):
         params)
     jl, kv = _outputs(aux_list[0], sizes)
     fn = core_entry('gather_epilogue_multi', 'fused_exchange_epilogue_multi',
-                    aux_list[0].dtype)
+                    aux_list[0].dtype, tables[0].dtype)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]

@@ -36,7 +36,8 @@ def pack_cells(features: Tensor) -> Tensor:
 
 
 def pack_pyramid(pyramid: Sequence[Tensor]) -> tuple[Tensor, ...]:
-    """:func:`pack_cells` for every level of a feature pyramid."""
+    """:func:`pack_cells` for every level of a feature pyramid, in each
+    level's type (int8 levels stay int8)."""
     return tuple(pack_cells(fm) for fm in pyramid)
 
 
@@ -141,19 +142,22 @@ def bilinear_corners(hw: tuple[int, int], coords_ndc: Tensor,
 def grid_sample_packed(packed: Tensor, coords_ndc: Tensor,
                        padding_mode: str = 'border') -> Tensor:
     """Bilinear sample from a :func:`pack_cells` table: one row take per
-    sample, then the four slots combined in the table's type
-    (grid_sample.py:128-160). (B, H, W, 4C) at (B, N, 2) -> (B, N, C)."""
+    sample, then the four slots combined in the table's type, or in f32
+    for an int8 table (the quantized pyramid, whose scales the caller
+    folds downstream) (grid_sample.py:128-160). (B, H, W, 4C) at
+    (B, N, 2) -> (B, N, C)."""
     B, H, W, C4 = packed.shape
     C = C4 // 4
     N = coords_ndc.shape[1]
+    wdt = packed.dtype if packed.dtype.is_floating_point else torch.float32
     cell, w_slot = cell_rows_and_slot_weights(
-        (H, W), coords_ndc, padding_mode, weight_dtype=packed.dtype)
+        (H, W), coords_ndc, padding_mode, weight_dtype=wdt)
     vals = packed.reshape(B * H * W, C4).index_select(
         0, cell.reshape(-1).long())                     # (B*N, 4C)
     w = w_slot.reshape(B * N, 4)
     out = None
     for k in range(4):
-        term = vals[:, k * C:(k + 1) * C] * w[:, k:k + 1]
+        term = vals[:, k * C:(k + 1) * C].to(wdt) * w[:, k:k + 1]
         out = term if out is None else out + term
     return out.reshape(B, N, C)
 

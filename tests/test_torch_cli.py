@@ -11,8 +11,9 @@
   constants patched to it, as tests/test_cli.py patches JAX's): train
   (f32, bf16, stage 2 with LPIPS from the ``lpips_npz`` fixture, the val
   summary), eval (its metrics equal to ``evaluate_scene``'s on the same
-  model and scene), render_traj, the ``--dtype`` flag, the fast-eval,
-  ablation and parallel flags parsing and then raising, and
+  model and scene), render_traj, the ``--dtype`` flag, the fast-eval
+  flags parsing and evaluating (``--fast``), the ablation and parallel
+  flags parsing and then raising, and
   ``--save_images`` and the video writer raising without imageio.
 """
 
@@ -254,8 +255,11 @@ def test_save_images_without_imageio_says_so(dataset, tmp_path,
 
 
 def test_fast_eval_flags_parse_and_raise(dataset, tmp_path):
-    """--pruned / --narrow / --q8 / --fast parse as the JAX CLI's do, then
-    the renderer refuses them (ROADMAP.md Queue A 6)."""
+    """--pruned / --narrow / --q8 / --fast parse as the JAX CLI's do; the
+    renderer, which refused them until the fast renderers were ported,
+    now evaluates with them: --fast's metrics equal ``evaluate_scene``'s
+    with the fast image renderer on the same model and scene (their parity
+    with JAX is in tests/test_torch_fast_eval.py)."""
     from cross_attention_renderer_torch.cli import eval as eval_cli
     p = C.base_parser('x')
     opt = p.parse_args(['--pruned', '16,24', '--narrow', '128,128,64',
@@ -267,10 +271,21 @@ def test_fast_eval_flags_parse_and_raise(dataset, tmp_path):
     kw = C.fast_eval_kwargs(p.parse_args(['--fast', '--pruned', '8,8']))
     assert kw == dict(pruned=(8, 8), narrow=(128, 128, 64), q8=True)
     img_root, pose_root = dataset
-    with pytest.raises(NotImplementedError, match='Queue A 6'):
-        eval_cli.main(['--img_root', str(img_root), '--pose_root',
-                       str(pose_root), '--logging_root', str(tmp_path),
-                       '--max_scenes', '1', '--fast', *TINY_FLAGS])
+    argv = ['--img_root', str(img_root), '--pose_root', str(pose_root),
+            '--logging_root', str(tmp_path), '--max_scenes', '1', '--fast',
+            '--narrow', '16,16,32', *TINY_FLAGS]
+    res = eval_cli.main(argv)
+    opt = C.base_parser('x').parse_known_args(argv)[0]
+    model = C.build_model(opt).eval()
+    scene = C.scene_batch(PR.RealEstate10kVis(img_root, pose_root)[0],
+                          'cpu')
+    want = E.evaluate_scene(model, scene, 64, 64, n_chunks=8,
+                            renderer=E.make_image_renderer(
+                                model, 8, **C.fast_eval_kwargs(opt)))
+    for k in ('mse', 'psnr', 'ssim'):
+        assert np.isfinite(res['scenes'][0][k])
+        np.testing.assert_allclose(res['scenes'][0][k], float(want[k]),
+                                   rtol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize('flags', [['--model', 'resnet'], ['--model', 'unet'],

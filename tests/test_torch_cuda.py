@@ -932,3 +932,159 @@ def test_train_step_kernel_route_matches_default_route(dev):
           f'gradient {worst} {errs[worst]:.3e}')
     assert abs(loss_k - loss_d) <= 2 ** -5 * abs(loss_d)
     assert errs[worst] <= 0.25, (worst, errs[worst])
+
+
+# int8 tables (the quantized pyramid of fast evaluation) beside bf16 or f32
+# aux, local coordinates and weights: K2, K3 and K4's int8 instantiations
+# against their plain versions, which cast the rows to aux's type and
+# combine in it. The rows are integers in [-127, 127] and W1's feature rows
+# carry the 1/127-scale a quantization folds into them, so the products
+# have the float cases' magnitudes; the tolerances are the float cases'.
+# Shapes: fusion_features 256 ('smem' plan) and 512 ('global' for K2 and
+# K3, and for K4), K4 also at the pruned renderer's P = 8 and 24.
+def _int8_case(dev, key, ff, dtype, P=64):
+    channels, H1, O, K = (ff, ff, 64), 2 * ff + 64, ff + 32, 128
+    hw = (8, 16, 32)
+    F = sum(channels)
+    if key == 'K4':
+        t, c, a_s, a_c, lc, prm = _render_case(dev, channels, H1, O, K, hw,
+                                               1, 5, P)
+        rest, aux = (lc, prm), (a_s, a_c)
+    else:
+        S = 2 if key == 'K2' else 3
+        t, c, aux, prm = _epilogue_case(dev, channels, H1, O, K, S, hw,
+                                        3 * 64 + 37, S=S, seed=S)
+        rest = (prm,)
+    rng = np.random.default_rng(5)
+    tables = tuple(torch.as_tensor(rng.integers(-127, 128, x.shape),
+                                   dtype=torch.int8).to(dev) for x in t)
+    w1 = prm[0].float().clone()
+    w1[:F] *= 1.0 / 127
+    prm = (w1,) + tuple(prm[1:])
+    aux = tuple(a.to(dtype) for a in aux)
+    if key == 'K4':
+        return (FR.fused_render_core, FR.fused_render_core_reference,
+                (tables, c, *aux, lc.to(dtype), prm, 1, 5, P, True),
+                {0: 2 ** -5, 1: 2 ** -8})
+    if key == 'K2':
+        return (GE.fused_exchange_epilogue,
+                GE.fused_exchange_epilogue_reference,
+                (tables, c, *aux, prm, 100), {0: 2 ** -5, 1: 2 ** -5})
+    return (GE.fused_exchange_epilogue_multi,
+            GE.fused_exchange_epilogue_multi_reference,
+            (tables, c, aux, prm), {0: 2 ** -5, 1: 2 ** -5})
+
+
+INT8_CASES = ([(k, ff, 64) for k in ('K2', 'K3', 'K4') for ff in (256, 512)]
+              + [('K4', 256, 8), ('K4', 256, 24)])
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
+                         ids=['bf16', 'f32'])
+@pytest.mark.parametrize('key,ff,P', INT8_CASES)
+def test_int8_tables_against_plain_int8(dev, key, ff, P, dtype):
+    """Each int8 instantiation launches (one counted launch), writes
+    outputs in aux's type and of the plain version's shapes, finite,
+    within the stated fraction of max(1, max |plain|) (K4's weights within
+    an absolute 2^-8)."""
+    fn, plain, args, tols = _int8_case(dev, key, ff, dtype, P)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args)
+    print(f'{key} int8 ff={ff} P={P} {dtype}: plan {fn.last_plan}')
+    for i, tol in tols.items():
+        g, w = got[i], want[i]
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        bound = tol if (key, i) == ('K4', 1) else tol * _scale(w)
+        err = _max_err(g, w)
+        print(f'  output {i}: max err {err:.3e} (tol {bound:.3e})')
+        assert err <= bound, (key, ff, P, i, err, bound)
+
+
+def test_int8_tables_refuse_mixed_types(dev):
+    """int8 tables are taken beside bf16 or f32 aux only; a table of
+    another integer type, and int8 beside f16 aux, are refused."""
+    tables, cells, a_s, a_c, lc, params = _render_case(
+        dev, (32, 32, 16), 80, 40, 16, (4, 8, 16), 1, 3, 4)
+    i8 = [torch.zeros_like(t, dtype=torch.int8) for t in tables]
+    with pytest.raises(ValueError):
+        FR.fused_render_core([t.to(torch.int16) for t in i8], cells, a_s,
+                             a_c, lc, params, 1, 3, 4, True)
+    with pytest.raises(ValueError):
+        GE.fused_exchange_epilogue(i8, cells, a_s.half(), a_c.half(),
+                                   params[:10], 12)
+
+
+# A narrow model's fast-eval render (the CLI's --fast composition: pruned
+# 4,8, narrow, q8) in bf16 on the card against its f32 render on the CPU,
+# through the same entry point: chip_smoke.py's small-input gate. Per
+# image of 2 blocks: the coarse and the fine pass of each block.
+FAST_PATHS = {
+    'v2': (dict(), {'epipolar_attention': 6, 'fused_exchange_epilogue': 4}),
+    'v2_fused_render': (dict(fused_render=True), {'fused_render_core': 4}),
+    'v3': (dict(n_view=3), {'epipolar_attention': 6,
+                            'fused_exchange_epilogue_multi': 4}),
+}
+
+
+@pytest.mark.parametrize('path', sorted(FAST_PATHS))
+def test_fast_renderer_on_the_card_matches_the_cpu(dev, path):
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models.renderer import (
+        CrossAttentionRenderer)
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_fast_renderer)
+    kw, want_launches = FAST_PATHS[path]
+    n_view = kw.get('n_view', 2)
+    wrappers = {w.__name__: w for w in (
+        EA.epipolar_attention, GE.fused_exchange_epilogue,
+        GE.fused_exchange_epilogue_multi, FR.fused_render_core)}
+    fast = dict(pruned=(4, 8), narrow=(16, 16, 32), q8=True)
+    out = {}
+    for where, dtype in (('cpu', torch.float32), (dev, torch.bfloat16)):
+        model = CrossAttentionRenderer(dtype=dtype, seed=1, device=where,
+                                       **NARROW, **kw)
+        scene = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512,
+                           device=where)
+        with torch.inference_mode():
+            z = model.encode(scene)
+        for w in wrappers.values():
+            w.launches = 0
+        rgb, _ = make_fast_renderer(model, 2, **fast)(
+            scene, z, scene['query']['uv'])
+        out[str(where)] = rgb.float().cpu()
+    launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    assert launches == want_launches, launches
+    got, want = out[str(dev)], out['cpu']
+    assert torch.isfinite(got).all()
+    err = _max_err(got, want)
+    print(f'{path}: fast bf16 card render vs f32 CPU render, max err '
+          f'{err:.3e}')
+    assert err <= 0.1 * _scale(want)
+
+
+def test_fast_renderer_layout_cache_stays_bounded(dev):
+    """Each image's folded fuse kernel is a new tensor, so K2 lays out its
+    weights again for each image; the entries of the images before are
+    dropped, so the cache holds as many entries after the fifth image as
+    after the second."""
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models.renderer import (
+        CrossAttentionRenderer)
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_fast_renderer)
+    model = CrossAttentionRenderer(dtype=torch.bfloat16, seed=1, device=dev,
+                                   **NARROW)
+    render = make_fast_renderer(model, 2, narrow=(16, 16, 32), q8=True)
+    sizes = []
+    for seed in range(5):
+        scene = make_scene(seed, H=64, W=64, n_rays=256, device=dev)
+        with torch.inference_mode():
+            z = model.encode(scene)
+        render(scene, z, scene['query']['uv'])
+        torch.cuda.synchronize()
+        sizes.append(len(GE._PREPARED))
+    assert sizes[1:] == [sizes[1]] * 4, sizes

@@ -156,12 +156,22 @@ def test_chunk_renderer_matches_one_call():
                                   whole['valid_mask'].numpy())
 
 
-@pytest.mark.parametrize('fast', [dict(pruned=(16, 24)), dict(narrow=(8,)),
-                                  dict(q8=True)])
+@pytest.mark.parametrize('fast', [dict(pruned=(16, 24)),
+                                  dict(narrow=(8, 8, 16)), dict(q8=True)])
 def test_image_renderer_fast_eval_is_not_ported_yet(fast):
+    """The fast-eval options of ``make_image_renderer``, refused until the
+    fast renderers were ported, now render the scene's full image: finite,
+    with the dense renderer's valid mask (their parity with JAX is in
+    tests/test_torch_fast_eval.py)."""
     model = CrossAttentionRenderer(seed=0, device='cpu', **SMALL)
-    with pytest.raises(NotImplementedError, match='Queue A 6'):
-        E.make_image_renderer(model, 2, **fast)
+    scene = make_scene(2, H=32, W=32, n_rays=32 * 32, full_image=True,
+                       device='cpu')
+    encode, render_image = E.make_image_renderer(model, 2, **fast)
+    rgb, valid = render_image(scene, encode(scene))
+    dense = E.make_image_renderer(model, 2)
+    _, valid_dense = dense[1](scene, dense[0](scene))
+    assert rgb.shape == (1, 1, 32 * 32, 3) and torch.isfinite(rgb).all()
+    assert torch.equal(valid, valid_dense)
 
 
 def test_throughput_meter_on_a_fixed_clock(monkeypatch):
