@@ -134,11 +134,28 @@ no result):
      int8 instantiations, with bf16 and with f32 slot weights, against
      their plain versions at the flagship's shapes and at the pruned
      shapes of ``--fast``, and K1, K2, K3 and K4 at the pruned renderer's
-     shapes (both passes), each timed.
+     shapes (both passes), each timed;
+ 24. the other encoders, view counts and ablation flags, as phase 3
+     drives the flagship (bf16, 256x256, 8 blocks, seed 0, the decoder's
+     last layer at 1/64): the ResNet34 and U-Net models at V=2 on K2, at
+     V=3 on K3 and in the fused render on K4 (each in its 4-level mode),
+     the DPT model at V=4 on K3 (S = 4 streams) and K1 (V*P = 192) and at
+     V=4 compat on K9, the DPT and U-Net models at V=1 on K1 (C = 576 and
+     960), and the four ablation flags on the V=2 flagship; each image's
+     launch counts and range, then its ms and device busy over one timed
+     and one profiled image, and the image against the same model's
+     unfused route (no K1-K4 or K9) within the path-vs-path tolerance;
+     each new kernel mode and shape against its plain version on the
+     path's first block, timed beside its bound; the small-input
+     agreement of the sorted stream (K5) and the one-hot (K7) and banded
+     (K8) gathers at V=4 and at four levels; one default-route train step
+     of each new encoder (ms, peak GB); ``cli/train.py`` (2 steps) and
+     ``cli/eval.py`` (one scene) with ``--model resnet --no_sample``.
 Then it prints the ``train`` JSON line (phases 17-19), the ``cli`` line
 (phases 21-22), the ``fast_eval`` line (phase 23: each image's ms, rays/s
-and device busy, each path's launches), the ``kernels`` JSON line (K1-K9,
-their f32 and int8 instantiations, T1-T13), the card line and, last, the
+and device busy, each path's launches), the ``ablations`` line (phase 24),
+the ``kernels`` JSON line (K1-K9, their f32 and int8 instantiations, the
+new modes and shapes of phase 24, T1-T13), the card line and, last, the
 result line.
 """
 
@@ -399,14 +416,14 @@ def check_gather(label, kernel, cases, out_dtype):
 
 
 def drive(label, model, scene, RM, counted, expected, capture=None,
-          render_image=None, times=None, timed=True):
+          render_image=None, times=None, timed=True, n_img=3):
     """Renders the full image through ``render_image`` (by default
     ``make_scan_renderer``'s) with the launch counters of ``counted``
     ({name: kernel wrapper}) set to 0 just before and read just after, and
     checks the image. Then, where ``timed``, times encode and the whole
     image and profiles one image; ``times`` (a dict), where given,
     receives the image's ms, rays/s and the profiled image's wall and
-    device busy ms. Records the
+    device busy ms; ``n_img`` images are timed. Records the
     arguments of the first ``n`` calls of each ``capture`` entry ({key:
     (module, name, n)}; by default the first call of every counted kernel
     the renderer module calls). Returns the recorded arguments, the
@@ -464,7 +481,6 @@ def drive(label, model, scene, RM, counted, expected, capture=None,
     with torch.inference_mode():
         encode_ms = cuda_ms(lambda: model.encode(scene), 5)
         t0 = time.perf_counter()
-        n_img = 3
         for _ in range(n_img):
             render_image(scene, z, uv_full)
         torch.cuda.synchronize()
@@ -1448,6 +1464,297 @@ def check_cli(dev, build_dir, counted_v2, counted_v3, by_path, extra=()):
     return out
 
 
+# Phase 24, the other encoders, view counts and ablation flags at full width
+# (bf16, 256x256, 8 blocks of 8,192 rays): (label, model kwargs, the
+# kernels a path launches with their counts per image, the kernels it runs
+# at a new mode or shape with the entry of the kernels line each counts
+# under; each of those is checked on its first call). The four-level
+# encoders put K2, K3 and K4 in their 4-level mode.
+ABLATION_PATHS = (
+    ('ResNet V=2', dict(model='resnet', npoints=64),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 8},
+     {'fused_exchange_epilogue': 'fused_exchange_epilogue_l4',
+      'epipolar_attention': 'epipolar_attention_c256'}),
+    ('ResNet V=3', dict(model='resnet', n_view=3),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     {'fused_exchange_epilogue_multi': 'fused_exchange_epilogue_multi_l4',
+      'epipolar_attention': 'epipolar_attention_c256'}),
+    ('ResNet V=2 fused render', dict(model='resnet', npoints=64,
+                                     fused_render=True),
+     {'fused_render_core': 8, 'epipolar_attention': 0,
+      'fused_exchange_epilogue': 0},
+     {'fused_render_core': 'fused_render_core_l4'}),
+    ('U-Net V=2', dict(model='unet', npoints=64),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 8},
+     {'fused_exchange_epilogue': 'fused_exchange_epilogue_l4',
+      'epipolar_attention': 'epipolar_attention_c480'}),
+    ('U-Net V=3', dict(model='unet', n_view=3),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     {'fused_exchange_epilogue_multi': 'fused_exchange_epilogue_multi_l4',
+      'epipolar_attention': 'epipolar_attention_c480'}),
+    ('U-Net V=2 fused render', dict(model='unet', npoints=64,
+                                    fused_render=True),
+     {'fused_render_core': 8, 'epipolar_attention': 0,
+      'fused_exchange_epilogue': 0},
+     {'fused_render_core': 'fused_render_core_l4'}),
+    ('V=4', dict(n_view=4),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     {'fused_exchange_epilogue_multi': 'fused_exchange_epilogue_multi_s4',
+      'epipolar_attention': 'epipolar_attention_vp192'}),
+    # 4 self and 12 cross fuse calls a block
+    ('V=4 compat', dict(n_view=4, **PATH_B),
+     {'epipolar_attention': 16, 'fused_mlp2': 16 * 8,
+      'fused_exchange_epilogue_multi': 0},
+     {'epipolar_attention': 'epipolar_attention_vp192'}),
+    ('V=1', dict(n_view=1, npoints=64),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 0},
+     {'epipolar_attention': 'epipolar_attention_c576'}),
+    ('U-Net V=1', dict(model='unet', n_view=1, npoints=64),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 0},
+     {'epipolar_attention': 'epipolar_attention_c960'}),
+    ('V=2 no_sample', dict(npoints=64, no_sample=True),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 8}, {}),
+    ('V=2 no_multiview', dict(npoints=64, no_multiview=True),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 8}, {}),
+    ('V=2 no_high_freq', dict(npoints=64, no_high_freq=True),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 8}, {}),
+    ('V=2 no_latent_concat', dict(npoints=64, no_latent_concat=True),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 0},
+     {'epipolar_attention': 'epipolar_attention_c576'}),
+)
+# Flags the same model takes as plain attributes (read at each forward):
+# the V=2 flagship and the V=4 model are built once for them.
+ATTRIBUTE_FLAGS = ('no_sample', 'no_multiview', 'no_high_freq',
+                   'reference_exchange_compat', 'fused_mlp')
+# The small-input agreement (phase 8's) of the sorted stream and the
+# one-hot and banded gathers at V=4 and at four levels: (label, kwargs,
+# the launches of one forward).
+ABLATION_SMALL = (
+    ('V=4 sorted', dict(n_view=4, sorted_stream=True),
+     {'resident_gather': 6}),
+    ('V=4 compat one-hot', dict(n_view=4, gather='onehot', **PATH_B),
+     {'onehot_gather': 6, 'fused_mlp2': 16}),
+    ('ResNet V=2 sorted', dict(model='resnet', sorted_stream=True),
+     {'resident_gather': 8}),
+    ('U-Net V=3 sorted', dict(model='unet', n_view=3, sorted_stream=True),
+     {'resident_gather': 8}),
+    ('ResNet V=3 compat one-hot', dict(model='resnet', n_view=3,
+                                       gather='onehot', **PATH_B),
+     {'onehot_gather': 8, 'fused_mlp2': 9}),
+    ('U-Net V=4 compat banded', dict(model='unet', n_view=4,
+                                     gather='banded', **PATH_B),
+     {'banded_gather': 8, 'fused_mlp2': 16}),
+)
+
+
+def unfused_twin(model):
+    """``model`` on its unfused route: a shallow copy (the same weights)
+    with the fused epilogues, the fused render, K1 and K9 off, as the
+    trainer's clone and more (the plain PyTorch path of the JAX package's
+    ``fused_epilogue=False``)."""
+    import copy
+    twin = copy.copy(model)
+    twin.fused_epilogue = twin.fused_attention = False
+    twin.fused_render = twin.fused_mlp = False
+    return twin
+
+
+def ablation_model(RM, dev, cache, kw):
+    """The full-width bf16 model of ``kw`` from seed 0, the attribute flags
+    set on a model built once per structure (``cache``). The decoder reads
+    the V views' latents side by side, so its random output grows with V
+    (at 1/64 the V=3 compat image reaches -0.875, the V=4 one -1.14): above
+    two views its last layer is drawn a further sqrt(2 / V) smaller, so
+    that the random image keeps the V=2 model's range."""
+    import math
+
+    import torch
+    struct = {k: v for k, v in kw.items() if k not in ATTRIBUTE_FLAGS}
+    key = tuple(sorted(struct.items()))
+    if key not in cache:
+        cache.clear()
+        torch.cuda.empty_cache()
+        model = flagship(RM, dev, **struct)
+        if model.n_view > 2:
+            with torch.no_grad():
+                model.phi.lin_out.weight.mul_(math.sqrt(2 / model.n_view))
+        cache[key] = model
+    model = cache[key]
+    for flag in ATTRIBUTE_FLAGS:
+        setattr(model, flag, kw.get(flag, False))
+    return model
+
+
+def ablations(RM, EA, GE, FR, FM, PG, SG, BG, make_scene, dev, counted,
+              build_dir, cli_extra=()):
+    """Phase 24: the ResNet34 and U-Net encoders, 1 and 4 views and the
+    four ablation flags at full width (``ABLATION_PATHS``), each image
+    driven as phase 3 drives it (its launch counts, finite, RGB in
+    [-1, 1.5]) and timed over one image and one profiled image, then held
+    against the same model's unfused route (``unfused_twin``) within
+    PATH_TOL. The first call of each path's new kernel mode or shape
+    against its plain version, timed beside its bound. The small-input
+    agreement of the sorted stream and the one-hot and banded gathers at
+    V=4 and at four levels (``ABLATION_SMALL``). One default-route train
+    step of each new encoder at the flagship's batch (ms, peak GB). The
+    CLI's train (2 steps) and eval (one scene) with ``--model resnet
+    --no_sample``. Returns (launches by path, times by path, the checks'
+    numbers by kernel-line entry, the train and CLI numbers)."""
+    import torch
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_scan_renderer)
+    checks = {'fused_exchange_epilogue': lambda label, args: check_epilogue(
+                  label, GE.fused_exchange_epilogue,
+                  GE.fused_exchange_epilogue_reference, args, args[2:4],
+                  args[4], K2_TOL),
+              'fused_exchange_epilogue_multi': lambda label, args:
+                  check_epilogue(label, GE.fused_exchange_epilogue_multi,
+                                 GE.fused_exchange_epilogue_multi_reference,
+                                 args, args[2], args[3], K3_TOL),
+              'fused_render_core': lambda label, args: check_render_core(
+                  FR, args),
+              'epipolar_attention': lambda label, args: check_attention(
+                  label, EA, *args)}
+    by_path, times, numbers, cache = {}, {}, {}, {}
+    for label, kw, expected, checked in ABLATION_PATHS:
+        V = kw.get('n_view', 2)
+        model = ablation_model(RM, dev, cache, kw)
+        scene = make_scene(0, n_view=V, H=H, W=W, n_rays=H * W,
+                           full_image=True, device=dev)
+        key = label.lower().replace(' ', '_').replace('=', '').replace(
+            '-', '')
+        captured, launches, rgb = drive(
+            label, model, scene, RM, {n: counted[n] for n in expected},
+            expected, capture={n: (RM, n, 1) for n in checked},
+            times=times.setdefault(label, {}), n_img=1)
+        by_path[key] = launches
+        twin = unfused_twin(model)
+        with torch.inference_mode():
+            rgb_ref, _ = make_scan_renderer(twin, N_BLOCKS)(
+                scene, twin.encode(scene), scene['query']['uv'])
+        check_paths(f'{label} vs its unfused route', PATH_TOL, rgb.float(),
+                    rgb_ref.float())
+        del twin, rgb, rgb_ref
+        for name, entry in checked.items():
+            result = checks[name](f'{label}', captured[name][0])
+            numbers.setdefault(entry, {})[label] = result
+        del captured, scene
+        torch.cuda.empty_cache()
+    cache.clear()
+    torch.cuda.empty_cache()
+
+    kernels = {'resident_gather': SG.resident_gather,
+               'onehot_gather': PG.onehot_gather,
+               'banded_gather': BG.banded_gather, 'fused_mlp2': FM.fused_mlp2}
+    for label, kw, launches in ABLATION_SMALL:
+        by_path[f'small_{label.lower().replace(" ", "_")}'] = \
+            small_agreement(label, RM, make_scene, dev, counted={
+                n: (kernels[n], c) for n, c in launches.items()}, **kw)
+
+    from cross_attention_renderer_torch.tools import bench_train as BT
+    train = {}
+    with torch.enable_grad():
+        for model_kw in (dict(model='resnet'), dict(model='unet')):
+            train[model_kw['model']] = encoder_train_step(
+                RM, make_scene, dev, BT.BATCH, BT.RAYS, model_kw)
+        cli = ablation_cli(dev, build_dir, dict(
+            [(n, counted[n]) for n in ('epipolar_attention',
+                                       'fused_exchange_epilogue')]),
+            cli_extra)
+    return by_path, times, numbers, {'train': train, 'cli': cli}
+
+
+def encoder_train_step(RM, make_scene, dev, batch, rays, model_kw):
+    """One default-route train step (``train/trainer.py``, the unfused
+    exchange and the plain attention) of a full-width bf16 model of
+    ``model_kw`` on a batch of 256x256 scenes: the first step's loss and
+    grad_norm finite, then 3 steps between CUDA events and the peak
+    memory allocated."""
+    import torch
+    from cross_attention_renderer_torch.train import trainer as T
+    model = RM.CrossAttentionRenderer(dtype=torch.bfloat16, seed=0,
+                                      device=dev, npoints=64, **model_kw)
+    scene = make_scene(0, batch=batch, n_view=2, H=H, W=W, n_rays=rays,
+                       device=dev)
+    cfg = T.TrainConfig()
+    state = T.create_train_state(model, cfg)
+    step = T.make_train_step(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, scene)
+    loss, gnorm = float(m['total_loss']), float(m['grad_norm'])
+    label = f'train step {model_kw["model"]}'
+    if not (np_isfinite(loss) and np_isfinite(gnorm)):
+        raise RuntimeError(f'{label}: loss {loss}, grad_norm {gnorm}')
+    n = 3
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(n):
+        state, m = step(state, scene)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / n
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f'{label} (batch {batch}, {rays} rays, 256x256, bf16, default '
+        f'route): first loss {loss:.5f}, grad_norm {gnorm:.4f}, '
+        f'{ms:.1f} ms a step, peak {peak:.2f} GB')
+    del model, state, step, scene
+    torch.cuda.empty_cache()
+    return {'loss': loss, 'grad_norm': gnorm, 'ms_per_step': ms,
+            'peak_gb': peak, 'batch': batch, 'rays': rays}
+
+
+def ablation_cli(dev, build_dir, counted, extra=()):
+    """``cli/train.py`` for 2 steps and ``cli/eval.py`` on one scene, both
+    with ``--model resnet --no_sample`` at their defaults (f32) on phase
+    21's corpus: finite losses and metrics, the final checkpoint, and the
+    eval's launches (16 K1 and 8 K2 in the 4-level mode an image).
+    ``extra``: flags added to both calls (none on the card)."""
+    import shutil
+
+    import torch
+    from cross_attention_renderer_torch.cli import eval as eval_cli
+    from cross_attention_renderer_torch.cli import train as train_cli
+    corpus, logs = build_dir / 'smoke_corpus', build_dir / 'smoke_logs_ab'
+    shutil.rmtree(logs, ignore_errors=True)
+    flags = ['--img_root', str(corpus / 'frames'), '--pose_root',
+             str(corpus / 'poses.mat'), '--logging_root', str(logs),
+             '--model', 'resnet', '--no_sample', *extra]
+    out = {}
+    t0 = time.perf_counter()
+    res = train_cli.main([*flags, '--max_steps', '2', '--steps_til_log',
+                          '1', '--experiment_name', 'train'])
+    steps = res['log']
+    final = logs / 'train' / 'checkpoints' / 'final.pt'
+    log('CLI train --model resnet --no_sample: '
+        + '; '.join(f'step {r["step"]} loss {r["total_loss"]:.5f} '
+                    f'{r["ms"]:.1f} ms' for r in steps))
+    if (res['state'].step != 2 or not final.exists()
+            or not all(np_isfinite(r['total_loss']) for r in steps)):
+        raise RuntimeError(f'CLI train --model resnet: {steps}')
+    out['train'] = {'steps': steps, 'wall_s': time.perf_counter() - t0}
+    del res
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = eval_cli.main([*flags, '--max_scenes', '1', '--experiment_name',
+                         'eval'])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    log(f'CLI eval --model resnet --no_sample: launches {launches}, '
+        f'metrics {res["scenes"]}')
+    if (launches != {'epipolar_attention': 2 * CLI_CHUNKS,
+                     'fused_exchange_epilogue': CLI_CHUNKS}
+            or len(res['scenes']) != 1
+            or not all(np_isfinite(v) for v in res['scenes'][0].values())):
+        raise RuntimeError(f'CLI eval --model resnet: launches {launches}, '
+                           f'{res["scenes"]}')
+    out['eval'] = {'launches': launches, 'scene': res['scenes'][0],
+                   'wall_s': time.perf_counter() - t0}
+    shutil.rmtree(logs, ignore_errors=True)
+    return out
+
+
 def flagship(RM, dev, dtype=None, **kw):
     """The 122M model from seed 0 (bf16 compute unless ``dtype`` says
     otherwise), decoder output layer scaled."""
@@ -1774,6 +2081,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Its launches by instantiation: bf16 tables (dense, pruned, narrow),
     # int8 tables beside bf16 (q8, fast) and beside f32 (the f32 model).
+    # -- 24. the other encoders, view counts and ablation flags --------------
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ab_paths, ab_times, ab_numbers, ab_runs = ablations(
+            RM, EA, GE, FR, FM, PG, SG, BG, make_scene, dev,
+            dict([attention, epilogue, epilogue_multi, render_core, mlp]),
+            build_dir)
+    log(f'ablation phase: {time.perf_counter() - t0:.1f} s')
+    print(json.dumps({'ablations': dict(ab_runs, card=card, images=ab_times,
+                                        launches=ab_paths)}), flush=True)
+    torch.cuda.empty_cache()
+    # The flags on the flagship V=2 model run K1 and K2 at its shapes, and
+    # the V=4 compat path K9 at phase 7's: their launches join those
+    # kernels' entries. The new modes and shapes have entries of their own.
+    for key in ('v2_no_sample', 'v2_no_multiview', 'v2_no_high_freq'):
+        by_path[key] = ab_paths[key]
+    by_path['v4_compat'] = {'fused_mlp2': ab_paths['v4_compat']['fused_mlp2']}
+
     fast_f32 = {p: n for p, n in fast_paths.items() if p.endswith('_f32')}
     fast_i8 = {p: n for p, n in fast_paths.items()
                if p not in fast_f32 and ('_q8' in p or '_fast' in p)}
@@ -1850,6 +2175,46 @@ def main() -> int:
                 'backward': 'none: int8 tables take no gradient',
                 'library_ms': None, **flagship_numbers,
                 'pruned': numbers[f'{name} pruned']})
+    # the ABLATION_PATHS that run each new entry's kernel at its mode or shape
+    for entry, (name, _), source, replaces, what in (
+            ('fused_exchange_epilogue_l4', epilogue, 'gather_epilogue.cu',
+             'ops/gather_epilogue.py:220', 'K2, 4 pyramid levels'),
+            ('fused_exchange_epilogue_multi_l4', epilogue_multi,
+             'gather_epilogue_multi.cu', 'ops/gather_epilogue.py:421',
+             'K3, 4 pyramid levels'),
+            ('fused_render_core_l4', render_core, 'fused_render.cu',
+             'ops/fused_render.py:349', 'K4, 4 pyramid levels'),
+            ('fused_exchange_epilogue_multi_s4', epilogue_multi,
+             'gather_epilogue_multi.cu', 'ops/gather_epilogue.py:421',
+             'K3, S = 4 streams (V=4)'),
+            ('epipolar_attention_vp192', attention, 'epipolar_attention.cu',
+             'ops/epipolar_attention.py:118', 'K1, V*P = 192 (V=4)'),
+            ('epipolar_attention_c576', attention, 'epipolar_attention.cu',
+             'ops/epipolar_attention.py:118',
+             'K1, C = 576 (V=1, no_latent_concat)'),
+            ('epipolar_attention_c960', attention, 'epipolar_attention.cu',
+             'ops/epipolar_attention.py:118', 'K1, C = 960 (U-Net V=1)'),
+            ('epipolar_attention_c256', attention, 'epipolar_attention.cu',
+             'ops/epipolar_attention.py:118',
+             'K1, C = 256 (ResNet34 V=2 and V=3)'),
+            ('epipolar_attention_c480', attention, 'epipolar_attention.cu',
+             'ops/epipolar_attention.py:118',
+             'K1, C = 480 (U-Net V=2 and V=3)')):
+        paths = {}
+        for label, _, _, entries in ABLATION_PATHS:
+            key = label.lower().replace(' ', '_').replace('=', '').replace(
+                '-', '')
+            if entries.get(name) == entry:
+                paths[key] = ab_paths[key][name]
+        by_label = ab_numbers[entry]
+        first = next(iter(by_label.values()))
+        kernels.append({
+            'name': entry, 'mode': what, 'route': 'cuda',
+            'source': f'cross_attention_renderer_torch/csrc/{source}',
+            'replaces': f'cross_attention_renderer_tpu/{replaces}',
+            'launches': sum(paths.values()), 'launches_by_path': paths,
+            'backward': 'the plain version, recomputed (ops/_autograd.py)',
+            'library_ms': None, **first, 'checked_on': by_label})
     kernels += probes
     for kern in kernels:
         log(f'{kern["name"]}: {kern["ms"]:.3f} ms, plain '

@@ -3,10 +3,11 @@
 Port of ``cross_attention_renderer_tpu/cli/common.py``: the same flags with
 the same defaults (``--dtype float32`` among them), plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the plain versions of the kernels
-on the CPU). What the port does not have yet is refused where it is asked
-for: ``--model resnet|unet``, the four ablation flags and ``--views``
-outside 2-3 raise in :func:`build_model` (ROADMAP.md Queue A 5). The
-fast-eval flags (``--pruned``, ``--narrow``, ``--q8``, ``--fast``) select
+on the CPU). ``--model``, the four ablation flags and ``--views`` 1 to 4
+reach the renderer as in the JAX CLI; ``--views`` above 4 raises in
+:func:`build_model` (the default V>=3 exchange, kernel K3, takes at most
+four streams; the JAX CLI takes any count). The fast-eval flags
+(``--pruned``, ``--narrow``, ``--q8``, ``--fast``) select
 ``train/evaluation.py``'s fast renderers, with JAX's defaults.
 """
 
@@ -142,20 +143,13 @@ class FrameWriter:
 
 def build_model(opt):
     """The renderer the flags describe, on ``opt.device``, its parameters
-    drawn from seed 0. Raises NotImplementedError on what the port does
-    not have yet (ROADMAP.md Queue A 5)."""
+    drawn from seed 0 (JAX cli/common.py:130-142). Raises ValueError for
+    ``--views`` outside 1-4."""
     from cross_attention_renderer_torch.models.renderer import (
         CrossAttentionRenderer)
-    missing = [f'--model {opt.model}'] if opt.model != 'midas_vit' else []
-    missing += [f'--{a}' for a in ABLATIONS if getattr(opt, a, False)]
-    if opt.views not in (2, 3):
-        missing.append(f'--views {opt.views}')
-    if missing:
-        raise NotImplementedError(
-            f'{", ".join(missing)}: not ported yet (ROADMAP.md Queue A 5: '
-            'the ablation flags, other view counts and the other encoders)')
     return CrossAttentionRenderer(
-        dtype=getattr(torch, opt.dtype), n_view=opt.views,
+        dtype=getattr(torch, opt.dtype), n_view=opt.views, model=opt.model,
+        **{a: bool(getattr(opt, a)) for a in ABLATIONS},
         npoints=opt.npoints, fused_attention=opt.fused_attention,
         fusion_features=opt.fusion_features, vit_width=opt.vit_width,
         vit_depth=opt.vit_depth, vit_heads=opt.vit_heads,

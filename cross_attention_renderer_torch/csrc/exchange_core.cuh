@@ -104,6 +104,14 @@
 // 16-byte chunk of comb is two 16-byte loads of each corner's row, 4C f32
 // being 16 C bytes, a multiple of 128 for C % 8 == 0).
 //
+// Levels. The pyramid has one to four levels (the DPT encoder three, the
+// ResNet34 and U-Net encoders four); a level's columns of comb start at
+// level_col[l], and its four slot weights are columns 4l..4l+3 of the aux
+// rows. Up to three levels the aux rows are 16 wide with tanh(pt/5) at 12
+// (the TPU kernels' layout); with four they are 24 wide with it at 16, so
+// that a 4-level epilogue computes what the JAX package's unfused exchange
+// does (its fused kernels read tanh at 12 whatever the level count).
+//
 // Table types (template kI8). K2, K3 and K4 also take int8 cell tables
 // (the quantized pyramid of fast evaluation, train/evaluation.py
 // quantize_pyramid), in both instantiations above: aux, the local
@@ -131,7 +139,7 @@ typedef __nv_bfloat16 bf16;
 
 enum Mode : int { kPair = 0, kStreams = 1, kMlp = 2, kRender = 3 };
 
-constexpr int kMaxLevels = 3;
+constexpr int kMaxLevels = 4;
 constexpr int kMaxStreams = 4;
 constexpr int kRows = 64;              // samples per tile: wgmma's M
 constexpr int kKBlock = kRows * 128;   // a (64, 64) bf16 A tile, 8 KB
@@ -162,9 +170,14 @@ struct CoreArgs {
   const void* table[kMaxLevels];     // packed cell tables (rows, 4 * C_l)
   const int32_t* cells[kMaxLevels];  // (S*M,) cell rows, stream-major
   int channels[kMaxLevels];
+  int level_col[kMaxLevels + 1];  // the first comb column of each level
+                                  // (F for those past n_levels, and last)
   int n_levels;
-  const void* aux[kMaxStreams];  // (M, 16) per stream: 12 slot weights,
-                                 // tanh(pt/5), pad
+  // The aux rows (aux_layout in ops/gather_epilogue.py): 4 slot weights a
+  // level from column 0, tanh(pt/5) at tanh_col = 4 * max(n_levels, 3),
+  // zero pad to aux_w = 16 (up to three levels) or 24 (four).
+  int level_slots, tanh_col, aux_w;
+  const void* aux[kMaxStreams];  // (M, aux_w) per stream
   const void* x;                 // kMlp: (M, F) input rows
   const void* x2;                // kMlp: (M, 3)
   const void* lc;                // kRender: (M, 16) local coordinates
@@ -530,12 +543,13 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
                             unsigned char* comb, uint32_t* gcomb, bf16* aux,
                             int* cell) {
   const int t = threadIdx.x;
-  for (int i = t; i < kRows * 2; i += kConsumers) {
-    const int r = i >> 1, half = i & 1;
+  const int aw = p.aux_w, nq = aw / 8;
+  for (int i = t; i < kRows * nq; i += kConsumers) {
+    const int r = i / nq, q = i - r * nq;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < n_live)
-      val = load8<kF32, false>(p.aux[s], (size_t)(m0 + r) * 16 + 8 * half);
-    reinterpret_cast<uint4*>(aux + r * 16)[half] = val;
+      val = load8<kF32, false>(p.aux[s], (size_t)(m0 + r) * aw + 8 * q);
+    reinterpret_cast<uint4*>(aux + r * aw)[q] = val;
   }
   // The tile's cell rows of every level first, so that the row loads below
   // wait on no other load from device memory.
@@ -547,27 +561,27 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
   // One pass over the 16-byte chunks of all the tile's comb rows, eight per
   // thread in flight (f32 rows: four, each twice the loads); chunk q of a
   // row is column 8q, of the level whose columns hold it.
-  const int ch8 = p.F / 8, off1 = p.channels[0],
-            off2 = p.n_levels > 2 ? off1 + p.channels[1] : p.F;
+  const int ch8 = p.F / 8, off1 = p.level_col[1], off2 = p.level_col[2],
+            off3 = p.level_col[3];
 #pragma unroll (kF32 && !kI8 ? 4 : 8)
   for (int i = t; i < kRows * ch8; i += kConsumers) {
     const int r = i / ch8, col = (i - r * ch8) * 8;
-    const int l = (col >= off1) + (col >= off2);
+    const int l = (col >= off1) + (col >= off2) + (col >= off3);
     const int C = p.channels[l];
-    const int c0 = col - (l == 0 ? 0 : l == 1 ? off1 : off2);
+    const int c0 = col - (l == 0 ? 0 : l == 1 ? off1 : l == 2 ? off2 : off3);
     const int row = cell[l * kRows + r];
     uint4 out = make_uint4(0u, 0u, 0u, 0u);
     if (row >= 0 && kF32) {
       out = kI8 ? combine_i8<true>(static_cast<const int8_t*>(p.table[l]) +
                                        (size_t)row * 4 * C + c0,
-                                   C, aux + r * 16 + l * 4)
+                                   C, aux + r * aw + l * 4)
                 : combine_f32(static_cast<const float*>(p.table[l]) +
                                   (size_t)row * 4 * C + c0,
-                              C, aux + r * 16 + l * 4);
+                              C, aux + r * aw + l * 4);
     } else if (row >= 0 && kI8) {
       out = combine_i8<false>(static_cast<const int8_t*>(p.table[l]) +
                                   (size_t)row * 4 * C + c0,
-                              C, aux + r * 16 + l * 4);
+                              C, aux + r * aw + l * 4);
     } else if (row >= 0) {
       const bf16* src =
           static_cast<const bf16*>(p.table[l]) + (size_t)row * 4 * C + c0;
@@ -577,7 +591,7 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
       __nv_bfloat162* acc = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const bf16 w = aux[r * 16 + l * 4 + k];
+        const bf16 w = aux[r * aw + l * 4 + k];
         const __nv_bfloat162 w2 = __halves2bfloat162(w, w);
         const __nv_bfloat162* xv =
             reinterpret_cast<const __nv_bfloat162*>(&x[k]);
@@ -595,7 +609,8 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
 }
 
 // K9's tile: rows m0 + r (r < n_live) of x (M, F) into comb as they are,
-// and x2's three columns into aux's tanh columns 12-14. Rows past n_live
+// and x2's three columns into aux's tanh columns (12-14: K9 has no
+// levels). Rows past n_live
 // get zeros. kWide: comb goes to gcomb, as in gather_tile. kF32: x and
 // x2 are f32, rounded to bf16 here.
 template <bool kWide, bool kF32>
@@ -604,7 +619,7 @@ __device__ void load_rows(const CoreArgs& p, int m0, int n_live,
   const int t = threadIdx.x;
   for (int i = t; i < kRows * 3; i += kConsumers) {
     const int r = i / 3, e = i - 3 * r;
-    aux[r * 16 + 12 + e] = r < n_live
+    aux[r * p.aux_w + p.tanh_col + e] = r < n_live
                                ? load1<kF32>(p.x2, (size_t)(m0 + r) * 3 + e)
                                : __float2bfloat16(0.f);
   }
@@ -639,7 +654,8 @@ __device__ void stream_mlp(const CoreArgs& p, int c0, int cstep, int g0,
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      th[h][j] = __bfloat162float(aux[(r0 + 8 * h) * 16 + 12 + j]);
+      th[h][j] = __bfloat162float(
+          aux[(r0 + 8 * h) * p.aux_w + p.tanh_col + j]);
 #pragma unroll
   for (int nt = 0; nt < kMaxOT; ++nt)
 #pragma unroll
@@ -733,8 +749,8 @@ struct Smem {
   unsigned char* fbuf;   // the other f rows
   uint32_t* gcomb;       // kWide: comb in device memory, fragment order
   uint32_t* gf;          // kWide: all f rows there
-  bf16* aux;             // (64, 16)
-  int* cell;             // (kMaxLevels, 64)
+  bf16* aux;             // (64, aux_w)
+  int* cell;             // (level_slots, 64)
   const Vec<kMode>* vsm;
   float* rsm;            // K4's per-ray vectors (ray_tail)
 };
@@ -1394,8 +1410,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   sm.comb = slots + p.n_stages * kLargeStage;
   sm.fbuf = sm.comb + p.nkbF * kKBlock;
   sm.aux = reinterpret_cast<bf16*>(sm.comb + p.nkb_tiles * kKBlock);
-  sm.cell = reinterpret_cast<int*>(sm.aux + kRows * 16);
-  V* vsm = reinterpret_cast<V*>(sm.cell + kRows * kMaxLevels);
+  sm.cell = reinterpret_cast<int*>(sm.aux + kRows * p.aux_w);
+  V* vsm = reinterpret_cast<V*>(sm.cell + kRows * p.level_slots);
   sm.vsm = vsm;
   sm.rsm = reinterpret_cast<float*>(vsm + p.n_vecs);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm.rsm + p.n_rsm);
@@ -1486,8 +1502,10 @@ inline int fill_levels(CoreArgs& a, int n_levels, void* const* tables,
     a.channels[l] = used ? channels[l] : 0;
     if (used && (channels[l] <= 0 || channels[l] % 8 != 0))
       return (int)cudaErrorInvalidValue;
+    a.level_col[l] = *F;
     *F += a.channels[l];
   }
+  a.level_col[kMaxLevels] = *F;
   a.n_levels = n_levels;
   return 0;
 }
@@ -1507,6 +1525,10 @@ inline int fill_sizes(CoreArgs& a, int mode, int S, int M, int F, int H1,
   if (render && (S != 2 || B <= 0 || R <= 0 || P <= 0 ||
                  (long long)B * 2 * R * P != M))
     return (int)cudaErrorInvalidValue;
+  // The aux layout (K9, which calls no fill_levels, has n_levels 0).
+  a.level_slots = a.n_levels > 3 ? a.n_levels : 3;
+  a.tanh_col = 4 * a.level_slots;
+  a.aux_w = (a.tanh_col + 3 + 7) / 8 * 8;
   a.S = S;
   a.M = M;
   a.F = F;
@@ -1580,8 +1602,8 @@ int launch_core(CoreArgs& a, int* info, void* stream,
   const size_t red = kMode == kRender ? (size_t)8 * 4 *
                          (a.OT * kNO > a.KT * kNK ? a.OT * kNO : a.KT * kNK)
                                       : 0;
-  const size_t common = 1024 + kRows * 16 * sizeof(bf16) +
-                        kRows * kMaxLevels * sizeof(int) +
+  const size_t common = 1024 + (size_t)kRows * a.aux_w * sizeof(bf16) +
+                        (size_t)kRows * a.level_slots * sizeof(int) +
                         a.n_vecs * sizeof(Vec<kMode>) +
                         a.n_rsm * sizeof(float) + 16 * kMaxStages;
   // The 'smem' plan. The last stream's f goes into the comb tile where the

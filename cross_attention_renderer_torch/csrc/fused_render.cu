@@ -87,10 +87,12 @@ int launch_render(int n_levels, void* const* tables, void* const* cells,
 
 }  // namespace
 
-// tables[l]: (rows_l, 4 * channels[l]) bf16; cells[l]: (2M,) int32, the
-// self stream's rows then the cross stream's, M = B * 2 * R * P;
-// aux_self, aux_cross, lc: (M, 16) bf16; stages (stage_bytes), vecs and
-// mats: the prepared weights (layout_render in ops/gather_epilogue.py);
+// tables[l]: (rows_l, 4 * channels[l]) bf16, 1 <= n_levels <= 4;
+// cells[l]: (2M,) int32, the self stream's rows then the cross stream's,
+// M = B * 2 * R * P; aux_self, aux_cross: (M, 16) bf16, (M, 24) with four
+// levels (exchange_core.cuh, "Levels"); lc: (M, 16) bf16; stages
+// (stage_bytes), vecs and mats: the prepared weights (layout_render in
+// ops/gather_epilogue.py);
 // scratch: scratch_bytes of device memory, at least grid * 2P * (O + K) *
 // 2 (grid: min(B * R, SMs)), and with the 'global' plan grid * (nkbF +
 // nkbf) * 8 KB more (launch_core). z: (B, R, O), wt: (B, 2, R, P) bf16.

@@ -62,10 +62,12 @@ int launch_pair(int n_levels, void* const* tables, void* const* cells,
 
 }  // namespace
 
-// tables[l]: (rows_l, 4 * channels[l]) bf16; cells[l]: (2M,) int32, the
-// self stream's rows then the cross stream's; aux_self, aux_cross: (M, 16)
-// bf16; stages (stage_bytes) and vecs: the prepared weights
-// (layout_stages in ops/gather_epilogue.py). jl: (M, O), kv: (M, K) bf16.
+// tables[l]: (rows_l, 4 * channels[l]) bf16, 1 <= n_levels <= 4;
+// cells[l]: (2M,) int32, the self stream's rows then the cross stream's;
+// aux_self, aux_cross: (M, 16) bf16, (M, 24) with four levels
+// (exchange_core.cuh, "Levels"); stages (stage_bytes) and vecs: the
+// prepared weights (layout_stages in ops/gather_epilogue.py). jl: (M, O),
+// kv: (M, K) bf16.
 // All contiguous. scratch: scratch_bytes of device memory, which the
 // 'global' plan needs (launch_core; null and 0 do for the 'smem' plan).
 // info (8 ints) receives the launch's shape and plan, as launch_core gives

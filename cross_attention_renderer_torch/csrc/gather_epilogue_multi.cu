@@ -62,8 +62,9 @@ int launch_streams(int n_levels, void* const* tables, void* const* cells,
 
 }  // namespace
 
-// tables[l]: (rows_l, 4 * channels[l]) bf16; cells[l]: (S*M,) int32,
-// stream-major; aux[s]: (M, 16) bf16 per stream, 2 <= S <= 4; stages
+// tables[l]: (rows_l, 4 * channels[l]) bf16, 1 <= n_levels <= 4;
+// cells[l]: (S*M,) int32, stream-major; aux[s]: (M, 16) bf16 per stream,
+// (M, 24) with four levels (exchange_core.cuh, "Levels"), 2 <= S <= 4; stages
 // (stage_bytes) and vecs: the prepared weights (layout_stages in
 // ops/gather_epilogue.py). jl: (M, O), kv: (M, K) bf16. All contiguous.
 // scratch: scratch_bytes of device memory, which the 'global' plan needs

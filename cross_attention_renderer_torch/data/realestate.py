@@ -417,9 +417,20 @@ class RealEstate10k:
         }
 
 
+def context_ids(views: int, end: int) -> list[int]:
+    """The evaluation and trajectory context frames: ``views`` frames
+    evenly spaced over [0, end], [0] for one view. At 1-3 views these are
+    the reference's {0}, {0, end} and {0, end // 2, end}
+    (realestate10k_dataio.py:104-188, :469-595); 4 views (which the
+    reference and the JAX loaders do not take) extend the spacing."""
+    if views == 1:
+        return [0]
+    return [end * i // (views - 1) for i in range(views)]
+
+
 class RealEstate10kVis(RealEstate10k):
     """Deterministic eval variant: context {0, min(128, n-1)} (plus midpoint
-    at 3 views), query >= 10 frames from every context
+    at 3 views, :func:`context_ids`), query >= 10 frames from every context
     (realestate10k_dataio.py:469-595)."""
 
     def __init__(self, *args, **kwargs):
@@ -431,10 +442,7 @@ class RealEstate10kVis(RealEstate10k):
                     rng: Optional[np.random.Generator] = None):
         rng = self.rng if rng is None else rng
         start, end = 0, min(n_frames - 1, 128)
-        mid = end // 2
-        id_feat = {1: [start], 2: [start, end],
-                   3: [start, mid, end]}[self.num_ctxt_views]
-        id_feat = np.array(id_feat)
+        id_feat = np.array(context_ids(self.num_ctxt_views, end))
         ok = [i for i in range(start, end)
               if np.abs(id_feat - i).min() > 10]
         if not ok:
@@ -446,7 +454,7 @@ def trajectory_scene(scene_path, pose_dir, views: int = 2,
                      n_frames: int = 128) -> dict:
     """Full camera trajectory for video rendering. Ref: ``get_camera_pose``
     (realestate10k_dataio.py:104-188). Query = frames 1..n-1; context =
-    endpoints (+ midpoint at 3 views).
+    endpoints (+ midpoint at 3 views, :func:`context_ids`).
 
     ``pose_dir`` is either a directory of per-scene ``<scene>.txt`` pose
     files (the RealEstate10K distribution format) or a ``poses.mat`` scene
@@ -487,10 +495,7 @@ def trajectory_scene(scene_path, pose_dir, views: int = 2,
         return rgb, intr.astype(np.float32), cam.c2w.astype(np.float32)
 
     q = [frame(i) for i in range(1, n)]
-    ctx_ids = {1: [0], 2: [0, min(len(files) - 1, 128)],
-               3: [0, min(len(files) - 1, 128) // 2,
-                   min(len(files) - 1, 128)]}[views]
-    c = [frame(i) for i in ctx_ids]
+    c = [frame(i) for i in context_ids(views, min(len(files) - 1, 128))]
     uv = full_uv_grid()
     return {
         'context': {'rgb': np.stack([x[0] for x in c])[None],

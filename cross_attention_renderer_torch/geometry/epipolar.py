@@ -11,6 +11,10 @@ reference's four-case mask assignment (epipolar.py:241-251) is two
   * endpoint at t=inf: the vanishing point if inside the frame, else the
     last frame-border intersection (max t);
   * overlaps_image = both chosen endpoints are valid.
+
+:func:`volumetric_epipolar_lines` is the ``--no_sample`` ablation's
+geometry: samples at fixed depths along the query ray instead of a clipped
+segment.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from cross_attention_renderer_torch.geometry import rays as _rays
 
 Tensor = torch.Tensor
 
@@ -161,3 +167,30 @@ def epipolar_segments_ndc(origins: Tensor, directions: Tensor,
     start = torch.where(torch.isfinite(start), start, torch.zeros_like(start))
     end = torch.where(torch.isfinite(end), end, torch.zeros_like(end))
     return start, end, seg.overlaps_image.to(origins.dtype)
+
+
+def volumetric_epipolar_lines(plucker_cam: Tensor, cam2world: Tensor,
+                              intrinsics: Tensor, H: int, W: int,
+                              npoints: int
+                              ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Uniform-depth epipolar sampling (the ``--no_sample`` ablation, JAX
+    epipolar.py:200-223, after the reference's
+    ``get_epipolar_lines_volumetric``): ``npoints`` depths linearly in
+    [0.1, 10] along each query ray, projected into the context image.
+
+    Args: plucker_cam (..., R, 6) query rays in the context frame (direction
+    first); cam2world (..., 4, 4) the query camera in that frame; intrinsics
+    (..., 4, 4) the context camera's, in pixels.
+
+    Returns (start_ndc, end_ndc, valid, pixel_ndc): the first and last
+    samples (..., R, 2), whether any sample lands inside the image
+    (..., R), and every sample (..., R, npoints, 2)."""
+    origin = _rays.ray_origin(cam2world)[..., None, None, :]
+    interval = torch.linspace(0.1, 10.0, npoints, dtype=plucker_cam.dtype,
+                              device=plucker_cam.device)
+    pts = origin + interval[:, None] * plucker_cam[..., None, :3]
+    proj = _rays.project_pinhole(pts, intrinsics[..., None, :, :])
+    pix = _rays.pixel_to_ndc(proj[..., :2], H, W)
+    inside = ((pix < 1.0) & (pix > -1.0)).all(dim=-1)
+    valid = inside.any(dim=-1).to(plucker_cam.dtype)
+    return pix[..., 0, :], pix[..., -1, :], valid, pix

@@ -126,7 +126,8 @@ class LayerNorm(nn.Module):
 
 class GroupNorm(nn.Module):
     """``flax.linen.GroupNorm`` on NHWC: statistics over (H, W, C/G) per
-    group, in f32, output cast to the compute type."""
+    group, in f32 (f64 for an f64 model), output cast to the compute
+    type."""
 
     def __init__(self, features: int, num_groups: int = 32,
                  eps: float = 1e-5, dtype: torch.dtype = torch.float32):
@@ -140,8 +141,10 @@ class GroupNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: Tensor) -> Tensor:
-        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
-                         self.weight, self.bias, self.eps)
+        # f32, or f64 for an f64 model (a gradient reference in the tests)
+        dt = torch.promote_types(self.dtype, torch.float32)
+        y = F.group_norm(x.to(dt).permute(0, 3, 1, 2), self.num_groups,
+                         self.weight.to(dt), self.bias.to(dt), self.eps)
         return y.permute(0, 2, 3, 1).to(self.dtype)
 
 

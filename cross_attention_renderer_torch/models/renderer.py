@@ -1,7 +1,10 @@
-"""Cross-attention light-field renderer (the flagship model), V=2 and V=3.
+"""Cross-attention light-field renderer (the flagship model), 1 to 4 views.
 
-Port of ``cross_attention_renderer_tpu/models/renderer.py`` along these
-branches (renderer.py:344-528):
+Port of ``cross_attention_renderer_tpu/models/renderer.py``, every
+encoder (``model``: the DPT hybrid, the ResNet34 taps or the U-Net down
+path) and ablation flag of it (JAX renderer.py:94-109, after the
+reference's models.py:43 and train_realestate10k.py:51-55), along these
+branches (renderer.py:295-528):
 
 * V=2, default: the fused exchange epilogue (kernel K2, renderer.py:354-361)
   and both attention rounds (kernel K1);
@@ -10,14 +13,21 @@ branches (renderer.py:344-528):
   both attention rounds in one kernel;
 * V=2 with ``fused_epilogue=False``: the unfused exchange
   (renderer.py:362-388, :857-883);
-* V=3, default: the multi-stream fused epilogue (kernel K3,
-  renderer.py:389-401, :690-767);
-* V=3 with ``reference_exchange_compat`` or ``fused_epilogue=False``: the
+* V=3 and V=4, default: the multi-stream fused epilogue (kernel K3 with
+  S = V streams, renderer.py:389-401, :690-767);
+* V>=3 with ``reference_exchange_compat`` or ``fused_epilogue=False``: the
   unfused exchange (renderer.py:402-434, :1056-1112), whose pyramid gathers
   run as kernel K7 or K8 under ``gather`` (ops/pallas_gather.py:163-184);
-* ``sorted_stream``, at V=2 and V=3: both pyramid gathers on a sample
-  stream sorted by image row, through kernel K5 (renderer.py:336-343,
-  :402-408, :919-1054); it takes precedence over every fused branch.
+* ``sorted_stream``, at V>=2: both pyramid gathers on a sample stream
+  sorted by image row, through kernel K5 (renderer.py:336-343, :402-408,
+  :919-1054); it takes precedence over every fused branch;
+* V=1, and any V under ``no_latent_concat``: no exchange. The pyramid's
+  samples (with tanh-encoded points through ``update_val_merge`` at V=1)
+  feed the latent and key projections (renderer.py:409-434).
+
+With the ResNet34 and U-Net encoders the pyramid has four levels, and K2,
+K3 and K4 take their 4-level mode, which computes the JAX package's
+unfused exchange (``ops/gather_epilogue.py``, ROADMAP.md Queue C).
 
 The unfused and sorted exchanges' fuse MLP runs as kernel K9 when
 ``fused_mlp`` is set (renderer.py:835-853).
@@ -66,9 +76,12 @@ import torch
 from torch import nn
 
 from cross_attention_renderer_torch.encoders.dpt import DPTHybridEncoder
+from cross_attention_renderer_torch.encoders.spatial import SpatialEncoder
+from cross_attention_renderer_torch.encoders.unet import UNetEncoder
 from cross_attention_renderer_torch.geometry import epipolar as E
 from cross_attention_renderer_torch.geometry import rays as G
-from cross_attention_renderer_torch.layers import (Conv, init_parameters,
+from cross_attention_renderer_torch.layers import (Conv, Dense,
+                                                   init_parameters,
                                                    lecun_normal_)
 from cross_attention_renderer_torch.models.resnet_fc import ResnetFC
 from cross_attention_renderer_torch.ops.epipolar_attention import (
@@ -76,7 +89,7 @@ from cross_attention_renderer_torch.ops.epipolar_attention import (
 from cross_attention_renderer_torch.ops.fused_mlp import fused_mlp2
 from cross_attention_renderer_torch.ops.fused_render import fused_render_core
 from cross_attention_renderer_torch.ops.gather_epilogue import (
-    fused_exchange_epilogue, fused_exchange_epilogue_multi)
+    aux_layout, fused_exchange_epilogue, fused_exchange_epilogue_multi)
 from cross_attention_renderer_torch.ops.grid_sample import (
     cell_rows_and_slot_weights, grid_sample_pyramid,
     grid_sample_pyramid_packed, pack_pyramid)
@@ -88,6 +101,11 @@ from cross_attention_renderer_torch.utils.image import normalize_imagenet
 Tensor = torch.Tensor
 
 HIDDEN_DIM = 128          # attention hidden width (models.py:114)
+MAX_VIEWS = 4             # K3, the default V>=3 exchange, takes 4 streams
+# The encoders (``model``): pyramid width and levels (JAX renderer.py:
+# 156-170; encoders/spatial.py:5-7, encoders/unet.py:4-6). The DPT
+# pyramid's width is 2 * fusion_features + 64.
+ENCODERS = {'midas_vit': (None, 3), 'resnet': (512, 4), 'unet': (960, 4)}
 QUERY_FEAT_DIM = 16       # cam_rays 3 + zeros 3 + ray_dir 3 + depth 4
                           # + query origin 3 (models.py:528)
 
@@ -126,7 +144,7 @@ class SplitDense(nn.Module):
 
 
 class CrossAttentionRenderer(nn.Module):
-    """The flagship renderer at V=2 or V=3 (see the module docstring).
+    """The flagship renderer at 1 to 4 views (see the module docstring).
 
     Sizes default to the reference configuration (the 122M DPT-hybrid);
     smaller encoder settings keep the architecture for CPU tests. The
@@ -135,18 +153,29 @@ class CrossAttentionRenderer(nn.Module):
     placed on ``device``.
 
     Args:
-      n_view: context views, 2 or 3.
+      n_view: context views, 1 to 4 (``MAX_VIEWS``).
       npoints: epipolar samples per view; 0 takes the reference's default,
-        64 at V=2 and 48 at V=3 (models.py:47-54).
+        64 at V <= 2 and 48 above (models.py:47-54).
+      model: the encoder, ``'midas_vit'`` (the DPT hybrid and the 7x7
+        full-resolution conv, a 3-level pyramid 2 * fusion_features + 64
+        wide), ``'resnet'`` (the ResNet34 taps, 4 levels, 512 wide) or
+        ``'unet'`` (the U-Net down path, 4 levels, 960 wide).
+      no_sample: sample ``n_samples`` depths, linear in [0.1, 10], along
+        each query ray (``geometry.epipolar.volumetric_epipolar_lines``) in
+        place of the epipolar segment; refuses ``t_vals``.
+      no_latent_concat: no latent exchange: each view's samples feed the
+        latent and key projections at the pyramid's full width.
+      no_multiview: the DPT encoder sees zero relative poses.
+      no_high_freq: the DPT pyramid's full-resolution conv level is zeros.
       fused_attention: run both attention rounds as kernel K1. ``None``
         (the default) and ``True`` take the kernel on the card and its
         plain version on the CPU; ``False`` takes the plain version
         everywhere (the JAX ``fused_attention``; the trainer's clone sets
         it, ``train/trainer.py:_train_model``).
       fused_epilogue: take the fused exchange epilogue (K2 at V=2, K3 at
-        V=3); ``None`` (the default) as ``True``, which on the CPU runs the
-        epilogue's plain version. ``False`` takes the unfused exchange (the
-        JAX ``fused_epilogue``; the trainer's clone sets it).
+        V=3 and V=4); ``None`` (the default) as ``True``, which on the CPU
+        runs the epilogue's plain version. ``False`` takes the unfused
+        exchange (the JAX ``fused_epilogue``; the trainer's clone sets it).
       reference_exchange_compat: reproduce the reference's 3-view exchange
         index swap (DEVIATIONS.md), which the fused V=3 epilogue does not
         implement: at V=3 it implies the unfused exchange. No effect at V=2.
@@ -155,7 +184,7 @@ class CrossAttentionRenderer(nn.Module):
       fused_render: at V=2, run the exchange and both attention rounds as
         the fully fused render core K4 (the JAX package's
         ``CAR_FUSED_RENDER`` switch); it takes precedence over
-        ``fused_epilogue``. V=2 only.
+        ``fused_epilogue``. V=2 with the latent exchange only.
       repeat_attention: run the second attention round, queried by the
         first round's output (models.py:547-565). Without it the model has
         no ``encode_latent`` and ``query_repeat_embed(_2)``, as the JAX
@@ -172,15 +201,18 @@ class CrossAttentionRenderer(nn.Module):
       remat: recompute each ViT block in the backward pass
         (``torch.utils.checkpoint``; the JAX ``remat``): less activation
         memory for a second forward of the blocks.
-      narrow_features: the widths of the pyramid's three levels as the
+      narrow_features: the widths of the pyramid's levels as the
         exchange gathers them, after a per-scene projection
         (``train/evaluation.py:narrow_pyramid``); only
         ``query_encode_latent`` changes, to ``sum(narrow_features) + 3``
         input rows (JAX renderer.py:139, :193-199). ``None``: the full
-        widths.
+        widths. Only with the latent exchange, which alone reads them.
     """
 
     def __init__(self, n_view: int = 2, npoints: int = 0,
+                 model: str = 'midas_vit', no_sample: bool = False,
+                 no_latent_concat: bool = False, no_multiview: bool = False,
+                 no_high_freq: bool = False,
                  fusion_features: int = 256, vit_width: int = 768,
                  vit_depth: int = 12, vit_heads: int = 12,
                  resnet_layers: tuple[int, int, int] = (3, 4, 9),
@@ -193,17 +225,38 @@ class CrossAttentionRenderer(nn.Module):
                  gather: str = 'take', remat: bool = False,
                  narrow_features: Optional[Sequence[int]] = None):
         super().__init__()
-        if n_view not in (2, 3):
-            raise ValueError(f'the port renders 2 or 3 context views, got '
-                             f'n_view={n_view}')
-        if fused_render and n_view != 2:
+        if not 1 <= n_view <= MAX_VIEWS:
+            raise ValueError(
+                f'the port renders 1 to {MAX_VIEWS} context views, got '
+                f'n_view={n_view}: the default V>=3 exchange, kernel K3, '
+                f'takes at most {MAX_VIEWS} streams (kMaxStreams)')
+        if model not in ENCODERS:
+            raise ValueError(f'model must be one of {tuple(ENCODERS)}, got '
+                             f'{model!r}')
+        multiview = n_view > 1 and not no_latent_concat
+        if fused_render and not (multiview and n_view == 2):
             raise ValueError('the fused render core renders 2 context '
-                             f'views, got n_view={n_view}')
+                             f'views with the latent exchange, got n_view='
+                             f'{n_view}, no_latent_concat={no_latent_concat}')
         if gather not in GATHERS:
             raise ValueError(f'gather must be one of {GATHERS}, got '
                              f'{gather!r}')
+        base, n_levels = ENCODERS[model]
+        base = base or 2 * fusion_features + 64
+        if narrow_features and (not multiview
+                                or len(narrow_features) != n_levels):
+            raise ValueError(
+                f'narrow_features {tuple(narrow_features)}: one width a '
+                f'pyramid level ({n_levels} for {model!r}), and only with '
+                'the latent exchange (n_view > 1, no no_latent_concat)')
         self.n_view = n_view
         self.n_samples = npoints or (64 if n_view <= 2 else 48)
+        self.model = model
+        self.no_sample = no_sample
+        self.no_latent_concat = no_latent_concat
+        self.no_multiview = no_multiview
+        self.no_high_freq = no_high_freq
+        self.multiview = multiview
         self.dtype = dtype
         self.fused_attention = fused_attention
         self.fused_epilogue = fused_epilogue
@@ -215,20 +268,32 @@ class CrossAttentionRenderer(nn.Module):
         self.gather = gather
         self.narrow_features = (tuple(narrow_features) if narrow_features
                                 else None)
-        self.encoder = DPTHybridEncoder(
-            features=fusion_features, vit_width=vit_width,
-            vit_depth=vit_depth, vit_heads=vit_heads,
-            resnet_layers=resnet_layers, dtype=dtype, remat=remat)
-        self.conv_map = Conv(3, 64, 7, padding=3, dtype=dtype)
+        if model == 'midas_vit':
+            self.encoder = DPTHybridEncoder(
+                features=fusion_features, vit_width=vit_width,
+                vit_depth=vit_depth, vit_heads=vit_heads,
+                resnet_layers=resnet_layers, dtype=dtype, remat=remat)
+            self.conv_map = Conv(3, 64, 7, padding=3, dtype=dtype)
+        elif model == 'resnet':
+            self.encoder = SpatialEncoder(dtype)
+        else:
+            self.encoder = UNetEncoder(dtype)
 
-        base = 2 * fusion_features + 64     # pyramid width (576)
-        ld = base // 2                      # latent width (288)
+        # The latent width halves where the V views' latents are
+        # concatenated (JAX renderer.py:166-170): 288 at the flagship.
+        ld = base // 2 if multiview else base
         self.latent_dim = ld
-        d_feat = sum(self.narrow_features) if narrow_features else base
-        self.query_encode_latent = SplitDense(d_feat + 3, base, dtype)
-        self.query_encode_latent_2 = SplitDense(base, ld, dtype)
-        self.latent_value = SplitDense(ld * n_view, ld, dtype)
-        self.key_map = SplitDense(ld * n_view, HIDDEN_DIM, dtype)
+        d_interp = ld * n_view if multiview else base
+        if multiview:
+            d_feat = sum(self.narrow_features) if narrow_features else base
+            self.query_encode_latent = SplitDense(d_feat + 3, base, dtype)
+            self.query_encode_latent_2 = SplitDense(base, ld, dtype)
+        elif not no_latent_concat:
+            # V=1: the samples with tanh(pt/5), tanh(pt/100) (models.py:
+            # 479-485)
+            self.update_val_merge = Dense(base + 6, ld, dtype=dtype)
+        self.latent_value = SplitDense(d_interp, ld, dtype)
+        self.key_map = SplitDense(d_interp, HIDDEN_DIM, dtype)
         self.key_map_2 = SplitDense(HIDDEN_DIM, HIDDEN_DIM, dtype)
         self.query_embed = SplitDense(QUERY_FEAT_DIM, HIDDEN_DIM, dtype)
         self.query_embed_2 = SplitDense(HIDDEN_DIM, HIDDEN_DIM, dtype)
@@ -244,17 +309,25 @@ class CrossAttentionRenderer(nn.Module):
         self.to(device)
 
     # ------------------------------------------------------------------
-    def encode(self, scene: dict) -> tuple[Tensor, Tensor, Tensor]:
-        """Feature pyramid (path2, path1, z_conv), channel-last
-        (renderer.py:232-251)."""
+    def encode(self, scene: dict) -> tuple[Tensor, ...]:
+        """Feature pyramid, channel-last, (B * V, ...) each level
+        (renderer.py:232-251): (path2, path1, z_conv) of the DPT encoder,
+        whose poses are zeros under ``no_multiview`` and z_conv zeros under
+        ``no_high_freq``; the ResNet34 or U-Net encoder's four maps."""
         ctx = scene['context']
         rgb = ctx['rgb'].float()
         B, V, H, W, _ = rgb.shape
-        c2w = ctx['cam2world'].float()
-        rel = torch.linalg.inv(c2w[:, 0])[:, None] @ c2w
         rgb_norm = normalize_imagenet((rgb + 1.0) * 0.5).to(self.dtype)
-        path2, path1 = self.encoder(rgb_norm, rel.reshape(B, V, 16))
+        if self.model != 'midas_vit':
+            return tuple(self.encoder(rgb_norm.reshape(B * V, H, W, 3)))
+        c2w = ctx['cam2world'].float()
+        rel16 = (torch.linalg.inv(c2w[:, 0])[:, None] @ c2w).reshape(B, V, 16)
+        if self.no_multiview:
+            rel16 = torch.zeros_like(rel16)
+        path2, path1 = self.encoder(rgb_norm, rel16)
         z_conv = self.conv_map(rgb_norm.reshape(B * V, H, W, 3))
+        if self.no_high_freq:
+            z_conv = torch.zeros_like(z_conv)
         return path2, path1, z_conv
 
     @property
@@ -266,10 +339,11 @@ class CrossAttentionRenderer(nn.Module):
     @property
     def uses_packed_tables(self) -> bool:
         """Whether a render reads the pyramid's packed cell tables: every
-        V=2 path and the V=3 take paths do; the sorted stream and the V=3
-        exchange under the K7 or K8 gather do not (JAX ``uses_packed``,
-        evaluation.py:94-106)."""
-        if self.sorted_stream:
+        V=2 exchange and the V>=3 take paths do; the sorted stream, the
+        V>=3 exchange under the K7 or K8 gather, and the paths without an
+        exchange (V=1, ``no_latent_concat``) do not (JAX ``uses_packed``,
+        evaluation.py:93-95)."""
+        if self.sorted_stream or not self.multiview:
             return False
         fused_v3 = (self.use_fused_epilogue
                     and not self.reference_exchange_compat)
@@ -293,6 +367,11 @@ class CrossAttentionRenderer(nn.Module):
           narrow_features: the gathered widths ``fuse_kernel`` is for
             (default: the model's).
         """
+        if ((narrow_features is not None or fuse_kernel is not None)
+                and not self.multiview):
+            raise ValueError('a fuse_kernel or narrow_features needs the '
+                             'latent exchange, whose fuse layer alone '
+                             'reads the pyramid')
         c = copy.copy(self)
         c._parameters = dict(self._parameters)
         c._buffers = dict(self._buffers)
@@ -332,7 +411,8 @@ class CrossAttentionRenderer(nn.Module):
         render reads no packed table, see :attr:`uses_packed_tables`).
         ``t_vals`` (B, V, R, P): each ray's sample positions on its
         epipolar segment, in [0, 1], in place of ``n_samples`` uniform ones
-        (the pruned renderer's fine pass; JAX renderer.py:256-322)."""
+        (the pruned renderer's fine pass; JAX renderer.py:256-322); refused
+        under ``no_sample``, which has no segment."""
         ctx, qry = scene['context'], scene['query']
         B, V, H, W, _ = ctx['rgb'].shape
         if V != self.n_view:
@@ -343,6 +423,10 @@ class CrossAttentionRenderer(nn.Module):
         if t_vals is not None and tuple(t_vals.shape) != (B, V, R, P):
             raise ValueError(f't_vals must be (B, V, R, P) = '
                              f'{(B, V, R, P)}, got {tuple(t_vals.shape)}')
+        if t_vals is not None and self.no_sample:
+            raise ValueError('t_vals is not supported with no_sample '
+                             '(uniform-depth ablation has no segment '
+                             'parametrization)')
         dev = ctx['rgb'].device
         if z is None:
             z = self.encode(scene)
@@ -366,19 +450,28 @@ class CrossAttentionRenderer(nn.Module):
             B * V, R, 3)
         ray_dir = lf_coords[..., :3]
 
-        # Segment intrinsics are divided by H, not (W, H) (models.py:226).
-        intr_norm = torch.cat([ctx_intr[:, :2] / H, ctx_intr[:, 2:]], dim=1)
-        start, end, valid = E.epipolar_segments_ndc(origins, ray_dir,
-                                                    intr_norm)
-        if t_vals is not None:
-            interval = t_vals.reshape(B * V, R, P).to(start.dtype)
-            pixel_val = (start[..., None, :] + (end - start)[..., None, :]
-                         * interval[..., None])            # (B*V, R, P, 2)
+        if self.no_sample:
+            # Fixed depths along the query ray (renderer.py:295-306).
+            _, _, valid, pixel_val = E.volumetric_epipolar_lines(
+                lf_coords.reshape(B, V, R, 6), query_cam2world, ctx_intr_v,
+                H, W, P)
+            valid = valid.reshape(B * V, R)
+            pixel_val = pixel_val.reshape(B * V, R, P, 2)
         else:
-            interval = torch.linspace(0.0, 1.0, P, dtype=start.dtype,
-                                      device=dev)
+            # Segment intrinsics are divided by H, not (W, H)
+            # (models.py:226).
+            intr_norm = torch.cat([ctx_intr[:, :2] / H, ctx_intr[:, 2:]],
+                                  dim=1)
+            start, end, valid = E.epipolar_segments_ndc(origins, ray_dir,
+                                                        intr_norm)
+            if t_vals is not None:
+                interval = t_vals.reshape(B * V, R, P).to(start.dtype)[
+                    ..., None]
+            else:
+                interval = torch.linspace(0.0, 1.0, P, dtype=start.dtype,
+                                          device=dev)[:, None]
             pixel_val = (start[..., None, :] + (end - start)[..., None, :]
-                         * interval[:, None])              # (B*V, R, P, 2)
+                         * interval)                       # (B*V, R, P, 2)
 
         eye = torch.eye(4, device=dev).expand(B * V, 4, 4)
         pt, _, _ = G.epipolar_point_3d(lf_coords, pixel_val, eye, H, W,
@@ -387,16 +480,18 @@ class CrossAttentionRenderer(nn.Module):
 
         geo = (zp, pixel_val, pt_views, ctx_c2w, ctx_intr_v, H, W)
         # The sorted stream takes precedence over every fused branch, so K4
-        # runs only without it (renderer.py:334-353, :458).
-        fused_render = self.fused_render and not self.sorted_stream
-        if self.sorted_stream and V == 2:
+        # runs only without it (renderer.py:334-353, :458). Without the
+        # latent exchange neither applies (renderer.py:333-334).
+        sorted_stream = self.multiview and self.sorted_stream
+        fused_render = self.fused_render and not sorted_stream
+        if sorted_stream and V == 2:
             joint_latent, key_val = self._sorted_exchange_v2(z, *geo[1:])
         elif fused_render:
             # K4 takes local_coords as well, so it runs once they exist.
             joint_latent = key_val = None
-        elif V == 2 and self.use_fused_epilogue:
+        elif self.multiview and V == 2 and self.use_fused_epilogue:
             joint_latent, key_val = self._fused_exchange_v2(*geo)
-        elif V == 2:
+        elif self.multiview and V == 2:
             # [self, cross] for view 0, [cross, self] for view 1
             # (models.py:335,342), by slicing the kernels.
             fs, fc = self._latent_exchange_parts(*geo)
@@ -407,18 +502,28 @@ class CrossAttentionRenderer(nn.Module):
                 [torch.relu(self.key_map(fs[:, 0], fc[:, 0])),
                  torch.relu(self.key_map(fc[:, 1], fs[:, 1]))], dim=1)
             key_val = self.key_map_2(kh)
-        elif (self.use_fused_epilogue and not self.reference_exchange_compat
-              and not self.sorted_stream):
+        elif (self.multiview and self.use_fused_epilogue
+              and not self.reference_exchange_compat and not sorted_stream):
             joint_latent, key_val = self._fused_exchange_multi(*geo)
         else:
-            if self.sorted_stream:
+            if sorted_stream:
                 interp_val = self._latent_exchange_sorted(z, *geo[1:])
             else:
                 interp_val = self._sample_pyramid(
-                    z, zp, pixel_val.reshape(B * V, R * P, 2), 'border')
-                interp_val = self._latent_exchange(
-                    interp_val.reshape(B, V, R, P, -1), z, zp, pt_views,
-                    ctx_c2w, ctx_intr_v, H, W)
+                    z, zp, pixel_val.reshape(B * V, R * P, 2),
+                    'border').reshape(B, V, R, P, -1)
+                if self.multiview:
+                    interp_val = self._latent_exchange(
+                        interp_val, z, zp, pt_views, ctx_c2w, ctx_intr_v, H,
+                        W)
+                elif not self.no_latent_concat:
+                    # V=1: append the tanh-encoded point (models.py:
+                    # 479-485).
+                    pt_feat = torch.cat([torch.tanh(pt_views / 5.0),
+                                         torch.tanh(pt_views / 100.0)],
+                                        dim=-1)
+                    interp_val = self.update_val_merge(
+                        torch.cat([interp_val, pt_feat], dim=-1))
             joint_latent = self.latent_value(interp_val)
             key_val = self.key_map_2(torch.relu(self.key_map(interp_val)))
 
@@ -521,8 +626,10 @@ class CrossAttentionRenderer(nn.Module):
         its j-th other view k in ascending frame order (the sample's 3D
         point in frame k, projected with k's intrinsics, k's maps, zeros
         padding). At V=2 that is the cross stream of view 1 - v. Returns
-        (cells: per-level (V*M,) int32, stream-major; aux: V arrays
-        (M, 16) in the model type: 12 slot weights, tanh(pt/5), pad)."""
+        (cells: per-level (V*M,) int32, stream-major; aux: V arrays in the
+        model type, the slot weights, tanh(pt/5) and a pad laid out by
+        ``gather_epilogue.aux_layout``: (M, 16) for the DPT pyramid, (M, 24)
+        for a 4-level one)."""
         B, V, R, P, _ = pt_views.shape
         M = B * V * R * P
         dev = pt_views.device
@@ -547,7 +654,8 @@ class CrossAttentionRenderer(nn.Module):
                             pt_j))
 
         adt = self.dtype
-        pad = torch.zeros((M, 1), dtype=adt, device=dev)
+        t_col, aux_w = aux_layout(len(zp))     # t_col = 4 * levels (3 or 4)
+        pad = torch.zeros((M, aux_w - t_col - 3), dtype=adt, device=dev)
         cells = [[] for _ in zp]
         aux = []
         for coords, xid, mode, pt in streams:
@@ -669,10 +777,11 @@ class CrossAttentionRenderer(nn.Module):
         return fs, fc
 
     def _sample_pyramid(self, z, zp, coords: Tensor, mode: str) -> Tensor:
-        """The unfused V>=3 exchange's pyramid gather at (B*V, N, 2)
-        coords: the packed tables under ``gather='take'``, else the
-        unpacked levels through K7 or K8 (renderer.py:413, :1092)."""
-        if self.gather == 'take':
+        """The unfused V>=3 exchange's, or the exchange-free paths',
+        pyramid gather at (B*V, N, 2) coords: the packed tables where the
+        render has them under ``gather='take'``, else the unpacked levels
+        through the take path, K7 or K8 (renderer.py:413, :1092)."""
+        if self.gather == 'take' and zp is not None:
             return grid_sample_pyramid_packed(zp, coords, mode)
         return grid_sample_pyramid(z, coords, mode, self.gather)
 

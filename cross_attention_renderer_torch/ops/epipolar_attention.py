@@ -62,6 +62,29 @@ def epipolar_attention(query: torch.Tensor, key: torch.Tensor,
 
 epipolar_attention.launches = 0   # kernel launches, for the chip smoke test
 
+SMEM_LIMIT = 48 * 1024    # static shared memory a block of the kernel uses
+
+
+def attention_plan(V: int, P: int, C: int) -> tuple[int, int, int]:
+    """The kernel's launch for V*P joint rows and value width C, as its
+    launcher computes it: (threads a block, slices of the value sum,
+    bytes of shared memory). Thread (s, g) of the value sum takes channels
+    4g .. 4g+3 of rows s, s + slices, ...; the block keeps the V*P logits
+    and the slices' (slices, C) partial sums in shared memory. Raises
+    ValueError, with the shape, where the kernel cannot take it."""
+    groups = C // 4
+    if C % 4 or not 0 < groups <= 1024 or V * P <= 0:
+        raise ValueError(f'epipolar_attention: C={C} must be a multiple of '
+                         f'4 up to 4096 and V*P={V * P} positive')
+    slices = 1 if groups >= 288 else 288 // groups
+    smem = 4 * (V * P + slices * C)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f'epipolar_attention: V*P={V * P} logits and {slices} partial '
+            f'sums of C={C} need {smem} bytes of shared memory a block, '
+            f'more than {SMEM_LIMIT}')
+    return -(-groups * slices // 32) * 32, slices, smem
+
 
 ENTRY = {torch.bfloat16: 'epipolar_attention_bf16',
          torch.float32: 'epipolar_attention_f32'}
@@ -84,9 +107,10 @@ def _launch(query, key, value):
                              f'contiguous {shape}, got {tuple(t.shape)}')
         if t.data_ptr() % 16:
             raise ValueError(f'epipolar_attention: {name} is not aligned')
-    if D % 4 or C % 4:
-        raise ValueError(f'epipolar_attention: D={D} and C={C} must be '
-                         'multiples of 4')
+    if D % 4:
+        raise ValueError(f'epipolar_attention: D={D} must be a multiple '
+                         'of 4')
+    attention_plan(V, P, C)
     out = torch.empty((B, R, C), dtype=value.dtype, device=value.device)
     at_wt = torch.empty((B, V, R, P), dtype=value.dtype, device=value.device)
     lib = _build.load('epipolar_attention')

@@ -24,8 +24,9 @@ casts them.
 
 Layout contract: as the V=2 epilogue's (the renderer's (B, V, R, P)
 flattening, M = B * 2 * R * P samples): per level (2M,) int32 cell rows,
-the self stream's M over the cross stream's; (M, 16) aux arrays for each
-stream; (M, 16) local coordinates.
+the self stream's M over the cross stream's; an aux array for each stream
+(``gather_epilogue.aux_layout``: (M, 16) for up to three levels, (M, 24)
+for four); (M, 16) local coordinates.
 
 Tables are in the model's float type (that of aux) or int8, whose rows are
 cast to aux's type and combined in it; every later product then runs in
@@ -65,9 +66,10 @@ def _fuse_stream(vals: Sequence[Tensor], aux: Tensor, w1: Tensor, b1: Tensor,
     dt = _compute_dtype(vals, aux)
     comb = _combine(vals, aux)
     F = comb.shape[-1]
+    t = GE.aux_layout(len(vals))[0]
     h = comb.float() @ w1[:F].to(dt).float()
     for j in range(3):
-        h = h + aux[:, 12 + j:13 + j].float() * w1[F + j].float()
+        h = h + aux[:, t + j:t + j + 1].float() * w1[F + j].float()
     h = torch.relu(h + b1.float())
     return h.to(dt).float() @ w2.to(dt).float() + b2.float()
 
@@ -157,8 +159,8 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
         :func:`~cross_attention_renderer_torch.ops.grid_sample.pack_pyramid`.
       cells: per-level (2M,) int32 rows of the flattened table, the self
         stream's M samples, then the cross stream's.
-      aux_self / aux_cross: (M, 16): 12 slot weights (4 per level), then
-        tanh(pt/5) (3), then pad.
+      aux_self / aux_cross: (M, 16), or (M, 24) with four levels: the slot
+        weights, tanh(pt/5) and a pad (``gather_epilogue.aux_layout``).
       local_coords: (M, 16), the per-sample query features.
       params: the 20-tuple of the module docstring.
       B, R, P: batch, rays, samples per view; M = B * 2 * R * P.
@@ -210,11 +212,13 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
                          f'contiguous {dt} ({M}, 16) on {dev}, and the '
                          'query weights (16, K), (K, K) and with repeat '
                          '(O, K), (K+16, K), (K, K)')
-    GE.check_core_widths(what, 'render', 2, F, H1, O, K, P)
+    GE.check_core_widths(what, 'render', 2, F, H1, O, K, P,
+                         levels=len(tables))
     stages, vecs, mats = GE.prepared_render(params, bool(repeat), dev)
     # The ray's jl and ce rows (and the 'global' plan's tiles), per block
     # of the persistent grid.
-    scratch = GE.core_scratch('render', 2, F, H1, O, K, B * R, dev, P)
+    scratch = GE.core_scratch('render', 2, F, H1, O, K, B * R, dev, P,
+                              levels=len(tables))
     z = torch.empty((B, R, O), dtype=dt, device=dev)
     at_wt = torch.empty((B, 2, R, P), dtype=dt, device=dev)
     fn = GE.core_entry('fused_render', 'fused_render_core', dt,

@@ -5,8 +5,9 @@ attention stage of the flagship renderer, at V=2 (kernel K2) and at V>=3
 PyTorch port of ``fused_exchange_epilogue`` and
 ``fused_exchange_epilogue_multi`` of
 ``cross_attention_renderer_tpu/ops/gather_epilogue.py``. Per sample and per
-stream: the bilinear combine of the packed cell rows of three pyramid
-levels and the fuse MLP ``relu([feat | tanh(pt/5)] @ W1 + b1) @ W2 + b2``;
+stream: the bilinear combine of the packed cell rows of the pyramid's
+levels (three for the DPT encoder, four for the ResNet34 and U-Net ones)
+and the fuse MLP ``relu([feat | tanh(pt/5)] @ W1 + b1) @ W2 + b2``;
 then the per-view channel order and the ``latent_value`` / ``key_map`` /
 ``key_map_2`` projections (reference models.py:278-475,491,529).
 
@@ -28,9 +29,17 @@ _autograd.kernel_call`): they reach the packed tables, and through
 rows.
 
 Layout contract (the renderer's (B, V, R, P) flattening): per level, the
-cell rows of all streams stacked stream-major, (S*M,) int32; one (M, 16)
-aux array per stream packing [12 slot weights (4 per level), tanh(pt/5)
-(3), pad]; at V=2 sample m belongs to view (m // rp) % 2.
+cell rows of all streams stacked stream-major, (S*M,) int32; one aux array
+per stream (:func:`aux_layout`): 4 slot weights a level, tanh(pt/5) (3)
+and a pad, (M, 16) for up to three levels and (M, 24) for four; at V=2
+sample m belongs to view (m // rp) % 2.
+
+With four levels the epilogues compute the JAX package's unfused exchange
+(``_latent_exchange_parts`` then ``latent_value``, ``key_map``,
+``key_map_2`` at V=2; ``_latent_exchange`` at V>=3), which is the
+reference's math (models.py:335-346). The JAX fused epilogues read
+tanh(pt/5) at aux columns 12-14 whatever the level count, which with four
+levels are level 3's slot weights (ROADMAP.md Queue C, kept divergences).
 
 Tables are in the model's float type (bf16 or f32, that of aux) or int8
 (the quantized pyramid of fast evaluation, ``train/evaluation.py``
@@ -52,6 +61,19 @@ from cross_attention_renderer_torch.ops import _build
 from cross_attention_renderer_torch.ops._autograd import kernel_call
 
 Tensor = torch.Tensor
+
+
+MAX_LEVELS = 4     # the ResNet34 and U-Net pyramids; the DPT one has 3
+
+
+def aux_layout(n_levels: int) -> tuple[int, int]:
+    """(column of tanh(pt/5), width) of an aux row for a pyramid of
+    ``n_levels`` levels: the 4 slot weights of level l in columns
+    4l .. 4l+3, tanh(pt/5) from column 4 * max(n_levels, 3), zeros to a
+    multiple of 8 columns: (12, 16) up to three levels, (16, 24) with
+    four."""
+    t = 4 * max(n_levels, 3)
+    return t, _cdiv(t + 3, 8) * 8
 
 
 def _compute_dtype(vals: Sequence[Tensor], aux: Tensor) -> torch.dtype:
@@ -81,7 +103,8 @@ def _fuse(vals: Sequence[Tensor], aux: Tensor, w1: Tensor, b1: Tensor,
           w2: Tensor, b2: Tensor) -> Tensor:
     """One stream's fuse MLP on its combined rows, in the compute type."""
     dt = _compute_dtype(vals, aux)
-    x = torch.cat([_combine(vals, aux), aux[:, 12:15].to(dt)], dim=-1)
+    t = aux_layout(len(vals))[0]
+    x = torch.cat([_combine(vals, aux), aux[:, t:t + 3].to(dt)], dim=-1)
     h = torch.relu(x @ w1.to(dt) + b1.to(dt))
     return h @ w2.to(dt) + b2.to(dt)
 
@@ -128,8 +151,8 @@ def fused_exchange_epilogue(tables: Sequence[Tensor],
         :func:`~cross_attention_renderer_torch.ops.grid_sample.pack_pyramid`.
       cells: per-level (2M,) int32 rows of the flattened table: the self
         stream's M samples, then the cross stream's.
-      aux_self / aux_cross: (M, 16): 12 slot weights (4 per level), then
-        tanh(pt/5) (3), then pad.
+      aux_self / aux_cross: (M, 16), or (M, 24) with four levels: the slot
+        weights, tanh(pt/5) and a pad (:func:`aux_layout`).
       params: as :func:`_reference`.
       rp: R * P, the per-(batch, view) sample count.
 
@@ -371,9 +394,11 @@ def prepared_render(params: Sequence[Tensor], repeat: bool, device
 
 
 def core_plan(mode: str, S: int, F: int, H1: int, O: int, K: int,
-              P: int = 0, force: str | None = None) -> tuple[str, int, int]:
+              P: int = 0, force: str | None = None, levels: int = 3
+              ) -> tuple[str, int, int]:
     """The exchange core's plan for these widths, in mode 'pair' (K2),
-    'streams' (K3), 'mlp' (K9) or 'render' (K4, P samples a view); mirrors
+    'streams' (K3), 'mlp' (K9) or 'render' (K4, P samples a view), with
+    ``levels`` pyramid levels (K9: 3, it has none); mirrors
     ``launch_core``. Returns (plan, bytes of shared memory a block with two
     weight stage slots, bytes of device-memory scratch a block).
     ``force='global'`` gives the 'global' plan's layout at any width (for a
@@ -403,7 +428,8 @@ def core_plan(mode: str, S: int, F: int, H1: int, O: int, K: int,
         n_rsm = (2 * P + 3) // 4 * 4 + 2 * OT * _NO + 2 * KT * _NK + 32
         red = 32 * max(OT * _NO, KT * _NK)
         scratch = 2 * P * (O + K) * 2
-    common = (1024 + 64 * 16 * 2 + 64 * 3 * 4
+    # the tile's aux rows and cell rows (aux_layout)
+    common = (1024 + 64 * aux_layout(levels)[1] * 2 + 64 * max(levels, 3) * 4
               + n_vecs * (4 if mode == 'mlp' else 2) + n_rsm * 4 + 16 * 8
               + 2 * 96 * 128)
     tiles = (nkbF + nkb_fbuf) * 8192
@@ -414,7 +440,7 @@ def core_plan(mode: str, S: int, F: int, H1: int, O: int, K: int,
 
 
 def check_core_widths(what: str, mode: str, S: int, F: int, H1: int, O: int,
-                      K: int, P: int = 0) -> None:
+                      K: int, P: int = 0, levels: int = 3) -> None:
     """Raises ValueError on widths the exchange core does not take: K above
     256 (the attention width, 128 in both packages and not configurable),
     and vectors too long for shared memory even in the 'global' plan (H1
@@ -424,21 +450,23 @@ def check_core_widths(what: str, mode: str, S: int, F: int, H1: int, O: int,
                          'width (HIDDEN_DIM, 128 in both packages and not '
                          'configurable), and the core keeps its hidden '
                          'layer kh in registers')
-    need = core_plan(mode, S, F, H1, O, K, P)[1]
+    need = core_plan(mode, S, F, H1, O, K, P, levels=levels)[1]
     if need > SMEM_LIMIT:
         raise ValueError(
             f'{what}: even with its tiles in device memory the core needs '
-            f'{need} bytes of shared memory a block at H1 = {H1}, O = {O}, '
-            f'P = {P}, more than {SMEM_LIMIT}: its vectors (8-16 bytes a '
-            'hidden unit) and K4\'s per-ray logits (8 P bytes) stay there')
+            f'{need} bytes of shared memory a block at S = {S}, F = {F}, '
+            f'H1 = {H1}, O = {O}, K = {K}, P = {P}, {levels} levels, more '
+            f'than {SMEM_LIMIT}: its vectors (8-16 bytes a hidden unit) and '
+            'K4\'s per-ray logits (8 P bytes) stay there')
 
 
 def core_scratch(mode: str, S: int, F: int, H1: int, O: int, K: int,
-                 n_units: int, device, P: int = 0) -> Tensor | None:
+                 n_units: int, device, P: int = 0, levels: int = 3
+                 ) -> Tensor | None:
     """The device-memory scratch a launch of the core needs (the 'global'
     plan's tiles, K4's ray rows), for the persistent grid of min(n_units,
     SMs) blocks; None where it needs none."""
-    per_block = core_plan(mode, S, F, H1, O, K, P)[2]
+    per_block = core_plan(mode, S, F, H1, O, K, P, levels=levels)[2]
     if per_block == 0:
         return None
     grid = min(n_units,
@@ -471,8 +499,9 @@ def core_entry(lib: str, name: str, dtype: torch.dtype,
 def _checked_args(what, tables, cells, aux, params):
     """Checks the kernels' inputs and packs the launch arguments shared by
     K2, K3 and K4: (level arrays, (M, F, H1, O, K)). aux is bf16 or f32
-    (``CORE_TYPES``), the tables all in aux's type or all int8. Raises
-    ValueError on what the kernels do not take."""
+    (``CORE_TYPES``), laid out by :func:`aux_layout`, the tables all in
+    aux's type or all int8. Raises ValueError on what the kernels do not
+    take."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f'{what}: {msg}')
@@ -487,8 +516,9 @@ def _checked_args(what, tables, cells, aux, params):
     channels = [t.shape[-1] // 4 for t in tables]
     F, H1 = sum(channels), w1.shape[1]
     O, K = w2.shape[1], k2.shape[1]
-    require(1 <= len(tables) <= 3 and len(cells) == len(tables),
-            'one to three pyramid levels')
+    require(1 <= len(tables) <= MAX_LEVELS and len(cells) == len(tables),
+            f'one to {MAX_LEVELS} pyramid levels, got {len(tables)}')
+    aux_w = aux_layout(len(tables))[1]
     require(tuple(w1.shape) == (F + 3, H1) and tuple(lv.shape) == (S * O, O)
             and tuple(km.shape) == (S * O, K), 'weight shapes')
     for t, c in zip(tables, cells):
@@ -500,8 +530,9 @@ def _checked_args(what, tables, cells, aux, params):
                 f'cells must be contiguous int32 ({S * M},) on {dev}')
     for a in aux:
         require(a.device == dev and a.dtype == dt and a.is_contiguous()
-                and tuple(a.shape) == (M, 16) and a.data_ptr() % 16 == 0,
-                f'aux must be contiguous {dt} ({M}, 16) on {dev}')
+                and tuple(a.shape) == (M, aux_w) and a.data_ptr() % 16 == 0,
+                f'aux must be contiguous {dt} ({M}, {aux_w}) on {dev} for '
+                f'{len(tables)} levels')
     n = len(tables)
     levels = ((ctypes.c_void_p * n)(*[t.data_ptr() for t in tables]),
               (ctypes.c_void_p * n)(*[c.data_ptr() for c in cells]),
@@ -516,10 +547,11 @@ def _core_args(what, mode, tables, cells, aux, params):
     scratch)."""
     levels, sizes = _checked_args(what, tables, cells, aux, params)
     M, F, H1, O, K = sizes
-    check_core_widths(what, mode, len(aux), F, H1, O, K)
+    L = len(tables)
+    check_core_widths(what, mode, len(aux), F, H1, O, K, levels=L)
     stages, vecs = prepared_weights(params, len(aux), aux[0].device)
     scratch = core_scratch(mode, len(aux), F, H1, O, K, _cdiv(M, 64),
-                           aux[0].device)
+                           aux[0].device, levels=L)
     return levels, sizes, stages, vecs, scratch
 
 
@@ -604,7 +636,7 @@ def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
         :func:`fused_exchange_epilogue`.
       cells: per-level (S*M,) int32 rows of the flattened table, stream-major
         ([self | cross_0 | cross_1 | ...]).
-      aux_list: S arrays (M, 16), one per stream, laid out as the aux of
+      aux_list: S arrays, one per stream, laid out as the aux of
         :func:`fused_exchange_epilogue`.
       params: as :func:`_reference_multi`.
 

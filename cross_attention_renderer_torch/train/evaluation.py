@@ -319,8 +319,11 @@ def make_fast_renderer(model, n_chunks: int,
     ``q8`` needs a path that reads the packed cell tables (K2, K3, K4 or
     the plain take path, :attr:`uses_packed_tables`): the sorted stream's
     gather (K5) and the one-hot and banded gathers (K7, K8) have no int8
-    mode, and raise."""
-    if (narrow is not None or q8) and model.n_view < 2:
+    mode, and raise. ``narrow`` takes one width a pyramid level (three for
+    the DPT encoder, four for the ResNet34 and U-Net ones). ``pruned``
+    places samples on the epipolar segment, which ``no_sample`` has not:
+    the model refuses its ``t_vals`` there, as the JAX renderer does."""
+    if (narrow is not None or q8) and not model.multiview:
         raise ValueError('narrow/q8 rendering requires the multiview '
                          '(V >= 2, latent-concat) path')
     if q8 and not model.uses_packed_tables:

@@ -12,9 +12,13 @@
   (f32, bf16, stage 2 with LPIPS from the ``lpips_npz`` fixture, the val
   summary), eval (its metrics equal to ``evaluate_scene``'s on the same
   model and scene), render_traj, the ``--dtype`` flag, the fast-eval
-  flags parsing and evaluating (``--fast``), the ablation and parallel
-  flags parsing and then raising, and
-  ``--save_images`` and the video writer raising without imageio.
+  flags parsing and evaluating (``--fast``), the parallel flags parsing
+  and then raising, and ``--save_images`` and the video writer raising
+  without imageio.
+* ``build_model`` building each encoder, ablation flag and view count 1-4
+  on the CPU, and refusing ``--views 5``; a 2-step ``cli/train.py`` run of
+  the ResNet34 model at one view, and ``cli/eval.py`` of the ResNet34
+  model at two views with ``--no_sample``.
 """
 
 import sys
@@ -293,6 +297,46 @@ def test_fast_eval_flags_parse_and_raise(dataset, tmp_path):
                                    ['--no_latent_concat', '--no_multiview'],
                                    ['--views', '4'], ['--views', '1']])
 def test_build_model_refuses_what_is_not_ported(flags):
+    """Each of these was refused until the port had it: now each builds
+    the renderer it names, and only a view count above K3's four streams
+    is refused."""
     opt = C.base_parser('t').parse_args([*flags, *TINY_FLAGS])
-    with pytest.raises(NotImplementedError, match='Queue A 5'):
+    model = C.build_model(opt)
+    assert model.model == opt.model and model.n_view == opt.views
+    for a in C.ABLATIONS:
+        assert getattr(model, a) == getattr(opt, a)
+    assert len(model.encode(make_scene(0, n_view=opt.views, H=32, W=32,
+                                       n_rays=4, device='cpu'))) == (
+        3 if opt.model == 'midas_vit' else 4)
+    opt.views = 5
+    with pytest.raises(ValueError, match='kMaxStreams'):
         C.build_model(opt)
+
+
+def test_train_cli_resnet_one_view(dataset, tmp_path):
+    res = _train(dataset, tmp_path, 'resnet_v1', '--model', 'resnet',
+                 '--views', '1', '--query_sparsity', '16',
+                 '--steps_til_log', '1')
+    assert res['state'].step == 2 and len(res['log']) == 2
+    assert all(np.isfinite(r['total_loss']) for r in res['log'])
+    model = res['state'].model
+    assert model.model == 'resnet' and model.n_view == 1
+    assert (tmp_path / 'resnet_v1' / 'checkpoints' / 'final.pt').exists()
+
+
+def test_eval_cli_resnet_no_sample(dataset, tmp_path):
+    from cross_attention_renderer_torch.cli import eval as eval_cli
+    img_root, pose_root = dataset
+    argv = ['--img_root', str(img_root), '--pose_root', str(pose_root),
+            '--logging_root', str(tmp_path), '--max_scenes', '1',
+            '--model', 'resnet', '--no_sample', *TINY_FLAGS]
+    res = eval_cli.main(argv)
+    opt = C.base_parser('x').parse_known_args(argv)[0]
+    model = C.build_model(opt).eval()
+    scene = C.scene_batch(PR.RealEstate10kVis(img_root, pose_root)[0],
+                          'cpu')
+    want = E.evaluate_scene(model, scene, 64, 64, n_chunks=8)
+    for k in ('mse', 'psnr', 'ssim'):
+        assert np.isfinite(res['scenes'][0][k])
+        np.testing.assert_allclose(res['scenes'][0][k], float(want[k]),
+                                   rtol=1e-6, err_msg=k)

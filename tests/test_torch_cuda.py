@@ -48,7 +48,14 @@ def _scale(want):
 
 @pytest.mark.parametrize('B,V,R,P,D,C', [(2, 2, 100, 16, 32, 40),
                                          (1, 2, 512, 64, 128, 288),
-                                         (1, 3, 512, 48, 128, 288)])
+                                         (1, 3, 512, 48, 128, 288),
+                                         # V*P = 192; the V=1 latent
+                                         # widths of the DPT, ResNet34 and
+                                         # U-Net models
+                                         (1, 4, 512, 48, 128, 288),
+                                         (1, 1, 512, 64, 128, 576),
+                                         (1, 1, 300, 64, 128, 512),
+                                         (1, 1, 300, 64, 128, 960)])
 def test_epipolar_attention_kernel(dev, B, V, R, P, D, C):
     g = torch.Generator(device='cpu').manual_seed(0)
 
@@ -75,9 +82,10 @@ def _epilogue_case(dev, channels, H1, O, K, n_img, hw, M, S=2, seed=0):
                    for c, h in zip(channels, hw))
     cells = tuple(torch.as_tensor(rng.integers(0, n_img * h * h, S * M),
                                   dtype=torch.int32).to(dev) for h in hw)
-    aux = rng.random((S, M, 16)).astype(np.float32)
-    aux[:, :, 12:15] = 2 * aux[:, :, 12:15] - 1
-    aux[:, ::7, :12] = 0.0
+    t, width = GE.aux_layout(len(channels))
+    aux = rng.random((S, M, width)).astype(np.float32)
+    aux[:, :, t:t + 3] = 2 * aux[:, :, t:t + 3] - 1
+    aux[:, ::7, :t] = 0.0
     F = sum(channels)
     lecun = lambda i, o: rng.standard_normal((i, o)) / np.sqrt(i)
     params = tuple(_bf(dev, a) for a in (
@@ -105,6 +113,11 @@ def _epilogue_case(dev, channels, H1, O, K, n_img, hw, M, S=2, seed=0):
     # fusion_features 288: O = 320 runs as O tiles split between the
     # warpgroups, layer 1 computed by each
     ((288, 288, 64), 640, 320, 128, (16, 32, 64), 3 * 64 + 21, 100),
+    # four levels (24-wide aux, tanh at 16): the ResNet34's widths
+    # ('smem'), the U-Net's ('global', O = 480 split between warpgroups)
+    ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 2 * 8 * 64 + 40,
+     8 * 64),
+    ((64, 128, 256, 512), 960, 480, 128, (32, 16, 8, 4), 3 * 64 + 5, 100),
 ])
 def test_exchange_epilogue_kernel(dev, channels, H1, O, K, hw, M, rp):
     """K2 against its plain version; every case also checks that the launch
@@ -141,10 +154,14 @@ def test_exchange_epilogue_kernel(dev, channels, H1, O, K, hw, M, rp):
     # fusion_features 288 (O = 320): the last stream's f rows in comb after
     # both warpgroups' O tiles
     ((288, 288, 64), 640, 320, 128, (16, 32, 64), 3 * 64 + 5, 3),
+    # four levels at the ResNet34's and the U-Net's widths, S = 3 and 4
+    ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 3 * 64 + 11, 3),
+    ((64, 128, 256, 512), 960, 480, 128, (32, 16, 8, 4), 2 * 64 + 9, 3),
+    ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 4 * 64 + 3, 4),
 ])
 def test_exchange_epilogue_multi_kernel(dev, channels, H1, O, K, hw, M, S):
     """K3 at S = 2, 3 and 4 streams, ragged M (not a multiple of the tile),
-    one to three levels, H1 not a multiple of the hidden chunk, and the
+    one to four levels, H1 not a multiple of the hidden chunk, and the
     shapes whose padding columns in comb are read (they must hold zeros or
     finite values)."""
     case = _epilogue_case(dev, channels, H1, O, K, 3, hw, M, S=S, seed=1)
@@ -229,6 +246,9 @@ def _render_case(dev, channels, H1, O, K, hw, B, R, P, seed=3):
     ((48,), 64, 96, 32, (8,), 1, 5, 48),
     # more rays than SMs, P over one tile a view
     ((32, 32, 16), 80, 40, 16, (4, 8, 16), 1, 300, 80),
+    # four levels at the ResNet34's and the U-Net's widths
+    ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 1, 21, 64),
+    ((64, 128, 256, 512), 960, 480, 128, (32, 16, 8, 4), 1, 11, 64),
 ])
 def test_fused_render_core_kernel(dev, channels, H1, O, K, hw, B, R, P,
                                   repeat):

@@ -156,3 +156,31 @@ def test_render_stages_match_reference_fixture():
     assert_close('z_embed', got['encode_latent'],
                  fixture('z_embed', (B, V, R, -1)))
     assert_close('phi_in', got['phi_in'], d['stage_phi_in_0'])
+
+
+def test_unfused_exchange_stages_match_reference_fixture():
+    """The unfused V=2 exchange (``fused_epilogue=False``) against the
+    fixture's exchange-encoder outputs (its four calls: view 0's self and
+    cross streams, then view 1's cross and self, the per-view channel
+    order, models.py:335-346) and their per-view concatenation
+    (``stage_interp_val``)."""
+    d, model, scene, z, (B, V, R, P) = golden_fixture_model(
+        2, fused_epilogue=False)
+    got = []
+    fuse = model._fuse_latent
+
+    def spy(feat, points):
+        got.append(fuse(feat, points))
+        return got[-1]
+
+    model._fuse_latent = spy
+    with torch.no_grad():
+        model(scene, z=z)
+    fs0, fs1, fc0, fc1 = got           # self v0, v1, then cross v0, v1
+    for k, out in enumerate((fs0, fc0, fc1, fs1)):
+        want = np.moveaxis(d[f'stage_exchange_encode_{k}'], 1, -1)
+        assert_close(f'exchange_encode_{k}', out.reshape(want.shape), want)
+    interp = torch.cat([torch.cat([fs0, fc0], -1),
+                        torch.cat([fc1, fs1], -1)])
+    assert_close('interp_val', interp,
+                 np.moveaxis(d['stage_interp_val_0'], 1, -1))
