@@ -151,12 +151,24 @@ no result):
      (K8) gathers at V=4 and at four levels; one default-route train step
      of each new encoder (ms, peak GB); ``cli/train.py`` (2 steps) and
      ``cli/eval.py`` (one scene) with ``--model resnet --no_sample``.
+ 25. the unposed path (``cli/render_unposed.py``) on a known-pose image
+     pair of the value-noise world: the classical frontend on the card,
+     its keypoints and matches against the same call on the CPU, its
+     relative pose within 2 degrees and a direction cosine of 0.98 of the
+     truth; SuperPoint and SuperGlue from seed-0 weights at 256x256, K =
+     1024, 20 Sinkhorn iterations on the card against the same nets on
+     the CPU (the tolerances below), each net's ms and ``estimate_pose``'s
+     host ms; then ``render_unposed`` with the flagship in f32 (seed 0,
+     decoder output at 1/64): 76 frames, 16 K1 and 8 K2 launches each,
+     every frame finite with RGB in [-1, 1.5], frame 0 against phase 3's
+     ``drive`` of the same scene (the path-vs-path tolerance), frames/s,
+     ms a frame and the device-busy share of one profiled frame.
 Then it prints the ``train`` JSON line (phases 17-19), the ``cli`` line
 (phases 21-22), the ``fast_eval`` line (phase 23: each image's ms, rays/s
 and device busy, each path's launches), the ``ablations`` line (phase 24),
-the ``kernels`` JSON line (K1-K9, their f32 and int8 instantiations, the
-new modes and shapes of phase 24, T1-T13), the card line and, last, the
-result line.
+the ``unposed`` line (phase 25), the ``kernels`` JSON line (K1-K9, their
+f32 and int8 instantiations, the new modes and shapes of phase 24,
+T1-T13), the card line and, last, the result line.
 """
 
 from __future__ import annotations
@@ -250,6 +262,21 @@ TRAIN_TIMED = 5
 # fit's resumed step against the first run's on the same parameters: the
 # same forward (cuDNN may pick another algorithm in another process)
 RESUME_TOL = 1e-3
+# Phase 25, the unposed path. SuperPoint and SuperGlue run in full f32 on
+# both sides (TF32 off), so the card and the CPU differ by summation order
+# alone: the score map (values near 1/65 with random weights) within
+# SP_SCORE_TOL, descriptors within SP_DESC_TOL. Scores that tie within that
+# noise may swap an NMS or top-K decision: at most SP_SWAPS of the valid
+# keypoints may differ between the two. SuperGlue gets the same keypoints
+# on both sides: matches equal, matching scores within SG_SCORE_TOL.
+SP_SCORE_TOL = 1e-5
+SP_DESC_TOL = 1e-4
+SP_SWAPS = 0.01
+SG_SCORE_TOL = 1e-4
+UNPOSED_KEYPOINTS = 1024
+UNPOSED_SINKHORN = 20
+UNPOSED_POSES = 80              # 76 frames after the trajectory's trim
+UNPOSED_POSE_GATE = (2.0, 0.98)  # degrees, translation direction cosine
 
 
 def log(msg: str) -> None:
@@ -1755,6 +1782,219 @@ def ablation_cli(dev, build_dir, counted, extra=()):
     return out
 
 
+def rot_deg(Ra, Rb) -> float:
+    import numpy as np
+    return float(np.degrees(np.arccos(np.clip(
+        (np.trace(Ra.T @ Rb) - 1) / 2, -1, 1))))
+
+
+def check_superpoint(PSP, images, dev) -> dict:
+    """SuperPoint (seed-0 weights) on the card against the CPU on the same
+    (2, 1, 256, 256) images: score maps, valid keypoints, scores and
+    descriptors (SP_* tolerances). Returns the CPU's features and the
+    numbers."""
+    import torch
+    params = PSP.init_params(0)
+    nets = {d: PSP.SuperPoint.from_params(params, device=d)
+            for d in (dev, 'cpu')}
+    x = {d: images.to(d) for d in nets}
+    feats = {d: nets[d](x[d], max_keypoints=UNPOSED_KEYPOINTS)
+             for d in nets}
+    maps = {d: nets[d].dense(x[d])[0].cpu() for d in nets}
+    diff = (maps[dev] - maps['cpu']).abs()
+    flips = int((diff > SP_SCORE_TOL).sum())
+    out = {'score_map_pixels_off': flips,
+           'score_map_max_err_else': float(diff[diff <= SP_SCORE_TOL].max())}
+    swaps, score_err, desc_err = 0, 0.0, 0.0
+    for b in range(images.shape[0]):
+        sides = {}
+        for d in nets:
+            f = {k: v[b].cpu() for k, v in feats[d].items()}
+            keys = (f['keypoints'][:, 1] * 4096 + f['keypoints'][:, 0])
+            sides[d] = {int(k): i for i, k in enumerate(keys.tolist())
+                        if f['valid'][i]}, f
+        (a, fa), (c, fc) = sides[dev], sides['cpu']
+        common = sorted(set(a) & set(c))
+        swaps = max(swaps, len(set(a) ^ set(c)))
+        ia = torch.tensor([a[k] for k in common], dtype=torch.long)
+        ic = torch.tensor([c[k] for k in common], dtype=torch.long)
+        score_err = max(score_err, max_err(fa['scores'][ia],
+                                           fc['scores'][ic]))
+        desc_err = max(desc_err, max_err(fa['descriptors'][ia],
+                                         fc['descriptors'][ic]))
+        out.setdefault('valid', []).append(len(c))
+    out.update(keypoints_swapped=swaps, score_max_err=score_err,
+               descriptor_max_err=desc_err)
+    log(f'SuperPoint card vs CPU: {out}')
+    if (flips > SP_SWAPS * UNPOSED_KEYPOINTS
+            or out['score_map_max_err_else'] > SP_SCORE_TOL
+            or swaps > SP_SWAPS * min(out['valid'])
+            or score_err > SP_SCORE_TOL or desc_err > SP_DESC_TOL):
+        raise RuntimeError('SuperPoint on the card disagrees with the CPU')
+    out['ms'] = cuda_ms(lambda: nets[dev](
+        x[dev], max_keypoints=UNPOSED_KEYPOINTS), 10)
+    return feats['cpu'], out
+
+
+def check_superglue(PSG, feats, dev) -> dict:
+    """SuperGlue (seed-0 weights, 20 iterations) on the card against the
+    CPU, both fed the CPU's SuperPoint features: matches equal, matching
+    scores within SG_SCORE_TOL. Compared at a match threshold of 0 (every
+    mutual nearest pair), since random weights put no score above the
+    demo's 0.2; the count above 0.2 is reported. Returns the numbers."""
+    import torch
+    params = PSG.init_params(0)
+    data = {f'{k}{i}': feats[k][i:i + 1]
+            for k in ('keypoints', 'scores', 'descriptors', 'valid')
+            for i in (0, 1)}
+    out = {}
+    for d in (dev, 'cpu'):
+        net = PSG.SuperGlue.from_params(params, device=d)
+        dd = dict({k: v.to(d) for k, v in data.items()}, image_shape=(H, W))
+        out[d] = {k: v.cpu() for k, v in net(
+            dd, sinkhorn_iterations=UNPOSED_SINKHORN,
+            match_threshold=0.0).items()}
+        if d == dev:
+            ms = cuda_ms(lambda: net(dd, sinkhorn_iterations=UNPOSED_SINKHORN),
+                         10)
+    same = all(torch.equal(out[dev][k], out['cpu'][k])
+               for k in ('matches0', 'matches1'))
+    err = max(max_err(out[dev][k], out['cpu'][k])
+              for k in ('matching_scores0', 'matching_scores1'))
+    m0, s0 = out['cpu']['matches0'], out['cpu']['matching_scores0']
+    numbers = {'mutual_matches': int((m0 > -1).sum()),
+               'matches_above_0.2': int(((m0 > -1) & (s0 > 0.2)).sum()),
+               'matches_equal': same, 'score_max_err': err, 'ms': ms}
+    log(f'SuperGlue card vs CPU: {numbers}')
+    if not same or err > SG_SCORE_TOL:
+        raise RuntimeError('SuperGlue on the card disagrees with the CPU')
+    return numbers
+
+
+def unposed(RM, dev, attention, epilogue, card) -> dict:
+    """Phase 25: the unposed path, as the module docstring says. Returns
+    the trajectory's launches of K1 and K2 and prints the ``unposed``
+    line."""
+    import numpy as np
+    import torch
+    from cross_attention_renderer_torch.cli.render_unposed import (
+        render_unposed)
+    from cross_attention_renderer_torch.data.synthetic import (
+        noise_world_pair)
+    from cross_attention_renderer_torch.pose import classical as PCL
+    from cross_attention_renderer_torch.pose import superglue as PSG
+    from cross_attention_renderer_torch.pose import superpoint as PSP
+    from cross_attention_renderer_torch.pose import unposed as PU
+    K = PU.DEMO_INTRINSICS[:3, :3].astype(np.float64)
+    g0, g1, c2w0, c2w1 = noise_world_pair(K)
+    rel = np.linalg.inv(c2w1) @ c2w0            # x_cam1 = rel @ x_cam0
+    out = {'card': card}
+
+    # the classical frontend, on the card and on the CPU
+    match = {}
+    for d in (dev, 'cpu'):
+        PCL.match_pair_classical(g0, g1, device=d)    # loads the kernels
+        t0 = time.perf_counter()
+        match[d] = PCL.match_pair_classical(g0, g1, device=d)
+        out[f'classical_ms_{"card" if d == dev else "cpu"}'] = (
+            time.perf_counter() - t0) * 1e3
+    kp_err = max(float(np.abs(match[dev][k] - match['cpu'][k]).max())
+                 for k in ('keypoints0', 'keypoints1'))
+    n_match = int((match[dev]['matches'] > -1).sum())
+    out['classical'] = {
+        'matches': n_match, 'keypoint_max_err_px': kp_err,
+        'matches_equal': bool(np.array_equal(match[dev]['matches'],
+                                             match['cpu']['matches']))}
+    log(f'classical frontend card vs CPU: {out["classical"]}')
+    if not out['classical']['matches_equal'] or kp_err > 1e-4:
+        raise RuntimeError('the classical frontend on the card disagrees '
+                           'with the CPU')
+    t0 = time.perf_counter()
+    pose = PU.estimate_pose(match[dev]['mkpts0'].astype(np.float64),
+                            match[dev]['mkpts1'].astype(np.float64), K, K)
+    out['estimate_pose_ms'] = (time.perf_counter() - t0) * 1e3
+    if pose is None:
+        raise RuntimeError('estimate_pose found no pose on the world pair')
+    t_gt = rel[:3, 3] / np.linalg.norm(rel[:3, 3])
+    out['pose'] = {'rot_err_deg': rot_deg(pose[0], rel[:3, :3]),
+                   't_cos': float(pose[1] @ t_gt),
+                   'inliers': int(pose[2].sum())}
+    log(f'estimate_pose on the card\'s matches: {out["pose"]}, '
+        f'{out["estimate_pose_ms"]:.1f} ms on the host')
+    if (out['pose']['rot_err_deg'] > UNPOSED_POSE_GATE[0]
+            or out['pose']['t_cos'] < UNPOSED_POSE_GATE[1]):
+        raise RuntimeError(f'unposed pose off the truth: {out["pose"]}')
+
+    # SuperPoint and SuperGlue at the demo's configuration
+    images = torch.from_numpy(np.stack([g0, g1])[:, None])
+    feats, out['superpoint'] = check_superpoint(PSP, images, dev)
+    out['superglue'] = check_superglue(PSG, feats, dev)
+    del feats
+    torch.cuda.empty_cache()
+
+    # the trajectory: 76 frames of the flagship in f32
+    model = flagship(RM, dev, torch.float32, npoints=64)
+    counted = dict([attention, epilogue])
+    stamps, first = [], {}
+
+    def sink(rgb, i, n):
+        lo, hi = float(rgb.min()), float(rgb.max())    # waits for the frame
+        stamps.append(time.perf_counter())
+        if not (bool(torch.isfinite(rgb).all()) and lo >= -1.0
+                and hi <= 1.5):
+            raise RuntimeError(f'unposed frame {i}: rgb in [{lo}, {hi}]')
+        if i == 0:
+            first['rgb'] = rgb.float().clone()
+
+    im0, im1 = (np.repeat(g[..., None], 3, -1) for g in (g0, g1))
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    traj = render_unposed(model, im0, im1, sink, n_frames=UNPOSED_POSES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    n = len(stamps)
+    expected = {'epipolar_attention': 2 * N_BLOCKS * n,
+                'fused_exchange_epilogue': N_BLOCKS * n}
+    log(f'unposed trajectory: {n} frames, launches {launches}')
+    if n != UNPOSED_POSES - 4 or launches != expected:
+        raise RuntimeError(f'unposed trajectory: {n} frames, launches '
+                           f'{launches}, expected {expected}')
+    ms_frame = (stamps[-1] - stamps[0]) / (n - 1) * 1e3
+    out['trajectory'] = {'frames': n, 'wall_s': wall,
+                         'ms_per_frame': ms_frame,
+                         'frames_per_s': 1e3 / ms_frame,
+                         'launches': launches}
+
+    # frame 0 through phase 3's drive, then one profiled frame
+    def tensor(x):
+        return torch.tensor(np.ascontiguousarray(x), device=dev)
+
+    scene0 = {'context': {k: tensor(v) for k, v in traj['context'].items()},
+              'query': {k: tensor(traj['query'][k][:, :1])
+                        for k in ('cam2world', 'intrinsics', 'uv')}}
+    times = {}
+    _, _, rgb0 = drive('unposed frame 0', model, scene0, RM, counted,
+                       {'epipolar_attention': 2 * N_BLOCKS,
+                        'fused_exchange_epilogue': N_BLOCKS},
+                       times=times, n_img=1)
+    check_paths('unposed frame 0 vs drive', PATH_TOL,
+                first['rgb'].reshape(rgb0.shape), rgb0)
+    out['trajectory'].update(
+        profiled_wall_ms=times['profiled_wall_ms'],
+        device_busy_ms=times['device_busy_ms'],
+        device_busy_share=times['device_busy_ms'] / times['profiled_wall_ms'])
+    log(f'unposed trajectory: {ms_frame:.1f} ms a frame, '
+        f'{1e3 / ms_frame:.2f} frames/s, one profiled frame '
+        f'{times["device_busy_ms"]:.1f} of {times["profiled_wall_ms"]:.1f} ms '
+        'device busy')
+    print(json.dumps({'unposed': out}), flush=True)
+    del model, traj, scene0, rgb0, first
+    torch.cuda.empty_cache()
+    return launches
+
+
 def flagship(RM, dev, dtype=None, **kw):
     """The 122M model from seed 0 (bf16 compute unless ``dtype`` says
     otherwise), decoder output layer scaled."""
@@ -2098,6 +2338,12 @@ def main() -> int:
     for key in ('v2_no_sample', 'v2_no_multiview', 'v2_no_high_freq'):
         by_path[key] = ab_paths[key]
     by_path['v4_compat'] = {'fused_mlp2': ab_paths['v4_compat']['fused_mlp2']}
+
+    # -- 25. the unposed path ------------------------------------------------
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        by_path_f32['unposed'] = unposed(RM, dev, attention, epilogue, card)
+    log(f'unposed phase: {time.perf_counter() - t0:.1f} s')
 
     fast_f32 = {p: n for p, n in fast_paths.items() if p.endswith('_f32')}
     fast_i8 = {p: n for p, n in fast_paths.items()

@@ -8,6 +8,9 @@ draws and arithmetic from the same seed, returned as torch tensors on the
 requested device, in the scene-dict layout the renderer consumes.
 ``_render_boxes`` and ``_world_rects`` also draw the frames of the corpus
 writers (``tools/make_corpus.py``, ``tools/make_co3d_corpus.py``).
+:func:`noise_world_pair` renders the known-pose image pair that the pose
+path is checked on (the world of the JAX package's classical-matcher
+test).
 """
 
 from __future__ import annotations
@@ -225,3 +228,59 @@ def make_scene(seed: int, batch: int = 1, n_view: int = 2, H: int = 64,
                   'uv': f(uv), 'rgb': f(gt),
                   'mask': torch.zeros((batch,), dtype=dtype, device=device)},
     }
+
+
+def _value_noise(u, v, tex, cells_per_unit):
+    n = tex.shape[0]
+    fu = (u * cells_per_unit) % n
+    fv = (v * cells_per_unit) % n
+    i0 = np.floor(fu).astype(int) % n
+    j0 = np.floor(fv).astype(int) % n
+    i1, j1 = (i0 + 1) % n, (j0 + 1) % n
+    a, b = fu - np.floor(fu), fv - np.floor(fv)
+    return (tex[j0, i0] * (1 - a) * (1 - b) + tex[j0, i1] * a * (1 - b)
+            + tex[j1, i0] * (1 - a) * b + tex[j1, i1] * a * b)
+
+
+def _render_noise_world(c2w: np.ndarray, K: np.ndarray, H: int, W: int,
+                        tex: np.ndarray) -> np.ndarray:
+    """Grayscale (H, W) render of a non-planar world (base plane z=0 and
+    three floating squares) with a two-octave value-noise texture; an
+    essential matrix from coplanar points would be degenerate."""
+    rects = [(0.0, 0.0, 0.9, 0.45), (-0.6, 0.5, 0.6, 0.3),
+             (0.55, -0.45, 0.75, 0.35)]
+    i, j = np.meshgrid(np.arange(W), np.arange(H), indexing='xy')
+    x = (i - K[0, 2]) / K[0, 0]
+    y = (j - K[1, 2]) / K[1, 1]
+    dirs = np.stack([x, y, np.ones_like(x)], -1) @ c2w[:3, :3].T
+    o = c2w[:3, 3]
+
+    def shade(p, shift):
+        return (0.6 * _value_noise(p[..., 0] + shift, p[..., 1], tex, 16)
+                + 0.4 * _value_noise(p[..., 0] - 3.3 * shift,
+                                     p[..., 1] + 9.9 * shift, tex, 64))
+
+    tb = -o[2] / dirs[..., 2]
+    g = shade(o[None, None] + tb[..., None] * dirs, 0.0)
+    tbest = np.where(tb > 0, tb, np.inf)
+    for idx, (cx, cy, zr, s) in enumerate(rects):
+        tr = (zr - o[2]) / dirs[..., 2]
+        p = o[None, None] + tr[..., None] * dirs
+        hit = ((tr > 0) & (np.abs(p[..., 0] - cx) < s)
+               & (np.abs(p[..., 1] - cy) < s) & (tr < tbest))
+        g = np.where(hit, shade(p, 7.3 * (idx + 1)), g)
+        tbest = np.where(hit, tr, tbest)
+    return g.astype(np.float32)
+
+
+def noise_world_pair(K: np.ndarray, H: int = 256, W: int = 256,
+                     seed: int = 3) -> tuple:
+    """A known-pose grayscale pair of the value-noise world, for the pose
+    path's checks (the JAX package's classical-matcher test world):
+    (gray0, gray1, cam2world0, cam2world1), rendered with the pixel-unit
+    intrinsics ``K`` (3, 3) the pose solve will assume."""
+    c2w0 = look_at_cam2world(np.array([0.1, -0.1, 2.0]), np.zeros(3))
+    c2w1 = look_at_cam2world(np.array([0.45, 0.05, 1.9]), np.zeros(3))
+    tex = np.random.default_rng(seed).uniform(0, 1, (512, 512))
+    return (_render_noise_world(c2w0, K, H, W, tex),
+            _render_noise_world(c2w1, K, H, W, tex), c2w0, c2w1)
