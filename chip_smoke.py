@@ -163,12 +163,31 @@ no result):
      every frame finite with RGB in [-1, 1.5], frame 0 against phase 3's
      ``drive`` of the same scene (the path-vs-path tolerance), frames/s,
      ms a frame and the device-busy share of one profiled frame.
+ 26. the capability path (``tools/capability_run.py``, ``eval_pruned.py``,
+     ``make_fast_eval_demo.py``): ``capability_run.run`` with the medium
+     config (12.1M) on 32 plane worlds, 1,500 f32 steps on the trainer's
+     default route (no K1 or K2 launch in training), an eval every 500
+     steps (each one forward of the 64x64 held-out image: 2 K1 and 1 K2),
+     every logged loss and gradient norm finite, the best held-out PSNR
+     at least 15 dB; the last eval image (the best parameters) against
+     the same weights on the plain route (no kernel) within the
+     path-vs-path tolerance; the saved ``.npz`` reloaded into a fresh
+     model renders the same image bit for bit; K1 and K2 in f32 at the
+     eval's shape against their plain versions; then ``eval_pruned`` at
+     its defaults in bf16 on 4 unseen plane worlds: every mode's PSNR
+     finite, q8 within 0.2 dB of dense, each mode's launches an image
+     (4 blocks: dense, uniform, narrow, q8 8 K1 and 4 K2; the pruned
+     modes 12 and 8; no K4), K1 and K2 (bf16 and int8 tables) at the
+     dense and pruned shapes against their plain versions, timed; then
+     ``make_fast_eval_demo`` writes its strip under ``build/``.
 Then it prints the ``train`` JSON line (phases 17-19), the ``cli`` line
 (phases 21-22), the ``fast_eval`` line (phase 23: each image's ms, rays/s
 and device busy, each path's launches), the ``ablations`` line (phase 24),
-the ``unposed`` line (phase 25), the ``kernels`` JSON line (K1-K9, their
-f32 and int8 instantiations, the new modes and shapes of phase 24,
-T1-T13), the card line and, last, the result line.
+the ``unposed`` line (phase 25), the ``capability`` line (phase 26: the
+curve, steps/s, peak GB, each eval_pruned mode's dB, ms an image and
+rays/s), the ``kernels`` JSON line (K1-K9, their f32 and int8
+instantiations, the new modes and shapes of phases 24 and 26, T1-T13),
+the card line and, last, the result line.
 """
 
 from __future__ import annotations
@@ -277,6 +296,16 @@ UNPOSED_KEYPOINTS = 1024
 UNPOSED_SINKHORN = 20
 UNPOSED_POSES = 80              # 76 frames after the trajectory's trim
 UNPOSED_POSE_GATE = (2.0, 0.98)  # degrees, translation direction cosine
+# Phase 26, the capability path: tools/capability_run.py's protocol on
+# plane worlds (the JAX tool's TPU record: 23.0 dB at step 1,500,
+# BENCH_NOTES.md:498-506), then eval_pruned at its defaults in bf16 and
+# the fast-eval strip. The floor is a sanity check, far under that record.
+CAPABILITY = dict(config='medium', world='plane', worlds=32, steps=1500,
+                  eval_every=500, lr=2.5e-4, dtype='f32')
+CAPABILITY_FLOOR_DB = 15.0
+Q8_GATE_DB = 0.2        # q8 against dense (JAX's tables: within 0.01 dB)
+EVAL_PRUNED = dict(world='plane', worlds=4, pruned=(16, 24),
+                   narrow=(64, 64, 64), n_chunks=4, iters=8)
 
 
 def log(msg: str) -> None:
@@ -1195,17 +1224,17 @@ def f32_paths(RM, EA, GE, FR, FM, make_scene, dev, attention, epilogue,
     return by_path, out
 
 
-def fast_launches(exchange, lever):
+def fast_launches(exchange, lever, n_blocks=N_BLOCKS):
     """The launches per image of the fast renderer with ``lever`` (its
-    keywords) on the path whose exchange is ``exchange``: the pruned
-    renderer runs a coarse pass without round 2 (one K1, or one K4 without
-    it) and the fine pass per ray block."""
+    keywords) on the path whose exchange is ``exchange``, in ``n_blocks``
+    ray blocks: the pruned renderer runs a coarse pass without round 2
+    (one K1, or one K4 without it) and the fine pass per ray block."""
     pruned = lever.get('pruned') is not None
     if exchange == 'fused_render_core':
-        return {'fused_render_core': (2 if pruned else 1) * N_BLOCKS,
+        return {'fused_render_core': (2 if pruned else 1) * n_blocks,
                 'epipolar_attention': 0, 'fused_exchange_epilogue': 0}
-    out = {'epipolar_attention': (3 if pruned else 2) * N_BLOCKS,
-           exchange: (2 if pruned else 1) * N_BLOCKS}
+    out = {'epipolar_attention': (3 if pruned else 2) * n_blocks,
+           exchange: (2 if pruned else 1) * n_blocks}
     if exchange == 'fused_exchange_epilogue':
         out['fused_render_core'] = 0
     return out
@@ -1995,6 +2024,298 @@ def unposed(RM, dev, attention, epilogue, card) -> dict:
     return launches
 
 
+def capability(RM, EA, GE, dev, counted, build_dir, card):
+    """Phase 26: the capability path, as the module docstring says.
+    Returns the kernel entries of its new shapes and prints the
+    ``capability`` line."""
+    import numpy as np
+    import torch
+    from cross_attention_renderer_torch.tools import capability_run as CR
+    from cross_attention_renderer_torch.tools import eval_pruned as EP
+    from cross_attention_renderer_torch.tools import (
+        make_fast_eval_demo as DEMO)
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_fast_renderer, make_scan_renderer)
+    from cross_attention_renderer_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+    from cross_attention_renderer_torch.utils.params_io import load_params
+    t_start = time.perf_counter()
+    out = {'card': card, 'protocol': dict(CAPABILITY)}
+    save = build_dir / 'capability_medium.npz'
+
+    # (a) the capability run, its train steps' launches counted apart
+    train_launches = dict.fromkeys(counted, 0)
+    make_step = CR.make_train_step
+
+    def counting_step(model, cfg):
+        step = make_step(model, cfg)
+
+        def wrapped(state, scene):
+            before = {n: fn.launches for n, fn in counted.items()}
+            result = step(state, scene)
+            for n, fn in counted.items():
+                train_launches[n] += fn.launches - before[n]
+            return result
+        return wrapped
+
+    for fn in counted.values():
+        fn.launches = 0
+    CR.make_train_step = counting_step
+    try:
+        with torch.enable_grad():
+            run = CR.run(**CAPABILITY, device=dev, save=str(save),
+                         out=str(build_dir / 'capability_demo.png'),
+                         log=log)
+    finally:
+        CR.make_train_step = make_step
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counted.items()}
+    # step 0, every eval_every steps, the last parameters, the best ones
+    n_evals = 3 + CAPABILITY['steps'] // CAPABILITY['eval_every']
+    want = fast_launches('fused_exchange_epilogue', {}, n_evals)
+    log(f'capability run launches: {launches} ({n_evals} evals; training '
+        f'{train_launches})')
+    if any(train_launches.values()) or launches != want:
+        raise RuntimeError(f'capability run: unexpected launches {launches}'
+                           f', training {train_launches}, expected {want}')
+    curve = run['curve']
+    if not all(np.isfinite([r['loss'], r['grad_norm'], r['psnr']]).all()
+               for r in curve):
+        raise RuntimeError(f'capability run: a non-finite eval row {curve}')
+    out.update(curve=curve, step0_psnr=run['step0_psnr'],
+               best_psnr=run['best_psnr'], final_psnr=run['final_psnr'],
+               steps_per_s=run['steps_per_s'], peak_gb=run['peak_gb'],
+               params_m=run['params_m'], launches=launches,
+               train_launches=train_launches)
+    log(f'capability run: best {run["best_psnr"]:.2f} dB (floor '
+        f'{CAPABILITY_FLOOR_DB}), {run["steps_per_s"]:.2f} steps/s, peak '
+        f'{run["peak_gb"]} GB')
+    if run['best_psnr'] < CAPABILITY_FLOOR_DB:
+        raise RuntimeError('capability run: the best held-out PSNR is under '
+                           'the floor')
+
+    # the last eval image (the best parameters) against the plain route
+    # of the same weights, and the saved file in a fresh model
+    model = run['model']
+    held_out = CR.to_scene(CR.load_world(CR.HELD_OUT, CAPABILITY['world']),
+                           dev)
+    plain = model.clone()
+    plain.fused_attention = plain.fused_epilogue = False
+    before = {n: fn.launches for n, fn in counted.items()}
+    with torch.inference_mode():
+        plain_out = plain(held_out)
+    if {n: fn.launches for n, fn in counted.items()} != before:
+        raise RuntimeError('the plain route launched a kernel')
+    pred = torch.from_numpy(run['pred'])
+    check_paths('capability eval vs the plain route', PATH_TOL, pred,
+                plain_out['rgb'].float().cpu())
+    out['plain_route_err'] = max_err(pred, plain_out['rgb'].cpu())
+    # the held-out rays that no context view sees render no image
+    valid = plain_out['valid_mask'][0, :, 0].bool().cpu().numpy()
+    out['held_out_valid_fraction'] = float(valid.mean())
+    out['best_psnr_valid_rays'] = CR.psnr(run['pred'][0, 0][valid],
+                                          run['gt'][0, 0][valid])
+    log(f'capability: {100 * valid.mean():.2f}% of the held-out rays are '
+        f'valid; the best image over them: '
+        f'{out["best_psnr_valid_rays"]:.2f} dB')
+    fresh = CR.build_model(CAPABILITY['config'], CAPABILITY['dtype'], dev)
+    fresh.load_state_dict(load_params(str(save)))
+    with torch.inference_mode():
+        again = fresh(held_out)['rgb'].float().cpu()
+    if not torch.equal(again, pred):
+        raise RuntimeError('the saved parameters render another image')
+    log('capability: the saved parameters reload and render the same image '
+        'bit for bit')
+
+    # f32 K1 and K2 at the eval's shape (the held-out image in one forward)
+    numbers = {}
+    capture = {'epipolar_attention': (RM, 'epipolar_attention', 2),
+               'fused_exchange_epilogue': (RM, 'fused_exchange_epilogue',
+                                           1)}
+    calls = record_calls(capture, lambda: model(held_out))
+    numbers['f32'] = {
+        'epipolar_attention': check_attention(
+            'capability eval f32', EA, *calls['epipolar_attention'][0]),
+        'fused_exchange_epilogue': check_core(
+            'fused_exchange_epilogue', GE, None,
+            calls['fused_exchange_epilogue'][0],
+            'K2 capability eval f32')}
+    # where a train step's time goes: one profiled step of the trained
+    # model on a batch of the run's shape, after a warm-up step
+    state = create_train_state(model, TrainConfig(lr=CAPABILITY['lr']))
+    step = make_train_step(model, TrainConfig(lr=CAPABILITY['lr']))
+    batch = CR.batch_scene([CR.load_world(s, CAPABILITY['world'])
+                            for s in range(2)], np.random.default_rng(1),
+                           dev)
+    with torch.enable_grad():
+        step(state, batch)
+        out['train_step_profile'] = profile_device(
+            'capability train step', lambda: step(state, batch))
+    del run, model, plain, fresh, calls, state, step, batch
+    torch.cuda.empty_cache()
+
+    # (b) eval_pruned at its defaults, bf16, on the saved parameters
+    t0 = time.perf_counter()
+    model = CR.build_model(CAPABILITY['config'], 'bf16', dev).eval()
+    model.load_state_dict(load_params(str(save)))
+    for fn in counted.values():
+        fn.launches = 0
+    table = EP.evaluate(model, device=dev, **EVAL_PRUNED)
+    torch.cuda.synchronize()
+    total = {n: fn.launches for n, fn in counted.items()}
+    renders = EVAL_PRUNED['worlds'] * (1 + EVAL_PRUNED['iters'])
+    want_total = dict.fromkeys(counted, 0)
+    for mode, row in table.items():
+        pruned = 'pruned' in mode or 'p+' in mode
+        want = fast_launches('fused_exchange_epilogue',
+                             {'pruned': EVAL_PRUNED['pruned'] if pruned
+                              else None}, EVAL_PRUNED['n_chunks'])
+        if row['launches'] != want or not np.isfinite(row['psnr']):
+            raise RuntimeError(f'eval_pruned {mode}: launches '
+                               f'{row["launches"]} (expected {want}), psnr '
+                               f'{row["psnr"]}')
+        for n in want_total:
+            want_total[n] += renders * want[n]
+        log(f'eval_pruned {mode:>13}: {row["psnr"]:.3f} dB, '
+            f'{row["ms"]:.2f} ms an image, {row["rays_per_s"]:,.0f} rays/s, '
+            f'launches an image {row["launches"]}')
+    if total != want_total:
+        raise RuntimeError(f'eval_pruned: launches {total}, expected '
+                           f'{want_total}')
+    gap = abs(table['q8']['psnr'] - table['dense']['psnr'])
+    log(f'eval_pruned: q8 {gap:.4f} dB from dense (gate {Q8_GATE_DB})')
+    if gap > Q8_GATE_DB:
+        raise RuntimeError('eval_pruned: q8 is too far from dense')
+    out['eval_pruned'] = dict(EVAL_PRUNED, modes=table, launches=total,
+                              seconds=time.perf_counter() - t0)
+
+    # bf16 K1 and K2 (bf16 and int8 tables) at the dense and pruned shapes
+    scene = CR.to_scene(CR.load_world(200000, EVAL_PRUNED['world']), dev)
+    with torch.inference_mode():
+        z = model.encode(scene)
+    uv = scene['query']['uv']
+    n_chunks = EVAL_PRUNED['n_chunks']
+    capture['epipolar_attention'] = (RM, 'epipolar_attention', 2)
+    capture['fused_exchange_epilogue'] = (RM, 'fused_exchange_epilogue', 2)
+    k1, k2, k2_i8 = {}, {}, {}
+    for label, render in (
+            ('dense', make_scan_renderer(model, n_chunks)),
+            ('pruned', make_fast_renderer(model, n_chunks,
+                                          pruned=EVAL_PRUNED['pruned'])),
+            ('q8', make_fast_renderer(model, n_chunks, q8=True))):
+        calls = record_calls(capture, lambda: render(scene, z, uv))
+        with torch.inference_mode():
+            out[f'{label}_image_profile'] = profile_device(
+                f'eval_pruned {label} image', lambda: render(scene, z, uv))
+        shapes = (('coarse', 'fine') if label == 'pruned' else (label,))
+        for i, shape in enumerate(shapes):
+            name = f'medium bf16 {shape}'
+            args = calls['fused_exchange_epilogue'][i]
+            if label == 'q8':
+                k2_i8[name] = check_core('fused_exchange_epilogue', GE,
+                                         None, args, f'K2 int8 {name}')
+                continue
+            k2[name] = check_core('fused_exchange_epilogue', GE, None,
+                                  args, f'K2 {name}')
+            k1[name] = check_attention(name, EA,
+                                       *calls['epipolar_attention'][i])
+    numbers['bf16'] = {'epipolar_attention': k1,
+                       'fused_exchange_epilogue': k2}
+    numbers['int8'] = k2_i8
+    del model, scene, z, calls
+    torch.cuda.empty_cache()
+
+    # (c) the fast-eval strip
+    strip = build_dir / 'fast_eval_demo.png'
+    if strip.exists():
+        strip.unlink()
+    out['demo'] = DEMO.main(['--params', str(save), '--config',
+                             CAPABILITY['config'], '--world',
+                             CAPABILITY['world'], '--out', str(strip),
+                             '--device', torch.device(dev).type])
+    if not strip.is_file() or strip.stat().st_size == 0:
+        raise RuntimeError('make_fast_eval_demo wrote no strip')
+    out['seconds'] = time.perf_counter() - t_start
+    print(json.dumps({'capability': out}), flush=True)
+    return capability_kernels(numbers, launches, table, renders)
+
+
+def record_calls(capture, fn):
+    """The arguments of the first ``n`` calls of each ``capture`` entry
+    ({key: (module, name, n)}) in ``fn()``, run under inference mode."""
+    import torch
+    calls = {key: [] for key in capture}
+    originals = {key: getattr(m, name) for key, (m, name, _) in
+                 capture.items()}
+
+    def recorder(key, orig, n):
+        def wrapper(*args):
+            if len(calls[key]) < n:
+                calls[key].append(args)
+            return orig(*args)
+        return wrapper
+
+    for key, (m, name, n) in capture.items():
+        setattr(m, name, recorder(key, originals[key], n))
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        for key, (m, name, _) in capture.items():
+            setattr(m, name, originals[key])
+    return calls
+
+
+def capability_kernels(numbers, launches, table, renders):
+    """Phase 26's kernel entries: K1 and K2 in f32 at the capability
+    eval's shape (the run's launches), in bf16 at eval_pruned's dense and
+    pruned shapes, and K2's int8 tables (eval_pruned's launches)."""
+    def mode_launches(name, modes):
+        return renders * sum(table[m]['launches'][name] for m in modes)
+
+    bf16_k2 = ('dense', 'uniform_fine', 'pruned', 'narrow', 'narrow+pruned')
+    entries = []
+    for entry, name, source, replaces, what, by_shape, n in (
+            ('epipolar_attention_medium_f32', 'epipolar_attention',
+             'epipolar_attention.cu', 'ops/epipolar_attention.py:118',
+             'K1 f32, the medium config\'s capability eval',
+             {'eval': numbers['f32']['epipolar_attention']},
+             launches['epipolar_attention']),
+            ('fused_exchange_epilogue_medium_f32', 'fused_exchange_epilogue',
+             'gather_epilogue.cu', 'ops/gather_epilogue.py:220',
+             'K2 f32, the medium config\'s capability eval',
+             {'eval': numbers['f32']['fused_exchange_epilogue']},
+             launches['fused_exchange_epilogue']),
+            ('epipolar_attention_medium_bf16', 'epipolar_attention',
+             'epipolar_attention.cu', 'ops/epipolar_attention.py:118',
+             'K1 bf16, eval_pruned on the medium config',
+             numbers['bf16']['epipolar_attention'],
+             mode_launches('epipolar_attention', table)),
+            ('fused_exchange_epilogue_medium_bf16',
+             'fused_exchange_epilogue', 'gather_epilogue.cu',
+             'ops/gather_epilogue.py:220',
+             'K2 bf16, eval_pruned on the medium config',
+             numbers['bf16']['fused_exchange_epilogue'],
+             mode_launches('fused_exchange_epilogue', bf16_k2)),
+            ('fused_exchange_epilogue_i8_medium', 'fused_exchange_epilogue',
+             'gather_epilogue.cu', 'ops/gather_epilogue.py:220',
+             'K2 int8 tables, bf16, eval_pruned q8 on the medium config',
+             numbers['int8'],
+             mode_launches('fused_exchange_epilogue',
+                           ('q8', 'all(n+p+q8)')))):
+        first = next(iter(by_shape.values()))
+        entries.append({
+            'name': entry, 'mode': what, 'route': 'cuda',
+            'source': f'cross_attention_renderer_torch/csrc/{source}',
+            'replaces': f'cross_attention_renderer_tpu/{replaces}',
+            'launches': n, 'launches_by_path': {'capability': n},
+            'backward': ('none: int8 tables take no gradient'
+                         if 'i8' in entry else
+                         'the plain version, recomputed (ops/_autograd.py)'),
+            'library_ms': None, **first, 'checked_on': by_shape})
+    return entries
+
+
 def flagship(RM, dev, dtype=None, **kw):
     """The 122M model from seed 0 (bf16 compute unless ``dtype`` says
     otherwise), decoder output layer scaled."""
@@ -2344,6 +2665,14 @@ def main() -> int:
     with torch.no_grad():
         by_path_f32['unposed'] = unposed(RM, dev, attention, epilogue, card)
     log(f'unposed phase: {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+
+    # -- 26. the capability path ---------------------------------------------
+    t0 = time.perf_counter()
+    cap_kernels = capability(RM, EA, GE, dev,
+                             dict([attention, epilogue, render_core]),
+                             build_dir, card)
+    log(f'capability phase: {time.perf_counter() - t0:.1f} s')
 
     fast_f32 = {p: n for p, n in fast_paths.items() if p.endswith('_f32')}
     fast_i8 = {p: n for p, n in fast_paths.items()
@@ -2461,7 +2790,7 @@ def main() -> int:
             'launches': sum(paths.values()), 'launches_by_path': paths,
             'backward': 'the plain version, recomputed (ops/_autograd.py)',
             'library_ms': None, **first, 'checked_on': by_label})
-    kernels += probes
+    kernels += cap_kernels + probes
     for kern in kernels:
         log(f'{kern["name"]}: {kern["ms"]:.3f} ms, plain '
             f'{kern["plain_ms"]:.3f} ms, bound {kern["bound_ms"]:.3f} ms '

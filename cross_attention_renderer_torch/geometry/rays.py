@@ -92,6 +92,14 @@ def transform_points(pts: Tensor, transform: Tensor) -> Tensor:
             + pts[..., 2:3] * t[..., 2] + t[..., 3])
 
 
+def transform_dirs(dirs: Tensor, transform: Tensor) -> Tensor:
+    """Rotate direction vectors by the rotation part of 4x4 transforms.
+    Ref: ``encode_relative_ray`` (models.py:19-27)."""
+    r = transform[..., :3, :3]
+    return (dirs[..., 0:1] * r[..., 0] + dirs[..., 1:2] * r[..., 1]
+            + dirs[..., 2:3] * r[..., 2])
+
+
 def points_to_cam(world_pts: Tensor, cam2world: Tensor) -> Tensor:
     """World points -> camera coordinates via inverse(cam2world)."""
     return transform_points(world_pts, torch.linalg.inv(cam2world))
@@ -128,6 +136,19 @@ def plucker_embedding(cam2world: Tensor, uv_pix: Tensor,
     return torch.cat([dirs, _cross(origin, dirs)], dim=-1)
 
 
+def closest_to_origin(plucker: Tensor) -> Tensor:
+    """Point on the line closest to the world origin, d x (o x d).
+    Ref: geometry.py:258-261."""
+    return _cross(plucker[..., :3], plucker[..., 3:])
+
+
+def plucker_sd(plucker: Tensor, point: Tensor) -> Tensor:
+    """Signed distance of ``point`` along the line from its origin-closest
+    point, (..., 1). Ref: ``plucker_sd`` (geometry.py:264-272)."""
+    origin = closest_to_origin(plucker)
+    return ((point - origin) * plucker[..., :3]).sum(-1, keepdim=True)
+
+
 def plucker_intersection(line_1: Tensor, line_2: Tensor,
                          eps: float = 1e-12) -> tuple[Tensor, Tensor]:
     """Mutually closest points of two Plücker lines, f32-stable form:
@@ -148,6 +169,24 @@ def plucker_intersection(line_1: Tensor, line_2: Tensor,
 def plucker_parallel(line_1: Tensor, line_2: Tensor,
                      tol: float = 1e-6) -> Tensor:
     return _norm(_cross(line_1[..., :3], line_2[..., :3])) < tol
+
+
+def plucker_reciprocal_product(line_1: Tensor, line_2: Tensor) -> Tensor:
+    """Reciprocal product <l1, l2>, zero iff the lines meet.
+    Ref: geometry.py:284-286."""
+    return ((line_1[..., :3] * line_2[..., 3:]).sum(-1)
+            + (line_2[..., :3] * line_1[..., 3:]).sum(-1))
+
+
+def plucker_distance(line_1: Tensor, line_2: Tensor,
+                     eps: float = 1e-12) -> Tensor:
+    """Distance between two Plücker lines, |<l1, l2>| / |d1 x d2| with the
+    cross norm floored at ``eps`` (finite on parallel lines). ``line_1``'s
+    direction broadcasts to ``line_2``'s shape. Ref: geometry.py:289-293."""
+    cross = _cross(line_1[..., :3].expand_as(line_2[..., :3]),
+                   line_2[..., :3])
+    denom = _norm(cross).clamp_min(eps)
+    return plucker_reciprocal_product(line_1, line_2).abs() / denom
 
 
 def epipolar_point_3d(query_ray: Tensor, pixel_val_ndc: Tensor,
@@ -192,3 +231,11 @@ def fundamental_matrix(c2w_1: Tensor, c2w_2: Tensor, intr_1: Tensor,
     k1 = torch.linalg.inv(intr_1[..., :3, :3])
     k2 = torch.linalg.inv(intr_2[..., :3, :3])
     return k1.transpose(-1, -2) @ E @ k2
+
+
+def homogenize_mat(mat: Tensor) -> Tensor:
+    """(..., 3, 4) matrices with the homogeneous row [0, 0, 0, 1]
+    appended."""
+    row = torch.zeros_like(mat[..., :1, :])
+    row[..., 0, 3] = 1.0
+    return torch.cat([mat, row], dim=-2)

@@ -351,8 +351,8 @@ class CrossAttentionRenderer(nn.Module):
 
     def clone(self, repeat_attention: Optional[bool] = None,
               fuse_kernel: Optional[Tensor] = None,
-              narrow_features: Optional[Sequence[int]] = None
-              ) -> 'CrossAttentionRenderer':
+              narrow_features: Optional[Sequence[int]] = None,
+              npoints: Optional[int] = None) -> 'CrossAttentionRenderer':
         """A sibling of the model that shares every parameter tensor with
         it (the JAX ``model.clone``, for the fast-eval renderers). Neither
         the model nor a weight is copied or changed.
@@ -366,6 +366,9 @@ class CrossAttentionRenderer(nn.Module):
             shared.
           narrow_features: the gathered widths ``fuse_kernel`` is for
             (default: the model's).
+          npoints: epipolar samples a view in the sibling (0 takes the
+            default of the constructor's ``npoints``); no parameter
+            depends on it.
         """
         if ((narrow_features is not None or fuse_kernel is not None)
                 and not self.multiview):
@@ -376,6 +379,8 @@ class CrossAttentionRenderer(nn.Module):
         c._parameters = dict(self._parameters)
         c._buffers = dict(self._buffers)
         c._modules = dict(self._modules)
+        if npoints is not None:
+            c.n_samples = npoints or (64 if self.n_view <= 2 else 48)
         if repeat_attention is not None:
             if repeat_attention and not self.repeat_attention:
                 raise ValueError('the model has no round-2 modules to '

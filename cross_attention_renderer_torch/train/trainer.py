@@ -32,7 +32,9 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass
 class TrainConfig:
-    lr: float = 5e-5
+    # a float, or a schedule of the update count, lr(count) (an optax
+    # schedule's role: the JAX TrainConfig takes either)
+    lr: float | Callable[[int], float] = 5e-5
     beta1: float = 0.99           # train_realestate10k.py:93
     beta2: float = 0.999
     clip_norm: float = 1.0        # training.py:130-132
@@ -53,13 +55,22 @@ class ClippedAdam:
     clip_norm``; ``clip_grad_norm_`` adds 1e-6 to the norm, which optax
     does not), then takes an Adam step (eps 1e-8 outside the square root,
     as optax's). Parameters without a gradient are skipped, as a zero
-    gradient leaves them unchanged under optax. No host synchronisation."""
+    gradient leaves them unchanged under optax. No host synchronisation.
+
+    A callable ``cfg.lr`` is a schedule: each step first sets every
+    parameter group's rate to ``lr(count)``, ``count`` being the updates
+    already taken (optax's ``scale_by_schedule`` count), so the first
+    update takes ``lr(0)``. The count is a Python int, saved with the
+    optimizer's state."""
 
     def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig):
         self.params = [p for p in params if p.requires_grad]
         self.clip_norm = float(cfg.clip_norm)
-        self.adam = torch.optim.Adam(self.params, lr=cfg.lr,
-                                     betas=(cfg.beta1, cfg.beta2), eps=1e-8)
+        self.schedule = cfg.lr if callable(cfg.lr) else None
+        self.count = 0
+        self.adam = torch.optim.Adam(
+            self.params, lr=0.0 if self.schedule else float(cfg.lr),
+            betas=(cfg.beta1, cfg.beta2), eps=1e-8)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -75,13 +86,20 @@ class ClippedAdam:
         torch._foreach_div_(grads, torch.where(below, one, norm))
         torch._foreach_mul_(grads, torch.where(below, one,
                                                one * self.clip_norm))
+        if self.schedule is not None:
+            lr = float(self.schedule(self.count))
+            for group in self.adam.param_groups:
+                group['lr'] = lr
         self.adam.step()
+        self.count += 1
         return norm
 
     def state_dict(self) -> dict:
-        return self.adam.state_dict()
+        return dict(self.adam.state_dict(), count=self.count)
 
     def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        self.count = int(state.pop('count', 0))
         self.adam.load_state_dict(state)
 
 

@@ -1,4 +1,5 @@
-"""Image utilities: ImageNet normalization and exact bilinear resizing.
+"""Image utilities: ImageNet normalization, exact bilinear resizing and a
+PNG writer.
 
 Port of ``cross_attention_renderer_tpu/utils/image.py``. The resize is two
 separable interpolation matrix products (out = Wy @ img @ Wx^T), exact for
@@ -10,9 +11,12 @@ align_corners=False (midas/vit.py:116). Layout is channel-last.
 from __future__ import annotations
 
 import functools
+import struct
+import zlib
 
 import numpy as np
 import torch
+
 
 def imageio_v2(purpose: str):
     """``imageio.v2``; raises an ImportError saying that ``purpose`` needs
@@ -23,6 +27,29 @@ def imageio_v2(purpose: str):
         raise ImportError(f'{purpose} needs the imageio package, which is '
                           'not installed') from e
     return imageio
+
+
+def write_png(path, image: np.ndarray) -> None:
+    """Writes an (H, W, 3) uint8 image to ``path`` as an 8-bit RGB PNG,
+    with ``zlib`` and ``struct`` alone (the tools' strips, where imageio is
+    not installed)."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f'write_png takes (H, W, 3) uint8, got '
+                         f'{image.shape} {image.dtype}')
+    H, W, _ = image.shape
+    # each row behind filter type 0 (none)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8),
+                          image.reshape(H, W * 3)], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack('>I', len(data)) + kind + data
+                + struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
+
+    header = struct.pack('>IIBBBBB', W, H, 8, 2, 0, 0, 0)
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', header)
+                + chunk(b'IDAT', zlib.compress(raw, 6)) + chunk(b'IEND', b''))
 
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)

@@ -177,3 +177,76 @@ def test_point_maps_match_jax(rays, fn):
     got, want = _both(fn, JG, G, pts, arg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The Plücker helpers against JAX, including degenerate line pairs.
+# ---------------------------------------------------------------------------
+
+HELPER_TOL = 1e-6       # of max(1, |JAX's value|), elementwise
+
+
+def _line(origin, direction):
+    d = direction / np.linalg.norm(direction, axis=-1, keepdims=True)
+    return np.concatenate([d, np.cross(origin, d)], -1).astype(np.float32)
+
+
+@pytest.fixture(scope='module')
+def line_pairs():
+    """(line_1, line_2), each (4, 16, 6) f32: general pairs, parallel
+    pairs (line_2's direction equal to line_1's), antiparallel pairs (its
+    negation) and far pairs (line_2's origin ~1e6 away)."""
+    rng = np.random.default_rng(3)
+    n = 16
+    o1, o2 = rng.normal(0, 1, (2, 4, n, 3))
+    d1, d2 = rng.normal(0, 1, (2, 4, n, 3))
+    d2[1], d2[2] = d1[1], -d1[2]
+    o2[3] = o2[3] * 1e6
+    return _line(o1, d1), _line(o2, d2)
+
+
+def _close(name, got, want):
+    want = np.asarray(want, np.float32)
+    got = got.numpy()
+    assert got.shape == want.shape, name
+    assert np.isfinite(got).all(), name
+    err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    assert float(err.max()) <= HELPER_TOL, f'{name}: {float(err.max()):.3e}'
+
+
+@pytest.mark.parametrize('fn', ['closest_to_origin',
+                                'plucker_reciprocal_product',
+                                'plucker_distance', 'plucker_sd'])
+def test_plucker_helpers_match_jax(line_pairs, fn):
+    l1, l2 = line_pairs
+    if fn == 'closest_to_origin':
+        args = (l2,)
+    elif fn == 'plucker_sd':
+        point = np.random.default_rng(4).normal(0, 3, l2.shape[:-1] + (3,))
+        args = (l2, point.astype(np.float32))
+    else:
+        args = (l1, l2)
+    got, want = _both(fn, JG, G, *args)
+    _close(fn, got, want)
+
+
+def test_plucker_distance_broadcasts_line_1(line_pairs):
+    """One line against many: line_1 broadcasts to line_2's shape."""
+    l1, l2 = line_pairs
+    got, want = _both('plucker_distance', JG, G, l1[0, :1], l2)
+    _close('plucker_distance', got, want)
+    par = _line(np.zeros(3), np.array([0.0, 0.0, 1.0]))
+    got = G.plucker_distance(t32(par), t32(np.stack([par, -par])))
+    assert torch.isfinite(got).all()
+
+
+def test_transform_dirs_and_homogenize_match_jax():
+    rng = np.random.default_rng(5)
+    dirs = rng.normal(0, 1, (3, 7, 3)).astype(np.float32)
+    dirs[0, 0] *= 1e6
+    mats = rng.normal(0, 1, (3, 1, 4, 4)).astype(np.float32)
+    got, want = _both('transform_dirs', JG, G, dirs, mats)
+    _close('transform_dirs', got, want)
+    m34 = rng.normal(0, 1, (2, 5, 3, 4)).astype(np.float32)
+    got, want = _both('homogenize_mat', JG, G, m34)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
