@@ -165,7 +165,7 @@ no result):
      ms a frame and the device-busy share of one profiled frame.
  26. the capability path (``tools/capability_run.py``, ``eval_pruned.py``,
      ``make_fast_eval_demo.py``): ``capability_run.run`` with the medium
-     config (12.1M) on 32 plane worlds, 1,500 f32 steps on the trainer's
+     config (12.1M) on 32 plane worlds, 1,000 f32 steps on the trainer's
      default route (no K1 or K2 launch in training), an eval every 500
      steps (each one forward of the 64x64 held-out image: 2 K1 and 1 K2),
      every logged loss and gradient norm finite, the best held-out PSNR
@@ -180,14 +180,28 @@ no result):
      modes 12 and 8; no K4), K1 and K2 (bf16 and int8 tables) at the
      dense and pruned shapes against their plain versions, timed; then
      ``make_fast_eval_demo`` writes its strip under ``build/``.
+ 27. the parallel layer (``parallel/``, ``train.shard_state``,
+     ``make_sharded_renderer``) with phase 3's flagship: in this process a
+     1-rank NCCL group, its (1, 1, 1) mesh's 3 stage-1 steps (batch 12,
+     192 rays) against 3 plain steps, and ``make_sharded_renderer`` on
+     phase 3's first block of 8,192 rays (2 K1 and 1 K2) against that
+     block of phase 3's image; then two processes on ``cuda:0`` over gloo
+     (NCCL refuses two ranks on one card), each 3 steps at model = 2 and
+     3 at data = 2 against the 1-rank mesh's, the two ranks' equal, and
+     the render at rays = 2 of the first 16,384 rays (each rank 2 K1 and
+     1 K2), gathered, against phase 3's first two blocks. A failed rank
+     fails the run.
 Then it prints the ``train`` JSON line (phases 17-19), the ``cli`` line
 (phases 21-22), the ``fast_eval`` line (phase 23: each image's ms, rays/s
 and device busy, each path's launches), the ``ablations`` line (phase 24),
 the ``unposed`` line (phase 25), the ``capability`` line (phase 26: the
 curve, steps/s, peak GB, each eval_pruned mode's dB, ms an image and
-rays/s), the ``kernels`` JSON line (K1-K9, their f32 and int8
-instantiations, the new modes and shapes of phases 24 and 26, T1-T13),
-the card line and, last, the result line.
+rays/s), the ``parallel`` line (phase 27: each mesh's losses, gradient
+norms, ms a step and peak GB a rank, the render's ms and launches a
+rank), the ``kernels`` JSON line (K1-K9, their f32 and int8
+instantiations, the new modes and shapes of phases 24 and 26, T1-T13;
+K1's and K2's launches with phase 27's sharded renders), the card line
+and, last, the result line.
 """
 
 from __future__ import annotations
@@ -298,14 +312,35 @@ UNPOSED_POSES = 80              # 76 frames after the trajectory's trim
 UNPOSED_POSE_GATE = (2.0, 0.98)  # degrees, translation direction cosine
 # Phase 26, the capability path: tools/capability_run.py's protocol on
 # plane worlds (the JAX tool's TPU record: 23.0 dB at step 1,500,
-# BENCH_NOTES.md:498-506), then eval_pruned at its defaults in bf16 and
-# the fast-eval strip. The floor is a sanity check, far under that record.
-CAPABILITY = dict(config='medium', world='plane', worlds=32, steps=1500,
+# BENCH_NOTES.md:498-506), cut to 1,000 steps to leave the script's time
+# to phase 27 (the port's best at step 1,000: 17.7-18.0 dB, NVIDIA H100
+# 80GB HBM3, 700 W, two runs), then eval_pruned at its defaults in bf16
+# and the fast-eval strip. The floor is a sanity check, far under that
+# record.
+CAPABILITY = dict(config='medium', world='plane', worlds=32, steps=1000,
                   eval_every=500, lr=2.5e-4, dtype='f32')
 CAPABILITY_FLOOR_DB = 15.0
 Q8_GATE_DB = 0.2        # q8 against dense (JAX's tables: within 0.01 dB)
 EVAL_PRUNED = dict(world='plane', worlds=4, pruned=(16, 24),
                    narrow=(64, 64, 64), n_chunks=4, iters=8)
+# Phase 27, the parallel layer on one card: a 1-rank NCCL group, then two
+# ranks on cuda:0 over gloo (NCCL refuses two ranks on one device). Each
+# mesh takes PARALLEL_STEPS stage-1 steps of phase 3's flagship, held to
+# the plain steps (the two ranks to the 1-rank mesh): the first step,
+# from the same parameters, within phase 17's route tolerances (a mesh of
+# one rank reduces over one rank, but the card's atomic adds keep two runs
+# from being bit-equal; model = 2 rounds each row-parallel product's
+# halves to bf16 before their f32 sum; data = 2 sums the batch's halves
+# in another order). Adam's first updates move every element by about lr
+# in the direction of its gradient's sign, which rounding picks where the
+# gradient is noise (tests/test_torch_train.py), and the random model's
+# loss rises over these steps: the later steps drift apart. Measured
+# (NVIDIA H100 80GB HBM3, 700 W, three runs): 1.5-3.1e-3 between the
+# plain and the 1-rank mesh steps, 6.5e-3 to 1.1e-2 at model = 2 and
+# 1.4-2.2e-2 at data = 2; PARALLEL_DRIFT_TOL leaves a factor of 2.3.
+PARALLEL_STEPS = 3
+PARALLEL_DRIFT_TOL = 0.05
+PARALLEL_TIMEOUT = 400      # seconds, for the two ranks together
 
 
 def log(msg: str) -> None:
@@ -2316,6 +2351,268 @@ def capability_kernels(numbers, launches, table, renders):
     return entries
 
 
+# --- 27. the parallel layer -------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def parallel_steps(base, mesh, scene, steps=PARALLEL_STEPS) -> dict:
+    """``steps`` stage-1 steps (``TrainConfig()``) of a copy of ``base``,
+    the flagship (phase 3's weights), on ``mesh`` (None: the plain step),
+    each rank on its rows of ``scene``: the losses and gradient norms, the
+    host ms a step after the first (each step ends in a host read of its
+    metrics) and the peak GB allocated on this rank."""
+    import copy
+
+    import torch
+    from cross_attention_renderer_torch.parallel.distributed import (
+        process_batch_slice)
+    from cross_attention_renderer_torch.tools import bench_train as BT
+    from cross_attention_renderer_torch.tools.multihost_smoke import (
+        take_rows)
+    from cross_attention_renderer_torch.train import trainer as T
+    cfg = T.TrainConfig()
+    model = copy.deepcopy(base)
+    state = T.create_train_state(model, cfg)
+    if mesh is not None:
+        state = T.shard_state(state, mesh)
+        start, size = process_batch_slice(BT.BATCH, mesh)
+        scene = take_rows(scene, start, size)
+    step = T.make_train_step(model, cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, scene)
+        losses.append(float(metrics['total_loss']))
+        norms.append(float(metrics['grad_norm']))
+        secs.append(time.perf_counter() - t0)
+    out = {'losses': losses, 'grad_norms': norms,
+           'ms_per_step': 1e3 * sum(secs[1:]) / (steps - 1),
+           'peak_gb': torch.cuda.max_memory_allocated() / 1e9}
+    if not all(map(np_isfinite, losses + norms)):
+        raise RuntimeError(f'parallel steps: {out}')
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_steps(label, got, want) -> dict:
+    """The first step's loss within ROUTE_LOSS_TOL and its gradient norm
+    within ROUTE_GRAD_TOL of ``want``'s, relative (both start from the same
+    parameters); the later steps' losses and norms within
+    PARALLEL_DRIFT_TOL."""
+    def rel(key, i):
+        return abs(got[key][i] - want[key][i]) / abs(want[key][i])
+
+    loss, norm = rel('losses', 0), rel('grad_norms', 0)
+    drift = max(rel(k, i) for k in ('losses', 'grad_norms')
+                for i in range(1, len(want['losses'])))
+    log(f'{label}: losses {got["losses"]}, grad norms {got["grad_norms"]} '
+        f'against {want["losses"]}, {want["grad_norms"]}: step 1 {loss:.3e} '
+        f'(tol {ROUTE_LOSS_TOL:.3e}) and {norm:.3e} (tol {ROUTE_GRAD_TOL}), '
+        f'later steps {drift:.3e} (tol {PARALLEL_DRIFT_TOL}); '
+        f'{got["ms_per_step"]:.1f} ms a step, peak {got["peak_gb"]:.2f} GB')
+    if (loss > ROUTE_LOSS_TOL or norm > ROUTE_GRAD_TOL
+            or drift > PARALLEL_DRIFT_TOL):
+        raise RuntimeError(f'{label}: the steps disagree')
+    return {'loss_rel': loss, 'grad_norm_rel': norm, 'drift_rel': drift}
+
+
+def sharded_render(model, mesh, rays, counted) -> dict:
+    """``make_sharded_renderer`` of ``model``, the flagship (phase 3's)
+    on phase 3's scene's first ``rays`` rays, with the counters of
+    ``counted`` set to 0 just before and read just after the first render;
+    then the host ms of one render (mean of 3 after it). Returns the
+    gathered rgb (f32), the launches and the ms."""
+    import torch
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_sharded_renderer)
+    scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
+                       device=model.phi.lin_out.weight.device)
+    uv = scene['query']['uv'][:, :, :rays]
+    render = make_sharded_renderer(model, mesh)
+    with torch.inference_mode():
+        z = model.encode(scene)
+    for fn in counted.values():
+        fn.launches = 0
+    rgb, valid = render(scene, z, uv)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        render(scene, z, uv)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    if rgb.shape != (1, 1, rays, 3) or not bool(
+            torch.isfinite(rgb.float()).all()):
+        raise RuntimeError(f'sharded render: rgb {tuple(rgb.shape)}')
+    del scene, z
+    torch.cuda.empty_cache()
+    return {'rgb': rgb.float(), 'launches': launches, 'ms': ms}
+
+
+def check_render(label, got, want, launches, expected) -> float:
+    """The launches as expected, the image within the path-vs-path rgb
+    tolerance of ``want`` (phase 3's blocks)."""
+    err = max_err(got, want) / scale(want)
+    log(f'{label}: launches {launches}, rgb {err:.3e} from phase 3\'s '
+        f'(tol {PATH_TOL["rgb"]:.3e})')
+    if launches != expected:
+        raise RuntimeError(f'{label}: launches {launches}, expected '
+                           f'{expected}')
+    if err > PATH_TOL['rgb']:
+        raise RuntimeError(f'{label}: the image disagrees with phase 3\'s')
+    return err
+
+
+def parallel_rank(argv) -> int:
+    """One of phase 27's two ranks on ``cuda:0`` over gloo (``python3
+    chip_smoke.py parallel-rank <rank> <port> <dir>``): 3 steps at
+    model = 2, 3 at data = 2, then the sharded render at rays = 2 of phase
+    3's first 2 blocks; prints a ``PARALLEL_RANK`` JSON line, rank 0 saves
+    the gathered image to ``<dir>/rgb.pt``."""
+    import torch
+    import torch.distributed as dist
+    rank, port, out = int(argv[0]), int(argv[1]), Path(argv[2])
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models import renderer as RM
+    from cross_attention_renderer_torch.ops import epipolar_attention as EA
+    from cross_attention_renderer_torch.ops import gather_epilogue as GE
+    from cross_attention_renderer_torch.parallel.distributed import (
+        initialize, make_global_mesh)
+    from cross_attention_renderer_torch.tools import bench_train as BT
+    initialize(f'localhost:{port}', 2, rank, local_device_ids=[0],
+               backend='gloo')
+    try:
+        dev = torch.device('cuda', 0)
+        scene = make_scene(0, batch=BT.BATCH, n_view=2, H=H, W=W,
+                           n_rays=BT.RAYS, device=dev)
+        base = flagship(RM, dev, npoints=64)
+        result = {}
+        for label, shape in (('model2', dict(data=1, model=2)),
+                             ('data2', dict(data=2, model=1))):
+            result[label] = parallel_steps(base, make_global_mesh(**shape),
+                                           scene)
+        del scene
+        torch.set_grad_enabled(False)
+        render = sharded_render(
+            base, make_global_mesh(data=1, model=1, rays=2), 2 * RAY_BLOCK,
+            {'epipolar_attention': EA.epipolar_attention,
+             'fused_exchange_epilogue': GE.fused_exchange_epilogue})
+        if rank == 0:
+            torch.save(render['rgb'].cpu(), out / 'rgb.pt')
+        result['render'] = {k: render[k] for k in ('launches', 'ms')}
+        print('PARALLEL_RANK ' + json.dumps(result), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def parallel(RM, EA, GE, dev, staged_head, card) -> dict:
+    """Phase 27, the parallel layer, as the module docstring says.
+    Returns the launches of K1 and K2 by path (per rank)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.parallel.mesh import make_mesh
+    from cross_attention_renderer_torch.tools import bench_train as BT
+    counted = {'epipolar_attention': EA.epipolar_attention,
+               'fused_exchange_epilogue': GE.fused_exchange_epilogue}
+    per_block = {'epipolar_attention': 2, 'fused_exchange_epilogue': 1}
+    report = {'card': card}
+
+    # 1. one process, a 1-rank NCCL group
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:'
+                            f'{free_port()}', world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device_type='cuda')
+        log(f'parallel: {mesh} over the {dist.get_backend()} group')
+        scene = make_scene(0, batch=BT.BATCH, n_view=2, H=H, W=W,
+                           n_rays=BT.RAYS, device=dev)
+        base = flagship(RM, dev, npoints=64)
+        with torch.enable_grad():
+            plain = parallel_steps(base, None, scene)
+            nccl = parallel_steps(base, mesh, scene)
+        del scene
+        report['plain'] = plain
+        report['nccl_1rank'] = dict(nccl, agreement=check_steps(
+            'parallel 1-rank NCCL mesh steps vs plain steps', nccl, plain))
+        render = sharded_render(base, mesh, RAY_BLOCK, counted)
+        del base
+    finally:
+        dist.destroy_process_group()
+    report['nccl_1rank']['render'] = {
+        'ms': render['ms'], 'launches': render['launches'],
+        'rgb_rel': check_render(
+            'parallel 1-rank NCCL sharded render (8,192 rays)', render['rgb'],
+            staged_head[:, :, :RAY_BLOCK], render['launches'], per_block)}
+    by_path = {'sharded_render_nccl_rays1': render['launches']}
+    del render
+    torch.cuda.empty_cache()
+
+    # 2. two processes on cuda:0 over gloo
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [Path(tmp) / f'rank{rank}.log' for rank in range(2)]
+        procs = []
+        for rank, path in enumerate(logs):
+            with open(path, 'w') as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     'parallel-rank', str(rank), str(port), tmp],
+                    stdout=f, stderr=subprocess.STDOUT))
+        # a rank that fails leaves the other waiting in a collective: stop
+        # both at the first failure or at the time limit
+        deadline = time.monotonic() + PARALLEL_TIMEOUT
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and all(p.poll() in (None, 0) for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        outs = [path.read_text() for path in logs]
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines():
+                log(f'  [rank {rank}] {line}')
+        for rank, p in enumerate(procs):
+            if p.returncode != 0:
+                raise RuntimeError(f'parallel rank {rank} exited '
+                                   f'{p.returncode}')
+        ranks = [json.loads(next(line for line in out.splitlines()
+                                 if line.startswith('PARALLEL_RANK '))[14:])
+                 for out in outs]
+        rgb = torch.load(Path(tmp) / 'rgb.pt').to(dev)
+    if any(ranks[0][k][m] != ranks[1][k][m] for k in ('model2', 'data2')
+           for m in ('losses', 'grad_norms')):
+        raise RuntimeError('the two ranks\' steps differ')
+    for rank, r in enumerate(ranks):
+        for label in ('model2', 'data2'):
+            r[label]['agreement'] = check_steps(
+                f'parallel gloo rank {rank}, {label} steps vs the 1-rank '
+                'NCCL mesh', r[label], nccl)
+        check_render(f'parallel gloo rank {rank}, rays=2 render launches',
+                     rgb, staged_head, r['render']['launches'], per_block)
+        by_path[f'sharded_render_gloo_rays2_rank{rank}'] = r['render'][
+            'launches']
+    report['gloo_2ranks'] = ranks
+    print(json.dumps({'parallel': report}), flush=True)
+    return by_path
+
+
 def flagship(RM, dev, dtype=None, **kw):
     """The 122M model from seed 0 (bf16 compute unless ``dtype`` says
     otherwise), decoder output layer scaled."""
@@ -2395,6 +2692,7 @@ def main() -> int:
          'fused_exchange_epilogue': N_BLOCKS})
     by_path['v2'] = launches
     block_staged = first_block(model_v2, scene)
+    staged_head = rgb_staged[:, :, :2 * RAY_BLOCK].float().clone()
 
     # -- 4. V=2 kernel checks on the first block's inputs ------------------
     torch.set_grad_enabled(False)
@@ -2673,6 +2971,12 @@ def main() -> int:
                              dict([attention, epilogue, render_core]),
                              build_dir, card)
     log(f'capability phase: {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+
+    # -- 27. the parallel layer ----------------------------------------------
+    t0 = time.perf_counter()
+    by_path.update(parallel(RM, EA, GE, dev, staged_head, card))
+    log(f'parallel phase: {time.perf_counter() - t0:.1f} s')
 
     fast_f32 = {p: n for p, n in fast_paths.items() if p.endswith('_f32')}
     fast_i8 = {p: n for p, n in fast_paths.items()
@@ -2807,4 +3111,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['parallel-rank']:
+        sys.exit(parallel_rank(sys.argv[2:]))
     sys.exit(main())

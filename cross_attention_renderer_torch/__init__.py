@@ -6,7 +6,8 @@ epipolar sampling, the latent exchange (a fused exchange epilogue, the
 unfused exchange with a fused MLP and opt-in gathers, or the exchange on a
 row-sorted sample stream) and two rounds of joint (view, sample)
 attention; and train it (``train/trainer.py``: the reference's losses,
-clip + Adam, checkpoints). The kernels of those paths are
+clip + Adam, checkpoints), on one card or on a (data, model, rays) mesh
+of ranks (``parallel/``). The kernels of those paths are
 hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built with ``nvcc`` on
 first use; everything else is plain PyTorch. Each kernel's gradients are
 its plain version's, recomputed in the backward (``ops/_autograd.py``). The JAX package stays the reference: this package imports nothing

@@ -2,7 +2,7 @@
 
 Port of ``cross_attention_renderer_tpu/cli/train.py``, the replacement for
 the reference's ``experiment_scripts/train_realestate10k.py`` /
-``train_acid.py``, on one card. Usage:
+``train_acid.py``. Usage:
 
   python -m cross_attention_renderer_torch.cli.train \\
       --experiment_name stage1 --img_root ... --pose_root ... \\
@@ -10,44 +10,40 @@ the reference's ``experiment_scripts/train_realestate10k.py`` /
   # stage 2 fine-tune (README.md:56-58):
   ... --checkpoint_path logs/stage1/checkpoints --lpips --depth --batch_size 4
 
-More than one process and tensor parallelism (the JAX CLI's
-``jax.distributed`` and mesh branches) are not ported yet and raise
-(ROADMAP.md Queue A 7).
+More than one process: start one per card (rank), each with
+``--coordinator_address host:port --num_processes N --process_id <rank>``
+(or under torchrun, which sets them). The ranks form a (data, model) mesh,
+``--tensor_parallel`` ways of tensor parallelism and ``--data_parallel``
+(0: all remaining ranks) of data parallelism; each rank loads its data
+coordinate's rows of every global batch of ``--batch_size``. The primary
+rank logs and writes the checkpoints. ``--device cpu`` runs the ranks on
+the CPU over gloo.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from pathlib import Path
 
 import numpy as np
+import torch.distributed as dist
 
 from cross_attention_renderer_torch.cli.common import (
     base_parser, build_model, restore_params, scene_batch)
 from cross_attention_renderer_torch.data.realestate import (
     RealEstate10k, batch_iterator)
+from cross_attention_renderer_torch.parallel.distributed import (
+    initialize, is_primary, make_global_mesh, rank_device)
+from cross_attention_renderer_torch.parallel.mesh import axis_size
 from cross_attention_renderer_torch.train.trainer import (
     TrainConfig, create_train_state, fit)
-
-
-def _refuse_parallel(opt) -> None:
-    wanted = []
-    if (opt.num_processes or 1) > 1 or opt.coordinator_address:
-        wanted.append('more than one process')
-    if opt.tensor_parallel > 1:
-        wanted.append(f'--tensor_parallel {opt.tensor_parallel}')
-    if opt.data_parallel > 1:
-        wanted.append(f'--data_parallel {opt.data_parallel}')
-    if wanted:
-        raise NotImplementedError(
-            f'{", ".join(wanted)}: not ported yet (ROADMAP.md Queue A 7: '
-            'the parallel layer); the port trains on one card')
 
 
 def main(argv=None) -> dict:
     """Trains; returns {'state': the final train state, 'log': the printed
     steps' metrics and ms a step}."""
-    p = base_parser('Train the cross-attention renderer on one card')
+    p = base_parser('Train the cross-attention renderer')
     p.add_argument('--batch_size', type=int, default=12)
     p.add_argument('--num_workers', type=int, default=8,
                    help='prefetch worker threads (reference: 8 torch '
@@ -64,8 +60,11 @@ def main(argv=None) -> dict:
                    help='print the metrics and the ms since the last '
                         'printed step every this many steps')
     p.add_argument('--data_parallel', type=int, default=0,
-                   help='DP ways (0 or 1: one card)')
+                   help='DP ways (0 = all ranks the other axes leave)')
     p.add_argument('--tensor_parallel', type=int, default=1)
+    # one process a card, joined over TCP (the reference's NCCL
+    # rendezvous, train_realestate10k.py:71); torchrun's MASTER_ADDR,
+    # WORLD_SIZE and RANK stand in for the three
     p.add_argument('--coordinator_address', type=str, default=None,
                    help='host:port of process 0 (multi-process runs)')
     p.add_argument('--num_processes', type=int, default=None)
@@ -73,7 +72,20 @@ def main(argv=None) -> dict:
     p.add_argument('--val_img_root', type=str, default=None)
     p.add_argument('--val_pose_root', type=str, default=None)
     opt = p.parse_args(argv)
-    _refuse_parallel(opt)
+    initialize(opt.coordinator_address, opt.num_processes, opt.process_id,
+               backend='gloo' if opt.device == 'cpu' else None)
+    opt.device = str(rank_device(opt.device))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = None
+    if world > 1 or opt.tensor_parallel > 1 or opt.data_parallel > 1:
+        mesh = make_global_mesh(data=opt.data_parallel,
+                                model=opt.tensor_parallel,
+                                device_type=opt.device.split(':')[0])
+        if is_primary():
+            print(f'mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} '
+                  f'over {world} process(es)', flush=True)
+    shard = ((mesh.get_local_rank('data'), axis_size(mesh, 'data')) if mesh
+             else (0, 1))
 
     log_dir = Path(opt.logging_root) / opt.experiment_name
     ckpt_dir = log_dir / 'checkpoints'
@@ -90,7 +102,8 @@ def main(argv=None) -> dict:
             opt.img_root, opt.pose_root, num_ctxt_views=opt.views,
             query_sparsity=opt.query_sparsity, lpips=opt.lpips, augment=True)
     data = batch_iterator(dataset, opt.batch_size,
-                          num_workers=opt.num_workers, device=opt.device)
+                          num_workers=opt.num_workers, device=opt.device,
+                          shard=shard)
 
     model = build_model(opt)
     cfg = TrainConfig(lr=opt.lr, depth=opt.depth, lpips=opt.lpips,
@@ -113,45 +126,57 @@ def main(argv=None) -> dict:
 
     try:
         from tensorboardX import SummaryWriter
-        writer = SummaryWriter(str(log_dir / 'summaries'), flush_secs=10)
-    except Exception:
-        writer = None
+    except ImportError:
+        SummaryWriter = None
+    # reference rank-0-only logging (training.py:60,82,105)
+    writer = (SummaryWriter(str(log_dir / 'summaries'), flush_secs=10)
+              if SummaryWriter is not None and is_primary() else None)
 
     last = [time.perf_counter(), 0]
     history = []
 
     def log_fn(step, metrics):
-        # the ms since the last printed step, over the steps since: each
+        # the ms since the last logged step, over the steps since: each
         # step's time and the wait for the next batch (the float() of the
-        # metrics waits for the card)
+        # metrics waits for the card); every rank keeps the log, the
+        # primary prints it
         if step % opt.steps_til_log == 0:
             vals = {k: float(v) for k, v in metrics.items()}
             now = time.perf_counter()
             ms = (now - last[0]) * 1e3 / max(step + 1 - last[1], 1)
             last[:] = [now, step + 1]
             history.append(dict(vals, step=step, ms=ms))
+            if not is_primary():
+                return
             line = ' '.join(f'{k}={v:.4f}' for k, v in vals.items())
             print(f'step {step}: {line} ({ms:.1f} ms a step)', flush=True)
             if writer is not None:
                 for k, v in vals.items():
                     writer.add_scalar(k, v, step)
 
+    # The primary renders the val image; with tensor parallelism every
+    # rank does, since each holds a slice of the model.
+    sliced = opt.tensor_parallel > 1
     val_fn = None
-    if opt.val_img_root and writer is not None:
-        val_fn = _make_val_fn(opt, model, writer)
+    if (opt.val_img_root and SummaryWriter is not None
+            and (is_primary() or sliced)):
+        val_fn = _make_val_fn(opt, model, writer, sliced)
 
     last[0] = time.perf_counter()
     state = fit(model, cfg, data, opt.max_steps, ckpt_dir=str(ckpt_dir),
-                state=state, log_fn=log_fn, val_fn=val_fn,
+                mesh=mesh, state=state, log_fn=log_fn, val_fn=val_fn,
                 lpips_fn=lpips_fn)
     return {'state': state, 'log': history}
 
 
-def _make_val_fn(opt, model, writer):
+def _make_val_fn(opt, model, writer, sliced=False):
     """The held-out check written every ``steps_til_summary`` steps: a
     strided 128x128 grid of the first Vis scene's query frame rendered
-    whole (``make_summary_renderer``), its PSNR and the summary images.
-    A failed diagnostic prints a warning and never stops the run."""
+    whole (``make_summary_renderer``), its PSNR and the summary images,
+    written where ``writer`` is given. A model sliced for tensor
+    parallelism renders through the unfused exchange (the fused epilogue
+    reads whole weights). A failed diagnostic prints a warning and never
+    stops the run."""
     import torch
 
     from cross_attention_renderer_torch.data.realestate import (
@@ -163,6 +188,9 @@ def _make_val_fn(opt, model, writer):
     val_ds = RealEstate10kVis(opt.val_img_root,
                               opt.val_pose_root or opt.pose_root,
                               num_ctxt_views=opt.views)
+    if sliced:
+        model = copy.copy(model)
+        model.fused_epilogue = False
     summary_render = make_summary_renderer(model, n_chunks=4)
 
     def val_fn(state, step):
@@ -184,6 +212,8 @@ def _make_val_fn(opt, model, writer):
             pred = out['rgb'].float().reshape(-1, 3).cpu().numpy()
             mse = float(np.mean((pred - gt) ** 2))
             psnr = 10.0 * np.log10(4.0 / max(mse, 1e-12))   # [-1, 1] range
+            if writer is None:
+                return
             writer.add_scalar('val_psnr', psnr, step)
             print(f'step {step}: val_psnr={psnr:.2f}', flush=True)
             write_summaries(writer, step, s, out, prefix='val_')
@@ -195,4 +225,8 @@ def _make_val_fn(opt, model, writer):
 
 
 if __name__ == '__main__':
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -55,12 +55,18 @@ def _convert(path: tuple, a: np.ndarray) -> tuple[str, np.ndarray]:
     return leaf, a
 
 
+def convert_leaf(path: tuple, a: np.ndarray) -> tuple[str, np.ndarray]:
+    """(state-dict key, array in the port's layout) of the Flax parameter
+    at ``path`` (its module names, then 'kernel', 'bias' or 'scale')."""
+    leaf, v = _convert(path, a)
+    return '.'.join(tuple(path[:-1]) + (leaf,)), v
+
+
 def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """State dict of the port's renderer from Flax parameters (numpy)."""
     params = params.get('params', params)
     out = {}
     for path, a in _flatten(params):
-        leaf, v = _convert(path, a)
-        key = '.'.join(path[:-1] + (leaf,))
+        key, v = convert_leaf(path, a)
         out[key] = torch.from_numpy(np.ascontiguousarray(v, np.float32))
     return out

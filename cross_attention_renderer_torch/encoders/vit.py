@@ -43,13 +43,16 @@ class MultiHeadAttention(nn.Module):
         B, L, E = x.shape
         hd = E // self.heads
 
+        # The projections' widths, not E, give the head count: under tensor
+        # parallelism (``layers.py``) this rank holds a slice of whole heads
+        # of q, k and v, and ``out`` the matching slice of its input.
         def split(t):
-            return t.reshape(B, L, self.heads, hd).transpose(1, 2)
+            return t.reshape(B, L, -1, hd).transpose(1, 2)
 
         q = split(self.query(x)) / torch.tensor(math.sqrt(hd), dtype=self.dtype)
         k, v = split(self.key(x)), split(self.value(x))
         w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-        o = (w @ v).transpose(1, 2).reshape(B, L, E)
+        o = (w @ v).transpose(1, 2).reshape(B, L, -1)
         return self.out(o)
 
 

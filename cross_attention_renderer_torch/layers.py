@@ -7,6 +7,15 @@ layouts are PyTorch's (``Linear``: (out, in); conv: OIHW);
 them. Each layer records how it is initialised, and
 :func:`init_parameters` draws every parameter of a model from one
 ``torch.Generator``, with the Flax initialisers' distributions.
+
+Tensor parallelism: a layer whose ``tp`` is set (``train/trainer.py:
+shard_state``) holds its slice of a Megatron pair. A ``('column', group)``
+layer holds a slice of the output features and its bias: its input passes
+:func:`copy_to_group` (identity forward, all-reduce backward). A ``('row',
+group)`` layer holds the matching slice of the input features: its product
+passes :func:`reduce_from_group` (all-reduce forward, identity backward),
+then its replicated bias is added once. ``tp`` None (the default) is the
+whole layer, computed as without a mesh.
 """
 
 from __future__ import annotations
@@ -18,7 +27,58 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cross_attention_renderer_torch.parallel.distributed import (
+    all_reduce_sum)
+
 Tensor = torch.Tensor
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, sum over the group backward: the input of a
+    column-parallel layer, whose every rank's slice reads all of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Sum over the group forward, identity backward: the output of a
+    row-parallel layer, each rank's product one slice of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_group(x: Tensor, group) -> Tensor:
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: Tensor, group) -> Tensor:
+    return _ReduceFromGroup.apply(x, group)
+
+
+def parallel_product(tp, product, inputs, bias: Optional[Tensor]) -> Tensor:
+    """``product(*inputs)`` (the layer's product without its bias) plus
+    ``bias`` under the layer's tensor-parallel role ``tp``, (mode,
+    group)."""
+    mode, group = tp
+    if mode == 'column':
+        inputs = [copy_to_group(x, group) for x in inputs]
+    y = product(*inputs)
+    if mode == 'row':
+        y = reduce_from_group(y, group)
+    return y if bias is None else y + bias
 
 # Flax's variance-scaling truncated normal is cut at two standard deviations
 # and rescaled by this factor so that its variance is the requested one.
@@ -48,6 +108,7 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
         self.init, self.dtype = init, dtype
+        self.tp = None
 
     def reset_parameters(self, g: torch.Generator) -> None:
         fan_in = self.weight.shape[1]
@@ -63,6 +124,10 @@ class Dense(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
+        if self.tp is not None:
+            w = self.weight.to(dt)
+            return parallel_product(self.tp, lambda x: F.linear(x.to(dt), w),
+                                    [x], b)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
@@ -91,6 +156,7 @@ class Conv(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.tp = None
 
     def reset_parameters(self, g: torch.Generator) -> None:
         lecun_normal_(self.weight, self.weight[0].numel(), g)
@@ -100,6 +166,11 @@ class Conv(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
+        if self.tp is not None:
+            w = self.weight.to(dt)
+            return parallel_product(
+                self.tp, lambda x: conv_nhwc(x.to(dt), w, None, self.stride,
+                                             self.padding), [x], b)
         return conv_nhwc(x.to(dt), self.weight.to(dt), b, self.stride,
                          self.padding)
 

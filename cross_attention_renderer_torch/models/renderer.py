@@ -82,7 +82,8 @@ from cross_attention_renderer_torch.geometry import epipolar as E
 from cross_attention_renderer_torch.geometry import rays as G
 from cross_attention_renderer_torch.layers import (Conv, Dense,
                                                    init_parameters,
-                                                   lecun_normal_)
+                                                   lecun_normal_,
+                                                   parallel_product)
 from cross_attention_renderer_torch.models.resnet_fc import ResnetFC
 from cross_attention_renderer_torch.ops.epipolar_attention import (
     epipolar_attention, epipolar_attention_reference)
@@ -116,7 +117,9 @@ class SplitDense(nn.Module):
     ``SplitDense(f, d)(a, b)`` is ``Dense(f)(cat([a, b]))`` computed by
     slicing the kernel, so the wide concatenation never exists. The kernel
     keeps the JAX (d_in, features) layout whole; the fused epilogue reads
-    it directly."""
+    it directly. Under tensor parallelism (``tp``, ``layers.py``) the
+    kernel is this rank's slice: of its columns in a column-parallel layer
+    (and of the bias), of its rows in a row-parallel one."""
 
     def __init__(self, d_in: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -124,6 +127,7 @@ class SplitDense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(d_in, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
+        self.tp = None
 
     def reset_parameters(self, g: torch.Generator) -> None:
         lecun_normal_(self.kernel, self.kernel.shape[0], g)
@@ -134,13 +138,20 @@ class SplitDense(nn.Module):
             raise ValueError(f'SplitDense: inputs {[p.shape for p in parts]}'
                              f' do not sum to {self.kernel.shape[0]}')
         k = self.kernel.to(self.dtype)
-        out, off = None, 0
-        for p in parts:
-            w = k[off:off + p.shape[-1]]
-            off += p.shape[-1]
-            t = p.to(self.dtype) @ w
-            out = t if out is None else out + t
-        return out + self.bias.to(self.dtype)
+
+        def product(*parts):
+            out, off = None, 0
+            for p in parts:
+                w = k[off:off + p.shape[-1]]
+                off += p.shape[-1]
+                t = p.to(self.dtype) @ w
+                out = t if out is None else out + t
+            return out
+
+        if self.tp is not None:
+            return parallel_product(self.tp, product, parts,
+                                    self.bias.to(self.dtype))
+        return product(*parts) + self.bias.to(self.dtype)
 
 
 class CrossAttentionRenderer(nn.Module):
@@ -675,11 +686,24 @@ class CrossAttentionRenderer(nn.Module):
             aux.append(torch.cat(weights + [t, pad], dim=-1))
         return tuple(torch.cat(c) for c in cells), aux
 
+    def _whole_weights(self, kernel: str) -> None:
+        """Raises where the exchange's layers hold tensor-parallel slices
+        (``train/trainer.py:shard_state``): ``kernel`` reads whole
+        weights."""
+        if any(getattr(getattr(self, name, None), 'tp', None) is not None
+               for name in ('query_encode_latent', 'key_map')):
+            raise NotImplementedError(
+                f'{kernel} under tensor parallelism: the kernel reads whole '
+                'weights; the plain route (fused_epilogue=False, '
+                'fused_mlp=False, fused_render=False) computes the sliced '
+                'layers')
+
     def _epilogue_weights(self) -> tuple[Tensor, ...]:
         """The fused epilogues' ten parameters themselves (kernels in (in,
         out) layout, biases). K2, K3 and K4 lay them out once per set of
         parameters (``prepared_weights``); their plain versions cast them to
         the rows' type."""
+        self._whole_weights('the fused exchange (K2, K3, K4)')
         return (self.query_encode_latent.kernel, self.query_encode_latent.bias,
                 self.query_encode_latent_2.kernel,
                 self.query_encode_latent_2.bias,
@@ -746,6 +770,7 @@ class CrossAttentionRenderer(nn.Module):
         t = torch.tanh(points / 5.0).to(feat.dtype)
         qel, qel2 = self.query_encode_latent, self.query_encode_latent_2
         if self.fused_mlp:
+            self._whole_weights('the fused MLP (K9)')
             c1 = feat.shape[-1]
             out = fused_mlp2(
                 feat.reshape(-1, c1).to(self.dtype).contiguous(),

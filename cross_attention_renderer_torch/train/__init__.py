@@ -2,8 +2,7 @@
 the curriculum loop), ``summaries`` (host-side training summaries) and
 ``evaluation`` (full-image rendering loops and ``evaluate_scene``).
 
-The trainer's entry points are re-exported here, as in the JAX package,
-but for ``shard_state``: the port trains on one card and has no mesh."""
+The trainer's entry points are re-exported here, as in the JAX package."""
 
 from cross_attention_renderer_torch.train.trainer import (
     TrainConfig,
@@ -15,8 +14,9 @@ from cross_attention_renderer_torch.train.trainer import (
     make_train_step,
     restore_checkpoint,
     save_checkpoint,
+    shard_state,
 )
 
 __all__ = ['TrainConfig', 'TrainState', 'create_train_state', 'fit',
            'make_loss_fn', 'make_optimizer', 'make_train_step',
-           'restore_checkpoint', 'save_checkpoint']
+           'restore_checkpoint', 'save_checkpoint', 'shard_state']

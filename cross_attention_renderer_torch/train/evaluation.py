@@ -5,12 +5,11 @@ Port of ``make_chunk_renderer``, ``render_full_image``,
 ``make_scan_renderer``, ``make_summary_renderer``, ``make_image_renderer``,
 the fast-eval renderers (``resample_epipolar_t``, ``make_pruned_renderer``,
 ``narrow_pyramid``, ``quantize_pyramid``, ``make_fast_renderer``,
-``make_narrow_renderer``) and ``evaluate_scene`` of
-``cross_attention_renderer_tpu/train/evaluation.py`` (reference eval
-protocol, eval_realestate10k.py:131-199). PyTorch runs
-eagerly, so the JAX ``lax.scan`` over ray blocks is a Python loop; the
-packed cell tables, where the model reads them, are still built once per
-image. The parameters live in the model, so no entry point takes them:
+``make_narrow_renderer``), ``make_sharded_renderer`` and ``evaluate_scene``
+of ``cross_attention_renderer_tpu/train/evaluation.py`` (reference eval
+protocol, eval_realestate10k.py:131-199). PyTorch runs eagerly, so the
+JAX ``lax.scan`` over ray blocks is a Python loop; the packed cell tables,
+where the model reads them, are still built once per image. The parameters live in the model, so no entry point takes them:
 where JAX hands a renderer per-scene parameters (a folded fuse kernel), the
 port hands it a sibling of the model (``CrossAttentionRenderer.clone``)
 that holds them and shares every other weight.
@@ -24,6 +23,9 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from cross_attention_renderer_torch.ops.grid_sample import pack_pyramid
+from cross_attention_renderer_torch.parallel.distributed import (
+    all_gather_cat)
+from cross_attention_renderer_torch.parallel.mesh import axis_size
 from cross_attention_renderer_torch.utils.metrics import eval_image_metrics
 
 Tensor = torch.Tensor
@@ -353,6 +355,31 @@ def make_narrow_renderer(model, n_chunks: int,
     """PCA-narrowed whole-image renderer; see :func:`make_fast_renderer`."""
     return make_fast_renderer(model, n_chunks, pruned=pruned,
                               narrow=tuple(widths))
+
+
+def make_sharded_renderer(model, mesh) -> Callable:
+    """Ray-sharded full-image renderer (JAX evaluation.py:460-482): the
+    query rays split over the mesh's ``rays`` axis (rays are independent
+    until the image is assembled). Returns ``fn(scene, z, uv) -> (rgb (B,
+    Q, n, 3), valid (B, n, 1))``: each rank of the axis renders its
+    contiguous slice of ``uv``'s ray axis (axis 2, JAX's ``P(None, None,
+    'rays', None)``) in one forward, and every rank receives the whole
+    image, gathered over the axis. Every rank of a ray group calls it with
+    the same arguments; the ray count must divide by the axis."""
+    n, r = axis_size(mesh, 'rays'), mesh.get_local_rank('rays')
+    group = mesh.get_group('rays')
+    _, render_chunk = make_chunk_renderer(model)
+
+    @torch.inference_mode()
+    def sharded(scene, z, uv):
+        if uv.shape[2] % n:
+            raise ValueError(f'{uv.shape[2]} rays do not divide over '
+                             f'rays={n}')
+        size = uv.shape[2] // n
+        rgb, valid = render_chunk(scene, z, uv[:, :, r * size:(r + 1) * size])
+        return all_gather_cat(rgb, group, 2), all_gather_cat(valid, group, 1)
+
+    return sharded
 
 
 def evaluate_scene(model, scene: dict, H: int = 256, W: int = 256,

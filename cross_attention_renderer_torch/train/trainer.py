@@ -1,7 +1,7 @@
-"""Training runtime: the train step, checkpoints and the curriculum loop.
+"""Training runtime: the train step over a mesh of ranks, checkpoints and
+the curriculum loop.
 
-Port of ``cross_attention_renderer_tpu/train/trainer.py`` without the mesh
-(one card; data and tensor parallelism are later work). The optimizer is
+Port of ``cross_attention_renderer_tpu/train/trainer.py``. The optimizer is
 the reference's: Adam (lr 5e-5, betas (0.99, 0.999), train_realestate10k.py:
 39,93) after a global-norm clip at 1.0 (training.py:130-134), as the JAX
 package's ``optax.chain(clip_by_global_norm, adam)``. Checkpoints follow the
@@ -12,6 +12,14 @@ The model is an ordinary ``nn.Module`` holding its parameters, so the loss
 function and the train step close over it, where the JAX ones take a
 parameter tree. Entry points run where the model's parameters are (the
 card, by default, as everywhere in the port) and move each scene there.
+
+With a mesh (``parallel/``) each rank is one process: :func:`shard_state`
+slices the tensor-parallel parameters and Adam's moments to the rank's
+``model`` coordinate (the layers then run as Megatron pairs,
+``layers.py``), the step averages the gradients and the reported losses
+over the ``data`` axis, and the clip's global norm adds the sliced
+gradients' squares over ``model``. Checkpoints hold the whole state,
+written by the primary rank; each rank slices what it restores.
 """
 
 from __future__ import annotations
@@ -23,9 +31,14 @@ from pathlib import Path
 from typing import Callable, Iterable, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from cross_attention_renderer_torch.losses.lf_loss import LFLoss, total_loss
+from cross_attention_renderer_torch.parallel.distributed import (
+    all_gather_cat, all_reduce_sum, global_scene, is_primary)
+from cross_attention_renderer_torch.parallel.mesh import (
+    axis_size, param_shardings, shard_tensor, sharded_dim)
 
 Tensor = torch.Tensor
 
@@ -61,13 +74,20 @@ class ClippedAdam:
     parameter group's rate to ``lr(count)``, ``count`` being the updates
     already taken (optax's ``scale_by_schedule`` count), so the first
     update takes ``lr(0)``. The count is a Python int, saved with the
-    optimizer's state."""
+    optimizer's state.
+
+    Under tensor parallelism (:func:`shard_state` sets ``model_group`` and
+    ``sharded``, one flag a parameter) the norm adds the squares of the
+    sliced gradients over the model group and counts the replicated ones
+    once: optax's ``global_norm`` of the whole gradient."""
 
     def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig):
         self.params = [p for p in params if p.requires_grad]
         self.clip_norm = float(cfg.clip_norm)
         self.schedule = cfg.lr if callable(cfg.lr) else None
         self.count = 0
+        self.model_group = None
+        self.sharded = [False] * len(self.params)
         self.adam = torch.optim.Adam(
             self.params, lr=0.0 if self.schedule else float(cfg.lr),
             betas=(cfg.beta1, cfg.beta2), eps=1e-8)
@@ -79,8 +99,19 @@ class ClippedAdam:
         """Clips and applies the gradients; returns their global norm
         before the clip (0-dim f32, on the parameters' device)."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(
-            [n.float() for n in torch._foreach_norm(grads)]))
+        norms = torch.stack([n.float() for n in torch._foreach_norm(grads)])
+        if self.model_group is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:
+            sliced = torch.tensor(
+                [s for p, s in zip(self.params, self.sharded)
+                 if p.grad is not None], device=norms.device)
+            sq = norms.square()
+            zero = torch.zeros_like(sq)
+            norm = torch.sqrt(
+                torch.where(sliced, zero, sq).sum()
+                + all_reduce_sum(torch.where(sliced, sq, zero).sum(),
+                                 self.model_group))
         below = norm < self.clip_norm
         one = torch.ones_like(norm)
         torch._foreach_div_(grads, torch.where(below, one, norm))
@@ -111,10 +142,12 @@ def make_optimizer(params: Iterable[nn.Parameter],
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters), the optimizer and the step count."""
+    """The model (its parameters), the optimizer, the step count and the
+    mesh :func:`shard_state` placed them on (None: one process)."""
     model: nn.Module
     optimizer: ClippedAdam
     step: int = 0
+    mesh: Optional[object] = None
 
 
 def create_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
@@ -180,27 +213,124 @@ def make_loss_fn(model: nn.Module, cfg: TrainConfig,
     return loss_fn
 
 
-def make_train_step(model: nn.Module, cfg: TrainConfig,
+def make_train_step(model: nn.Module, cfg: TrainConfig, mesh=None,
                     lpips_fn: Optional[Callable] = None,
                     loss_schedules: Optional[dict] = None):
     """``step(state, scene) -> (state, metrics)``: one optimizer step of
     ``state`` (updated in place) on ``scene``. Metrics, 0-dim tensors on
     the card: ``total_loss``, ``grad_norm`` (before the clip) and each
-    loss's mean."""
+    loss's mean.
+
+    With a mesh, ``state`` comes from :func:`shard_state` on that mesh and
+    ``scene`` holds this rank's rows (``parallel.process_batch_slice``);
+    the gradients and the reported losses are averaged over the ``data``
+    axis, so every rank's step is the step on the global batch. The
+    replicated parameters' gradients, which every rank of a model group
+    computes whole, are first averaged over that group too: the card's
+    atomic adds round them differently on each rank, and the copies must
+    not drift apart. The kernel route (``CAR_TRAIN_KERNELS=1``) refuses
+    ``model`` > 1: K2 and K4 read whole weights."""
+    if (mesh is not None and axis_size(mesh, 'model') > 1
+            and os.environ.get('CAR_TRAIN_KERNELS', '0') == '1'):
+        raise NotImplementedError(
+            'the kernel route (CAR_TRAIN_KERNELS=1) under tensor '
+            'parallelism: K2 and K4 read whole weights')
     loss_fn = make_loss_fn(model, cfg, lpips_fn, loss_schedules)
     device = model_device(model)
+    data_group = None if mesh is None else mesh.get_group('data')
+    model_group = (None if mesh is None or axis_size(mesh, 'model') == 1
+                   else mesh.get_group('model'))
 
     def step(state: TrainState, scene: dict) -> tuple[TrainState, dict]:
+        if state.mesh is not mesh:
+            raise ValueError('the step was built for another mesh than the '
+                             'state\'s: shard_state(state, mesh) first')
+        if mesh is not None:
+            scene = global_scene(scene, mesh)
         state.optimizer.zero_grad()
         tot, losses = loss_fn(to_device(scene, device), state.step)
         tot.backward()
-        gnorm = state.optimizer.step()
+        opt = state.optimizer
+        if model_group is not None:
+            _average_gradients([p for p, s in zip(opt.params, opt.sharded)
+                                if not s], model_group)
+        if data_group is not None:
+            _average_gradients(opt.params, data_group)
+        gnorm = opt.step()
         state.step += 1
-        metrics = {'total_loss': tot.detach(), 'grad_norm': gnorm}
-        metrics.update({k: v.detach().mean() for k, v in losses.items()})
+        means = {'total_loss': tot.detach()}
+        means.update({k: v.detach().mean() for k, v in losses.items()})
+        if data_group is not None:
+            summed = all_reduce_sum(
+                torch.stack([v.float() for v in means.values()]), data_group)
+            means = dict(zip(means, (summed / dist.get_world_size(
+                data_group)).unbind()))
+        metrics = {'total_loss': means.pop('total_loss'), 'grad_norm': gnorm}
+        metrics.update(means)
         return state, metrics
 
     return step
+
+
+def _average_gradients(params: list, group) -> None:
+    """Every gradient replaced by its mean over ``group``, in one
+    all-reduce of the gradients laid end to end."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    torch._foreach_copy_(grads, [t.view_as(g) for t, g in zip(
+        flat.split([g.numel() for g in grads]), grads)])
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """Places ``state`` on ``mesh``: each rank keeps its ``model``
+    coordinate's slices (``parallel.param_spec``) of the parameters and of
+    Adam's moments, and each layer of a Megatron pair takes its role
+    (``layers.py``). Every rank holds the same whole state before (the
+    same seed, or the same checkpoint). With ``model`` = 1 nothing is
+    sliced. Returns ``state``, changed in place."""
+    if state.mesh is mesh:
+        return state
+    if state.mesh is not None:
+        raise ValueError('the state is already sharded on another mesh')
+    state.mesh = mesh
+    if axis_size(mesh, 'model') == 1:
+        return state
+    group = mesh.get_group('model')
+    model, opt = state.model, state.optimizer
+    specs = param_shardings(model)
+    moments = opt.adam.state
+    sliced = set()
+    for name, p in model.named_parameters():
+        if sharded_dim(specs[name]) is None:
+            continue
+        sliced.add(id(p))
+        with torch.no_grad():
+            p.data = shard_tensor(p.data, specs[name], mesh)
+        for k, v in moments.get(p, {}).items():
+            if k in ('exp_avg', 'exp_avg_sq'):
+                moments[p][k] = shard_tensor(v, specs[name], mesh)
+    for name, mod in model.named_modules():
+        if not hasattr(mod, 'tp'):
+            continue
+        weight = 'kernel' if hasattr(mod, 'kernel') else 'weight'
+        dim = sharded_dim(specs[f'{name}.{weight}'])
+        if dim is None:
+            continue
+        # Dense and Conv weights are (out, in, ...), a SplitDense kernel
+        # (in, out): the output dimension sliced is a column-parallel layer
+        mode = 'column' if dim == (1 if weight == 'kernel' else 0) else 'row'
+        bias = getattr(mod, 'bias', None)
+        if bias is not None and (id(bias) in sliced) != (mode == 'column'):
+            raise ValueError(f'{name}: the bias of a {mode}-parallel layer '
+                             'must be sliced as its output features are')
+        mod.tp = (mode, group)
+    opt.model_group = group
+    opt.sharded = [id(p) in sliced for p in opt.params]
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -211,18 +341,55 @@ def checkpoint_path(ckpt_dir: str | Path, name: str) -> Path:
     return Path(ckpt_dir) / f'{name}.pt'
 
 
+def _sliced(state: TrainState) -> bool:
+    return state.mesh is not None and axis_size(state.mesh, 'model') > 1
+
+
+def _map_sliced(state: TrainState, params: dict, opt: Optional[dict],
+                fn: Callable) -> tuple[dict, Optional[dict]]:
+    """A state dict of the model and one of its optimizer with
+    ``fn(tensor, spec)`` in place of every tensor of a tensor-parallel
+    parameter and of its Adam moments."""
+    specs = param_shardings(state.model)
+    name_of = {id(p): n for n, p in state.model.named_parameters()}
+    names = [name_of[id(p)] for p in state.optimizer.params]
+
+    def f(name, v):
+        spec = specs.get(name, ())
+        return v if sharded_dim(spec) is None else fn(v, spec)
+
+    params = {k: f(k, v) for k, v in params.items()}
+    if opt is not None:
+        opt = dict(opt, state={
+            i: {k: f(names[i], v) if k in ('exp_avg', 'exp_avg_sq') else v
+                for k, v in st.items()}
+            for i, st in opt['state'].items()})
+    return params, opt
+
+
 def save_checkpoint(ckpt_dir: str | Path, state: TrainState,
                     name: str = 'current') -> Path:
     """Parameters, optimizer state and step to ``<ckpt_dir>/<name>.pt``,
     written to a temporary file first so that a preempted save leaves the
-    previous checkpoint whole."""
+    previous checkpoint whole. On a mesh every rank calls it: the
+    tensor-parallel slices are gathered over ``model``, the primary rank
+    writes the whole state and the others wait for it."""
+    params = state.model.state_dict()
+    opt = state.optimizer.state_dict()
+    if _sliced(state):
+        group = state.mesh.get_group('model')
+        params, opt = _map_sliced(state, params, opt, lambda v, spec: (
+            all_gather_cat(v, group, sharded_dim(spec))))
     path = checkpoint_path(ckpt_dir, name)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(path.name + '.tmp')
-    torch.save({'params': state.model.state_dict(),
-                'optimizer': state.optimizer.state_dict(),
-                'step': state.step}, tmp)
-    os.replace(tmp, path)
+    meshed = state.mesh is not None and dist.is_initialized()
+    if is_primary() or not meshed:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(path.name + '.tmp')
+        torch.save({'params': params, 'optimizer': opt, 'step': state.step},
+                   tmp)
+        os.replace(tmp, path)
+    if meshed:
+        dist.barrier()
     return path
 
 
@@ -232,13 +399,19 @@ def restore_checkpoint(ckpt_dir: str | Path, state: TrainState,
     """Warm start. As the reference (train_realestate10k.py:100-101 keeps
     it commented out), only the parameters are restored by default and the
     step stays where ``state`` has it; ``restore_optimizer`` restores the
-    optimizer state and the step too."""
+    optimizer state and the step too. A sharded ``state`` takes its rank's
+    slices of the whole checkpoint."""
     ckpt = torch.load(checkpoint_path(ckpt_dir, name),
                       map_location=model_device(state.model),
                       weights_only=True)
-    state.model.load_state_dict(ckpt['params'])
+    params = ckpt['params']
+    opt = ckpt['optimizer'] if restore_optimizer else None
+    if _sliced(state):
+        params, opt = _map_sliced(state, params, opt, lambda v, spec: (
+            shard_tensor(v, spec, state.mesh)))
+    state.model.load_state_dict(params)
     if restore_optimizer:
-        state.optimizer.load_state_dict(ckpt['optimizer'])
+        state.optimizer.load_state_dict(opt)
         state.step = int(ckpt['step'])
     return state
 
@@ -249,7 +422,7 @@ def restore_checkpoint(ckpt_dir: str | Path, state: TrainState,
 # ---------------------------------------------------------------------------
 
 def fit(model: nn.Module, cfg: TrainConfig, data_iter: Iterator[dict],
-        max_steps: int, ckpt_dir: Optional[str] = None,
+        max_steps: int, ckpt_dir: Optional[str] = None, mesh=None,
         state: Optional[TrainState] = None,
         log_fn: Optional[Callable[[int, dict], None]] = None,
         val_fn: Optional[Callable[[TrainState, int], None]] = None,
@@ -266,7 +439,11 @@ def fit(model: nn.Module, cfg: TrainConfig, data_iter: Iterator[dict],
     from it (parameters, optimizer and step). A checkpoint ``current`` is
     written every ``steps_til_summary`` steps (then ``val_fn(state, i)``
     runs), ``step_{n:06d}`` every ``iters_til_checkpoint`` and ``final``
-    at the end."""
+    at the end.
+
+    With a mesh every rank runs ``fit`` on its rows of each batch: the
+    state is sharded (:func:`shard_state`) and then restored, each rank
+    taking its slices of the whole checkpoint."""
     if cfg.lpips and lpips_fn is None:
         raise ValueError(
             'cfg.lpips=True but no lpips_fn was provided; construct one '
@@ -275,13 +452,17 @@ def fit(model: nn.Module, cfg: TrainConfig, data_iter: Iterator[dict],
     first = next(data_iter)
     if state is None:
         state = create_train_state(model, cfg)
+        if mesh is not None:
+            state = shard_state(state, mesh)
         if (resume and ckpt_dir
                 and checkpoint_path(ckpt_dir, 'current').exists()):
             state = restore_checkpoint(ckpt_dir, state, 'current',
                                        restore_optimizer=True)
             print(f'resumed from {ckpt_dir}/current at step {state.step}',
                   flush=True)
-    step_fn = make_train_step(state.model, cfg, lpips_fn=lpips_fn,
+    elif mesh is not None:
+        state = shard_state(state, mesh)
+    step_fn = make_train_step(state.model, cfg, mesh, lpips_fn=lpips_fn,
                               loss_schedules=loss_schedules)
 
     scene = first

@@ -27,8 +27,8 @@ against the JAX package's, on the CPU.
   each beside an absolute 1e-4.
 * ``write_png`` reads back equal through imageio; ``clone(npoints=n)``
   renders as a model built with ``npoints=n`` on the same weights,
-  exactly; every name of the JAX subpackages' ``__all__`` but
-  ``shard_state`` resolves in the port's counterpart.
+  exactly; every name of the JAX subpackages' ``__all__`` resolves in the
+  port's counterpart.
 """
 
 import importlib
@@ -395,15 +395,13 @@ def test_clone_npoints_renders_as_a_built_model():
 
 
 SUBPACKAGES = ('geometry', 'models', 'train', 'ops', 'ops.experimental',
-               'losses', 'encoders', 'data', 'utils', 'pose')
-WAITING = {'shard_state'}       # data and tensor parallelism: later work
+               'losses', 'encoders', 'data', 'utils', 'pose', 'parallel')
 
 
 @pytest.mark.parametrize('sub', SUBPACKAGES)
 def test_exports_match_jax(sub):
     jax_pkg = importlib.import_module(f'cross_attention_renderer_tpu.{sub}')
     port = importlib.import_module(f'cross_attention_renderer_torch.{sub}')
-    missing = [n for n in jax_pkg.__all__
-               if n not in WAITING and not hasattr(port, n)]
+    missing = [n for n in jax_pkg.__all__ if not hasattr(port, n)]
     assert not missing, missing
-    assert set(jax_pkg.__all__) - WAITING <= set(port.__all__)
+    assert set(jax_pkg.__all__) <= set(port.__all__)

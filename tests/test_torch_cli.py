@@ -12,9 +12,9 @@
   (f32, bf16, stage 2 with LPIPS from the ``lpips_npz`` fixture, the val
   summary), eval (its metrics equal to ``evaluate_scene``'s on the same
   model and scene), render_traj, the ``--dtype`` flag, the fast-eval
-  flags parsing and evaluating (``--fast``), the parallel flags parsing
-  and then raising, and ``--save_images`` and the video writer raising
-  without imageio.
+  flags parsing and evaluating (``--fast``), the parallel flags raising
+  where no world of ranks can satisfy them, and ``--save_images`` and the
+  video writer raising without imageio.
 * ``build_model`` building each encoder, ablation flag and view count 1-4
   on the CPU, and refusing ``--views 5``; a 2-step ``cli/train.py`` run of
   the ResNet34 model at one view, and ``cli/eval.py`` of the ResNet34
@@ -187,12 +187,24 @@ def test_train_cli_lpips_requires_weights(dataset, tmp_path, monkeypatch):
         _train(dataset, tmp_path, 'x', '--lpips')
 
 
+# What no world of ranks can run: a process count without the
+# coordinator's address, an address without the count, and, in one
+# process, a mesh of more than one rank (the parallel layer itself is
+# tests/test_torch_parallel.py's).
+REFUSED_PARALLEL = {
+    '--num_processes': (ValueError, 'coordinator address'),
+    '--coordinator_address': (ValueError, 'coordinator address'),
+    '--tensor_parallel': (AssertionError, None),
+    '--data_parallel': (AssertionError, None)}
+
+
 @pytest.mark.parametrize('flags', [
     ['--num_processes', '2', '--process_id', '0'],
     ['--coordinator_address', 'localhost:1234'],
     ['--tensor_parallel', '2'], ['--data_parallel', '2']])
 def test_train_cli_refuses_parallel(dataset, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match='Queue A 7'):
+    error, match = REFUSED_PARALLEL[flags[0]]
+    with pytest.raises(error, match=match):
         _train(dataset, tmp_path, 'p', *flags)
 
 
