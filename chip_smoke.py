@@ -128,8 +128,9 @@ no result):
      default paths of the flagship in bf16, and q8 on the f32 flagship,
      each image driven as phase 3 drives it (per image: pruned 24 K1 and
      16 K2, or 16 K4, or 24 K1 and 16 K3; the other levers as dense),
-     beside the dense image of the same model; the q8 image against the
-     dense image of the dequantized pyramid and narrow at the full widths
+     beside the dense image of the same model (the dense image timed and
+     profiled, each bf16 lever's image timed between CUDA events, not
+     profiled); the q8 image against the dense image of the dequantized pyramid and narrow at the full widths
      against the dense image (the path-vs-path tolerance); K2, K3 and K4's
      int8 instantiations, with bf16 and with f32 slot weights, against
      their plain versions at the flagship's shapes and at the pruned
@@ -142,8 +143,8 @@ no result):
      the DPT model at V=4 on K3 (S = 4 streams) and K1 (V*P = 192) and at
      V=4 compat on K9, the DPT and U-Net models at V=1 on K1 (C = 576 and
      960), and the four ablation flags on the V=2 flagship; each image's
-     launch counts and range, then its ms and device busy over one timed
-     and one profiled image, and the image against the same model's
+     launch counts and range, then its ms over one image timed between
+     CUDA events (not profiled), and the image against the same model's
      unfused route (no K1-K4 or K9) within the path-vs-path tolerance;
      each new kernel mode and shape against its plain version on the
      path's first block, timed beside its bound; the small-input
@@ -189,19 +190,46 @@ no result):
      (NCCL refuses two ranks on one card), each 3 steps at model = 2 and
      3 at data = 2 against the 1-rank mesh's, the two ranks' equal, and
      the render at rays = 2 of the first 16,384 rays (each rank 2 K1 and
-     1 K2), gathered, against phase 3's first two blocks. A failed rank
-     fails the run.
+     1 K2), gathered, against phase 3's first two blocks; then, on each
+     rank at model = 2, 3 ``CAR_TRAIN_KERNELS=1`` steps (2 K1 and 1 K2 a
+     step, K2 reading the exchange's sliced weights gathered over the
+     model group) against the 3 plain steps as the meshes' steps are held,
+     the sliced model rendering phase 3's first block through K2 on the
+     gathered weights (2 K1 and 1 K2) against that block, and
+     (``TP_RENDERS``) the V=2 fused render (1 K4), V=3 (2 K1 and 1 K3) and
+     V=3 compat (2 K1 and 9 K9) flagships sliced the same way, each
+     block against the same model unsliced within the path-vs-path
+     tolerance. A failed rank fails the run.
+ 28. more than four context views (``VIEW_PATHS``), as phase 3 drives the
+     flagship (bf16, 256x256, 8 blocks; the decoder's last layer a further
+     sqrt(2 / V) smaller, as phase 24's): V=5 and V=6 on the default route
+     (16 K1 and 8 K3 with S = 5 and 6 an image), and at V=5 the compat
+     route with K9 (200 launches), the sorted stream (48 K5), the unfused
+     exchange, f32, ResNet34 (K3's 4-level mode) and q8 (K3's int8 mode);
+     each image against the same model's unfused route (16 blocks) within
+     the path-vs-path tolerance (q8 against the dense image of its
+     dequantized pyramid); each new K3 mode and K1 shape against its plain
+     version on its path's first call (K1 at V*P = 240 and 288), K3 at
+     S = 8 on a V=8 flagship's first block in bf16, f32 and int8, each
+     printing its plan; V=5 and V=6 images timed and profiled; the
+     small-input agreement at V=5;
+ 29. the card tools ported from the JAX repository's ``tools/``
+     (``TOOL_RUNS``): each run once in this process at its shortest
+     setting, printing its lines (``bench_ondisk`` on phase 21's corpus).
 Then it prints the ``train`` JSON line (phases 17-19), the ``cli`` line
-(phases 21-22), the ``fast_eval`` line (phase 23: each image's ms, rays/s
-and device busy, each path's launches), the ``ablations`` line (phase 24),
+(phases 21-22), the ``fast_eval`` line (phase 23: each image's ms and
+rays/s, the dense images' device busy, each path's launches), the
+``ablations`` line (phase 24: each image's ms and rays/s),
 the ``unposed`` line (phase 25), the ``capability`` line (phase 26: the
 curve, steps/s, peak GB, each eval_pruned mode's dB, ms an image and
 rays/s), the ``parallel`` line (phase 27: each mesh's losses, gradient
-norms, ms a step and peak GB a rank, the render's ms and launches a
-rank), the ``kernels`` JSON line (K1-K9, their f32 and int8
-instantiations, the new modes and shapes of phases 24 and 26, T1-T13;
-K1's and K2's launches with phase 27's sharded renders), the card line
-and, last, the result line.
+norms, ms a step and peak GB a rank, the renders' ms and launches a
+rank), the ``views`` line (phase 28: the timed images, each path's
+launches), the ``tools`` line (phase 29: seconds a run), the ``kernels``
+JSON line (K1-K9, their f32 and int8 instantiations, the new modes and
+shapes of phases 24, 26 and 28, T1-T13; K1-K4's and K9's launches with
+phase 27's sharded renders and kernel-route steps), the card line and,
+last, the result line.
 """
 
 from __future__ import annotations
@@ -313,7 +341,8 @@ UNPOSED_POSE_GATE = (2.0, 0.98)  # degrees, translation direction cosine
 # Phase 26, the capability path: tools/capability_run.py's protocol on
 # plane worlds (the JAX tool's TPU record: 23.0 dB at step 1,500,
 # BENCH_NOTES.md:498-506), cut to 1,000 steps to leave the script's time
-# to phase 27 (the port's best at step 1,000: 17.7-18.0 dB, NVIDIA H100
+# to phase 27 (the port's best at step 1,000: 17.7-18.0 dB; at 600 steps
+# 15.69 dB, too near the floor to cut further; NVIDIA H100
 # 80GB HBM3, 700 W, two runs), then eval_pruned at its defaults in bf16
 # and the fast-eval strip. The floor is a sanity check, far under that
 # record.
@@ -340,6 +369,20 @@ EVAL_PRUNED = dict(world='plane', worlds=4, pruned=(16, 24),
 # 1.4-2.2e-2 at data = 2; PARALLEL_DRIFT_TOL leaves a factor of 2.3.
 PARALLEL_STEPS = 3
 PARALLEL_DRIFT_TOL = 0.05
+# The other fused kernels on weights gathered over model = 2: each model
+# (flagship kwargs) sliced by shard_state renders its scene's first block
+# through its kernel, against the same model unsliced (PATH_TOL): (label,
+# kwargs, launches a block).
+TP_RENDERS = (
+    ('V=2 fused render', dict(npoints=64, fused_render=True),
+     {'fused_render_core': 1, 'epipolar_attention': 0,
+      'fused_exchange_epilogue': 0}),
+    ('V=3', dict(n_view=3),
+     {'epipolar_attention': 2, 'fused_exchange_epilogue_multi': 1}),
+    # 3 self and 6 cross fuse calls a block
+    ('V=3 compat', dict(n_view=3, **PATH_B),
+     {'epipolar_attention': 2, 'fused_mlp2': 9}),
+)
 PARALLEL_TIMEOUT = 400      # seconds, for the two ranks together
 
 
@@ -507,14 +550,16 @@ def check_gather(label, kernel, cases, out_dtype):
 
 
 def drive(label, model, scene, RM, counted, expected, capture=None,
-          render_image=None, times=None, timed=True, n_img=3):
+          render_image=None, times=None, timed=True, n_img=3,
+          profiled=True):
     """Renders the full image through ``render_image`` (by default
     ``make_scan_renderer``'s) with the launch counters of ``counted``
     ({name: kernel wrapper}) set to 0 just before and read just after, and
-    checks the image. Then, where ``timed``, times encode and the whole
-    image and profiles one image; ``times`` (a dict), where given,
-    receives the image's ms, rays/s and the profiled image's wall and
-    device busy ms; ``n_img`` images are timed. Records the
+    checks the image. Then, where ``timed``, times encode and ``n_img``
+    whole images between CUDA events and, where ``profiled``, profiles one
+    image; ``times`` (a dict), where given, receives the image's ms,
+    rays/s and the profiled image's wall and device busy ms (None where
+    not ``profiled``). Records the
     arguments of the first ``n`` calls of each ``capture`` entry ({key:
     (module, name, n)}; by default the first call of every counted kernel
     the renderer module calls). Returns the recorded arguments, the
@@ -571,23 +616,28 @@ def drive(label, model, scene, RM, counted, expected, capture=None,
     V = scene['context']['rgb'].shape[1]
     with torch.inference_mode():
         encode_ms = cuda_ms(lambda: model.encode(scene), 5)
-        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(n_img):
             render_image(scene, z, uv_full)
+        end.record()
         torch.cuda.synchronize()
-        image_s = (time.perf_counter() - t0) / n_img
+        image_s = start.elapsed_time(end) / 1e3 / n_img
     log(f'{label} encode: {encode_ms:.3f} ms | image: {image_s * 1e3:.1f} ms '
         f'| {H * W / image_s:.1f} rays/s ({H * W:,} rays, {N_BLOCKS} blocks, '
         f'V={V}, '
         f'{model.n_samples} samples, {str(model.dtype)[6:]})')
 
-    with torch.inference_mode():
-        profiled = profile_device(f'{label} profile of one image',
+    busy = {'wall_ms': None, 'device_busy_ms': None}
+    if profiled:
+        with torch.inference_mode():
+            busy = profile_device(f'{label} profile of one image',
                                   lambda: render_image(scene, z, uv_full))
     if times is not None:
         times.update(image_ms=image_s * 1e3, rays_per_s=H * W / image_s,
-                     profiled_wall_ms=profiled['wall_ms'],
-                     device_busy_ms=profiled['device_busy_ms'])
+                     profiled_wall_ms=busy['wall_ms'],
+                     device_busy_ms=busy['device_busy_ms'])
     return captured, launches, rgb
 
 
@@ -749,10 +799,12 @@ def gather_ptxas(log_text):
     return lines
 
 
-def check_epilogue(name, kernel, plain, args, aux_list, params, tol):
+def check_epilogue(name, kernel, plain, args, aux_list, params, tol,
+                   iters=10, plain_iters=3):
     """An exchange epilogue (K2 or K3) against its plain version. Its
     weights are laid out once (``prepared_weights``) before the timed calls,
-    which then time the launch alone."""
+    which then time the launch alone (``iters`` calls, the plain version
+    ``plain_iters``)."""
     import torch
     from cross_attention_renderer_torch.ops import gather_epilogue as GE
     GE.prepared_weights(params, len(aux_list), aux_list[0].device)
@@ -769,8 +821,8 @@ def check_epilogue(name, kernel, plain, args, aux_list, params, tol):
     del jl, kv, jl_ref, kv_ref
     bound_ms, bound_by = epilogue_bound(args[0], args[1], aux_list, params)
     return {'max_abs_err': max(err_jl, err_kv),
-            'ms': cuda_ms(lambda: kernel(*args), 10),
-            'plain_ms': cuda_ms(lambda: plain(*args), 3),
+            'ms': cuda_ms(lambda: kernel(*args), iters),
+            'plain_ms': cuda_ms(lambda: plain(*args), plain_iters),
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'launch': launch_shape(name, kernel)}
 
@@ -1312,8 +1364,9 @@ def fast_eval(RM, EA, GE, FR, make_scene, dev, counted):
     ``make_scene(0)``) on the V=2, V=2 fused render and V=3 default paths
     in bf16, with each lever of FAST_LEVERS, each image driven as phase 3
     drives it (the launch counts of ``fast_launches``) beside the dense
-    image of the same model; the f32 model with q8 on the same paths
-    (launches and kernels checked, not timed). The
+    image of the same model (the dense image timed and profiled, each
+    bf16 lever's timed over one image); the f32 model with q8 on the same
+    paths (launches and kernels checked, not timed). The
     q8 image equals the dense image of the dequantized pyramid (q * s),
     narrow at the full widths equals the dense image, within PATH_TOL.
     Each kernel's int8 instantiations (bf16 and f32 slot weights) against
@@ -1345,15 +1398,17 @@ def fast_eval(RM, EA, GE, FR, make_scene, dev, counted):
                 t = times.setdefault(f'{path} dense', {})
                 _, by_path[f'fast_{key}_dense'], rgb_dense = drive(
                     f'{path} dense', model, scene, RM, cnt,
-                    fast_launches(exchange, {}), capture={}, times=t)
+                    fast_launches(exchange, {}), capture={}, times=t,
+                    n_img=1)
             for name, lever in levers:
                 label = f'{path} {name}{suffix}'
                 capture = {exchange: (RM, exchange, 2)}
                 if exchange != 'fused_render_core':
                     capture['epipolar_attention'] = (
                         RM, 'epipolar_attention', 2)
-                # the f32 runs check the kernels; the levers' times are
-                # the bf16 model's
+                # the bf16 levers' images are timed, not profiled (the
+                # profiler's trace costs seconds an image); the f32 runs
+                # check the kernels
                 timed = dtype == torch.bfloat16
                 captured, launches, rgb = drive(
                     label, model, scene, RM, cnt,
@@ -1361,7 +1416,7 @@ def fast_eval(RM, EA, GE, FR, make_scene, dev, counted):
                     render_image=make_fast_renderer(model, N_BLOCKS,
                                                     **lever),
                     times=times.setdefault(label, {}) if timed else None,
-                    timed=timed)
+                    timed=timed, n_img=1, profiled=False)
                 if dtype == torch.float32:
                     check_dtype(f'{label} image', (rgb,), dtype)
                 tag = name.replace(' ', '_').replace(',', '_')
@@ -1414,10 +1469,11 @@ def fast_eval(RM, EA, GE, FR, make_scene, dev, counted):
             torch.cuda.empty_cache()
         for label in [k for k in times if k.startswith(path)]:
             t = times[label]
+            busy = ('not profiled' if t['device_busy_ms'] is None else
+                    f'device busy {t["device_busy_ms"]:.1f} ms of a '
+                    f'profiled {t["profiled_wall_ms"]:.1f} ms')
             log(f'fast {label}: {t["image_ms"]:.1f} ms an image, '
-                f'{t["rays_per_s"]:.1f} rays/s, device busy '
-                f'{t["device_busy_ms"]:.1f} ms of a profiled '
-                f'{t["profiled_wall_ms"]:.1f} ms')
+                f'{t["rays_per_s"]:.1f} rays/s, {busy}')
         del scene, rgb_dense
     return by_path, times, numbers
 
@@ -1681,9 +1737,8 @@ def ablations(RM, EA, GE, FR, FM, PG, SG, BG, make_scene, dev, counted,
     """Phase 24: the ResNet34 and U-Net encoders, 1 and 4 views and the
     four ablation flags at full width (``ABLATION_PATHS``), each image
     driven as phase 3 drives it (its launch counts, finite, RGB in
-    [-1, 1.5]) and timed over one image and one profiled image, then held
-    against the same model's unfused route (``unfused_twin``) within
-    PATH_TOL. The first call of each path's new kernel mode or shape
+    [-1, 1.5]) and timed over one image, then held against the same
+    model's unfused route (``unfused_twin``) within PATH_TOL. The first call of each path's new kernel mode or shape
     against its plain version, timed beside its bound. The small-input
     agreement of the sorted stream and the one-hot and banded gathers at
     V=4 and at four levels (``ABLATION_SMALL``). One default-route train
@@ -1717,7 +1772,7 @@ def ablations(RM, EA, GE, FR, FM, PG, SG, BG, make_scene, dev, counted,
         captured, launches, rgb = drive(
             label, model, scene, RM, {n: counted[n] for n in expected},
             expected, capture={n: (RM, n, 1) for n in checked},
-            times=times.setdefault(label, {}), n_img=1)
+            times=times.setdefault(label, {}), n_img=1, profiled=False)
         by_path[key] = launches
         twin = unfused_twin(model)
         with torch.inference_mode():
@@ -2424,18 +2479,19 @@ def check_steps(label, got, want) -> dict:
     return {'loss_rel': loss, 'grad_norm_rel': norm, 'drift_rel': drift}
 
 
-def sharded_render(model, mesh, rays, counted) -> dict:
+def sharded_render(model, mesh, rays, counted, scene=None) -> dict:
     """``make_sharded_renderer`` of ``model``, the flagship (phase 3's)
-    on phase 3's scene's first ``rays`` rays, with the counters of
-    ``counted`` set to 0 just before and read just after the first render;
-    then the host ms of one render (mean of 3 after it). Returns the
-    gathered rgb (f32), the launches and the ms."""
+    on the first ``rays`` rays of ``scene`` (by default phase 3's), with
+    the counters of ``counted`` set to 0 just before and read just after
+    the first render; then the host ms of one render (mean of 3 after
+    it). Returns the gathered rgb (f32), the launches and the ms."""
     import torch
     from cross_attention_renderer_torch.data.synthetic import make_scene
     from cross_attention_renderer_torch.train.evaluation import (
         make_sharded_renderer)
-    scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
-                       device=model.phi.lin_out.weight.device)
+    if scene is None:
+        scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
+                           device=model.phi.lin_out.weight.device)
     uv = scene['query']['uv'][:, :, :rays]
     render = make_sharded_renderer(model, mesh)
     with torch.inference_mode():
@@ -2475,9 +2531,16 @@ def check_render(label, got, want, launches, expected) -> float:
 def parallel_rank(argv) -> int:
     """One of phase 27's two ranks on ``cuda:0`` over gloo (``python3
     chip_smoke.py parallel-rank <rank> <port> <dir>``): 3 steps at
-    model = 2, 3 at data = 2, then the sharded render at rays = 2 of phase
-    3's first 2 blocks; prints a ``PARALLEL_RANK`` JSON line, rank 0 saves
-    the gathered image to ``<dir>/rgb.pt``."""
+    model = 2, 3 at data = 2, 3 kernel-route steps at model = 2 (their K1
+    and K2 launches counted), the sharded render at rays = 2 of phase 3's
+    first 2 blocks, then a model sliced at model = 2 rendering phase 3's
+    first block through K2 on the gathered weights, and each model of
+    TP_RENDERS sliced at model = 2 rendering its scene's first block
+    through its kernel, against the same model unsliced; prints a
+    ``PARALLEL_RANK`` JSON line, rank 0 saves the gathered images to
+    ``<dir>/rgb.pt`` and ``<dir>/rgb_model2.pt``."""
+    import copy
+
     import torch
     import torch.distributed as dist
     rank, port, out = int(argv[0]), int(argv[1]), Path(argv[2])
@@ -2485,10 +2548,13 @@ def parallel_rank(argv) -> int:
     from cross_attention_renderer_torch.data.synthetic import make_scene
     from cross_attention_renderer_torch.models import renderer as RM
     from cross_attention_renderer_torch.ops import epipolar_attention as EA
+    from cross_attention_renderer_torch.ops import fused_mlp as FM
+    from cross_attention_renderer_torch.ops import fused_render as FR
     from cross_attention_renderer_torch.ops import gather_epilogue as GE
     from cross_attention_renderer_torch.parallel.distributed import (
         initialize, make_global_mesh)
     from cross_attention_renderer_torch.tools import bench_train as BT
+    from cross_attention_renderer_torch.train import trainer as T
     initialize(f'localhost:{port}', 2, rank, local_device_ids=[0],
                backend='gloo')
     try:
@@ -2496,20 +2562,62 @@ def parallel_rank(argv) -> int:
         scene = make_scene(0, batch=BT.BATCH, n_view=2, H=H, W=W,
                            n_rays=BT.RAYS, device=dev)
         base = flagship(RM, dev, npoints=64)
+        counted = {'epipolar_attention': EA.epipolar_attention,
+                   'fused_exchange_epilogue': GE.fused_exchange_epilogue}
         result = {}
         for label, shape in (('model2', dict(data=1, model=2)),
                              ('data2', dict(data=2, model=1))):
             result[label] = parallel_steps(base, make_global_mesh(**shape),
                                            scene)
+        # the kernel route at model = 2: K2 and K1 read the exchange's
+        # sliced weights gathered over the model group
+        model2 = make_global_mesh(data=1, model=2)
+        for fn in counted.values():
+            fn.launches = 0
+        with BT.route_env('kernels'):
+            result['model2_kernels'] = parallel_steps(base, model2, scene)
+        result['model2_kernels']['launches'] = {
+            name: fn.launches for name, fn in counted.items()}
         del scene
         torch.set_grad_enabled(False)
         render = sharded_render(
             base, make_global_mesh(data=1, model=1, rays=2), 2 * RAY_BLOCK,
-            {'epipolar_attention': EA.epipolar_attention,
-             'fused_exchange_epilogue': GE.fused_exchange_epilogue})
+            counted)
         if rank == 0:
             torch.save(render['rgb'].cpu(), out / 'rgb.pt')
         result['render'] = {k: render[k] for k in ('launches', 'ms')}
+        # a model sliced at model = 2 renders through K2 on the gathered
+        # weights: every rank all of phase 3's first block
+        sliced = copy.deepcopy(base)
+        T.shard_state(T.create_train_state(sliced, T.TrainConfig()), model2)
+        render = sharded_render(sliced, model2, RAY_BLOCK, counted)
+        if rank == 0:
+            torch.save(render['rgb'].cpu(), out / 'rgb_model2.pt')
+        result['render_model2'] = {k: render[k] for k in ('launches', 'ms')}
+        del sliced, render
+        # K4, K3 and K9 on the gathered weights, each against its model
+        # unsliced on this rank
+        kernels = {'epipolar_attention': EA.epipolar_attention,
+                   'fused_exchange_epilogue': GE.fused_exchange_epilogue,
+                   'fused_exchange_epilogue_multi':
+                       GE.fused_exchange_epilogue_multi,
+                   'fused_mlp2': FM.fused_mlp2,
+                   'fused_render_core': FR.fused_render_core}
+        result['tp_renders'] = {}
+        for label, kw, expected in TP_RENDERS:
+            model = flagship(RM, dev, **kw)
+            scene = make_scene(0, n_view=kw.get('n_view', 2), H=H, W=W,
+                               n_rays=H * W, full_image=True, device=dev)
+            want = first_block(model, scene)['rgb']
+            T.shard_state(T.create_train_state(model, T.TrainConfig()),
+                          model2)
+            render = sharded_render(model, model2, RAY_BLOCK,
+                                    {n: kernels[n] for n in expected}, scene)
+            result['tp_renders'][label] = {
+                'launches': render['launches'], 'ms': render['ms'],
+                'rgb_rel': max_err(render['rgb'], want) / scale(want)}
+            del model, scene, want, render
+            torch.cuda.empty_cache()
         print('PARALLEL_RANK ' + json.dumps(result), flush=True)
     finally:
         dist.destroy_process_group()
@@ -2596,6 +2704,7 @@ def parallel(RM, EA, GE, dev, staged_head, card) -> dict:
                                  if line.startswith('PARALLEL_RANK '))[14:])
                  for out in outs]
         rgb = torch.load(Path(tmp) / 'rgb.pt').to(dev)
+        rgb_model2 = torch.load(Path(tmp) / 'rgb_model2.pt').to(dev)
     if any(ranks[0][k][m] != ranks[1][k][m] for k in ('model2', 'data2')
            for m in ('losses', 'grad_norms')):
         raise RuntimeError('the two ranks\' steps differ')
@@ -2608,9 +2717,256 @@ def parallel(RM, EA, GE, dev, staged_head, card) -> dict:
                      rgb, staged_head, r['render']['launches'], per_block)
         by_path[f'sharded_render_gloo_rays2_rank{rank}'] = r['render'][
             'launches']
+        r['model2_kernels']['agreement'] = check_steps(
+            f'parallel gloo rank {rank}, kernel-route steps at model = 2 vs '
+            'the plain steps', r['model2_kernels'], plain)
+        if r['model2_kernels']['launches'] != {
+                k: PARALLEL_STEPS * n for k, n in per_block.items()}:
+            raise RuntimeError(f'kernel-route step at model = 2: launches '
+                               f'{r["model2_kernels"]["launches"]}')
+        by_path[f'train_kernel_route_model2_rank{rank}'] = r[
+            'model2_kernels']['launches']
+        r['render_model2']['rgb_rel'] = check_render(
+            f'parallel gloo rank {rank}, model = 2 render (K2 on the '
+            'gathered weights)', rgb_model2, staged_head[:, :, :RAY_BLOCK],
+            r['render_model2']['launches'], per_block)
+        by_path[f'sharded_render_gloo_model2_rank{rank}'] = r[
+            'render_model2']['launches']
+        for label, _, expected in TP_RENDERS:
+            t = r['tp_renders'][label]
+            log(f'parallel gloo rank {rank}, model = 2 {label} render on '
+                f'the gathered weights: launches {t["launches"]}, rgb '
+                f'{t["rgb_rel"]:.3e} from the unsliced model\'s (tol '
+                f'{PATH_TOL["rgb"]:.3e}), {t["ms"]:.1f} ms')
+            if t['launches'] != expected or t['rgb_rel'] > PATH_TOL['rgb']:
+                raise RuntimeError(f'parallel model = 2 {label} render: '
+                                   f'{t}, expected launches {expected}')
+            key = label.lower().replace(' ', '_').replace('=', '')
+            by_path[f'sharded_render_gloo_model2_{key}_rank{rank}'] = t[
+                'launches']
     report['gloo_2ranks'] = ranks
     print(json.dumps({'parallel': report}), flush=True)
     return by_path
+
+
+# Phase 28, more than four context views. Each path of VIEW_PATHS renders
+# the full image as phase 3 drives the flagship (bf16 unless the path says
+# f32, 256x256, 8 blocks), its launches as given, then the image against
+# the same model's unfused route (``unfused_twin``) within PATH_TOL; the
+# unfused exchange at V=5 and V=6 holds (1, V, R, P, V * 288) bf16 values
+# a block, ~8 GB at V=6 and 8,192 rays, so that reference renders in
+# VIEWS_UNFUSED_BLOCKS blocks (the same function). Entries as
+# ABLATION_PATHS'; 'q8' renders through make_fast_renderer(q8=True).
+VIEW_PATHS = (
+    ('V=5', dict(n_view=5),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     {'fused_exchange_epilogue_multi': 'fused_exchange_epilogue_multi_s5',
+      'epipolar_attention': 'epipolar_attention_vp240'}),
+    ('V=6', dict(n_view=6),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     {'fused_exchange_epilogue_multi': 'fused_exchange_epilogue_multi_s6',
+      'epipolar_attention': 'epipolar_attention_vp288'}),
+    # 5 self and 20 cross fuse calls a block
+    ('V=5 compat', dict(n_view=5, **PATH_B),
+     {'epipolar_attention': 16, 'fused_mlp2': 25 * 8,
+      'fused_exchange_epilogue_multi': 0}, {}),
+    ('V=5 sorted', dict(n_view=5, sorted_stream=True),
+     {'resident_gather': 6 * 8, 'epipolar_attention': 16,
+      'fused_exchange_epilogue_multi': 0}, {}),
+    ('V=5 unfused', dict(n_view=5, fused_epilogue=False),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 0}, {}),
+    ('V=5 f32', dict(n_view=5, dtype='float32'),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     {'fused_exchange_epilogue_multi':
+      'fused_exchange_epilogue_multi_s5_f32'}),
+    ('ResNet V=5', dict(model='resnet', n_view=5),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     {'fused_exchange_epilogue_multi':
+      'fused_exchange_epilogue_multi_l4_s5'}),
+    ('V=5 q8', dict(n_view=5, q8=True),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     {'fused_exchange_epilogue_multi':
+      'fused_exchange_epilogue_multi_i8_s5'}),
+)
+VIEWS_UNFUSED_BLOCKS = 16
+VIEWS_TIMED = ('V=5', 'V=6')        # the paths whose image is timed
+K3_STREAMS = 8                      # K3 is also checked at S = 8
+QUICK = (3, 1)      # the calls timed of the modes on no image path (kernel,
+                    # plain version): the plain version at S = 8 is 0.6-1.6 s
+
+
+def views(RM, EA, GE, FM, SG, make_scene, dev, counted):
+    """Phase 28: the flagship at more than four context views
+    (``VIEW_PATHS``), each image driven as phase 3 drives it and held
+    against the same model's unfused route (the q8 image against the
+    dense image of its dequantized pyramid, as phase 23); the first call
+    of each path's new kernel mode or shape against its plain version,
+    timed beside its bound (the q8 call also with f32 slot weights); K3
+    at S = 8 on a V=8 flagship's first block in bf16, f32 and int8 (bf16
+    and f32 slot weights); each entry's plan; the small-input agreement
+    at V=5.
+    Returns (launches by path, the f32 launches by path, the checks'
+    numbers by kernel-line entry, the timed images)."""
+    import math
+
+    import torch
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_fast_renderer, make_scan_renderer)
+    def k3(label, args, iters=10, plain_iters=3):
+        return check_epilogue(
+            label, GE.fused_exchange_epilogue_multi,
+            GE.fused_exchange_epilogue_multi_reference, args, args[2],
+            args[3], K3_TOL, iters, plain_iters)
+
+    checks = {'fused_exchange_epilogue_multi': k3,
+              'epipolar_attention': lambda label, args: check_attention(
+                  label, EA, *args)}
+    by_path, by_path_f32, numbers, times, plans = {}, {}, {}, {}, {}
+    for label, kw, expected, checked in VIEW_PATHS:
+        kw = dict(kw)
+        V = kw['n_view']
+        q8 = kw.pop('q8', False)
+        if 'dtype' in kw:
+            kw['dtype'] = getattr(torch, kw['dtype'])
+        model = flagship(RM, dev, **kw)
+        # the decoder reads the V latents side by side (ablation_model)
+        with torch.no_grad():
+            model.phi.lin_out.weight.mul_(math.sqrt(2 / V))
+        scene = make_scene(0, n_view=V, H=H, W=W, n_rays=H * W,
+                           full_image=True, device=dev)
+        key = label.lower().replace(' ', '_').replace('=', '').replace(
+            '-', '')
+        captured, launches, rgb = drive(
+            label, model, scene, RM, {n: counted[n] for n in expected},
+            expected, capture={n: (RM, n, 1) for n in checked},
+            render_image=(make_fast_renderer(model, N_BLOCKS, q8=True)
+                          if q8 else None),
+            times=times.setdefault(label, {}), n_img=1,
+            timed=label in VIEWS_TIMED)
+        (by_path_f32 if 'dtype' in kw else by_path)[key] = launches
+        if q8:
+            check_q8_image(label, model, scene, rgb, RM)
+        elif kw.get('fused_epilogue') is False:
+            log(f'{label}: the unfused route itself')
+        else:
+            twin = unfused_twin(model)
+            with torch.inference_mode():
+                rgb_ref, _ = make_scan_renderer(twin, VIEWS_UNFUSED_BLOCKS)(
+                    scene, twin.encode(scene), scene['query']['uv'])
+            check_paths(f'{label} vs its unfused route '
+                        f'({VIEWS_UNFUSED_BLOCKS} blocks)', PATH_TOL,
+                        rgb.float(), rgb_ref.float())
+            del twin, rgb_ref
+        for name, entry in checked.items():
+            numbers.setdefault(entry, {})[label] = checks[name](
+                label, captured[name][0])
+            if name == 'fused_exchange_epilogue_multi':
+                plans[entry] = GE.fused_exchange_epilogue_multi.last_plan
+        if q8:      # the int8 tables beside f32 slot weights as well
+            entry = f'{checked["fused_exchange_epilogue_multi"]}_f32'
+            numbers[entry] = {label: k3(f'{label} f32 slot weights', as_f32(
+                'fused_exchange_epilogue_multi',
+                captured['fused_exchange_epilogue_multi'][0]), *QUICK)}
+            plans[entry] = GE.fused_exchange_epilogue_multi.last_plan
+        del captured, scene, rgb, model
+        torch.cuda.empty_cache()
+
+    # K3 at S = 8: the first block of a V=8 flagship, bf16, f32 and int8
+    V = K3_STREAMS
+    model = flagship(RM, dev, n_view=V)
+    scene = make_scene(0, n_view=V, H=H, W=W, n_rays=RAY_BLOCK, device=dev)
+    args = first_call(model, scene, RM, 'fused_exchange_epilogue_multi')
+    s8 = f'fused_exchange_epilogue_multi_s{V}'
+    numbers[s8] = {f'V={V}': k3(f'K3 S = {V} bf16', args, *QUICK)}
+    plans[s8] = GE.fused_exchange_epilogue_multi.last_plan
+    f32 = (tuple(t.float() for t in args[0]), args[1],
+           tuple(a.float() for a in args[2]), args[3])
+    numbers[f'{s8}_f32'] = {f'V={V}': k3(f'K3 S = {V} f32', f32, *QUICK)}
+    plans[f'{s8}_f32'] = GE.fused_exchange_epilogue_multi.last_plan
+    del f32
+    seen = []
+    fn = RM.fused_exchange_epilogue_multi
+
+    def recorder(*a):
+        if not seen:
+            seen.append(a)
+        return fn(*a)
+
+    RM.fused_exchange_epilogue_multi = recorder
+    try:
+        with torch.inference_mode():
+            z = model.encode(scene)
+        make_fast_renderer(model, 1, q8=True)(scene, z, scene['query']['uv'])
+    finally:
+        RM.fused_exchange_epilogue_multi = fn
+    i8 = f'fused_exchange_epilogue_multi_i8_s{V}'
+    numbers[i8] = {f'V={V}': k3(f'K3 S = {V} int8', seen[0], *QUICK)}
+    numbers[f'{i8}_f32'] = {f'V={V}': k3(
+        f'K3 S = {V} int8 f32', as_f32('fused_exchange_epilogue_multi',
+                                        seen[0]), *QUICK)}
+    plans[i8] = plans[f'{i8}_f32'] = (
+        GE.fused_exchange_epilogue_multi.last_plan)
+    del model, scene, args, seen, z
+    torch.cuda.empty_cache()
+    log(f'views: K3 plans by entry {plans}')
+    by_path['small_v5'] = small_agreement(
+        'V=5', RM, make_scene, dev, counted={
+            'epipolar_attention': (EA.epipolar_attention, 2),
+            'fused_exchange_epilogue_multi': (
+                GE.fused_exchange_epilogue_multi, 1)}, n_view=5)
+    for label in VIEWS_TIMED:
+        t = times[label]
+        log(f'views {label}: {t["image_ms"]:.1f} ms an image, '
+            f'{t["rays_per_s"]:.1f} rays/s, device busy '
+            f'{t["device_busy_ms"]:.1f} ms of a profiled '
+            f'{t["profiled_wall_ms"]:.1f} ms')
+    for entry, plan in plans.items():
+        numbers[entry] = {k: dict(v, plan=plan)
+                          for k, v in numbers[entry].items()}
+    return by_path, by_path_f32, numbers, {k: times[k] for k in VIEWS_TIMED}
+
+
+# Phase 29, the card tools ported from the JAX repository's tools/, each
+# run once in this process at its shortest setting (tool, argv).
+TOOL_RUNS = (
+    ('bench_train_roofline', ['--iters', '1']),
+    ('profile_sorted', ['--iters', '2']),
+    ('trace_render', ['--blocks', '1']),
+    ('bench_traj', ['--frames', '1']),
+    ('bench_traj', ['--fast', '--frames', '1']),
+    ('bench_v3', ['--iters', '1']),
+    ('bench_block', ['std', '--iters', '1']),
+    ('bench_blocks', ['--chunks', '8', '--iters', '1']),
+    ('bench_sorted_stream', ['--iters', '1']),
+    ('bench_ondisk', ['--steps', '2', '--workers', '2',
+                      '--iter-batches', '2']),
+)
+
+
+def tools_phase(build_dir) -> dict:
+    """Phase 29: each of TOOL_RUNS through its ``main`` (bench_ondisk on
+    phase 21's corpus, trace_render into ``build/``), each printing its
+    lines; returns each run's seconds."""
+    import importlib
+
+    import torch
+    seconds = {}
+    for name, argv in TOOL_RUNS:
+        argv = list(argv)
+        if name == 'bench_ondisk':
+            argv += ['--root', str(build_dir / 'smoke_corpus')]
+        if name == 'trace_render':
+            argv += ['--out', str(build_dir / 'trace_render')]
+        tool = importlib.import_module(
+            f'cross_attention_renderer_torch.tools.{name}')
+        log(f'--- tools: {name} {" ".join(argv)}')
+        t0 = time.perf_counter()
+        tool.main(argv)
+        torch.cuda.synchronize()
+        seconds[f'{name} {" ".join(argv)}'] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    log(f'tools: seconds by run {json.dumps(seconds)}')
+    return seconds
 
 
 def flagship(RM, dev, dtype=None, **kw):
@@ -2977,6 +3333,37 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path.update(parallel(RM, EA, GE, dev, staged_head, card))
     log(f'parallel phase: {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+
+    # -- 28. more than four context views -------------------------------------
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        vw_paths, vw_paths_f32, vw_numbers, vw_times = views(
+            RM, EA, GE, FM, SG, make_scene, dev,
+            dict([attention, epilogue_multi, mlp, resident]))
+    log(f'views phase: {time.perf_counter() - t0:.1f} s')
+    print(json.dumps({'views': {'card': card, 'images': vw_times,
+                                'launches': dict(vw_paths,
+                                                 **vw_paths_f32)}}),
+          flush=True)
+    torch.cuda.empty_cache()
+    # K9 and K5 run at V=5 on their own entries' kernels; K1 at V=5 and
+    # V=6 has entries of its shapes (V*P = 240, 288), its f32 instantiation
+    # its own entry's; K3's modes at S = 5, 6, 8 have entries of their own.
+    by_path['v5_compat'] = {'fused_mlp2': vw_paths['v5_compat']['fused_mlp2']}
+    by_path['v5_sorted'] = {
+        'resident_gather': vw_paths['v5_sorted']['resident_gather']}
+    by_path_f32['v5_f32'] = {
+        'epipolar_attention': vw_paths_f32['v5_f32']['epipolar_attention']}
+
+    # -- 29. the card tools ----------------------------------------------------
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        tool_seconds = tools_phase(build_dir)
+    log(f'tools phase: {time.perf_counter() - t0:.1f} s')
+    print(json.dumps({'tools': {'card': card, 'seconds': tool_seconds}}),
+          flush=True)
+    torch.cuda.empty_cache()
 
     fast_f32 = {p: n for p, n in fast_paths.items() if p.endswith('_f32')}
     fast_i8 = {p: n for p, n in fast_paths.items()
@@ -3093,6 +3480,59 @@ def main() -> int:
             'replaces': f'cross_attention_renderer_tpu/{replaces}',
             'launches': sum(paths.values()), 'launches_by_path': paths,
             'backward': 'the plain version, recomputed (ops/_autograd.py)',
+            'library_ms': None, **first, 'checked_on': by_label})
+    # the VIEW_PATHS that run each view entry's kernel at its S or shape
+    view_entries = (
+        ('fused_exchange_epilogue_multi_s5', 'K3, S = 5 streams (V=5)'),
+        ('fused_exchange_epilogue_multi_s6', 'K3, S = 6 streams (V=6)'),
+        ('fused_exchange_epilogue_multi_s8',
+         'K3, S = 8 streams (a V=8 block; on no image path)'),
+        ('fused_exchange_epilogue_multi_s5_f32', 'K3 f32, S = 5 (V=5 f32)'),
+        ('fused_exchange_epilogue_multi_s8_f32',
+         'K3 f32, S = 8 (on no image path)'),
+        ('fused_exchange_epilogue_multi_i8_s5', 'K3 int8, S = 5 (V=5 q8)'),
+        ('fused_exchange_epilogue_multi_i8_s5_f32',
+         'K3 int8 with f32 slot weights, S = 5 (on no image path)'),
+        ('fused_exchange_epilogue_multi_i8_s8',
+         'K3 int8, S = 8 (on no image path)'),
+        ('fused_exchange_epilogue_multi_i8_s8_f32',
+         'K3 int8 with f32 slot weights, S = 8 (on no image path)'),
+        ('fused_exchange_epilogue_multi_l4_s5',
+         'K3, 4 pyramid levels, S = 5 (ResNet34 V=5)'),
+        ('epipolar_attention_vp240',
+         'K1, V*P = 240 (V=5; C = 256 on ResNet34)'),
+        ('epipolar_attention_vp288', 'K1, V*P = 288 (V=6)'))
+    for entry, what in view_entries:
+        name = ('epipolar_attention' if entry.startswith('epipolar')
+                else 'fused_exchange_epilogue_multi')
+        source = ('epipolar_attention.cu' if entry.startswith('epipolar')
+                  else 'gather_epilogue_multi.cu')
+        replaces = ('ops/epipolar_attention.py:118'
+                    if entry.startswith('epipolar')
+                    else 'ops/gather_epilogue.py:421')
+        # K3's entries: the path that checked it; K1's: every bf16 path at
+        # its view count
+        paths = {}
+        for label, _, _, entries in VIEW_PATHS:
+            key = label.lower().replace(' ', '_').replace('=', '').replace(
+                '-', '')
+            if name == 'epipolar_attention':
+                views_of = 'v5' if entry.endswith('240') else 'v6'
+                hit = views_of in key and key in vw_paths
+            else:
+                hit = entries.get(name) == entry
+            if hit:
+                paths[key] = dict(vw_paths, **vw_paths_f32)[key][name]
+        by_label = vw_numbers[entry]
+        first = next(iter(by_label.values()))
+        kernels.append({
+            'name': entry, 'mode': what, 'route': 'cuda',
+            'source': f'cross_attention_renderer_torch/csrc/{source}',
+            'replaces': f'cross_attention_renderer_tpu/{replaces}',
+            'launches': sum(paths.values()), 'launches_by_path': paths,
+            'backward': ('none: int8 tables take no gradient'
+                         if '_i8' in entry else
+                         'the plain version, recomputed (ops/_autograd.py)'),
             'library_ms': None, **first, 'checked_on': by_label})
     kernels += cap_kernels + probes
     for kern in kernels:

@@ -3,10 +3,10 @@
 Port of ``cross_attention_renderer_tpu/cli/common.py``: the same flags with
 the same defaults (``--dtype float32`` among them), plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the plain versions of the kernels
-on the CPU). ``--model``, the four ablation flags and ``--views`` 1 to 4
-reach the renderer as in the JAX CLI; ``--views`` above 4 raises in
-:func:`build_model` (the default V>=3 exchange, kernel K3, takes at most
-four streams; the JAX CLI takes any count). The fast-eval flags
+on the CPU). ``--model``, the four ablation flags and ``--views`` (any
+positive count, the context frames spaced evenly as
+``data/realestate.py:context_ids`` spaces them) reach the renderer as in
+the JAX CLI. The fast-eval flags
 (``--pruned``, ``--narrow``, ``--q8``, ``--fast``) select
 ``train/evaluation.py``'s fast renderers, with JAX's defaults.
 """
@@ -144,7 +144,7 @@ class FrameWriter:
 def build_model(opt):
     """The renderer the flags describe, on ``opt.device``, its parameters
     drawn from seed 0 (JAX cli/common.py:130-142). Raises ValueError for
-    ``--views`` outside 1-4."""
+    ``--views`` below 1."""
     from cross_attention_renderer_torch.models.renderer import (
         CrossAttentionRenderer)
     return CrossAttentionRenderer(

@@ -22,7 +22,6 @@ the CPU over gloo.
 
 from __future__ import annotations
 
-import copy
 import time
 from pathlib import Path
 
@@ -160,7 +159,7 @@ def main(argv=None) -> dict:
     val_fn = None
     if (opt.val_img_root and SummaryWriter is not None
             and (is_primary() or sliced)):
-        val_fn = _make_val_fn(opt, model, writer, sliced)
+        val_fn = _make_val_fn(opt, model, writer)
 
     last[0] = time.perf_counter()
     state = fit(model, cfg, data, opt.max_steps, ckpt_dir=str(ckpt_dir),
@@ -169,14 +168,14 @@ def main(argv=None) -> dict:
     return {'state': state, 'log': history}
 
 
-def _make_val_fn(opt, model, writer, sliced=False):
+def _make_val_fn(opt, model, writer):
     """The held-out check written every ``steps_til_summary`` steps: a
     strided 128x128 grid of the first Vis scene's query frame rendered
     whole (``make_summary_renderer``), its PSNR and the summary images,
     written where ``writer`` is given. A model sliced for tensor
-    parallelism renders through the unfused exchange (the fused epilogue
-    reads whole weights). A failed diagnostic prints a warning and never
-    stops the run."""
+    parallelism renders on the same fused route, its exchange reading the
+    sliced weights gathered over the model group (every rank renders).
+    A failed diagnostic prints a warning and never stops the run."""
     import torch
 
     from cross_attention_renderer_torch.data.realestate import (
@@ -188,9 +187,6 @@ def _make_val_fn(opt, model, writer, sliced=False):
     val_ds = RealEstate10kVis(opt.val_img_root,
                               opt.val_pose_root or opt.pose_root,
                               num_ctxt_views=opt.views)
-    if sliced:
-        model = copy.copy(model)
-        model.fused_epilogue = False
     summary_render = make_summary_renderer(model, n_chunks=4)
 
     def val_fn(state, step):

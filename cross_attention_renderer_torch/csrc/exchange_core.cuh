@@ -75,7 +75,9 @@
 // memory; ops/gather_epilogue.py core_plan mirrors it). 'smem': comb and
 // the f rows are swizzled tiles in shared memory, read by wgmma as its
 // shared-memory A operand; the flagship's widths and every fusion_features
-// up to 320 in K2 and K3 (S = 3), 416 in K4 and 672 in K9 take it.
+// up to 320 in K2 and K3 (S = 3), 416 in K4 and 672 in K9 take it. K3 at
+// the flagship's widths takes it up to S = 4 streams: from S = 5 the f rows
+// of S - 1 streams no longer fit beside comb.
 // 'global' (kWide) for
 // wider tiles: comb and the f rows go to a per-block scratch in device
 // memory (L2), stored in the register A operand's fragment order so that
@@ -140,7 +142,6 @@ typedef __nv_bfloat16 bf16;
 enum Mode : int { kPair = 0, kStreams = 1, kMlp = 2, kRender = 3 };
 
 constexpr int kMaxLevels = 4;
-constexpr int kMaxStreams = 4;
 constexpr int kRows = 64;              // samples per tile: wgmma's M
 constexpr int kKBlock = kRows * 128;   // a (64, 64) bf16 A tile, 8 KB
 constexpr int kNC = 64;                // hidden units per chunk
@@ -177,7 +178,9 @@ struct CoreArgs {
   // level from column 0, tanh(pt/5) at tanh_col = 4 * max(n_levels, 3),
   // zero pad to aux_w = 16 (up to three levels) or 24 (four).
   int level_slots, tanh_col, aux_w;
-  const void* aux[kMaxStreams];  // (M, aux_w) per stream
+  // kPair, kRender: aux[s] is stream s's (M, aux_w); kStreams: aux[0]
+  // holds all S streams' rows, (S*M, aux_w) stream-major, as cells[l].
+  const void* aux[2];
   const void* x;                 // kMlp: (M, F) input rows
   const void* x2;                // kMlp: (M, 3)
   const void* lc;                // kRender: (M, 16) local coordinates
@@ -533,12 +536,12 @@ __device__ void produce(const CoreArgs& p, int w, uint32_t slots,
 
 // Gathers the cell rows of stream s for the tile's samples m0 + r, r <
 // n_live, and combines each level's four slots into comb (64, F), swizzled
-// k-blocks of 64 columns; copies the tile's aux rows to aux (64, 16). Rows
+// k-blocks of 64 columns; copies the tile's aux rows to aux (64, aux_w). Rows
 // past n_live get zeros. Run by the kConsumers threads, t = threadIdx.x.
 // kWide: comb goes to the fragment-order tile gcomb in device memory.
 // kF32: aux (rounded to bf16 here) and, unless kI8, the tables are f32.
 // kI8: the tables are int8.
-template <bool kWide, bool kF32, bool kI8>
+template <int kMode, bool kWide, bool kF32, bool kI8>
 __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
                             unsigned char* comb, uint32_t* gcomb, bf16* aux,
                             int* cell) {
@@ -548,7 +551,10 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
     const int r = i / nq, q = i - r * nq;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < n_live)
-      val = load8<kF32, false>(p.aux[s], (size_t)(m0 + r) * aw + 8 * q);
+      val = kMode == kStreams
+                ? load8<kF32, false>(p.aux[0],
+                                     ((size_t)s * p.M + m0 + r) * aw + 8 * q)
+                : load8<kF32, false>(p.aux[s], (size_t)(m0 + r) * aw + 8 * q);
     reinterpret_cast<uint4*>(aux + r * aw)[q] = val;
   }
   // The tile's cell rows of every level first, so that the row loads below
@@ -915,8 +921,8 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
     if (kMode == kMlp)
       load_rows<kWide, kF32>(p, m0, n_live, sm.comb, sm.gcomb, sm.aux);
     else
-      gather_tile<kWide, kF32, kI8>(p, s, m0, n_live, sm.comb, sm.gcomb,
-                                    sm.aux, sm.cell);
+      gather_tile<kMode, kWide, kF32, kI8>(p, s, m0, n_live, sm.comb,
+                                           sm.gcomb, sm.aux, sm.cell);
     for (int g0 = t0; g0 < t1; g0 += kMaxOT) {
       const int g1 = min(g0 + kMaxOT, t1);
       stream_mlp<kWide>(p, p.osplit ? 0 : w ^ (si & 1), p.osplit ? 1 : 2, g0,
@@ -1518,7 +1524,7 @@ inline int fill_sizes(CoreArgs& a, int mode, int S, int M, int F, int H1,
                       int P, int repeat) {
   const bool mlp = mode == kMlp, render = mode == kRender;
   if (M <= 0 || F <= 0 || F % 16 || H1 <= 0 || H1 % 16 || O <= 0 || O % 8 ||
-      S < 1 || S > kMaxStreams || (mlp ? S != 1 : S < 2))
+      (mlp ? S != 1 : mode == kPair ? S != 2 : S < 2))
     return (int)cudaErrorInvalidValue;
   if (!mlp && (K <= 0 || K % 16 || K > kMaxKT * kNK || (S * O) % 16))
     return (int)cudaErrorInvalidValue;

@@ -4,7 +4,8 @@
 // Replaces the TPU kernel `_make_kernel_multi` launched by
 // `_pallas_forward_multi` in cross_attention_renderer_tpu/ops/
 // gather_epilogue.py (`fused_exchange_epilogue_multi`, the default V=3
-// path). Per stream s of [self, cross_0, cross_1] it combines the sample's
+// path). Per stream s of [self, cross_0, ..., cross_{S-2}] (S = V >= 3
+// context views, any count) it combines the sample's
 // cell rows and runs the fuse MLP (tanh rows and biases added in f32), then
 //
 //   jl = lvb + sum_s f_s @ lv[s*O:(s+1)*O]
@@ -37,7 +38,7 @@ namespace {
 
 template <bool kF32, bool kI8>
 int launch_streams(int n_levels, void* const* tables, void* const* cells,
-                   const int* channels, int S, const void* const* aux,
+                   const int* channels, int S, const void* aux,
                    const void* stages, long long stage_bytes,
                    const void* vecs, void* jl, void* kv, int M, int F,
                    int H1, int O, int K, void* scratch,
@@ -48,7 +49,7 @@ int launch_streams(int n_levels, void* const* tables, void* const* cells,
   int err = fill_levels(a, n_levels, tables, cells, channels, &F_sum);
   if (err) return err;
   if (F_sum != F || S < 2) return (int)cudaErrorInvalidValue;
-  for (int s = 0; s < kMaxStreams; ++s) a.aux[s] = s < S ? aux[s] : nullptr;
+  a.aux[0] = aux;
   a.stages = static_cast<const unsigned char*>(stages);
   a.vecs = static_cast<const float*>(vecs);
   a.jl = jl;
@@ -63,8 +64,9 @@ int launch_streams(int n_levels, void* const* tables, void* const* cells,
 }  // namespace
 
 // tables[l]: (rows_l, 4 * channels[l]) bf16, 1 <= n_levels <= 4;
-// cells[l]: (S*M,) int32, stream-major; aux[s]: (M, 16) bf16 per stream,
-// (M, 24) with four levels (exchange_core.cuh, "Levels"), 2 <= S <= 4; stages
+// cells[l]: (S*M,) int32, stream-major; aux: (S*M, 16) bf16, stream-major
+// like the cells, (S*M, 24) with four levels (exchange_core.cuh, "Levels"),
+// any S >= 2; stages
 // (stage_bytes) and vecs: the prepared weights (layout_stages in
 // ops/gather_epilogue.py). jl: (M, O), kv: (M, K) bf16. All contiguous.
 // scratch: scratch_bytes of device memory, which the 'global' plan needs
@@ -76,7 +78,7 @@ int launch_streams(int n_levels, void* const* tables, void* const* cells,
 // _f32 with int8 tables ("Table types").
 extern "C" int fused_exchange_epilogue_multi_bf16(
     int n_levels, void* const* tables, void* const* cells,
-    const int* channels, int S, const void* const* aux, const void* stages,
+    const int* channels, int S, const void* aux, const void* stages,
     long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
     int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
     int* info, void* stream) {
@@ -88,7 +90,7 @@ extern "C" int fused_exchange_epilogue_multi_bf16(
 
 extern "C" int fused_exchange_epilogue_multi_f32(
     int n_levels, void* const* tables, void* const* cells,
-    const int* channels, int S, const void* const* aux, const void* stages,
+    const int* channels, int S, const void* aux, const void* stages,
     long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
     int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
     int* info, void* stream) {
@@ -100,7 +102,7 @@ extern "C" int fused_exchange_epilogue_multi_f32(
 
 extern "C" int fused_exchange_epilogue_multi_i8_bf16(
     int n_levels, void* const* tables, void* const* cells,
-    const int* channels, int S, const void* const* aux, const void* stages,
+    const int* channels, int S, const void* aux, const void* stages,
     long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
     int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
     int* info, void* stream) {
@@ -112,7 +114,7 @@ extern "C" int fused_exchange_epilogue_multi_i8_bf16(
 
 extern "C" int fused_exchange_epilogue_multi_i8_f32(
     int n_levels, void* const* tables, void* const* cells,
-    const int* channels, int S, const void* const* aux, const void* stages,
+    const int* channels, int S, const void* aux, const void* stages,
     long long stage_bytes, const void* vecs, void* jl, void* kv, int M,
     int F, int H1, int O, int K, void* scratch, long long scratch_bytes,
     int* info, void* stream) {

@@ -421,7 +421,7 @@ def context_ids(views: int, end: int) -> list[int]:
     """The evaluation and trajectory context frames: ``views`` frames
     evenly spaced over [0, end], [0] for one view. At 1-3 views these are
     the reference's {0}, {0, end} and {0, end // 2, end}
-    (realestate10k_dataio.py:104-188, :469-595); 4 views (which the
+    (realestate10k_dataio.py:104-188, :469-595); 4 views and more (which the
     reference and the JAX loaders do not take) extend the spacing."""
     if views == 1:
         return [0]

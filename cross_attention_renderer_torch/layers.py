@@ -15,7 +15,12 @@ layer holds a slice of the output features and its bias: its input passes
 group)`` layer holds the matching slice of the input features: its product
 passes :func:`reduce_from_group` (all-reduce forward, identity backward),
 then its replicated bias is added once. ``tp`` None (the default) is the
-whole layer, computed as without a mesh.
+whole layer, computed as without a mesh. A kernel that reads a pair's whole
+weights (the fused exchanges, ``models/renderer.py``) takes them through
+:func:`gather_from_group` (all-gather forward, this rank's slice of the
+gradient backward): every rank of the group runs the same kernel on the
+same rows, so each computes the whole weights' gradient and keeps its
+slice, as the sliced layers would have computed it.
 """
 
 from __future__ import annotations
@@ -24,11 +29,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from cross_attention_renderer_torch.parallel.distributed import (
-    all_reduce_sum)
+    all_gather_cat, all_reduce_sum)
 
 Tensor = torch.Tensor
 
@@ -58,6 +64,29 @@ class _ReduceFromGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """The group's slices concatenated along ``dim`` forward, this rank's
+    slice of the gradient backward: a whole weight that every rank of the
+    group uses in the same computation, so that each rank's gradient is
+    already the whole one (a sum over the group would count it ``group
+    size`` times)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rank = dist.get_rank(ctx.group)
+        return (grad.narrow(ctx.dim, rank * ctx.size, ctx.size).contiguous(),
+                None, None)
+
+
+def gather_from_group(x: Tensor, group, dim: int) -> Tensor:
+    return _GatherFromGroup.apply(x, group, dim)
 
 
 def copy_to_group(x: Tensor, group) -> Tensor:

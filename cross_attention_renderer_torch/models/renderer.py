@@ -1,4 +1,5 @@
-"""Cross-attention light-field renderer (the flagship model), 1 to 4 views.
+"""Cross-attention light-field renderer (the flagship model), any number of
+context views.
 
 Port of ``cross_attention_renderer_tpu/models/renderer.py``, every
 encoder (``model``: the DPT hybrid, the ResNet34 taps or the U-Net down
@@ -13,8 +14,8 @@ branches (renderer.py:295-528):
   both attention rounds in one kernel;
 * V=2 with ``fused_epilogue=False``: the unfused exchange
   (renderer.py:362-388, :857-883);
-* V=3 and V=4, default: the multi-stream fused epilogue (kernel K3 with
-  S = V streams, renderer.py:389-401, :690-767);
+* V>=3, default: the multi-stream fused epilogue (kernel K3 with S = V
+  streams, any count, renderer.py:389-401, :690-767);
 * V>=3 with ``reference_exchange_compat`` or ``fused_epilogue=False``: the
   unfused exchange (renderer.py:402-434, :1056-1112), whose pyramid gathers
   run as kernel K7 or K8 under ``gather`` (ops/pallas_gather.py:163-184);
@@ -81,6 +82,7 @@ from cross_attention_renderer_torch.encoders.unet import UNetEncoder
 from cross_attention_renderer_torch.geometry import epipolar as E
 from cross_attention_renderer_torch.geometry import rays as G
 from cross_attention_renderer_torch.layers import (Conv, Dense,
+                                                   gather_from_group,
                                                    init_parameters,
                                                    lecun_normal_,
                                                    parallel_product)
@@ -97,12 +99,12 @@ from cross_attention_renderer_torch.ops.grid_sample import (
 from cross_attention_renderer_torch.ops.pallas_gather import GATHERS
 from cross_attention_renderer_torch.ops.sorted_gather import (
     grid_sample_pyramid_sorted, grid_sample_sorted, sort_stream, unsort)
+from cross_attention_renderer_torch.parallel.mesh import param_spec, sharded_dim
 from cross_attention_renderer_torch.utils.image import normalize_imagenet
 
 Tensor = torch.Tensor
 
 HIDDEN_DIM = 128          # attention hidden width (models.py:114)
-MAX_VIEWS = 4             # K3, the default V>=3 exchange, takes 4 streams
 # The encoders (``model``): pyramid width and levels (JAX renderer.py:
 # 156-170; encoders/spatial.py:5-7, encoders/unet.py:4-6). The DPT
 # pyramid's width is 2 * fusion_features + 64.
@@ -155,7 +157,8 @@ class SplitDense(nn.Module):
 
 
 class CrossAttentionRenderer(nn.Module):
-    """The flagship renderer at 1 to 4 views (see the module docstring).
+    """The flagship renderer at any number of context views (see the module
+    docstring).
 
     Sizes default to the reference configuration (the 122M DPT-hybrid);
     smaller encoder settings keep the architecture for CPU tests. The
@@ -164,7 +167,7 @@ class CrossAttentionRenderer(nn.Module):
     placed on ``device``.
 
     Args:
-      n_view: context views, 1 to 4 (``MAX_VIEWS``).
+      n_view: context views, any count from 1.
       npoints: epipolar samples per view; 0 takes the reference's default,
         64 at V <= 2 and 48 above (models.py:47-54).
       model: the encoder, ``'midas_vit'`` (the DPT hybrid and the 7x7
@@ -184,7 +187,7 @@ class CrossAttentionRenderer(nn.Module):
         everywhere (the JAX ``fused_attention``; the trainer's clone sets
         it, ``train/trainer.py:_train_model``).
       fused_epilogue: take the fused exchange epilogue (K2 at V=2, K3 at
-        V=3 and V=4); ``None`` (the default) as ``True``, which on the CPU
+        V>=3); ``None`` (the default) as ``True``, which on the CPU
         runs the epilogue's plain version. ``False`` takes the unfused
         exchange (the JAX ``fused_epilogue``; the trainer's clone sets it).
       reference_exchange_compat: reproduce the reference's 3-view exchange
@@ -236,11 +239,8 @@ class CrossAttentionRenderer(nn.Module):
                  gather: str = 'take', remat: bool = False,
                  narrow_features: Optional[Sequence[int]] = None):
         super().__init__()
-        if not 1 <= n_view <= MAX_VIEWS:
-            raise ValueError(
-                f'the port renders 1 to {MAX_VIEWS} context views, got '
-                f'n_view={n_view}: the default V>=3 exchange, kernel K3, '
-                f'takes at most {MAX_VIEWS} streams (kMaxStreams)')
+        if n_view < 1:
+            raise ValueError(f'n_view must be at least 1, got {n_view}')
         if model not in ENCODERS:
             raise ValueError(f'model must be one of {tuple(ENCODERS)}, got '
                              f'{model!r}')
@@ -686,30 +686,30 @@ class CrossAttentionRenderer(nn.Module):
             aux.append(torch.cat(weights + [t, pad], dim=-1))
         return tuple(torch.cat(c) for c in cells), aux
 
-    def _whole_weights(self, kernel: str) -> None:
-        """Raises where the exchange's layers hold tensor-parallel slices
-        (``train/trainer.py:shard_state``): ``kernel`` reads whole
-        weights."""
-        if any(getattr(getattr(self, name, None), 'tp', None) is not None
-               for name in ('query_encode_latent', 'key_map')):
-            raise NotImplementedError(
-                f'{kernel} under tensor parallelism: the kernel reads whole '
-                'weights; the plain route (fused_epilogue=False, '
-                'fused_mlp=False, fused_render=False) computes the sliced '
-                'layers')
+    def _whole(self, name: str, attr: str) -> Tensor:
+        """Parameter ``attr`` of layer ``name`` whole, for a kernel that
+        reads whole weights (K2, K3, K4, K9): the parameter itself, or,
+        where the layer holds a tensor-parallel slice of it
+        (``train/trainer.py:shard_state``), the slices gathered over the
+        model group (``layers.gather_from_group``: each rank keeps its
+        slice of the gradient), as XLA hands the JAX package's Pallas
+        kernels whole weights under any mesh."""
+        layer = getattr(self, name)
+        t = getattr(layer, attr)
+        if layer.tp is None:
+            return t
+        dim = sharded_dim(param_spec(f'{name}.{attr}', t))
+        return t if dim is None else gather_from_group(t, layer.tp[1], dim)
 
     def _epilogue_weights(self) -> tuple[Tensor, ...]:
-        """The fused epilogues' ten parameters themselves (kernels in (in,
-        out) layout, biases). K2, K3 and K4 lay them out once per set of
-        parameters (``prepared_weights``); their plain versions cast them to
-        the rows' type."""
-        self._whole_weights('the fused exchange (K2, K3, K4)')
-        return (self.query_encode_latent.kernel, self.query_encode_latent.bias,
-                self.query_encode_latent_2.kernel,
-                self.query_encode_latent_2.bias,
-                self.latent_value.kernel, self.latent_value.bias,
-                self.key_map.kernel, self.key_map.bias,
-                self.key_map_2.kernel, self.key_map_2.bias)
+        """The fused epilogues' ten parameters, whole (:meth:`_whole`;
+        kernels in (in, out) layout, biases). K2, K3 and K4 lay them out
+        once per set of tensors (``prepared_weights``: under tensor
+        parallelism the gathered ones, so once a forward); their plain
+        versions cast them to the rows' type."""
+        return tuple(self._whole(name, attr) for name in (
+            'query_encode_latent', 'query_encode_latent_2', 'latent_value',
+            'key_map', 'key_map_2') for attr in ('kernel', 'bias'))
 
     def _fused_exchange_v2(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr,
                            H, W) -> tuple[Tensor, Tensor]:
@@ -770,12 +770,14 @@ class CrossAttentionRenderer(nn.Module):
         t = torch.tanh(points / 5.0).to(feat.dtype)
         qel, qel2 = self.query_encode_latent, self.query_encode_latent_2
         if self.fused_mlp:
-            self._whole_weights('the fused MLP (K9)')
             c1 = feat.shape[-1]
+            w1, b1, w2, b2 = (self._whole(name, attr) for name in (
+                'query_encode_latent', 'query_encode_latent_2')
+                for attr in ('kernel', 'bias'))
             out = fused_mlp2(
                 feat.reshape(-1, c1).to(self.dtype).contiguous(),
-                t.reshape(-1, t.shape[-1]).contiguous(), qel.kernel[:c1],
-                qel.kernel[c1:], qel.bias, qel2.kernel, qel2.bias)
+                t.reshape(-1, t.shape[-1]).contiguous(), w1[:c1], w1[c1:],
+                b1, w2, b2)
             return out.reshape(*feat.shape[:-1], out.shape[-1])
         return qel2(torch.relu(qel(feat, t)))
 

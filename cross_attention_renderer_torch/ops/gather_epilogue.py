@@ -32,7 +32,9 @@ Layout contract (the renderer's (B, V, R, P) flattening): per level, the
 cell rows of all streams stacked stream-major, (S*M,) int32; one aux array
 per stream (:func:`aux_layout`): 4 slot weights a level, tanh(pt/5) (3)
 and a pad, (M, 16) for up to three levels and (M, 24) for four; at V=2
-sample m belongs to view (m // rp) % 2.
+sample m belongs to view (m // rp) % 2. K3 reads its S aux arrays as one
+stream-major (S*M, aux_w) tensor, like the cell rows, so that a launch
+takes any stream count: its wrapper concatenates them.
 
 With four levels the epilogues compute the JAX package's unfused exchange
 (``_latent_exchange_parts`` then ``latent_value``, ``key_map``,
@@ -443,8 +445,15 @@ def check_core_widths(what: str, mode: str, S: int, F: int, H1: int, O: int,
                       K: int, P: int = 0, levels: int = 3) -> None:
     """Raises ValueError on widths the exchange core does not take: K above
     256 (the attention width, 128 in both packages and not configurable),
-    and vectors too long for shared memory even in the 'global' plan (H1
-    in the tens of thousands, or K4's P in the thousands)."""
+    an f row S * O wide that is not a whole number of 16-deep product
+    steps (O = fusion_features + 32 an odd multiple of 8 at an odd S), and
+    vectors too long for shared memory even in the 'global' plan (H1 in
+    the tens of thousands, or K4's P in the thousands)."""
+    if mode != 'mlp' and (S * O) % 16:
+        raise ValueError(f'{what}: S * O = {S} * {O} = {S * O} is not a '
+                         'multiple of 16: the core reads the S streams\' '
+                         'f rows as one product of that depth, in 16-deep '
+                         'steps')
     if mode != 'mlp' and K > MAX_K:
         raise ValueError(f'{what}: K = {K} > {MAX_K}: K is the attention '
                          'width (HIDDEN_DIM, 128 in both packages and not '
@@ -597,19 +606,28 @@ def _reference_multi(vals_stacked: Sequence[Tensor],
     """The S-stream epilogue's math on taken rows (JAX ``_reference_multi``).
 
     vals_stacked: per-level (S*M, 4C) rows, stream-major. aux_list: S
-    arrays (M, 16). params: as :func:`_reference`, with lv (S*O, O) and
-    km (S*O, K). Each stream's products round to the compute type, as in the
-    JAX reference."""
+    arrays (M, 16) (or (M, 24) with four levels), any S >= 2. params: as
+    :func:`_reference`, with lv (S*O, O) and km (S*O, K). Each stream's
+    products round to the compute type, as in the JAX reference."""
+    M = vals_stacked[0].shape[0] // len(aux_list)
+    return _streams_reference(
+        lambda s: [v[s * M:(s + 1) * M] for v in vals_stacked],
+        vals_stacked[0].dtype, aux_list, params)
+
+
+def _streams_reference(stream_rows, rows_dtype: torch.dtype,
+                       aux_list: Sequence[Tensor],
+                       params: Sequence[Tensor]) -> tuple[Tensor, Tensor]:
+    """:func:`_reference_multi` with stream s's per-level rows from
+    ``stream_rows(s)`` (rows of type ``rows_dtype``), one stream at a time:
+    the same products in the same order, holding one stream's rows."""
     (w1, b1, w2, b2, lv, lv_bias, km, km_bias, k2, k2_bias) = params
-    S = len(aux_list)
-    dt = _compute_dtype(vals_stacked, aux_list[0])
-    M = vals_stacked[0].shape[0] // S
+    dt = rows_dtype if rows_dtype.is_floating_point else aux_list[0].dtype
     O = w2.shape[1]
     jl = lv_bias.to(dt)
     kh = km_bias.to(dt)
-    for s in range(S):
-        f = _fuse([v[s * M:(s + 1) * M] for v in vals_stacked], aux_list[s],
-                  w1, b1, w2, b2)
+    for s, aux in enumerate(aux_list):
+        f = _fuse(stream_rows(s), aux, w1, b1, w2, b2)
         jl = jl + f @ lv[s * O:(s + 1) * O].to(dt)
         kh = kh + f @ km[s * O:(s + 1) * O].to(dt)
     kv = torch.relu(kh) @ k2.to(dt) + k2_bias.to(dt)
@@ -618,10 +636,14 @@ def _reference_multi(vals_stacked: Sequence[Tensor],
 
 def fused_exchange_epilogue_multi_reference(tables, cells, aux_list, params):
     """Plain version: ``index_select`` row take, then
-    :func:`_reference_multi`."""
-    vals = [t.reshape(-1, t.shape[-1]).index_select(0, c.long())
-            for t, c in zip(tables, cells)]
-    return _reference_multi(vals, aux_list, params)
+    :func:`_reference_multi`, one stream's rows at a time (at the V=8
+    flagship's first block all streams' rows would be ~115 GB)."""
+    flat = [t.reshape(-1, t.shape[-1]) for t in tables]
+    M = aux_list[0].shape[0]
+    return _streams_reference(
+        lambda s: [t.index_select(0, c[s * M:(s + 1) * M].long())
+                   for t, c in zip(flat, cells)],
+        tables[0].dtype, aux_list, params)
 
 
 def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
@@ -642,8 +664,10 @@ def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
 
     CPU tensors take the plain version. CUDA tensors must be contiguous,
     aux bf16 or f32 and the tables in aux's type or int8 (cells int32),
-    with 2 to 4 streams; they launch the kernel's instantiation of those
-    types, and anything else raises."""
+    with any S >= 2 streams; they launch the kernel's instantiation of those
+    types, and anything else raises. From S = 5 at the flagship's widths
+    the f rows of S - 1 streams outgrow shared memory and the core takes
+    its 'global' plan (:func:`core_plan`)."""
     if aux_list[0].device.type == 'cpu':
         return fused_exchange_epilogue_multi_reference(tables, cells,
                                                        aux_list, params)
@@ -658,9 +682,9 @@ fused_exchange_epilogue_multi.last_plan = None
 
 def _launch_multi(tables, cells, aux_list, params):
     S = len(aux_list)
-    if not 2 <= S <= 4:
-        raise ValueError(f'fused_exchange_epilogue_multi: 2 to 4 streams, '
-                         f'got {S}')
+    if S < 2:
+        raise ValueError(f'fused_exchange_epilogue_multi: at least 2 '
+                         f'streams, got {S}')
     levels, sizes, stages, vecs, scratch = _core_args(
         'fused_exchange_epilogue_multi', 'streams', tables, cells, aux_list,
         params)
@@ -673,11 +697,12 @@ def _launch_multi(tables, cells, aux_list, params):
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 2)
-    aux_ptrs = (ctypes.c_void_p * S)(*[a.data_ptr() for a in aux_list])
+    aux = torch.cat(list(aux_list))
     info = (ctypes.c_int * 8)()
     with torch.cuda.device(jl.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(len(tables), *levels, S, aux_ptrs, stages.data_ptr(),
+        _build.check(fn(len(tables), *levels, S, aux.data_ptr(),
+                        stages.data_ptr(),
                         stages.numel() * 2, vecs.data_ptr(), jl.data_ptr(),
                         kv.data_ptr(), *sizes, *_scratch_args(scratch), info,
                         stream),

@@ -228,13 +228,10 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, mesh=None,
     replicated parameters' gradients, which every rank of a model group
     computes whole, are first averaged over that group too: the card's
     atomic adds round them differently on each rank, and the copies must
-    not drift apart. The kernel route (``CAR_TRAIN_KERNELS=1``) refuses
-    ``model`` > 1: K2 and K4 read whole weights."""
-    if (mesh is not None and axis_size(mesh, 'model') > 1
-            and os.environ.get('CAR_TRAIN_KERNELS', '0') == '1'):
-        raise NotImplementedError(
-            'the kernel route (CAR_TRAIN_KERNELS=1) under tensor '
-            'parallelism: K2 and K4 read whole weights')
+    not drift apart. On the kernel route (``CAR_TRAIN_KERNELS=1``) at
+    ``model`` > 1 the fused exchange reads the sliced weights gathered
+    over the model group, and each rank keeps its slice of their gradient
+    (``layers.gather_from_group``)."""
     loss_fn = make_loss_fn(model, cfg, lpips_fn, loss_schedules)
     device = model_device(model)
     data_group = None if mesh is None else mesh.get_group('data')

@@ -228,7 +228,8 @@ def test_scan_renderer_matches_one_call(kw):
 
 def test_fields_and_refusals():
     """The latent width, the packed tables and the paths each setting
-    takes, and what is refused: V outside 1-4, t_vals or pruned under
+    takes (V = 5 builds, with 48 samples), and what is refused: V below
+    1, t_vals or pruned under
     no_sample, the fused render without the V=2 exchange, narrow and q8
     without the exchange, narrow widths that are not one a level."""
     kw = {k: v for k, v in SMALL.items() if k != 'npoints'}
@@ -241,7 +242,9 @@ def test_fields_and_refusals():
     assert v1.latent_dim == 512 and not v1.uses_packed_tables
     nlc = CrossAttentionRenderer(no_latent_concat=True, device='cpu', **kw)
     assert nlc.latent_dim == 128 and not nlc.uses_packed_tables
-    for bad in (dict(n_view=0), dict(n_view=5), dict(model='vgg'),
+    assert CrossAttentionRenderer(n_view=5, device='cpu',
+                                  **kw).n_samples == 48
+    for bad in (dict(n_view=0), dict(model='vgg'),
                 dict(n_view=1, fused_render=True),
                 dict(no_latent_concat=True, fused_render=True),
                 dict(model='resnet', narrow_features=(8, 8, 8))):

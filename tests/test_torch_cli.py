@@ -310,8 +310,8 @@ def test_fast_eval_flags_parse_and_raise(dataset, tmp_path):
                                    ['--views', '4'], ['--views', '1']])
 def test_build_model_refuses_what_is_not_ported(flags):
     """Each of these was refused until the port had it: now each builds
-    the renderer it names, and only a view count above K3's four streams
-    is refused."""
+    the renderer it names, and so does a view count above four (K3 takes
+    any stream count)."""
     opt = C.base_parser('t').parse_args([*flags, *TINY_FLAGS])
     model = C.build_model(opt)
     assert model.model == opt.model and model.n_view == opt.views
@@ -321,8 +321,8 @@ def test_build_model_refuses_what_is_not_ported(flags):
                                        n_rays=4, device='cpu'))) == (
         3 if opt.model == 'midas_vit' else 4)
     opt.views = 5
-    with pytest.raises(ValueError, match='kMaxStreams'):
-        C.build_model(opt)
+    model = C.build_model(opt)
+    assert model.n_view == 5 and model.n_samples == opt.npoints
 
 
 def test_train_cli_resnet_one_view(dataset, tmp_path):

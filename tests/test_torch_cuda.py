@@ -954,6 +954,49 @@ def test_train_step_kernel_route_matches_default_route(dev):
     assert errs[worst] <= 0.25, (worst, errs[worst])
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
+                         ids=['bf16', 'f32'])
+@pytest.mark.parametrize('channels,H1,O,K,hw,M,S', [
+    # the flagship's widths: 'global' from S = 5
+    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 3 * 64 + 29, 5),
+    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 2 * 64 + 7, 6),
+    ((256, 256, 64), 576, 288, 128, (16, 32, 64), 150, 8),
+    # narrow widths keep 'smem' at S = 8; S*O not a multiple of 64
+    ((32, 32, 16), 80, 48, 16, (4, 8, 16), 2 * 64 + 7, 7),
+    ((32, 32, 16), 80, 40, 16, (4, 8, 16), 130, 8),
+    # four levels at the ResNet34's widths ('smem' at 5, 'global' at 6)
+    ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 3 * 64 + 11, 5),
+    ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 2 * 64 + 3, 6),
+])
+def test_exchange_epilogue_multi_any_stream_count(dev, channels, H1, O, K,
+                                                  hw, M, S, dtype):
+    """K3 at S = 5 to 8 streams in bf16 and f32, its aux rows handed as
+    views of one tensor and as S separate arrays: both equal, within the
+    stated fraction of the plain version, and the plan the one core_plan
+    predicts."""
+    tables, cells, aux, params = _epilogue_case(
+        dev, channels, H1, O, K, 3, hw, M, S=S, seed=S)
+    tables = tuple(t.to(dtype) for t in tables)
+    params = tuple(p.to(dtype) for p in params)
+    whole = torch.stack(aux).to(dtype)
+    views = tuple(whole.unbind(0))
+    copies = tuple(a.clone() for a in views)
+    jl, kv = GE.fused_exchange_epilogue_multi(tables, cells, views, params)
+    jl2, kv2 = GE.fused_exchange_epilogue_multi(tables, cells, copies,
+                                                params)
+    torch.cuda.synchronize()
+    plan = GE.core_plan('streams', S, sum(channels), H1, O, K,
+                        levels=len(channels))[0]
+    assert GE.fused_exchange_epilogue_multi.last_plan == plan
+    jl_ref, kv_ref = GE.fused_exchange_epilogue_multi_reference(
+        tables, cells, views, params)
+    assert torch.equal(jl, jl2) and torch.equal(kv, kv2)
+    assert jl.dtype == dtype and jl.shape == (M, O) and kv.shape == (M, K)
+    assert torch.isfinite(jl.float()).all() and torch.isfinite(kv.float()).all()
+    assert _max_err(jl, jl_ref) <= 2 ** -5 * _scale(jl_ref)
+    assert _max_err(kv, kv_ref) <= 2 ** -5 * _scale(kv_ref)
+
+
 # int8 tables (the quantized pyramid of fast evaluation) beside bf16 or f32
 # aux, local coordinates and weights: K2, K3 and K4's int8 instantiations
 # against their plain versions, which cast the rows to aux's type and
@@ -971,7 +1014,7 @@ def _int8_case(dev, key, ff, dtype, P=64):
                                                1, 5, P)
         rest, aux = (lc, prm), (a_s, a_c)
     else:
-        S = 2 if key == 'K2' else 3
+        S = 2 if key == 'K2' else int(key[-1]) if '=' in key else 3
         t, c, aux, prm = _epilogue_case(dev, channels, H1, O, K, S, hw,
                                         3 * 64 + 37, S=S, seed=S)
         rest = (prm,)
@@ -996,7 +1039,8 @@ def _int8_case(dev, key, ff, dtype, P=64):
 
 
 INT8_CASES = ([(k, ff, 64) for k in ('K2', 'K3', 'K4') for ff in (256, 512)]
-              + [('K4', 256, 8), ('K4', 256, 24)])
+              + [('K4', 256, 8), ('K4', 256, 24), ('K3 S=5', 256, 64),
+                 ('K3 S=8', 256, 64)])
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],

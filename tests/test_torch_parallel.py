@@ -30,10 +30,20 @@
 * ``cli.train`` in 2 processes with ``--tensor_parallel 2`` on a 2-scene
   corpus (tests/test_torch_cli.py's), 2 steps: both ranks log the same
   losses, only the primary writes checkpoints, and the val summary
-  renders on both ranks (through the unfused exchange) and is written by
-  the primary.
+  renders on both ranks (through the fused exchange, on the gathered
+  weights) and is written by the primary.
+* The fused kernels under tensor parallelism. Two gloo processes at
+  model = 2 render through K2, K4 and K9 (their plain versions here) on
+  the sliced exchange weights gathered over the model group: each image
+  equals one process's (1e-5) and JAX's fused render (1e-4 + 1e-4
+  max(1, |JAX|)). Four processes, DP 2 x TP 2, take one
+  ``CAR_TRAIN_KERNELS=1`` step: its loss and gradient norm equal one
+  process's (1e-5), and each sliced exchange weight's gradient equals
+  its slice of the one-process gradient (1e-5 of its largest entry);
+  the same step with the gather's backward summed over the model group
+  (a reduce-scatter) fails that comparison.
 
-The eight rank processes start together when the module's first test
+The fourteen rank processes start together when the module's first test
 needs them, each in one intra-op thread with a 180 s timeout.
 """
 
@@ -68,7 +78,8 @@ from cross_attention_renderer_torch.tools import make_corpus as PM
 from cross_attention_renderer_torch.tools import multihost_smoke as MH
 from cross_attention_renderer_torch.train import evaluation as E
 from cross_attention_renderer_torch.train import trainer as T
-from torch_parallel_cases import FRAME_HW, RENDER_HW, TINY
+from torch_parallel_cases import (EXCHANGE_SLICED, FRAME_HW, FUSED_ROUTES,
+                                  RENDER_HW, TINY)
 from torch_parity import assert_close, random_flax_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -123,7 +134,8 @@ def runs(tmp_path_factory, jax_params):
     env = dict(os.environ, PYTHONPATH=f'{ROOT}:{ROOT / "tests"}',
                OMP_NUM_THREADS='1')
     procs = {}
-    for case, world in (('train', 4), ('render', 2), ('cli', 2)):
+    for case, world in (('train', 4), ('render', 2), ('cli', 2),
+                        ('fused', 2), ('kernels', 4)):
         port = _free_port()
         procs[case] = (out, [subprocess.Popen(
             [sys.executable, str(ROOT / 'tests' / 'torch_parallel_cases.py'),
@@ -269,6 +281,88 @@ def test_sharded_render_equals_the_chunk_render(runs, jax_params):
                  rtol=RENDER_TOL)
 
 
+# --- the fused kernels under tensor parallelism -----------------------------
+
+@pytest.fixture(scope='module')
+def fused_want(jax_params):
+    """One process's chunk render of the 32x32 image on each fused route,
+    and JAX's fused render of it."""
+    n = RENDER_HW * RENDER_HW
+    scene = make_scene(6, H=RENDER_HW, W=RENDER_HW, n_rays=n,
+                       full_image=True, device='cpu')
+    want = {}
+    for route, kw in FUSED_ROUTES.items():
+        model = CrossAttentionRenderer(device='cpu', **MODEL, **kw)
+        model.load_state_dict(params_from_jax(jax_params))
+        encode, render_chunk = E.make_chunk_renderer(model)
+        want[route] = render_chunk(scene, encode(scene),
+                                   scene['query']['uv'])
+    jscene = jax_scene(6, H=RENDER_HW, W=RENDER_HW, n_rays=n,
+                       full_image=True)
+    jmodel = JaxRenderer(fused_epilogue=True, fused_attention=False, **MODEL)
+    jencode, jrender = JE.make_chunk_renderer(jmodel, jax_params)
+    jrgb, jvalid = jrender(jscene, jencode(jscene), jscene['query']['uv'])
+    return want, (np.asarray(jrgb), np.asarray(jvalid))
+
+
+@pytest.mark.parametrize('route', sorted(FUSED_ROUTES))
+def test_fused_kernels_render_under_tensor_parallelism(runs, fused_want,
+                                                       route):
+    out, _ = runs['fused']
+    _outputs(runs, 'fused')
+    ranks = [np.load(out / f'fused{r}.npz') for r in range(2)]
+    want, (jrgb, jvalid) = fused_want
+    for k in ('rgb', 'valid'):
+        got = ranks[0][f'{route}_{k}']
+        np.testing.assert_array_equal(got, ranks[1][f'{route}_{k}'])
+        one = want[route][0 if k == 'rgb' else 1].numpy()
+        np.testing.assert_allclose(got, one, atol=1e-5)
+        assert_close(k, got, jrgb if k == 'rgb' else jvalid,
+                     atol=RENDER_TOL, rtol=RENDER_TOL)
+
+
+def _kernel_route_one_process(jax_params, monkeypatch):
+    """One process's CAR_TRAIN_KERNELS=1 step on the global batch: (loss,
+    gradient norm, {name: gradient} of the exchange's sliced weights)."""
+    monkeypatch.setenv('CAR_TRAIN_KERNELS', '1')
+    model = CrossAttentionRenderer(device='cpu', **MODEL)
+    model.load_state_dict(params_from_jax(jax_params))
+    cfg = T.TrainConfig(lr=MH.LR)
+    _, m = T.make_train_step(model, cfg)(T.create_train_state(model, cfg),
+                                         _global_scenes()[0])
+    params = dict(model.named_parameters())
+    return (float(m['total_loss']), float(m['grad_norm']),
+            {n: params[n].grad for n in EXCHANGE_SLICED})
+
+
+def test_kernel_route_dp_tp_step_equals_one_process(runs, jax_params,
+                                                    monkeypatch):
+    out, _ = runs['kernels']
+    _outputs(runs, 'kernels')
+    loss, norm, grads = _kernel_route_one_process(jax_params, monkeypatch)
+    specs = PP.param_shardings(CrossAttentionRenderer(device='cpu', **MODEL))
+
+    def slice_matches(got, name, r, prefix):
+        want = M.shard_tensor(grads[name], specs[name], _Rank(r, 2))
+        tol = 1e-5 * float(want.abs().max())
+        return (got[prefix + name].shape == tuple(want.shape)
+                and float(np.abs(got[prefix + name] - want.numpy()).max())
+                <= tol)
+
+    for r in range(4):
+        got = np.load(out / f'kernels{r}.npz')
+        mr = int(got['model_rank'])
+        np.testing.assert_allclose(float(got['loss']), loss, rtol=1e-5)
+        np.testing.assert_allclose(float(got['grad_norm']), norm,
+                                   rtol=1e-5)
+        for name in EXCHANGE_SLICED:
+            assert specs[name], name
+            assert slice_matches(got, name, mr, ''), (r, name)
+        # a summed backward counts each rank's whole gradient model times
+        assert not all(slice_matches(got, name, mr, 'summed_')
+                       for name in EXCHANGE_SLICED)
+
+
 # --- two ranks: the CLI ------------------------------------------------------
 
 def test_train_cli_tensor_parallel(runs):
@@ -282,8 +376,8 @@ def test_train_cli_tensor_parallel(runs):
                                        'checkpoints').glob('*.pt'))
                for r in range(2)]
     assert written == [['current.pt', 'final.pt'], []], written
-    # the val summary: both ranks render it (each holds a slice of the
-    # model), the primary alone prints and writes it
+    # the val summary: both ranks render it on the fused route (each
+    # holds a slice of the model), the primary alone prints and writes it
     assert not any('val summary failed' in o for o in outputs)
     if importlib.util.find_spec('tensorboardX') is not None:
         assert 'val_psnr=' in outputs[0] and 'val_psnr=' not in outputs[1]

@@ -19,6 +19,16 @@ and the corpus, and receives what the ranks write.
 * ``cli`` (world 2): ``cli.train`` with ``--tensor_parallel 2`` for 2
   steps on the corpus, with the val summary at step 2, each rank logging
   under ``rank<rank>/`` (CLI line: the returned log).
+* ``fused`` (world 2, model = 2): the model sliced by ``shard_state``
+  renders a 32x32 image through ``make_sharded_renderer`` on each fused
+  route (``FUSED_ROUTES``: K2, K4 and K9's plain versions on the gathered
+  weights); each rank saves the images to ``fused<rank>.npz``.
+* ``kernels`` (world 4, DP 2 x TP 2, ``CAR_TRAIN_KERNELS=1``): one step
+  of the kernel route (K2's plain version on the gathered weights, K1's);
+  each rank saves its loss, gradient norm and the gradients of its
+  sliced exchange weights to ``kernels<rank>.npz``, then the same with the
+  gather's backward replaced by a sum over the model group (a
+  reduce-scatter's) under the ``summed_`` keys.
 """
 
 import itertools
@@ -38,12 +48,20 @@ TINY_FLAGS = ['--fusion_features', '32', '--vit_width', '64',
               '--device', 'cpu']
 FRAME_HW = (64, 114)
 RENDER_HW = 32
+# the fused exchanges a sliced model renders through (the renderer's flags)
+FUSED_ROUTES = {'k2': {}, 'k4': dict(fused_render=True),
+                'k9': dict(fused_epilogue=False, fused_mlp=True)}
+# the exchange's sliced weights (parallel/mesh.py _TP_RULES)
+EXCHANGE_SLICED = ('query_encode_latent.kernel', 'query_encode_latent.bias',
+                   'query_encode_latent_2.kernel', 'key_map.kernel',
+                   'key_map.bias', 'key_map_2.kernel')
 
 
-def _model(weights: Path):
+def _model(weights: Path, **kw):
     from cross_attention_renderer_torch.models.renderer import (
         CrossAttentionRenderer)
-    model = CrossAttentionRenderer(n_view=2, npoints=8, device='cpu', **TINY)
+    model = CrossAttentionRenderer(n_view=2, npoints=8, device='cpu', **TINY,
+                                   **kw)
     model.load_state_dict(torch.load(weights, weights_only=True))
     return model
 
@@ -148,11 +166,86 @@ def cli(rank, world, port, out: Path) -> None:
         flush=True)
 
 
+def fused(rank, world, port, out: Path) -> None:
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.parallel.distributed import (
+        initialize, make_global_mesh)
+    from cross_attention_renderer_torch.train import trainer as T
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_sharded_renderer)
+
+    initialize(f'localhost:{port}', world, rank, backend='gloo')
+    mesh = make_global_mesh(data=1, model=world, rays=1, device_type='cpu')
+    scene = make_scene(6, H=RENDER_HW, W=RENDER_HW,
+                       n_rays=RENDER_HW * RENDER_HW, full_image=True,
+                       device='cpu')
+    images = {}
+    for route, kw in FUSED_ROUTES.items():
+        model = _model(out / 'weights.pt', **kw)
+        T.shard_state(T.create_train_state(model, T.TrainConfig()), mesh)
+        assert model.key_map.tp is not None
+        with torch.inference_mode():
+            z = model.encode(scene)
+            rgb, valid = make_sharded_renderer(model, mesh)(
+                scene, z, scene['query']['uv'])
+        images[f'{route}_rgb'], images[f'{route}_valid'] = rgb, valid
+    np.savez(out / f'fused{rank}.npz',
+             **{k: v.numpy() for k, v in images.items()})
+    print('FUSED', sorted(images), flush=True)
+
+
+def kernels(rank, world, port, out: Path) -> None:
+    import os
+
+    from cross_attention_renderer_torch import layers
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.parallel.distributed import (
+        all_reduce_sum, initialize, make_global_mesh, process_batch_slice)
+    from cross_attention_renderer_torch.tools import multihost_smoke as MH
+    from cross_attention_renderer_torch.train import trainer as T
+
+    os.environ['CAR_TRAIN_KERNELS'] = '1'
+    initialize(f'localhost:{port}', world, rank, backend='gloo')
+    mesh = make_global_mesh(data=2, model=2, device_type='cpu')
+    start, size = process_batch_slice(MH.GLOBAL_BATCH, mesh)
+    scene = MH.take_rows(make_scene(0, batch=MH.GLOBAL_BATCH, n_view=2,
+                                    H=64, W=64, n_rays=16, device='cpu'),
+                         start, size)
+
+    def one_step(prefix):
+        model = _model(out / 'weights.pt')
+        cfg = T.TrainConfig(lr=MH.LR)
+        state = T.shard_state(T.create_train_state(model, cfg), mesh)
+        _, m = T.make_train_step(model, cfg, mesh)(state, scene)
+        params = dict(model.named_parameters())
+        got = {prefix + n: params[n].grad.numpy() for n in EXCHANGE_SLICED}
+        got[prefix + 'loss'] = np.float32(m['total_loss'])
+        got[prefix + 'grad_norm'] = np.float32(m['grad_norm'])
+        return got
+
+    res = one_step('')
+
+    def summed_backward(ctx, grad):
+        # what a reduce-scatter gives: the ranks' gradients summed, then
+        # this rank's slice
+        rank_ = torch.distributed.get_rank(ctx.group)
+        total = all_reduce_sum(grad, ctx.group)
+        return (total.narrow(ctx.dim, rank_ * ctx.size, ctx.size), None,
+                None)
+
+    layers._GatherFromGroup.backward = staticmethod(summed_backward)
+    res.update(one_step('summed_'))
+    np.savez(out / f'kernels{rank}.npz', **res,
+             model_rank=np.int32(mesh.get_local_rank('model')))
+    print('KERNELS', float(res['loss']), flush=True)
+
+
 if __name__ == '__main__':
     torch.set_num_threads(1)
     case, rank, world, port, out = sys.argv[1:]
     try:
-        {'train': train, 'render': render, 'cli': cli}[case](
+        {'train': train, 'render': render, 'cli': cli, 'fused': fused,
+         'kernels': kernels}[case](
             int(rank), int(world), int(port), Path(out))
     finally:
         if dist.is_initialized():
