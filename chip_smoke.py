@@ -215,7 +215,17 @@ no result):
      small-input agreement at V=5;
  29. the card tools ported from the JAX repository's ``tools/``
      (``TOOL_RUNS``): each run once in this process at its shortest
-     setting, printing its lines (``bench_ondisk`` on phase 21's corpus).
+     setting, printing its lines (``bench_ondisk`` on phase 21's corpus);
+ 30. widths the kernels once refused (``WIDTH_PATHS``), as phase 3 drives
+     the flagship: fusion_features 100 on V=2 (16 K1, 8 K2), its fused
+     render (8 K4), V=3 (16 K1, 8 K3), V=3 compat (72 K9), V=2 sorted (48
+     K5) and V=3 compat one-hot (48 K7); 102 on V=2 and V=3; 264 on V=3;
+     narrow 100,50,30 on V=2; each image against the same model's unfused
+     route, each kernel at its new widths against its plain version and
+     timed beside its bound; K2 in f32 and int8 at 102 (a q8 image), K8 at
+     C = 100 and in an ff=100 small-input render; then a seeded upstream
+     ``.pth`` through ``tools/convert_checkpoint.py`` into ``cli/eval.py
+     --checkpoint_path`` (16 K1, 8 K2), held to ``evaluate_scene``.
 Then it prints the ``train`` JSON line (phases 17-19), the ``cli`` line
 (phases 21-22), the ``fast_eval`` line (phase 23: each image's ms and
 rays/s, the dense images' device busy, each path's launches), the
@@ -225,11 +235,12 @@ curve, steps/s, peak GB, each eval_pruned mode's dB, ms an image and
 rays/s), the ``parallel`` line (phase 27: each mesh's losses, gradient
 norms, ms a step and peak GB a rank, the renders' ms and launches a
 rank), the ``views`` line (phase 28: the timed images, each path's
-launches), the ``tools`` line (phase 29: seconds a run), the ``kernels``
-JSON line (K1-K9, their f32 and int8 instantiations, the new modes and
-shapes of phases 24, 26 and 28, T1-T13; K1-K4's and K9's launches with
-phase 27's sharded renders and kernel-route steps), the card line and,
-last, the result line.
+launches), the ``tools`` line (phase 29: seconds a run), the ``widths``
+line (phase 30: each path's launches, the converted checkpoint's
+metrics), the ``kernels`` JSON line (K1-K9, their f32 and int8
+instantiations, the new modes and shapes of phases 24, 26, 28 and 30,
+T1-T13; K1-K4's and K9's launches with phase 27's sharded renders and
+kernel-route steps), the card line and, last, the result line.
 """
 
 from __future__ import annotations
@@ -692,7 +703,8 @@ def check_render_core(FR, args):
     which then time the launch alone."""
     import torch
     from cross_attention_renderer_torch.ops import gather_epilogue as GE
-    GE.prepared_render(args[5], args[9], args[4].device)
+    GE.prepared_render(args[5], args[9], args[4].device,
+                       [t.shape[-1] // 4 for t in args[0]])
     torch.cuda.synchronize()
     z, wt = FR.fused_render_core(*args)
     z_ref, wt_ref = FR.fused_render_core_reference(*args)
@@ -807,7 +819,8 @@ def check_epilogue(name, kernel, plain, args, aux_list, params, tol,
     ``plain_iters``)."""
     import torch
     from cross_attention_renderer_torch.ops import gather_epilogue as GE
-    GE.prepared_weights(params, len(aux_list), aux_list[0].device)
+    GE.prepared_weights(params, len(aux_list), aux_list[0].device,
+                        [t.shape[-1] // 4 for t in args[0]])
     torch.cuda.synchronize()
     jl, kv = kernel(*args)
     jl_ref, kv_ref = plain(*args)
@@ -2969,6 +2982,288 @@ def tools_phase(build_dir) -> dict:
     return seconds
 
 
+# Phase 30, widths the kernels once refused: fusion_features 100 (levels of
+# 100 channels, 100 % 8 = 4; f rows S * O = 264 and 396 that do not tile),
+# 102 (levels of 102, an O of 134 = 2 mod 4, K9's input 268) and 264 (S * O
+# = 888 at V = 3), and --narrow 100,50,30 (levels narrowed to 100, 50, 30),
+# each a full-depth model driven as phase 3 drives the flagship: (label,
+# model kwargs, the kernels a path launches with their counts per image,
+# the kernels checked against their plain versions on the path's first
+# call, the width's tag that names their kernels-line entries).
+WIDTH_PATHS = (
+    ('ff=100 V=2', dict(fusion_features=100, npoints=64),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 8},
+     ('epipolar_attention', 'fused_exchange_epilogue'), 'ff100'),
+    ('ff=100 V=2 fused render', dict(fusion_features=100, npoints=64,
+                                     fused_render=True),
+     {'fused_render_core': 8, 'epipolar_attention': 0,
+      'fused_exchange_epilogue': 0}, ('fused_render_core',), 'ff100'),
+    ('ff=100 V=3', dict(fusion_features=100, n_view=3),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     ('fused_exchange_epilogue_multi',), 'ff100'),
+    ('ff=100 V=3 compat', dict(fusion_features=100, n_view=3, **PATH_B),
+     {'epipolar_attention': 16, 'fused_mlp2': 72}, ('fused_mlp2',),
+     'ff100'),
+    ('ff=100 V=2 sorted', dict(fusion_features=100, npoints=64,
+                               sorted_stream=True),
+     {'resident_gather': 48, 'epipolar_attention': 16,
+      'fused_exchange_epilogue': 0, 'fused_render_core': 0},
+     ('resident_gather',), 'ff100'),
+    ('ff=100 V=3 compat one-hot', dict(fusion_features=100, n_view=3,
+                                       gather='onehot', **PATH_B),
+     {'onehot_gather': 48, 'epipolar_attention': 16, 'fused_mlp2': 72},
+     ('onehot_gather',), 'ff100'),
+    ('ff=102 V=2', dict(fusion_features=102, npoints=64),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 8},
+     ('epipolar_attention', 'fused_exchange_epilogue'), 'ff102'),
+    ('ff=102 V=3', dict(fusion_features=102, n_view=3),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     ('fused_exchange_epilogue_multi',), 'ff102'),
+    ('ff=264 V=3', dict(fusion_features=264, n_view=3),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue_multi': 8},
+     ('epipolar_attention', 'fused_exchange_epilogue_multi'), 'ff264'),
+    ('narrow 100,50,30 V=2', dict(npoints=64, narrow=(100, 50, 30)),
+     {'epipolar_attention': 16, 'fused_exchange_epilogue': 8},
+     ('fused_exchange_epilogue',), 'narrow'),
+)
+WIDTH_UNFUSED_BLOCKS = 16
+# the gathers' calls a block (3 self-stream levels, then 3 cross ones)
+GATHER_CAPTURE = {'resident_gather': ('RM', 'grid_sample_sorted'),
+                  'onehot_gather': ('PG', 'grid_sample_pallas')}
+WIDTH_MODES = {'ff100': 'fusion_features 100 (levels 100, 100, 64; O 132)',
+               'ff102': 'fusion_features 102 (levels 102, 102, 64; O 134)',
+               'ff264': 'fusion_features 264 (levels 264, 264, 64; O 296)',
+               'narrow': 'narrow 100,50,30 (levels 100, 50, 30; O 288)'}
+CONVERTED_SEED = 30
+# each kernel's source and the TPU kernel it replaces
+KERNEL_SOURCES = {
+    'epipolar_attention': ('epipolar_attention.cu',
+                           'ops/epipolar_attention.py:118'),
+    'fused_exchange_epilogue': ('gather_epilogue.cu',
+                                'ops/gather_epilogue.py:220'),
+    'fused_exchange_epilogue_multi': ('gather_epilogue_multi.cu',
+                                      'ops/gather_epilogue.py:421'),
+    'fused_mlp2': ('fused_mlp.cu', 'ops/experimental/fused_mlp.py:77'),
+    'fused_render_core': ('fused_render.cu', 'ops/fused_render.py:349'),
+    'resident_gather': ('bilinear_gather.cu', 'ops/sorted_gather.py:206'),
+    'onehot_gather': ('bilinear_gather.cu', 'ops/pallas_gather.py:70'),
+    'banded_gather': ('bilinear_gather.cu',
+                      'ops/experimental/banded_gather.py:106'),
+}
+
+
+def check_widths_kernel(name, label, args, EA, GE, FR, FM, SG, PG):
+    """The kernel ``name`` against its plain version on a path's captured
+    arguments (the gathers: the block's six calls, output in the tables'
+    type), with its numbers."""
+    if name == 'epipolar_attention':
+        return check_attention(label, EA, *args[0])
+    if name == 'fused_render_core':
+        log(f'{label}:')
+        return check_render_core(FR, args[0])
+    if name == 'fused_mlp2':
+        return check_mlp(FM, args[0], f'K9 fused_mlp2 {label}')
+    if name in ('fused_exchange_epilogue', 'fused_exchange_epilogue_multi'):
+        return check_core(name, GE, FR, args[0], f'{name} {label}')
+    kernel = SG.resident_gather if name == 'resident_gather' else (
+        PG.onehot_gather)
+    cases = [sorted_case(SG, *a) if name == 'resident_gather'
+             else table_case(PG, *a) for a in args]
+    return check_gather(f'{name} {label}', kernel, cases, cases[0][0].dtype)
+
+
+def widths(RM, EA, GE, FR, FM, PG, SG, BG, make_scene, dev, counted,
+           build_dir):
+    """Phase 30: every kernel at widths it once refused (``WIDTH_PATHS``),
+    each path's full image (bf16, 256x256, 8 blocks) with the flagship's
+    launch counts (no route falls back to a plain version) and against the
+    same model's unfused route (16 blocks) within the path-vs-path
+    tolerance; each kernel checked on its path's first call against its
+    plain version within its tolerance (K5 and K7 on the block's six
+    calls), timed beside its bound; K2 in f32 and in int8 (a q8 image,
+    against the dense image of its dequantized pyramid) at
+    fusion_features 102; K8 on the ff=100 V=2 sorted block's level-0 table
+    (C = 100) and in the small-input render at ff=100; then the converter:
+    a seeded upstream ``.pth`` of the flagship,
+    ``tools/convert_checkpoint.py``, and ``cli/eval.py --checkpoint_path``
+    on phase 21's corpus, held to ``evaluate_scene`` of the converted
+    weights. Returns (launches by path, the kernels-line entries' numbers
+    with their kernel, mode and launches by path, the converter's
+    numbers)."""
+    import torch
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_fast_renderer, make_scan_renderer)
+    modules = {'RM': RM, 'SG': SG, 'PG': PG}
+    by_path, numbers = {}, {}
+    k8_case = None
+    for label, kw, expected, checked, tag in WIDTH_PATHS:
+        kw = dict(kw)
+        narrow = kw.pop('narrow', None)
+        model = flagship(RM, dev, **kw)
+        V = model.n_view
+        scene = make_scene(0, n_view=V, H=H, W=W, n_rays=H * W,
+                           full_image=True, device=dev)
+        capture = {name: ((modules[GATHER_CAPTURE[name][0]],
+                           GATHER_CAPTURE[name][1], 6)
+                          if name in GATHER_CAPTURE else (RM, name, 1))
+                   for name in checked}
+
+        def render(m, blocks):
+            if narrow:
+                return make_fast_renderer(m, blocks, narrow=narrow)
+            return make_scan_renderer(m, blocks)
+
+        captured, launches, rgb = drive(
+            label, model, scene, RM, {n: counted[n] for n in expected},
+            expected, capture=capture, render_image=render(model, N_BLOCKS),
+            timed=False)
+        key = 'widths_' + label.lower().replace(' ', '_').replace(
+            '=', '').replace(',', '_').replace('-', '')
+        by_path[key] = launches
+        twin = unfused_twin(model)
+        with torch.inference_mode():
+            rgb_ref, _ = render(twin, WIDTH_UNFUSED_BLOCKS)(
+                scene, twin.encode(scene), scene['query']['uv'])
+        check_paths(f'{label} vs its unfused route '
+                    f'({WIDTH_UNFUSED_BLOCKS} blocks)', PATH_TOL,
+                    rgb.float(), rgb_ref.float())
+        del twin, rgb_ref
+        for name in checked:
+            numbers[f'{name}_{tag}'] = dict(check_widths_kernel(
+                name, label, captured[name], EA, GE, FR, FM, SG, PG),
+                kernel=name, mode=WIDTH_MODES[tag], checked_on=label)
+        for name, n in launches.items():
+            if n and f'{name}_{tag}' in numbers:
+                numbers[f'{name}_{tag}'].setdefault(
+                    'launches_by_path', {})[key] = n
+        if label == 'ff=100 V=2 sorted':
+            k8_case = sorted_case(SG, *captured['resident_gather'][0])
+        if label == 'ff=102 V=2':
+            # K2 in f32 (tables and slot weights) on the first block
+            a = captured['fused_exchange_epilogue'][0]
+            f32 = (tuple(t.float() for t in a[0]), a[1], a[2].float(),
+                   a[3].float(), a[4], a[5])
+            numbers['fused_exchange_epilogue_f32_ff102'] = dict(
+                check_core('fused_exchange_epilogue', GE, FR, f32,
+                           f'K2 f32 {label}'),
+                kernel='fused_exchange_epilogue', launches_by_path={},
+                mode=f'K2 f32, {WIDTH_MODES[tag]} (on no image path)',
+                checked_on=label)
+            del f32
+            # K2 on int8 tables of 102 channels: a q8 image
+            q8 = f'{label} q8'
+            captured, launches, rgb = drive(
+                q8, model, scene, RM, {n: counted[n] for n in expected},
+                expected, capture={'fused_exchange_epilogue': (
+                    RM, 'fused_exchange_epilogue', 1)},
+                render_image=make_fast_renderer(model, N_BLOCKS, q8=True),
+                timed=False)
+            by_path['widths_ff102_v2_q8'] = launches
+            check_q8_image(q8, model, scene, rgb, RM)
+            numbers['fused_exchange_epilogue_i8_ff102'] = dict(
+                check_core('fused_exchange_epilogue', GE, FR,
+                           captured['fused_exchange_epilogue'][0],
+                           f'K2 int8 {q8}'),
+                kernel='fused_exchange_epilogue',
+                launches_by_path={'widths_ff102_v2_q8': launches[
+                    'fused_exchange_epilogue']},
+                mode=f'K2 int8, {WIDTH_MODES[tag]}', checked_on=q8)
+        del captured, scene, rgb, model
+        torch.cuda.empty_cache()
+
+    # K8 on a table of C = 100 (the ff=100 V=2 level 0), and in a render
+    if k8_case[0].numel() * 2 > PG.BANDED_TABLE_BYTES:
+        raise RuntimeError('the ff=100 level-0 table exceeds K8\'s limit')
+    small = 'widths_ff100_v3_compat_banded_small'
+    by_path[small] = small_agreement(
+        'ff=100 V=3 compat banded', RM, make_scene, dev,
+        counted={'banded_gather': (BG.banded_gather, 6)},
+        small=dict(SMALL, fusion_features=100), n_view=3, gather='banded',
+        **PATH_B)
+    numbers['banded_gather_c100'] = dict(
+        check_gather('K8 banded_gather C = 100', BG.banded_gather,
+                     [k8_case], k8_case[0].dtype),
+        kernel='banded_gather',
+        launches_by_path={small: by_path[small]['banded_gather']},
+        mode='K8, C = 100 (fusion_features 100, level 0)',
+        checked_on='ff=100 V=2 sorted, the first block\'s level 0')
+    del k8_case
+    torch.cuda.empty_cache()
+    converted = check_converted(build_dir, {n: counted[n] for n in (
+        'epipolar_attention', 'fused_exchange_epilogue')})
+    by_path['widths_converted_cli_eval_v2'] = converted['launches']
+    return by_path, numbers, converted
+
+
+def check_converted(build_dir, counted, extra=()):
+    """The upstream checkpoint's path on the card: a seeded upstream-layout
+    ``.pth`` of the CLI's model (the flagship in f32;
+    ``tests/torch_checkpoint_cases.py``), converted by
+    ``tools/convert_checkpoint.py``, loaded by ``cli/eval.py
+    --checkpoint_path`` (V=2, phase 21's corpus, one scene: 16 K1 and 8 K2
+    an image), its metrics held to ``evaluate_scene`` of the CLI's model
+    with the converted weights loaded strictly. ``extra``: flags added to
+    every CLI call (none on the card)."""
+    import torch
+    from cross_attention_renderer_torch.cli import common as CC
+    from cross_attention_renderer_torch.cli import eval as eval_cli
+    from cross_attention_renderer_torch.data.realestate import (
+        RealEstate10kVis)
+    from cross_attention_renderer_torch.losses.lpips import load_lpips
+    from cross_attention_renderer_torch.tools import convert_checkpoint
+    from cross_attention_renderer_torch.train.evaluation import (
+        evaluate_scene)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / 'tests'))
+    from torch_checkpoint_cases import upstream_state_dict
+    t0 = time.perf_counter()
+    opt = CC.base_parser('x').parse_args(['--views', '2', *extra])
+    model = CC.build_model(opt).eval()
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    pth, out = build_dir / 'upstream_seeded.pth', build_dir / 'converted.pt'
+    upstream = upstream_state_dict(shapes, CONVERTED_SEED)
+    torch.save({'model': {k: torch.from_numpy(v)
+                          for k, v in upstream.items()}}, pth)
+    del upstream
+    convert_checkpoint.main(['--torch_ckpt', str(pth), '--out', str(out),
+                             '--views', '2'])
+    corpus = build_dir / 'smoke_corpus'
+    frames, poses = corpus / 'frames', corpus / 'poses.mat'
+    for fn in counted.values():
+        fn.launches = 0
+    res = eval_cli.main(['--img_root', str(frames), '--pose_root',
+                         str(poses), '--logging_root',
+                         str(build_dir / 'smoke_logs'), '--max_scenes', '1',
+                         '--views', '2', '--checkpoint_path', str(out),
+                         '--experiment_name', 'eval_converted', *extra])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    expected = {'epipolar_attention': 2 * CLI_CHUNKS,
+                'fused_exchange_epilogue': CLI_CHUNKS}
+    got = res['scenes'][0]
+    if launches != expected or not all(np_isfinite(v) for v in got.values()):
+        raise RuntimeError(f'converted checkpoint: launches {launches}, '
+                           f'metrics {got}')
+    model.load_state_dict(torch.load(out, weights_only=True)['params'])
+    scene = CC.scene_batch(RealEstate10kVis(frames, poses,
+                                            num_ctxt_views=2)[0], opt.device)
+    want = evaluate_scene(model, scene, *scene['context']['rgb'].shape[2:4],
+                          CLI_CHUNKS, lpips_fn=load_lpips(device=opt.device))
+    want = {k: float(want[k]) for k in ('psnr', 'ssim', 'lpips')}
+    log(f'converted checkpoint: cli eval --checkpoint_path {got}, launches '
+        f'{launches}; evaluate_scene of the converted weights {want}')
+    if (abs(got['psnr'] - want['psnr']) > EVAL_TOL['psnr']
+            or abs(got['ssim'] - want['ssim']) > EVAL_TOL['ssim']
+            or abs(got['lpips'] - want['lpips'])
+            > EVAL_TOL['lpips_rel'] * abs(want['lpips'])):
+        raise RuntimeError('the converted checkpoint\'s eval disagrees with '
+                           'evaluate_scene of its weights')
+    for f in (pth, out):
+        f.unlink()
+    del model, scene
+    return {'launches': launches, 'cli': got, 'evaluate_scene': want,
+            'seconds': time.perf_counter() - t0}
+
+
 def flagship(RM, dev, dtype=None, **kw):
     """The 122M model from seed 0 (bf16 compute unless ``dtype`` says
     otherwise), decoder output layer scaled."""
@@ -3365,6 +3660,18 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
 
+    # -- 30. widths the kernels once refused, and the upstream checkpoint --
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        wd_paths, wd_numbers, converted = widths(
+            RM, EA, GE, FR, FM, PG, SG, BG, make_scene, dev,
+            dict([attention, epilogue, epilogue_multi, render_core, mlp,
+                  resident, onehot]), build_dir)
+    log(f'widths phase: {time.perf_counter() - t0:.1f} s')
+    print(json.dumps({'widths': {'card': card, 'launches': wd_paths,
+                                 'converted': converted}}), flush=True)
+    torch.cuda.empty_cache()
+
     fast_f32 = {p: n for p, n in fast_paths.items() if p.endswith('_f32')}
     fast_i8 = {p: n for p, n in fast_paths.items()
                if p not in fast_f32 and ('_q8' in p or '_fast' in p)}
@@ -3534,6 +3841,21 @@ def main() -> int:
                          if '_i8' in entry else
                          'the plain version, recomputed (ops/_autograd.py)'),
             'library_ms': None, **first, 'checked_on': by_label})
+    # phase 30's entries: each kernel at the widths it once refused
+    for entry, n in wd_numbers.items():
+        n = dict(n)
+        name = n.pop('kernel')
+        source, replaces = KERNEL_SOURCES[name]
+        paths = n.pop('launches_by_path')
+        kernels.append({
+            'name': entry, 'mode': n.pop('mode'), 'route': 'cuda',
+            'source': f'cross_attention_renderer_torch/csrc/{source}',
+            'replaces': f'cross_attention_renderer_tpu/{replaces}',
+            'launches': sum(paths.values()), 'launches_by_path': paths,
+            'backward': ('none: int8 tables take no gradient'
+                         if '_i8' in entry else
+                         'the plain version, recomputed (ops/_autograd.py)'),
+            'library_ms': None, **n})
     kernels += cap_kernels + probes
     for kern in kernels:
         log(f'{kern["name"]}: {kern["ms"]:.3f} ms, plain '

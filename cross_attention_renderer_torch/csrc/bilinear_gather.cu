@@ -120,6 +120,16 @@ __device__ __forceinline__ void store_out(float4* p, float4 v) {
   __stcs(p, v);
 }
 
+// Channels [0, n) of an 8-channel chunk of a table row whose width is not
+// a multiple of 8 (so that the row is not 16-byte aligned), one element at
+// a time; zeros past n.
+__device__ __forceinline__ uint4 load_tail(const bf16* p, int n) {
+  __align__(16) bf16 v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = e < n ? p[e] : __float2bfloat16(0.f);
+  return *reinterpret_cast<const uint4*>(v);
+}
+
 // Eight channels of one sample, rounded once to the output type.
 __device__ __forceinline__ void store8(bf16* dst, const float (&a)[8]) {
   uint4 v;
@@ -134,6 +144,21 @@ __device__ __forceinline__ void store8(float* dst, const float (&a)[8]) {
             make_float4(a[0], a[1], a[2], a[3]));
   store_out(reinterpret_cast<float4*>(dst) + 1,
             make_float4(a[4], a[5], a[6], a[7]));
+}
+
+// The first n (< 8) channels of one sample, one element at a time.
+__device__ __forceinline__ void store_tail(bf16* dst, const float (&a)[8],
+                                           int n) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e < n) __stcs(dst + e, __float2bfloat16(a[e]));
+}
+
+__device__ __forceinline__ void store_tail(float* dst, const float (&a)[8],
+                                           int n) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e < n) __stcs(dst + e, a[e]);
 }
 
 // Lane `lane`'s sample of batch b: its corner rows and weights copied into
@@ -183,13 +208,16 @@ __device__ __forceinline__ float lane_of(const float4& v, int q) {
 // kWarps. In a batch, lane l of group g (l >> shift) takes chunks
 // l & (2^shift - 1) + 2^shift * k of samples j0 + d * (32 >> shift) + g,
 // for d < kDepth, at each step j0 of (32 >> shift) * kDepth samples;
-// kDepth <= 2^shift, so the steps tile the batch.
-template <int kDepth, typename Out>
+// kDepth <= 2^shift, so the steps tile the batch. A chunk is 8 channels of
+// the C; kWhole: C % 8 == 0, 16-byte loads and stores; else the rows are
+// not 16-byte aligned and each chunk is read and written an element at a
+// time, the last chunk's C % 8.
+template <int kDepth, typename Out, bool kWhole>
 __global__ void __launch_bounds__(kThreads)
     bilinear_gather_kernel(const uint4* __restrict__ table,
                            const int4* __restrict__ idx,
                            const float4* __restrict__ w, Out* __restrict__ out,
-                           int M, int chunks, int rows, int shift) {
+                           int M, int C, int rows, int shift) {
   __shared__ int4 raw_idx[kWarps][kBatch];
   __shared__ float4 raw_w[kWarps][kBatch];
   __shared__ int4 sel_rows[kWarps][kBatch];
@@ -197,7 +225,8 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int group = 1 << shift, per_row = kBatch >> shift;
   const int g = lane >> shift, sub = lane & (group - 1);
-  const int C = chunks * 8;
+  const int chunks = (C + 7) / 8;
+  const bf16* table_h = reinterpret_cast<const bf16*>(table);
   const int batches = (M + kBatch - 1) / kBatch;
   const int stride = gridDim.x * kWarps;
   int b = blockIdx.x * kWarps + warp;
@@ -229,7 +258,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int q = 0; q < 4; ++q)
             if (lane_of(ss, q) != 0.f)
-              v[d][q] = load_row(table + (size_t)rv[q] * chunks + c);
+              v[d][q] = kWhole ? load_row(table + (size_t)rv[q] * chunks + c)
+                               : load_tail(table_h + (size_t)rv[q] * C + c * 8,
+                                           C - c * 8);
         }
 #pragma unroll
         for (int d = 0; d < kDepth; ++d) {
@@ -252,27 +283,37 @@ __global__ void __launch_bounds__(kThreads)
             }
           }
           const int m = m0 + j0 + d * per_row + g;
-          if (m < M) store8(out + (size_t)m * C + c * 8, acc);
+          if (m < M && kWhole) store8(out + (size_t)m * C + c * 8, acc);
+          if (m < M && !kWhole)
+            store_tail(out + (size_t)m * C + c * 8, acc, min(8, C - c * 8));
         }
       }
     }
   }
 }
 
-// The kernel<kDepth, Out> instantiation of `depth`, or nullptr.
+// The kernel<kDepth, Out, true> instantiation of `depth`, or nullptr (the
+// C % 8 != 0 ones run at the occupancy the launch plan assumes of these:
+// the grid only sets how many batches a warp walks).
 template <typename Out>
 const void* kernel_of(int depth) {
   switch (depth) {
-    case 1: return reinterpret_cast<const void*>(bilinear_gather_kernel<1, Out>);
-    case 2: return reinterpret_cast<const void*>(bilinear_gather_kernel<2, Out>);
-    case 4: return reinterpret_cast<const void*>(bilinear_gather_kernel<4, Out>);
+    case 1:
+      return reinterpret_cast<const void*>(
+          bilinear_gather_kernel<1, Out, true>);
+    case 2:
+      return reinterpret_cast<const void*>(
+          bilinear_gather_kernel<2, Out, true>);
+    case 4:
+      return reinterpret_cast<const void*>(
+          bilinear_gather_kernel<4, Out, true>);
   }
   return nullptr;
 }
 
-template <typename Out>
+template <typename Out, bool kWhole>
 int launch_depth(int depth, const void* table, const void* idx, const void* w,
-                 void* out, int M, int chunks, int rows, int shift, int grid,
+                 void* out, int M, int C, int rows, int shift, int grid,
                  cudaStream_t s) {
   const auto t = static_cast<const uint4*>(table);
   const auto i = static_cast<const int4*>(idx);
@@ -280,16 +321,16 @@ int launch_depth(int depth, const void* table, const void* idx, const void* w,
   const auto o = static_cast<Out*>(out);
   switch (depth) {
     case 1:
-      bilinear_gather_kernel<1, Out><<<grid, kThreads, 0, s>>>(
-          t, i, wt, o, M, chunks, rows, shift);
+      bilinear_gather_kernel<1, Out, kWhole><<<grid, kThreads, 0, s>>>(
+          t, i, wt, o, M, C, rows, shift);
       break;
     case 2:
-      bilinear_gather_kernel<2, Out><<<grid, kThreads, 0, s>>>(
-          t, i, wt, o, M, chunks, rows, shift);
+      bilinear_gather_kernel<2, Out, kWhole><<<grid, kThreads, 0, s>>>(
+          t, i, wt, o, M, C, rows, shift);
       break;
     case 4:
-      bilinear_gather_kernel<4, Out><<<grid, kThreads, 0, s>>>(
-          t, i, wt, o, M, chunks, rows, shift);
+      bilinear_gather_kernel<4, Out, kWhole><<<grid, kThreads, 0, s>>>(
+          t, i, wt, o, M, C, rows, shift);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -297,19 +338,29 @@ int launch_depth(int depth, const void* table, const void* idx, const void* w,
   return (int)cudaGetLastError();
 }
 
+template <typename Out>
+int launch_type(int depth, const void* table, const void* idx, const void* w,
+                void* out, int M, int C, int rows, int shift, int grid,
+                cudaStream_t s) {
+  return C % 8 == 0 ? launch_depth<Out, true>(depth, table, idx, w, out, M, C,
+                                              rows, shift, grid, s)
+                    : launch_depth<Out, false>(depth, table, idx, w, out, M, C,
+                                               rows, shift, grid, s);
+}
+
 int launch(const void* table, const void* idx, const void* w, void* out,
            int out_f32, int M, int C, int rows, int shift, int depth,
            int grid, void* stream) {
   // depth samples of 32 >> shift lanes' groups must tile a batch
-  if (M <= 0 || C <= 0 || C % 8 || rows <= 0 || shift < 0 || shift > 5 ||
+  if (M <= 0 || C <= 0 || rows <= 0 || shift < 0 || shift > 5 ||
       depth > (1 << shift) || grid <= 0 || M > 0x7fffffff - kBatch)
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (out_f32)
-    return launch_depth<float>(depth, table, idx, w, out, M, C / 8, rows,
-                               shift, grid, s);
-  return launch_depth<bf16>(depth, table, idx, w, out, M, C / 8, rows, shift,
-                            grid, s);
+    return launch_type<float>(depth, table, idx, w, out, M, C, rows, shift,
+                              grid, s);
+  return launch_type<bf16>(depth, table, idx, w, out, M, C, rows, shift, grid,
+                           s);
 }
 
 }  // namespace
@@ -325,12 +376,13 @@ extern "C" int bilinear_gather_blocks_per_sm(int depth, int out_f32,
                                                             kThreads, 0);
 }
 
-// All four: table (rows, C) bf16, C % 8 == 0; idx (M, 4) int32 corner rows
-// (clamped to [0, rows) here); w (M, 4) f32 corner weights; out (M, C), f32
-// when out_f32 is set, else bf16. All contiguous and 16-byte aligned. The
-// launch (ops/sorted_gather.py gather_plan): 2^shift lanes a sample (C / 8
-// rounded up to a power of two, at most 32), depth (1, 2 or 4, at most
-// 2^shift) samples a lane has in flight, grid blocks of 8 warps (any
+// All four: table (rows, C) bf16, any C (16-byte loads where C % 8 == 0,
+// else an element at a time); idx (M, 4) int32 corner rows (clamped to
+// [0, rows) here); w (M, 4) f32 corner weights; out (M, C), f32 when
+// out_f32 is set, else bf16. All contiguous and 16-byte aligned. The
+// launch (ops/sorted_gather.py gather_plan): 2^shift lanes a sample (C / 8,
+// rounded up, then up to a power of two, at most 32), depth (1, 2 or 4, at
+// most 2^shift) samples a lane has in flight, grid blocks of 8 warps (any
 // number: the warps walk the batches grid-stride). Returns a cudaError_t
 // code.
 extern "C" int resident_gather_bf16(const void* table, const void* idx,

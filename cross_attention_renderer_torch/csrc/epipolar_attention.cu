@@ -23,6 +23,13 @@
 // to a ray block. Plain loads, no tensor cores: the dot products are 2
 // FLOP per byte read, far below the card's balance point.
 //
+// Widths: where C and D are multiples of 4 (every width of the flagship)
+// the loads are as above. Where D is not, the q and k rows are not 8- or
+// 16-byte aligned, and the logits read a value a lane (kVecD false); where
+// C is not, the value sum reads a value at a time, one thread a group of
+// four channels, the last group C % 4 wide (kVecC false). It takes any C
+// and D, as the TPU kernel does.
+//
 // Element types: the kernel is a template of the inputs' and outputs' type,
 // bf16 (epipolar_attention_bf16) or f32 (epipolar_attention_f32), as the
 // TPU kernel runs in the value's type. Logits and softmax are f32 in both;
@@ -99,7 +106,7 @@ __device__ float block_reduce(float x, float* red) {
   return out;
 }
 
-template <typename T>
+template <typename T, bool kVecD, bool kVecC>
 __global__ void epipolar_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, T* __restrict__ wt, int V,
@@ -120,10 +127,15 @@ __global__ void epipolar_attention_kernel(
     const int vi = j / P, p = j - vi * P;
     const size_t off = ((size_t)((b * V + vi) * R + r) * P + p) * D;
     float s = 0.f;
-    for (int d = 4 * lane; d < D; d += 128) {
-      const float4 a = load4(q + off + d);
-      const float4 c = load4(k + off + d);
-      s += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
+    if (kVecD) {
+      for (int d = 4 * lane; d < D; d += 128) {
+        const float4 a = load4(q + off + d);
+        const float4 c = load4(k + off + d);
+        s += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
+      }
+    } else {
+      for (int d = lane; d < D; d += 32)
+        s += to_f32(q[off + d]) * to_f32(k[off + d]);
     }
     s = warp_sum(s);
     if (lane == 0) weight[j] = s * scale;
@@ -150,15 +162,25 @@ __global__ void epipolar_attention_kernel(
   __syncthreads();
 
   // Weighted value sum: thread (s, g) sums channels [4g, 4g+4) over rows
-  // s, s + slices, ...; the slices are then added in shared memory.
-  const int groups = C / 4;
+  // s, s + slices, ...; the slices are then added in shared memory. (The
+  // last group of a C that is not a multiple of 4 holds C % 4 channels.)
+  const int groups = (C + 3) / 4;
   if (threadIdx.x < groups * slices) {
     const int g = threadIdx.x % groups, s = threadIdx.x / groups;
+    const int n = min(4, C - 4 * g);
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int j = s; j < VP; j += slices) {
       const int vi = j / P, p = j - vi * P;
       const size_t off = ((size_t)((b * V + vi) * R + r) * P + p) * C + 4 * g;
-      const float4 x = load4(v + off);
+      float4 x;
+      if (kVecC) {
+        x = load4(v + off);
+      } else {
+        x.x = to_f32(v[off]);
+        x.y = n > 1 ? to_f32(v[off + 1]) : 0.f;
+        x.z = n > 2 ? to_f32(v[off + 2]) : 0.f;
+        x.w = n > 3 ? to_f32(v[off + 3]) : 0.f;
+      }
       const float w = weight[j];
       acc.x += w * x.x;
       acc.y += w * x.y;
@@ -166,10 +188,10 @@ __global__ void epipolar_attention_kernel(
       acc.w += w * x.w;
     }
     float* dst = part + s * C + 4 * g;
-    dst[0] = acc.x;
-    dst[1] = acc.y;
-    dst[2] = acc.z;
-    dst[3] = acc.w;
+    const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) dst[e] = a[e];
   }
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
@@ -183,26 +205,40 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* wt,
            int B, int V, int R, int P, int D, int C, float scale,
            void* stream) {
-  if (D % 4 != 0 || C % 4 != 0 || C / 4 > 1024 || B * R <= 0)
+  const int groups = (C + 3) / 4;
+  if (D <= 0 || C <= 0 || groups > 1024 || B * R <= 0)
     return (int)cudaErrorInvalidValue;
-  const int groups = C / 4;
   const int slices = groups >= 288 ? 1 : 288 / groups;
   const int threads = ((groups * slices + 31) / 32) * 32;
   const size_t smem = sizeof(float) * ((size_t)V * P + (size_t)slices * C);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  epipolar_attention_kernel<T><<<B * R, threads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), static_cast<T*>(wt), V,
-      R, P, D, C, slices, scale);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto q_ = static_cast<const T*>(q);
+  const auto k_ = static_cast<const T*>(k);
+  const auto v_ = static_cast<const T*>(v);
+  const auto o_ = static_cast<T*>(out);
+  const auto w_ = static_cast<T*>(wt);
+  const int vec = (D % 4 == 0) * 2 + (C % 4 == 0);
+  if (vec == 3)
+    epipolar_attention_kernel<T, true, true><<<B * R, threads, smem, s>>>(
+        q_, k_, v_, o_, w_, V, R, P, D, C, slices, scale);
+  else if (vec == 2)
+    epipolar_attention_kernel<T, true, false><<<B * R, threads, smem, s>>>(
+        q_, k_, v_, o_, w_, V, R, P, D, C, slices, scale);
+  else if (vec == 1)
+    epipolar_attention_kernel<T, false, true><<<B * R, threads, smem, s>>>(
+        q_, k_, v_, o_, w_, V, R, P, D, C, slices, scale);
+  else
+    epipolar_attention_kernel<T, false, false><<<B * R, threads, smem, s>>>(
+        q_, k_, v_, o_, w_, V, R, P, D, C, slices, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k: (B, V, R, P, D); v: (B, V, R, P, C); out: (B, R, C);
-// wt: (B, V, R, P). All bf16 (epipolar_attention_bf16) or all f32
-// (epipolar_attention_f32), contiguous, 16-byte aligned. Returns a
+// wt: (B, V, R, P), any C and D. All bf16 (epipolar_attention_bf16) or all
+// f32 (epipolar_attention_f32), contiguous, 16-byte aligned. Returns a
 // cudaError_t code.
 extern "C" int epipolar_attention_bf16(const void* q, const void* k,
                                        const void* v, void* out, void* wt,

@@ -197,7 +197,12 @@ struct CoreArgs {
                                  // the ray's jl (2P, O) then its ce (2P,
                                  // K); then, with the 'global' plan, comb
                                  // and the f rows in fragment order
-  int S, M, F, H1, O, K, rp;
+  int S, M, F, H1, O, K, rp;      // F: comb's width; O: the f rows' (the
+                                 // core's) width, see fill_sizes
+  int O_out;                     // columns of jl, z and K9's out (their
+                                 // row stride), O before it was rounded up
+  int F_in;                      // kMlp: columns of x (its row stride), F
+                                 // before it was rounded up
   int B, R, P, tv, repeat;       // kRender; tv: tiles of one view of a ray
   int n_units;                   // tiles, or rays (kRender)
   // Derived by fill_sizes: tile counts of each product and where things sit.
@@ -285,6 +290,47 @@ __device__ __forceinline__ void store1(void* out, size_t idx, float x) {
     static_cast<float*>(out)[idx] = x;
   else
     static_cast<bf16*>(out)[idx] = __float2bfloat16(x);
+}
+
+// Output widths. jl (K2, K3) and K9's out are written O_out columns wide,
+// O_out their row stride. An odd O_out leaves every other row's column
+// pairs unaligned, so such a width takes the core built with
+// CORE_ODD_OUTPUT (a library of its own, ops/_build.py VARIANTS), whose
+// stores are single; the usual build keeps the paired stores alone
+// (sharing one kernel between the two cost the even widths 2% of K2's
+// time, measured) and refuses an odd O_out. K4 keeps its rows in its
+// scratch at the even width O and writes z a value at a time, so it takes
+// any O_out in the usual build.
+#ifndef CORE_ODD_OUTPUT
+#define CORE_ODD_OUTPUT 0
+#endif
+constexpr bool kOddOutput = CORE_ODD_OUTPUT != 0;
+
+// Columns col and col + 1 (col even, col < n) of an output row n columns
+// wide that starts at element `row`: one paired store, or (kOdd: n is odd)
+// each of them that exists on its own.
+template <bool kF32, bool kOdd>
+__device__ __forceinline__ void store_cols(void* out, size_t row, int col,
+                                           int n, float lo, float hi) {
+  if (!kOdd) {
+    store2<kF32>(out, row + col, lo, hi);
+    return;
+  }
+  store1<kF32>(out, row + col, lo);
+  if (col + 1 < n) store1<kF32>(out, row + col + 1, hi);
+}
+
+// Elements [idx, idx + min(n, 8)) of a bf16 or (kF32) f32 array as eight
+// bf16 values in 16 bytes, zeros past n: the rows of an x whose width is
+// not a multiple of 8, which 16-byte loads cannot read.
+template <bool kF32>
+__device__ __forceinline__ uint4 load_tail(const void* base, size_t idx,
+                                           int n) {
+  __align__(16) bf16 v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    v[e] = e < n ? load1<kF32>(base, idx + e) : __float2bfloat16(0.f);
+  return *reinterpret_cast<const uint4*>(v);
 }
 
 // The f32 tables' combine of one 8-column chunk: sum_k w[k] * row_k[0:8]
@@ -614,11 +660,12 @@ __device__ void gather_tile(const CoreArgs& p, int s, int m0, int n_live,
   bar_sync(kGatherBar, kConsumers);
 }
 
-// K9's tile: rows m0 + r (r < n_live) of x (M, F) into comb as they are,
-// and x2's three columns into aux's tanh columns (12-14: K9 has no
-// levels). Rows past n_live
-// get zeros. kWide: comb goes to gcomb, as in gather_tile. kF32: x and
-// x2 are f32, rounded to bf16 here.
+// K9's tile: rows m0 + r (r < n_live) of x (M, F_in) into comb as they
+// are, and x2's three columns into aux's tanh columns (12-14: K9 has no
+// levels). Rows past n_live, and comb's columns past F_in, get zeros.
+// kWide: comb goes to gcomb, as in gather_tile. kF32: x and x2 are f32,
+// rounded to bf16 here. An F_in that is not a multiple of 8 is read an
+// element at a time.
 template <bool kWide, bool kF32>
 __device__ void load_rows(const CoreArgs& p, int m0, int n_live,
                           unsigned char* comb, uint32_t* gcomb, bf16* aux) {
@@ -630,13 +677,24 @@ __device__ void load_rows(const CoreArgs& p, int m0, int n_live,
                                : __float2bfloat16(0.f);
   }
   const int ch8 = p.F / 8;
+  if (p.F_in % 8 == 0) {  // F == F_in
 #pragma unroll 8
-  for (int i = t; i < kRows * ch8; i += kConsumers) {
-    const int r = i / ch8, col = (i - r * ch8) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_live)
-      val = load8<kF32, true>(p.x, (size_t)(m0 + r) * p.F + col);
-    put_chunk<kWide>(comb, gcomb, r, col, val);
+    for (int i = t; i < kRows * ch8; i += kConsumers) {
+      const int r = i / ch8, col = (i - r * ch8) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < n_live)
+        val = load8<kF32, true>(p.x, (size_t)(m0 + r) * p.F + col);
+      put_chunk<kWide>(comb, gcomb, r, col, val);
+    }
+  } else {
+    for (int i = t; i < kRows * ch8; i += kConsumers) {
+      const int r = i / ch8, col = (i - r * ch8) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < n_live)
+        val = load_tail<kF32>(p.x, (size_t)(m0 + r) * p.F_in + col,
+                              p.F_in - col);
+      put_chunk<kWide>(comb, gcomb, r, col, val);
+    }
   }
   fence_proxy_async();
   bar_sync(kGatherBar, kConsumers);
@@ -991,8 +1049,9 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
                 const uint32_t v = pack_bf16(f0, f1);
                 if (kMode == kMlp) {
                   if (row < n_live)
-                    store2<kF32>(p.jl, (size_t)(m0 + row) * p.O + col, f0,
-                                 f1);
+                    store_cols<kF32, kOddOutput>(
+                        p.jl, (size_t)(m0 + row) * p.O_out, col, p.O_out, f0,
+                        f1);
                 } else if (kWide) {
                   __stcg(sm.gf + frag_word(row, slot * p.O + col), v);
                 } else {
@@ -1055,18 +1114,21 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
         }
       }
     }
+    // K4 keeps all O columns in its scratch (those past O_out are zeros,
+    // which the per-ray sums read); K2 and K3 write the O_out of jl.
     const Vec<kMode>* lvb = sm.vsm + p.v_lvb;
+    const int n_jl = kMode == kRender ? p.O : p.O_out;
 #pragma unroll
     for (int nt = 0; nt < kMaxOT; ++nt) {
       fence_regs(acc[nt]);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = r0 + 8 * h;
-        const size_t dst = (size_t)((kMode == kRender ? j0 : m0) + row) * p.O;
+        const size_t dst = (size_t)((kMode == kRender ? j0 : m0) + row) * n_jl;
 #pragma unroll
         for (int j = 0; j < kNO / 8; ++j) {
           const int col = (g0 + nt) * kNO + j * 8 + tq;
-          if (g0 + nt < g1 && col < p.O && row < n_live) {
+          if (g0 + nt < g1 && col < n_jl && row < n_live) {
             const float2 b = lds2(lvb + col);
             const float x0 = acc[nt][4 * j + 2 * h] + b.x,
                         x1 = acc[nt][4 * j + 2 * h + 1] + b.y;
@@ -1074,7 +1136,7 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
               *reinterpret_cast<uint32_t*>(scr_jl + dst + col) =
                   pack_bf16(x0, x1);
             else
-              store2<kF32>(p.jl, dst + col, x0, x1);
+              store_cols<kF32, kOddOutput>(p.jl, dst, col, n_jl, x0, x1);
           }
         }
       }
@@ -1363,9 +1425,9 @@ __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
                  logit[j]);
   }
   weighted_sum(scr_jl, logit, n, p.O, red, ldr, z1);
-  const size_t z_out = (size_t)unit * p.O;
+  const size_t z_out = (size_t)unit * p.O_out;
   if (!p.repeat) {
-    for (int c = t; c < p.O; c += kConsumers)
+    for (int c = t; c < p.O_out; c += kConsumers)
       store1<kF32>(p.z, z_out + c, z1[c]);
   } else {
     const Vec<kMode>* elb = sm.vsm + p.v_q + 2 * Kp;
@@ -1394,7 +1456,7 @@ __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
     bar_sync(kPairBar, kConsumers);  // the round-2 logits are there
     softmax<kF32>(logit, n, red8);
     weighted_sum(scr_jl, logit, n, p.O, red, ldr, z2);
-    for (int c = t; c < p.O; c += kConsumers)
+    for (int c = t; c < p.O_out; c += kConsumers)
       store1<kF32>(p.z, z_out + c, z2[c] + 2.f * z1[c]);
   }
   // Padding columns of comb and the f rows are read again by products with
@@ -1519,14 +1581,31 @@ inline int fill_levels(CoreArgs& a, int n_levels, void* const* tables,
 // Checks the sizes the kernel relies on and derives its tile counts, stage
 // and vector offsets. S: streams (1 for kMlp); K ignored by kMlp; B, R, P
 // and repeat only read by kRender. Returns a cudaError_t code.
+//
+// Widths. F is comb's width: the levels' channel sum (each a multiple of
+// 8, fill_levels), or K9's input width F_in, which comb rounds up to 8. O
+// is the output width O_out; the f rows of K2, K3 and K4 are O wide where
+// they tile (O % 8 == 0 and S * O % 16 == 0), else O rounded up to 16, the
+// weights laid out for that width with zeros past O_out (ops/
+// gather_epilogue.py core_out_width, pad_exchange_weights). H1 and the
+// weight stages' widths are rounded up to whole tiles with zeros already,
+// so any H1 is taken. Every extra column is zero, and so adds nothing.
 inline int fill_sizes(CoreArgs& a, int mode, int S, int M, int F, int H1,
                       int O, int K, long long stage_bytes, int B, int R,
                       int P, int repeat) {
   const bool mlp = mode == kMlp, render = mode == kRender;
-  if (M <= 0 || F <= 0 || F % 16 || H1 <= 0 || H1 % 16 || O <= 0 || O % 8 ||
+  if (M <= 0 || F <= 0 || H1 <= 0 || O <= 0 || (!mlp && F % 8) ||
       (mlp ? S != 1 : mode == kPair ? S != 2 : S < 2))
     return (int)cudaErrorInvalidValue;
-  if (!mlp && (K <= 0 || K % 16 || K > kMaxKT * kNK || (S * O) % 16))
+  // an odd O_out takes the CORE_ODD_OUTPUT build (K2, K3, K9), and only
+  // it (see kOddOutput)
+  if (!render && (O & 1) != (kOddOutput ? 1 : 0))
+    return (int)cudaErrorInvalidValue;
+  a.F_in = F;
+  a.O_out = O;
+  F = (F + 7) / 8 * 8;
+  if (!mlp && (O % 8 || (S * O) % 16)) O = (O + 15) / 16 * 16;
+  if (!mlp && (K <= 0 || K % 16 || K > kMaxKT * kNK))
     return (int)cudaErrorInvalidValue;
   if (render && (S != 2 || B <= 0 || R <= 0 || P <= 0 ||
                  (long long)B * 2 * R * P != M))

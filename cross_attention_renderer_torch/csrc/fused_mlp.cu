@@ -60,7 +60,9 @@ int launch_mlp(const void* x1, const void* x2, const void* stages,
 // 'global' plan needs (launch_core; null and 0 do for the 'smem' plan).
 // info (8 ints) receives the launch's shape and plan, as launch_core gives
 // them. Returns a cudaError_t code. fused_mlp2_f32 takes the same with f32
-// x1, x2 and out (exchange_core.cuh, "Element types").
+// x1, x2 and out (exchange_core.cuh, "Element types"). Any K1, H and O:
+// an odd O only in the library built with CORE_ODD_OUTPUT
+// (exchange_core.cuh, "Output widths").
 extern "C" int fused_mlp2_bf16(const void* x1, const void* x2,
                                const void* stages, long long stage_bytes,
                                const void* vecs, void* out, int M, int K1,

@@ -75,7 +75,8 @@ int launch_streams(int n_levels, void* const* tables, void* const* cells,
 // cudaError_t code. fused_exchange_epilogue_multi_f32 takes the same with
 // f32 tables, aux, jl and kv (exchange_core.cuh, "Element types");
 // fused_exchange_epilogue_multi_i8_bf16 and _i8_f32 the same as _bf16 and
-// _f32 with int8 tables ("Table types").
+// _f32 with int8 tables ("Table types"). Any O: an odd one only in the
+// library built with CORE_ODD_OUTPUT (exchange_core.cuh, "Output widths").
 extern "C" int fused_exchange_epilogue_multi_bf16(
     int n_levels, void* const* tables, void* const* cells,
     const int* channels, int S, const void* aux, const void* stages,

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with :mod:`ctypes`. Libraries land
 in ``build/`` inside the package (listed in ``.gitignore``), named by a hash
 of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
-edited kernel rebuilds and an unchanged one loads at once. Nothing here
-runs at import time: importing the package needs neither ``nvcc`` nor a
-card.
+edited kernel rebuilds and an unchanged one loads at once. A variant
+(``VARIANTS``) is a source built with a define into a library of its own,
+on first use. Nothing here runs at import time: importing the package
+needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ KERNELS = ('epipolar_attention', 'gather_epilogue', 'gather_epilogue_multi',
            'fused_mlp', 'fused_render', 'bilinear_gather', 'row_gather')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# name -> (source, defines): K2, K3 and K9 at an odd output width
+# (csrc/exchange_core.cuh, "Output widths"), which the usual builds refuse
+VARIANTS = {f'{name}_odd': (name, ('-DCORE_ODD_OUTPUT=1',))
+            for name in ('gather_epilogue', 'gather_epilogue_multi',
+                         'fused_mlp')}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -42,10 +48,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha1((CSRC_DIR / f'{name}.cu').read_bytes())
+    source, defines = VARIANTS.get(name, (name, ()))
+    h = hashlib.sha1((CSRC_DIR / f'{source}.cu').read_bytes())
     for header in sorted(CSRC_DIR.glob('*.cuh')):
         h.update(header.read_bytes())
-    h.update(' '.join(NVCC_FLAGS).encode())
+    h.update(' '.join(NVCC_FLAGS + defines).encode())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f'lib{name}_{digest}.so'
 
@@ -63,8 +70,9 @@ def build(names=KERNELS) -> dict[str, str]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-        cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
-               str(CSRC_DIR / f'{name}.cu')]
+        source, defines = VARIANTS.get(name, (name, ()))
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, '-o', str(tmp),
+               str(CSRC_DIR / f'{source}.cu')]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -52,8 +52,9 @@ def epipolar_attention(query: torch.Tensor, key: torch.Tensor,
     """Joint-softmax attention; see the module docstring.
 
     CPU tensors take the plain version. CUDA tensors must be contiguous and
-    all bf16 or all f32; they launch the kernel's instantiation of that
-    type (outputs in it too), and anything else raises."""
+    all bf16 or all f32, of any C and D; they launch the kernel's
+    instantiation of that type (outputs in it too), and anything else
+    raises."""
     if query.device.type == 'cpu':
         return epipolar_attention_reference(query, key, value)
     return kernel_call(_launch, epipolar_attention_reference, query, key,
@@ -69,13 +70,16 @@ def attention_plan(V: int, P: int, C: int) -> tuple[int, int, int]:
     """The kernel's launch for V*P joint rows and value width C, as its
     launcher computes it: (threads a block, slices of the value sum,
     bytes of shared memory). Thread (s, g) of the value sum takes channels
-    4g .. 4g+3 of rows s, s + slices, ...; the block keeps the V*P logits
-    and the slices' (slices, C) partial sums in shared memory. Raises
-    ValueError, with the shape, where the kernel cannot take it."""
-    groups = C // 4
-    if C % 4 or not 0 < groups <= 1024 or V * P <= 0:
-        raise ValueError(f'epipolar_attention: C={C} must be a multiple of '
-                         f'4 up to 4096 and V*P={V * P} positive')
+    4g .. 4g+3 of rows s, s + slices, ... (the last group of a C that is
+    not a multiple of 4 the rest; such a C, or such a D, takes an
+    instantiation that reads v, or q and k, a value at a time); the block
+    keeps the V*P logits and the slices' (slices, C) partial sums in
+    shared memory. Raises ValueError, with the shape, where the kernel
+    cannot take it: capacities only."""
+    groups = -(-C // 4)
+    if not 0 < groups <= 1024 or V * P <= 0:
+        raise ValueError(f'epipolar_attention: C={C} must be 1 to 4096 and '
+                         f'V*P={V * P} positive')
     slices = 1 if groups >= 288 else 288 // groups
     smem = 4 * (V * P + slices * C)
     if smem > SMEM_LIMIT:
@@ -107,9 +111,8 @@ def _launch(query, key, value):
                              f'contiguous {shape}, got {tuple(t.shape)}')
         if t.data_ptr() % 16:
             raise ValueError(f'epipolar_attention: {name} is not aligned')
-    if D % 4:
-        raise ValueError(f'epipolar_attention: D={D} must be a multiple '
-                         'of 4')
+    if D <= 0:
+        raise ValueError(f'epipolar_attention: D={D} must be positive')
     attention_plan(V, P, C)
     out = torch.empty((B, R, C), dtype=value.dtype, device=value.device)
     at_wt = torch.empty((B, V, R, P), dtype=value.dtype, device=value.device)

@@ -47,9 +47,11 @@ def fused_mlp2(x1: Tensor, x2: Tensor, w1a: Tensor, w1b: Tensor, b1: Tensor,
       w1a: (K1, H); w1b: (K2, H); b1: (H,); w2: (H, O); b2: (O,).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
-    which takes x1 bf16 or f32 and contiguous with K1 % 16 == 0, x2
-    contiguous (M, 3) in x1's type (the output too), H % 16 == 0 and O % 8 == 0 (at any width a renderer
-    has; ``gather_epilogue.check_core_widths``); anything else raises. The kernel rounds its inputs as the
+    which takes x1 bf16 or f32 and contiguous, x2 contiguous (M, 3) in x1's
+    type (the output too), and any K1, H and O (an x1 row whose K1 is not a
+    multiple of 8 is read an element at a time; the weights' tiles are
+    zero past H and O; ``gather_epilogue.check_core_widths`` refuses only
+    capacities); anything else raises. The kernel rounds its inputs as the
     TPU kernel does: x2 and the weight matrices to bf16, biases kept in f32,
     the hidden layer rounded to bf16 before the second product; f32 x1 is
     rounded to bf16 on its way to the products (``csrc/exchange_core.cuh``,
@@ -79,20 +81,19 @@ def _launch(x1, x2, w1a, w1b, b1, w2, b2):
             raise ValueError(f'fused_mlp2: {msg}')
 
     require(dt in GE.CORE_TYPES and x1.is_contiguous()
-            and x1.data_ptr() % 16 == 0 and K1 % 16 == 0 and M > 0,
-            'x1 must be contiguous aligned bf16 or f32, K1 % 16 == 0')
+            and x1.data_ptr() % 16 == 0 and K1 > 0 and M > 0,
+            'x1 must be contiguous aligned bf16 or f32')
     require(x2.device == dev and x2.dtype == dt and x2.is_contiguous()
             and tuple(x2.shape) == (M, 3), f'x2 must be contiguous {dt} '
             f'({M}, 3) on {dev}')
     require(tuple(w1a.shape) == (K1, H) and tuple(w1b.shape) == (3, H)
-            and tuple(w2.shape) == (H, O) and H % 16 == 0 and O % 8 == 0,
-            'weight shapes')
+            and tuple(w2.shape) == (H, O), 'weight shapes')
     GE.check_core_widths('fused_mlp2', 'mlp', 1, K1, H, O, 0)
     stages, vecs = GE.prepared_mlp((w1a, w1b, b1, w2, b2), dev)
     scratch = GE.core_scratch('mlp', 1, K1, H, O, 0, -(-M // 64), dev)
     out = torch.empty((M, O), dtype=dt, device=dev)
 
-    fn = GE.core_entry('fused_mlp', 'fused_mlp2', dt)
+    fn = GE.core_entry('fused_mlp', 'fused_mlp2', dt, O=O)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4

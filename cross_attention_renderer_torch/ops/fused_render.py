@@ -169,11 +169,11 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
     CPU tensors take the plain version. CUDA tensors must be contiguous,
     aux and local_coords bf16 or f32, the tables in their type or int8
     (cells int32; outputs in aux's type), any B, R and P (up to what a
-    block's shared memory holds of the ray's 2P logits) and any width a
-    renderer has
-    (``gather_epilogue.check_core_widths``); they launch the kernel, and
-    anything else raises. The weights are laid out once per set of
-    parameter tensors (``gather_epilogue.prepared_render``)."""
+    block's shared memory holds of the ray's 2P logits) and any width (the
+    core's padding: ``gather_epilogue`` module docstring; the refusals of
+    ``gather_epilogue.check_core_widths`` are capacities); they launch the
+    kernel, and anything else raises. The weights are laid out once per
+    set of parameter tensors (``gather_epilogue.prepared_render``)."""
     if aux_self.device.type == 'cpu':
         return fused_render_core_reference(tables, cells, aux_self,
                                            aux_cross, local_coords, params,
@@ -193,7 +193,7 @@ fused_render_core.last_plan = None
 def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
             P, repeat):
     what = 'fused_render_core'
-    levels, (M, F, H1, O, K) = GE._checked_args(
+    levels, (M, F, H1, O, K), channels = GE._checked_args(
         what, tables, cells, (aux_self, aux_cross), params[:10])
     (qe1, qe1b, qe2, qe2b) = params[10:14]
     dev, dt = aux_self.device, aux_self.dtype
@@ -214,7 +214,8 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
                          '(O, K), (K+16, K), (K, K)')
     GE.check_core_widths(what, 'render', 2, F, H1, O, K, P,
                          levels=len(tables))
-    stages, vecs, mats = GE.prepared_render(params, bool(repeat), dev)
+    stages, vecs, mats = GE.prepared_render(params, bool(repeat), dev,
+                                            channels)
     # The ray's jl and ce rows (and the 'global' plan's tiles), per block
     # of the persistent grid.
     scratch = GE.core_scratch('render', 2, F, H1, O, K, B * R, dev, P,

@@ -43,6 +43,17 @@ reference's math (models.py:335-346). The JAX fused epilogues read
 tanh(pt/5) at aux columns 12-14 whatever the level count, which with four
 levels are level 3's slot weights (ROADMAP.md Queue C, kept divergences).
 
+Widths: any, as the TPU kernels take (ROADMAP.md Queue C 21). The CUDA
+core reads a level's table in 16-byte chunks of 8 channels and keeps the
+f rows of the S streams side by side in 16-deep product steps; where a
+level's C is not a multiple of 8 its table is read from a copy
+zero-padded to :func:`table_width` (``grid_sample.pad_cells``, in the
+launch), and where O does not tile the f rows they are
+:func:`core_out_width` wide. The weights are laid out for those widths,
+zeros in the extra rows and columns (:func:`pad_exchange_weights`), once
+per parameter set; the kernels write exactly O columns of jl. The plain
+versions, and so the recomputed backward, see the original shapes.
+
 Tables are in the model's float type (bf16 or f32, that of aux) or int8
 (the quantized pyramid of fast evaluation, ``train/evaluation.py``
 ``quantize_pyramid``, whose scales the caller folds into W1). int8 rows are
@@ -61,6 +72,7 @@ from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from cross_attention_renderer_torch.ops import _build
 from cross_attention_renderer_torch.ops._autograd import kernel_call
+from cross_attention_renderer_torch.ops.grid_sample import pad_cells
 
 Tensor = torch.Tensor
 
@@ -197,6 +209,71 @@ SMEM_LIMIT = 232_448   # bytes of shared memory a block may use (H100)
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def table_width(C: int) -> int:
+    """The channels a level of C channels is read at by the core: C
+    rounded up to a multiple of 8 (a 16-byte chunk of bf16)."""
+    return _cdiv(C, 8) * 8
+
+
+def core_out_width(mode: str, S: int, O: int) -> int:
+    """The width of the core's f rows for output width O with S streams
+    (``exchange_core.cuh`` fill_sizes): O itself where S such rows tile the
+    16-deep product steps and the 8-column chunks (O % 8 == 0 and S * O %
+    16 == 0, every width of the flagship) and in K9 ('mlp', which keeps no
+    f rows), else O rounded up to a multiple of 16."""
+    if mode == 'mlp' or (O % 8 == 0 and (S * O) % 16 == 0):
+        return O
+    return _cdiv(O, 16) * 16
+
+
+def pad_exchange_weights(params: Sequence[Tensor], S: int,
+                         channels: Sequence[int] | None, O_core: int
+                         ) -> tuple[Tensor, ...]:
+    """The ten epilogue weights (as :func:`_reference`) for tables whose
+    levels are :func:`table_width` wide and f rows ``O_core`` wide: zero
+    rows in w1 after each level's ``channels[l]`` rows, zero columns in w2
+    and b2 past O, and per stream zero rows in lv and km (lv's extra
+    columns and lvb's zero too). The padded channels and columns are zeros
+    on the way in, so the function is the same. Returns ``params`` itself
+    where nothing needs padding (``channels`` None: the tables' widths are
+    taken as they are)."""
+    (w1, b1, w2, b2, lv, lv_bias, km, km_bias, k2, k2_bias) = params
+    pad_f = channels is not None and any(c % 8 for c in channels)
+    O = w2.shape[1]
+    if not pad_f and O_core == O:
+        return tuple(params)
+    if pad_f:
+        parts, off = [], 0
+        for c in channels:
+            parts.append(w1[off:off + c])
+            if table_width(c) > c:
+                parts.append(w1.new_zeros(table_width(c) - c, w1.shape[1]))
+            off += c
+        w1 = torch.cat(parts + [w1[off:]])
+    if O_core != O:
+        d = O_core - O
+        pad = torch.nn.functional.pad
+        w2, b2 = pad(w2, (0, d)), pad(b2, (0, d))
+        lv_bias = pad(lv_bias, (0, d))
+        lv = pad(lv.reshape(S, O, O), (0, d, 0, d)).reshape(S * O_core, O_core)
+        km = pad(km.reshape(S, O, -1), (0, 0, 0, d)).reshape(S * O_core, -1)
+    return (w1, b1, w2, b2, lv, lv_bias, km, km_bias, k2, k2_bias)
+
+
+def _padded_render(params: Sequence[Tensor], channels: Sequence[int] | None
+                   ) -> tuple[Tensor, ...]:
+    """K4's 14 or 20 parameters padded as :func:`pad_exchange_weights` pads
+    the first ten at S = 2, and el's rows to the f width."""
+    O = params[2].shape[1]
+    O_core = core_out_width('render', 2, O)
+    out = pad_exchange_weights(params[:10], 2, channels, O_core)
+    rest = tuple(params[10:])
+    if len(rest) > 4 and O_core != O:
+        rest = rest[:4] + (torch.nn.functional.pad(
+            rest[4], (0, 0, 0, O_core - O)),) + rest[5:]
+    return tuple(out) + rest
 
 
 def _swizzle_index(n_rows: int, shape, device) -> Tensor:
@@ -373,12 +450,26 @@ def _prepared(tag, params: Sequence[Tensor], device, build):
     return prep
 
 
-def prepared_weights(params: Sequence[Tensor], S: int, device
+def _padding_key(channels: Sequence[int] | None) -> tuple | None:
+    """The levels' channels where one needs padding, else None (so that
+    aligned widths keep their layout cache entries)."""
+    if channels is None or not any(c % 8 for c in channels):
+        return None
+    return tuple(channels)
+
+
+def prepared_weights(params: Sequence[Tensor], S: int, device,
+                     channels: Sequence[int] | None = None
                      ) -> tuple[Tensor, Tensor]:
     """:func:`layout_stages` of ``params`` on ``device``, built once per set
-    of parameter tensors (:func:`_prepared`)."""
-    return _prepared(('exchange', S), params, device,
-                     lambda p: layout_stages(p, S))
+    of parameter tensors (:func:`_prepared`), for tables of ``channels``
+    (the levels' C; None: as wide as w1 says) and padded to the widths the
+    core reads (:func:`pad_exchange_weights`)."""
+    O_core = core_out_width('streams', S, params[2].shape[1])
+    key = _padding_key(channels)
+    return _prepared(('exchange', S, key), params, device,
+                     lambda p: layout_stages(
+                         pad_exchange_weights(p, S, key, O_core), S))
 
 
 def prepared_mlp(params: Sequence[Tensor], device) -> tuple[Tensor, Tensor]:
@@ -386,13 +477,16 @@ def prepared_mlp(params: Sequence[Tensor], device) -> tuple[Tensor, Tensor]:
     return _prepared('mlp', params, device, lambda p: layout_mlp(*p))
 
 
-def prepared_render(params: Sequence[Tensor], repeat: bool, device
+def prepared_render(params: Sequence[Tensor], repeat: bool, device,
+                    channels: Sequence[int] | None = None
                     ) -> tuple[Tensor, Tensor, Tensor]:
     """:func:`layout_render` of K4's parameters (14, or 20 with
-    ``repeat``), once per set."""
+    ``repeat``), once per set, padded as :func:`prepared_weights` pads
+    them (and el's rows to the f width)."""
     params = tuple(params)[:20 if repeat else 14]
-    return _prepared(('render', repeat), params, device,
-                     lambda p: layout_render(p, repeat))
+    key = _padding_key(channels)
+    return _prepared(('render', repeat, key), params, device,
+                     lambda p: layout_render(_padded_render(p, key), repeat))
 
 
 def core_plan(mode: str, S: int, F: int, H1: int, O: int, K: int,
@@ -411,7 +505,13 @@ def core_plan(mode: str, S: int, F: int, H1: int, O: int, K: int,
     fit (from fusion_features 352 at S = 2 or 3, 448 in K4, 768 in K9),
     'global' puts them in the scratch, in the register A operand's fragment
     order, and keeps one 8 KB k-block (K4: its per-ray sums) in shared
-    memory."""
+    memory.
+
+    Widths as the wrappers pass them: F the levels' channel sum, each level
+    at :func:`table_width` (K9: its input width, rounded up to 8 here), O
+    the output width (the f rows' :func:`core_out_width` here), any H1."""
+    F = table_width(F)
+    O = core_out_width(mode, S, O)
     nkbF, OT = _cdiv(F, _KB), _cdiv(O, _NO)
     KT = 0 if mode == 'mlp' else _cdiv(K, _NK)
     nkbf = 0 if mode == 'mlp' else _cdiv(S * O, _KB)
@@ -443,17 +543,12 @@ def core_plan(mode: str, S: int, F: int, H1: int, O: int, K: int,
 
 def check_core_widths(what: str, mode: str, S: int, F: int, H1: int, O: int,
                       K: int, P: int = 0, levels: int = 3) -> None:
-    """Raises ValueError on widths the exchange core does not take: K above
-    256 (the attention width, 128 in both packages and not configurable),
-    an f row S * O wide that is not a whole number of 16-deep product
-    steps (O = fusion_features + 32 an odd multiple of 8 at an odd S), and
-    vectors too long for shared memory even in the 'global' plan (H1 in
-    the tens of thousands, or K4's P in the thousands)."""
-    if mode != 'mlp' and (S * O) % 16:
-        raise ValueError(f'{what}: S * O = {S} * {O} = {S * O} is not a '
-                         'multiple of 16: the core reads the S streams\' '
-                         'f rows as one product of that depth, in 16-deep '
-                         'steps')
+    """Raises ValueError on widths the exchange core does not take, which
+    are capacities only (any F, H1 and O are taken, padded as
+    :func:`core_plan` says): K above 256 (the attention width, 128 in both
+    packages and not configurable), and vectors too long for shared memory
+    even in the 'global' plan (H1 in the tens of thousands, or K4's P in
+    the thousands)."""
     if mode != 'mlp' and K > MAX_K:
         raise ValueError(f'{what}: K = {K} > {MAX_K}: K is the attention '
                          'width (HIDDEN_DIM, 128 in both packages and not '
@@ -496,21 +591,26 @@ CORE_TYPES = {torch.bfloat16: 'bf16', torch.float32: 'f32'}
 
 
 def core_entry(lib: str, name: str, dtype: torch.dtype,
-               table_dtype: torch.dtype | None = None):
+               table_dtype: torch.dtype | None = None, O: int = 0):
     """Entry point ``name`` of kernel library ``lib`` for inputs of
     ``dtype`` (``<name>_bf16`` or ``<name>_f32``), or for int8 tables
     beside them (``table_dtype`` int8: ``<name>_i8_bf16``,
-    ``<name>_i8_f32``)."""
+    ``<name>_i8_f32``); from the library's odd-width build where the output
+    width ``O`` is odd (``_build.VARIANTS``; K2, K3, K9)."""
     i8 = 'i8_' if table_dtype == torch.int8 else ''
+    lib = f'{lib}_odd' if O % 2 else lib
     return getattr(_build.load(lib), f'{name}_{i8}{CORE_TYPES[dtype]}')
 
 
 def _checked_args(what, tables, cells, aux, params):
     """Checks the kernels' inputs and packs the launch arguments shared by
-    K2, K3 and K4: (level arrays, (M, F, H1, O, K)). aux is bf16 or f32
-    (``CORE_TYPES``), laid out by :func:`aux_layout`, the tables all in
-    aux's type or all int8. Raises ValueError on what the kernels do not
-    take."""
+    K2, K3 and K4: (level arrays, (M, F, H1, O, K), the levels' channels).
+    aux is bf16 or f32 (``CORE_TYPES``), laid out by :func:`aux_layout`,
+    the tables all in aux's type or all int8, of any channel counts: a
+    level whose C is not a multiple of 8 is read from a zero-padded copy
+    (``grid_sample.pad_cells``, which the array of table pointers keeps
+    alive), and F is the sum of the levels' :func:`table_width`. Raises
+    ValueError on what the kernels do not take."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f'{what}: {msg}')
@@ -532,8 +632,8 @@ def _checked_args(what, tables, cells, aux, params):
             and tuple(km.shape) == (S * O, K), 'weight shapes')
     for t, c in zip(tables, cells):
         require(t.device == dev and t.dtype == tdt and t.is_contiguous()
-                and t.shape[-1] % 32 == 0 and t.data_ptr() % 16 == 0,
-                f'tables must be contiguous {tdt} on {dev}, 4C % 32 == 0')
+                and t.shape[-1] % 4 == 0 and t.data_ptr() % 16 == 0,
+                f'tables must be contiguous {tdt} (..., 4C) on {dev}')
         require(c.device == dev and c.dtype == torch.int32
                 and c.is_contiguous() and tuple(c.shape) == (S * M,),
                 f'cells must be contiguous int32 ({S * M},) on {dev}')
@@ -542,11 +642,15 @@ def _checked_args(what, tables, cells, aux, params):
                 and tuple(a.shape) == (M, aux_w) and a.data_ptr() % 16 == 0,
                 f'aux must be contiguous {dt} ({M}, {aux_w}) on {dev} for '
                 f'{len(tables)} levels')
+    read = [pad_cells(t, table_width(c)) for t, c in zip(tables, channels)]
     n = len(tables)
-    levels = ((ctypes.c_void_p * n)(*[t.data_ptr() for t in tables]),
+    pointers = (ctypes.c_void_p * n)(*[t.data_ptr() for t in read])
+    pointers.tensors = read
+    levels = (pointers,
               (ctypes.c_void_p * n)(*[c.data_ptr() for c in cells]),
-              (ctypes.c_int * n)(*channels))
-    return levels, (M, F, H1, O, K)
+              (ctypes.c_int * n)(*[table_width(c) for c in channels]))
+    F = sum(table_width(c) for c in channels)
+    return levels, (M, F, H1, O, K), channels
 
 
 def _core_args(what, mode, tables, cells, aux, params):
@@ -554,11 +658,13 @@ def _core_args(what, mode, tables, cells, aux, params):
     the widths the core takes (:func:`check_core_widths`), their prepared
     weights and the scratch of their plan: (levels, sizes, stages, vecs,
     scratch)."""
-    levels, sizes = _checked_args(what, tables, cells, aux, params)
+    levels, sizes, channels = _checked_args(what, tables, cells, aux,
+                                            params)
     M, F, H1, O, K = sizes
     L = len(tables)
     check_core_widths(what, mode, len(aux), F, H1, O, K, levels=L)
-    stages, vecs = prepared_weights(params, len(aux), aux[0].device)
+    stages, vecs = prepared_weights(params, len(aux), aux[0].device,
+                                    channels)
     scratch = core_scratch(mode, len(aux), F, H1, O, K, _cdiv(M, 64),
                            aux[0].device, levels=L)
     return levels, sizes, stages, vecs, scratch
@@ -577,7 +683,7 @@ def _launch(tables, cells, aux_self, aux_cross, params, rp):
         (aux_self, aux_cross), params)
     jl, kv = _outputs(aux_self, sizes)
     fn = core_entry('gather_epilogue', 'fused_exchange_epilogue',
-                    aux_self.dtype, tables[0].dtype)
+                    aux_self.dtype, tables[0].dtype, sizes[3])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
@@ -690,7 +796,7 @@ def _launch_multi(tables, cells, aux_list, params):
         params)
     jl, kv = _outputs(aux_list[0], sizes)
     fn = core_entry('gather_epilogue_multi', 'fused_exchange_epilogue_multi',
-                    aux_list[0].dtype, tables[0].dtype)
+                    aux_list[0].dtype, tables[0].dtype, sizes[3])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]

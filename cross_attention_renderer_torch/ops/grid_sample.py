@@ -35,6 +35,20 @@ def pack_cells(features: Tensor) -> Tensor:
     return torch.cat([features, shift_x, shift_y, shift_xy], dim=-1)
 
 
+def pad_cells(packed: Tensor, width: int) -> Tensor:
+    """A :func:`pack_cells` table (..., 4C) with each corner's C channels
+    zero-padded to ``width``: (..., 4 width), the layout the CUDA exchange
+    core reads a level at (``gather_epilogue.table_width``). The table
+    itself where ``width`` is C; an int8 table's padded channels are zeros
+    too, which its zero rows of the (scale-folded) fuse kernel meet."""
+    C = packed.shape[-1] // 4
+    if width == C:
+        return packed
+    out = packed.new_zeros(packed.shape[:-1] + (4, width))
+    out[..., :C] = packed.reshape(packed.shape[:-1] + (4, C))
+    return out.reshape(packed.shape[:-1] + (4 * width,))
+
+
 def pack_pyramid(pyramid: Sequence[Tensor]) -> tuple[Tensor, ...]:
     """:func:`pack_cells` for every level of a feature pyramid, in each
     level's type (int8 levels stay int8)."""

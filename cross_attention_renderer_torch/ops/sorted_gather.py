@@ -128,10 +128,16 @@ class GatherPlan:
     per_lane: int
 
 
+def chunks_of(C: int) -> int:
+    """The 8-channel chunks of a row of C channels (the last C % 8 wide
+    where C is not a multiple of 8)."""
+    return -(-C // 8)
+
+
 def sample_lanes(C: int) -> int:
-    """Lanes a sample of C channels takes: C / 8 rounded up to a power of
-    two, at most a warp."""
-    return min(32, 1 << (C // 8 - 1).bit_length())
+    """Lanes a sample of C channels takes: its chunks rounded up to a power
+    of two, at most a warp."""
+    return min(32, 1 << (chunks_of(C) - 1).bit_length())
 
 
 def gather_plan(M: int, C: int, sm_count: int, blocks_per_sm: int, *,
@@ -151,14 +157,14 @@ def gather_plan(M: int, C: int, sm_count: int, blocks_per_sm: int, *,
     grid = max(1, min(-(-batches // GATHER_WARPS),
                       sm_count * max(1, blocks_per_sm)))
     return GatherPlan(grid, GATHER_WARPS, GATHER_BATCH, group,
-                      min(depth, group), -(-(C // 8) // group))
+                      min(depth, group), -(-chunks_of(C) // group))
 
 
 def plan_cells(plan: GatherPlan, M: int, C: int, block: int) -> np.ndarray:
-    """The flat (sample * C / 8 + chunk) 16-byte output chunks block
-    ``block`` of ``plan`` writes, as the kernel assigns them (one entry a
-    write)."""
-    chunks = C // 8
+    """The flat (sample * chunks + chunk) output chunks (8 channels, the
+    last of a C that is not a multiple of 8 the rest) block ``block`` of
+    ``plan`` writes, as the kernel assigns them (one entry a write)."""
+    chunks = chunks_of(C)
     batches = -(-M // plan.batch)
     stride = plan.grid * plan.warps
     first = block * plan.warps
@@ -241,10 +247,11 @@ def launch_gather(kernel, entry: str, fm_flat: Tensor, idx: Tensor,
     ``kernel`` (whose ``launches`` it counts) and returns (M, C) in
     ``out_dtype``, differentiable through :func:`plain_gather`.
 
-    Takes a (rows, C) bf16 or f32 table with C % 8 == 0 (an f32 table is
-    cast to bf16 first, as the TPU wrappers cast theirs), (M, 4) int32
-    corners, (M, 4) f32 weights, all contiguous on one card, and a bf16 or
-    f32 output; raises ValueError on anything else. The launch is
+    Takes a (rows, C) bf16 or f32 table of any C (16-byte loads where C %
+    8 == 0, else the kernel's instantiation that reads a value at a time;
+    an f32 table is cast to bf16 first, as the TPU wrappers cast theirs),
+    (M, 4) int32 corners, (M, 4) f32 weights, all contiguous on one card,
+    and a bf16 or f32 output; raises ValueError on anything else. The launch is
     :func:`gather_plan`'s, kept as ``kernel.last_plan``."""
     return kernel_call(lambda *args: _launch_gather(kernel, entry, *args),
                        plain_gather, fm_flat, idx, w, out_dtype)
@@ -264,7 +271,7 @@ def _launch_gather(kernel, entry, fm_flat, idx, w, out_dtype):
             'the table must be a contiguous (rows, C) bf16 or f32 tensor')
     rows, C = fm_flat.shape
     M = idx.shape[0]
-    require(C % 8 == 0 and rows > 0, f'C % 8 == 0 and rows > 0, got '
+    require(C > 0 and rows > 0, f'C > 0 and rows > 0, got '
             f'{tuple(fm_flat.shape)}')
     require(idx.device == dev and idx.dtype == torch.int32
             and idx.is_contiguous() and idx.dim() == 2

@@ -1,5 +1,5 @@
-"""Device time of one rendered image on the paths that run the bilinear
-gather, for comparing two trees of the package on one card.
+"""Device time of one rendered image on a path, and of the kernels in it,
+for comparing two trees of the package on one card.
 
   python3 cross_attention_renderer_torch/tools/image_time.py \\
       [--root DIR] [--patch evict_last] [--paths v2_sorted,v3_onehot]
@@ -16,8 +16,11 @@ launch, help or hurt the next ray block of a render.
 Each path renders the flagship 256x256 image (``make_scene(0)``, 8 blocks
 of 8,192 rays, the 122M model in bf16 from seed 0) once to warm up, then
 twice under ``torch.profiler``: the card's busy time an image (the sum of
-its kernels' device time) and the bilinear gather's share of it. Prints
-one JSON line.
+its kernels' device time), the bilinear gather's (K5-K8), the exchange
+core's (K2, K3, K4, K9) and K1's share of it, with their launches. The
+paths: the two that run the gather (the default), and the flagship's V=2
+(``v2``), fused render (``v2_fused``), V=3 (``v3``) and V=3 compat
+(``v3_compat``). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -34,12 +37,20 @@ PATHS = {
     'v2_sorted': dict(npoints=64, sorted_stream=True),
     'v3_onehot': dict(n_view=3, reference_exchange_compat=True,
                       fused_mlp=True, gather='onehot'),
+    'v2': dict(npoints=64),
+    'v2_fused': dict(npoints=64, fused_render=True),
+    'v3': dict(n_view=3),
+    'v3_compat': dict(n_view=3, reference_exchange_compat=True,
+                      fused_mlp=True),
 }
+# (name, what the kernel's name holds in the profiler's events)
+KERNELS = (('gather', 'bilinear_gather'), ('core', 'exchange_core_kernel'),
+           ('attention', 'epipolar_attention_kernel'))
 
 
 def image_device_ms(model, scene, make_scan_renderer, images: int = 2):
-    """[(busy ms, bilinear gather ms, its launches)] of ``images`` profiled
-    images after one warm-up image."""
+    """[(busy ms, then for each of ``KERNELS`` its ms and launches)] of
+    ``images`` profiled images after one warm-up image."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     uv = scene['query']['uv']
@@ -56,10 +67,12 @@ def image_device_ms(model, scene, make_scan_renderer, images: int = 2):
                 torch.cuda.synchronize()
             events = [e for e in prof.key_averages()
                       if str(getattr(e, 'device_type', '')).endswith('CUDA')]
-            gather = [e for e in events if 'bilinear_gather' in e.key]
-            out.append((sum(e.self_device_time_total for e in events) / 1e3,
-                        sum(e.self_device_time_total for e in gather) / 1e3,
-                        sum(e.count for e in gather)))
+            row = [sum(e.self_device_time_total for e in events) / 1e3]
+            for _, key in KERNELS:
+                hit = [e for e in events if key in e.key]
+                row += [sum(e.self_device_time_total for e in hit) / 1e3,
+                        sum(e.count for e in hit)]
+            out.append(tuple(row))
     return out
 
 

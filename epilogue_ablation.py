@@ -45,8 +45,8 @@ LIBS = ('gather_epilogue', 'gather_epilogue_multi', 'fused_mlp',
 NO_GATHER = ('    if (row >= 0 && kF32) {', '    if (row < -1 && kF32) {')
 NO_GATHER_BF16 = ('    } else if (row >= 0) {\n      const bf16* src',
                   '    } else if (row < -1) {\n      const bf16* src')
-NO_ROWS = ('    if (r < n_live)\n      val = load8<kF32, true>(',
-           '    if (r < -1)\n      val = load8<kF32, true>(')
+NO_ROWS = ('      if (r < n_live)\n        val = load8<kF32, true>(',
+           '      if (r < -1)\n        val = load8<kF32, true>(')
 NO_COPY = ('    mbar_expect_tx(full + 8 * idx, bytes);\n'
            '    bulk_copy(slots + idx * kLargeStage, p.stages + off, bytes,\n'
            '              full + 8 * idx);',

@@ -55,7 +55,13 @@ def _scale(want):
                                          (1, 4, 512, 48, 128, 288),
                                          (1, 1, 512, 64, 128, 576),
                                          (1, 1, 300, 64, 128, 512),
-                                         (1, 1, 300, 64, 128, 960)])
+                                         (1, 1, 300, 64, 128, 960),
+                                         # widths that are no multiple
+                                         # of 4: fusion_features 102's
+                                         # latent, an odd one, an odd D
+                                         (1, 2, 200, 64, 128, 134),
+                                         (1, 3, 100, 48, 128, 133),
+                                         (2, 2, 50, 16, 30, 41)])
 def test_epipolar_attention_kernel(dev, B, V, R, P, D, C):
     g = torch.Generator(device='cpu').manual_seed(0)
 
@@ -118,6 +124,13 @@ def _epilogue_case(dev, channels, H1, O, K, n_img, hw, M, S=2, seed=0):
     ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 2 * 8 * 64 + 40,
      8 * 64),
     ((64, 128, 256, 512), 960, 480, 128, (32, 16, 8, 4), 3 * 64 + 5, 100),
+    # any width: levels that are no multiple of 8 (read from zero-padded
+    # copies) and f rows that do not tile (S * O = 76, 264, 268; the core's
+    # f rows 48, 144, 144 wide), an odd O; fusion_features 100 and 102
+    ((36, 20, 12), 80, 38, 16, (4, 8, 16), 5 * 64 + 17, 40),
+    ((30, 50, 100), 100, 37, 16, (4, 8, 16), 3 * 64 + 3, 96),
+    ((264, 264, 264), 264, 132, 128, (8, 16, 32), 2 * 64 + 40, 100),
+    ((268, 268, 268), 268, 134, 128, (8, 16, 32), 2 * 64 + 40, 100),
 ])
 def test_exchange_epilogue_kernel(dev, channels, H1, O, K, hw, M, rp):
     """K2 against its plain version; every case also checks that the launch
@@ -158,6 +171,14 @@ def test_exchange_epilogue_kernel(dev, channels, H1, O, K, hw, M, rp):
     ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 3 * 64 + 11, 3),
     ((64, 128, 256, 512), 960, 480, 128, (32, 16, 8, 4), 2 * 64 + 9, 3),
     ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 4 * 64 + 3, 4),
+    # any width (as K2's cases): S * O = 120, 396 (fusion_features 100),
+    # 888 (264), 200; levels that are no multiple of 8
+    ((36, 20, 12), 80, 40, 16, (4, 8, 16), 150, 3),
+    ((264, 264, 264), 264, 132, 128, (8, 16, 32), 3 * 64 + 5, 3),
+    ((592, 592, 592), 592, 296, 128, (8, 16, 32), 2 * 64 + 9, 3),
+    ((268, 268, 268), 268, 134, 128, (8, 16, 32), 2 * 64 + 9, 3),
+    ((30, 50, 100), 100, 40, 16, (4, 8, 16), 130, 5),
+    ((36, 20, 12), 80, 37, 16, (4, 8, 16), 150, 3),     # odd O
 ])
 def test_exchange_epilogue_multi_kernel(dev, channels, H1, O, K, hw, M, S):
     """K3 at S = 2, 3 and 4 streams, ragged M (not a multiple of the tile),
@@ -195,7 +216,12 @@ def test_exchange_epilogue_prepared_once(dev):
 @pytest.mark.parametrize('M,K1,H,O', [(64 * 5 + 23, 96, 80, 40),
                                       (2 * 4096 + 17, 576, 576, 288),
                                       (3 * 64 + 1, 48, 64, 16),
-                                      (64 * 7 + 9, 640, 640, 320)])
+                                      (64 * 7 + 9, 640, 640, 320),
+                                      # any width: K1, H and O that are
+                                      # no multiple of 8 or 16, odd O
+                                      (64 * 3 + 5, 180, 100, 37),
+                                      (2 * 64 + 9, 804, 268, 134),
+                                      (150, 30, 50, 7)])
 def test_fused_mlp_kernel(dev, M, K1, H, O):
     """K9 at a ragged M (not a multiple of the 64-row tile), the flagship
     widths, a narrow O under one O tile and K1 under one k-block, and O =
@@ -249,6 +275,11 @@ def _render_case(dev, channels, H1, O, K, hw, B, R, P, seed=3):
     # four levels at the ResNet34's and the U-Net's widths
     ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 1, 21, 64),
     ((64, 128, 256, 512), 960, 480, 128, (32, 16, 8, 4), 1, 11, 64),
+    # any width: levels that are no multiple of 8, O = 38 and 134 (the f
+    # rows 48 and 144 wide), an odd O
+    ((36, 20, 12), 80, 38, 16, (4, 8, 16), 1, 13, 24),
+    ((30, 50, 100), 100, 37, 16, (4, 8, 16), 2, 7, 16),
+    ((268, 268, 268), 268, 134, 128, (8, 16, 32), 1, 9, 64),
 ])
 def test_fused_render_core_kernel(dev, channels, H1, O, K, hw, B, R, P,
                                   repeat):
@@ -379,7 +410,12 @@ GATHER_KERNELS = [
     (2 * 64 * 64, 256, 65537, True, True),
     (2 * 128 * 128, 256, 65555, True, True),
     (2 * 256 * 256, 64, 65571, True, True),
-    (3 * 256 * 256, 64, 33333, False, True)])
+    (3 * 256 * 256, 64, 33333, False, True),
+    # widths that are no multiple of 8: rows read a value at a time
+    (2 * 16 * 16, 12, 1003, True, False),
+    (2 * 64 * 64, 134, 4097, False, True),
+    (3 * 16 * 16, 5, 777, True, False),
+    (2 * 32 * 32, 268, 2049, True, True)])
 def test_gather_kernels(dev, kernel, out, rows, C, M, sort, edges):
     """K5-K8 against ``take_gather`` cast to the kernel's output type. Both
     round each corner's weight to bf16; the kernel sums the bf16 products in
@@ -424,7 +460,12 @@ def test_gather_kernels_cast_and_refuse(dev):
     got = SG.resident_gather(table.float(), idx, w, out_dtype=torch.float32)
     assert got.dtype == torch.float32
     assert _max_err(got, want) <= 2 ** -5 * _scale(want)
-    for bad in ((table[:, :60].contiguous(), idx, w),
+    narrow = table[:, :60].contiguous()     # C = 60 is taken
+    want = SG.take_gather(narrow.float(), idx, w)
+    got = SG.resident_gather(narrow.float(), idx, w, out_dtype=torch.float32)
+    assert got.shape == (300, 60)
+    assert _max_err(got, want) <= 2 ** -5 * _scale(want)
+    for bad in ((table[:0], idx, w),
                 (table.t(), idx, w), (table, idx.long(), w),
                 (table, idx, w.half()), (table, idx[:, :3].contiguous(), w)):
         for kernel in (SG.resident_gather, SG.windowed_gather,
@@ -509,7 +550,7 @@ def _f32_case(dev, key, ff):
                   for a in arrays), {0: 2 ** -5})
 
 
-@pytest.mark.parametrize('ff', [256, 384, 512])
+@pytest.mark.parametrize('ff', [100, 102, 256, 384, 512])
 @pytest.mark.parametrize('key', ['K1', 'K2', 'K3', 'K4', 'K9'])
 def test_f32_kernels_against_plain_f32(dev, key, ff):
     """Each f32 instantiation launches (one counted launch), returns f32
@@ -1038,9 +1079,10 @@ def _int8_case(dev, key, ff, dtype, P=64):
             (tables, c, aux, prm), {0: 2 ** -5, 1: 2 ** -5})
 
 
-INT8_CASES = ([(k, ff, 64) for k in ('K2', 'K3', 'K4') for ff in (256, 512)]
+INT8_CASES = ([(k, ff, 64) for k in ('K2', 'K3', 'K4')
+               for ff in (102, 256, 512)]
               + [('K4', 256, 8), ('K4', 256, 24), ('K3 S=5', 256, 64),
-                 ('K3 S=8', 256, 64)])
+                 ('K3 S=8', 256, 64), ('K3 S=5', 100, 64)])
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],

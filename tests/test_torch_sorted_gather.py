@@ -205,20 +205,33 @@ def test_plain_gathers_keep_their_output_types():
         assert torch.equal(got, want.to(dtype))
 
 
-def test_wrappers_refuse_what_the_kernel_cannot_take():
+def test_wrappers_refuse_what_the_kernel_cannot_take(monkeypatch):
     """A tensor that is not on the CPU never takes the plain version: the
     wrappers check it for the kernel and raise (meta tensors stand in for a
-    card's)."""
+    card's). A width that is not a multiple of 8 is taken (the kernel reads
+    such rows a value at a time): it reaches the launch plan."""
     meta = dict(device='meta')
     idx = torch.zeros(5, 4, dtype=torch.int32, **meta)
     w = torch.zeros(5, 4, **meta)
     for fm in (torch.zeros(10, 16, dtype=torch.float16, **meta),
-               torch.zeros(10, 12, dtype=torch.bfloat16, **meta),
+               torch.zeros(0, 16, dtype=torch.bfloat16, **meta),
                torch.zeros(16, 10, dtype=torch.bfloat16, **meta).t()):
         for fn in (SG.resident_gather, SG.windowed_gather, PG.onehot_gather,
                    BG.banded_gather):
             with pytest.raises(ValueError):
                 fn(fm, idx, w)
+
+    class Planned(Exception):
+        pass
+
+    def card_plan(dev, M, C, out_dtype):
+        raise Planned(C)
+
+    monkeypatch.setattr(SG, 'card_plan', card_plan)
+    for fn in (SG.resident_gather, SG.windowed_gather, PG.onehot_gather,
+               BG.banded_gather):
+        with pytest.raises(Planned, match='12'):
+            fn(torch.zeros(10, 12, dtype=torch.bfloat16, **meta), idx, w)
     fm = torch.zeros(10, 16, dtype=torch.bfloat16, **meta)
     with pytest.raises(ValueError):
         SG.resident_gather(fm, idx.long(), w)

@@ -307,15 +307,21 @@ def test_core_layout_mirror_at_any_stream_count(monkeypatch, S, widths):
 
 
 def test_core_widths_refused_with_their_shape():
-    """A width the core cannot take raises with the shape at any S; nothing
-    is routed to the plain version."""
+    """A width the core cannot take (a capacity) raises with the shape at
+    any S; nothing is routed to the plain version. An f row S * O wide
+    that does not tile the 16-deep product steps (S * O = 5 * 40 = 200) is
+    no longer refused: the core's f rows are 48 wide there, the weights
+    zero past O."""
     with pytest.raises(ValueError, match='S = 7, F = 576, H1 = 40000'):
         GE.check_core_widths('k3', 'streams', 7, 576, 40000, 288, 128)
     with pytest.raises(ValueError, match='K = 320'):
         GE.check_core_widths('k3', 'streams', 6, 576, 576, 288, 320)
-    with pytest.raises(ValueError, match='S \\* O = 5 \\* 40 = 200'):
-        GE.check_core_widths('k3', 'streams', 5, 64, 80, 40, 16)
+    GE.check_core_widths('k3', 'streams', 5, 64, 80, 40, 16)
+    assert GE.core_out_width('streams', 5, 40) == 48
+    assert (GE.core_plan('streams', 5, 64, 80, 40, 16)
+            == GE.core_plan('streams', 5, 64, 80, 48, 16))
     GE.check_core_widths('k3', 'streams', 6, 64, 80, 40, 16)
+    assert GE.core_out_width('streams', 6, 40) == 40
 
 
 # --- training and the CLI at five views ------------------------------------

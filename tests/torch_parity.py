@@ -49,18 +49,22 @@ def assert_close(name, got, want, atol=2e-3, rtol=1e-3):
         f'{name}: max abs err {err:.2e} (scale {scale:.2e})')
 
 
-def golden_fixture_model(n_view: int, **model_kwargs):
+def golden_fixture_model(n_view: int, convert=None, **model_kwargs):
     """tests/fixtures/renderer_golden_v{n_view}.npz (the reference torch
     model's inputs, pyramid, weights and outputs) loaded into the port.
 
-    The weights pass ``convert_reference_state_dict`` then
-    ``params_from_jax``. Returns (fixture dict, model, scene, z,
-    (B, V, R, P))."""
+    The weights pass ``convert(sd, n_view=...)``: by default the JAX
+    repository's ``convert_reference_state_dict`` then ``params_from_jax``.
+    Returns (fixture dict, model, scene, z, (B, V, R, P))."""
     sys.path.insert(0, str(ROOT))
     from cross_attention_renderer_torch.convert import params_from_jax
     from cross_attention_renderer_torch.models.renderer import (
         CrossAttentionRenderer)
     from tools.convert_checkpoint import convert_reference_state_dict
+    if convert is None:
+        def convert(sd, n_view):
+            return params_from_jax(convert_reference_state_dict(
+                sd, n_view=n_view))
 
     d = dict(np.load(ROOT / 'tests' / 'fixtures'
                      / f'renderer_golden_v{n_view}.npz'))
@@ -79,9 +83,8 @@ def golden_fixture_model(n_view: int, **model_kwargs):
                                    vit_width=64, vit_depth=2, vit_heads=2,
                                    resnet_layers=(1, 1, 1), device='cpu',
                                    **model_kwargs)
-    missing, unexpected = model.load_state_dict(
-        params_from_jax(convert_reference_state_dict(sd, n_view=views)),
-        strict=False)
+    missing, unexpected = model.load_state_dict(convert(sd, n_view=views),
+                                                strict=False)
     # The fixture also holds the single-view merge layer, which the
     # multi-view paths never build.
     assert all(k.startswith('encoder.') for k in missing)
