@@ -13,7 +13,11 @@ no result):
      (registers, barriers, spills, any note of serialised wgmma), and of
      the row gathers' (the copy and bulk gathers of T1-T5, T7-T10, T12,
      T13, and the block fill of T6 and T11) and the bilinear gather's
-     (K5-K8, one a depth and output type): registers and spills;
+     (K5-K8, one a depth and output type): registers and spills; from
+     here on every launch of the exchange core (K2, K3, K4, K9) is held to
+     ``core_plan`` (``watch_core_plans``): the first launch at each set of
+     widths logs its plan and stage slots a ring beside ``core_plan``'s,
+     and a difference fails the run;
   3. V=2 main path: the flagship renderer (122M DPT-hybrid, bf16 compute, f32
      parameters from a seeded initialiser; the decoder's output layer is
      drawn at 1/64 of its scale, since an untrained decoder has no image
@@ -147,11 +151,13 @@ no result):
      CUDA events (not profiled), and the image against the same model's
      unfused route (no K1-K4 or K9) within the path-vs-path tolerance;
      each new kernel mode and shape against its plain version on the
-     path's first block, timed beside its bound; the small-input
-     agreement of the sorted stream (K5) and the one-hot (K7) and banded
-     (K8) gathers at V=4 and at four levels; one default-route train step
-     of each new encoder (ms, peak GB); ``cli/train.py`` (2 steps) and
-     ``cli/eval.py`` (one scene) with ``--model resnet --no_sample``.
+     path's first block, timed beside its bound (the U-Net fused
+     render's K4 call repeated 20 times on its inputs, bit for bit); the
+     small-input agreement of the sorted stream (K5) and the one-hot (K7)
+     and banded (K8) gathers at V=4 and at four levels; one default-route
+     train step of each new encoder (ms, peak GB); ``cli/train.py`` (2
+     steps) and ``cli/eval.py`` (one scene) with ``--model resnet
+     --no_sample``.
  25. the unposed path (``cli/render_unposed.py``) on a known-pose image
      pair of the value-noise world: the classical frontend on the card,
      its keypoints and matches against the same call on the CPU, its
@@ -210,9 +216,11 @@ no result):
      the path-vs-path tolerance (q8 against the dense image of its
      dequantized pyramid); each new K3 mode and K1 shape against its plain
      version on its path's first call (K1 at V*P = 240 and 288), K3 at
-     S = 8 on a V=8 flagship's first block in bf16, f32 and int8, each
-     printing its plan; V=5 and V=6 images timed and profiled; the
-     small-input agreement at V=5;
+     S = 8 on a V=8 flagship's first block in bf16, f32 and int8, and at
+     S = 4 and 6 on a V=4 and a V=6 one in f32 and int8, each printing
+     its plan; the V=6 call repeated 20 times on its inputs, bit for bit;
+     V=5 and V=6 images timed and profiled; the small-input agreement at
+     V=5;
  29. the card tools ported from the JAX repository's ``tools/``
      (``TOOL_RUNS``): each run once in this process at its shortest
      setting, printing its lines (``bench_ondisk`` on phase 21's corpus);
@@ -845,12 +853,57 @@ def launch_shape(name, kernel):
     exchange-core kernel (K2, K3, K4, K9) as the launch reported them."""
     grid, stages, smem, threads, *cluster = kernel.last_launch
     log(f'{name} launch: grid {grid} blocks of {threads} threads, cluster '
-        f'shape {tuple(cluster)}, {stages} weight stage slots, '
-        f'{smem:,} bytes of shared memory a block, plan '
+        f'shape {tuple(cluster)}, {stages} weight stage slots ({stages // 2}'
+        f' a ring), {smem:,} bytes of shared memory a block, plan '
         f'{kernel.last_plan!r}')
     return {'grid': grid, 'threads': threads, 'cluster': cluster,
             'stage_slots': stages, 'smem_bytes': smem,
             'plan': kernel.last_plan}
+
+
+def watch_core_plans(GE) -> dict:
+    """Holds every exchange-core launch of the run (K2, K3, K4, K9) to
+    ``core_plan``: wraps ``GE.record_launch`` so that each launch at widths
+    not seen before logs its plan and stage slots a ring as the launch
+    reported them beside ``core_plan``'s answer for those widths, and
+    raises where they differ. Returns {widths: (plan, slots a ring)},
+    filled as the launches come."""
+    seen, real = {}, GE.record_launch
+
+    def record(wrapper, info, widths):
+        real(wrapper, info, widths)
+        key = tuple(sorted(widths.items()))
+        if key in seen:
+            return
+        got = (wrapper.last_plan, info[1] // 2)
+        want = GE.core_plan(**widths)
+        seen[key] = got
+        log(f'core launch {widths}: plan {got[0]!r}, {got[1]} stage slots '
+            f'a ring (core_plan: {want.plan!r}, {want.slots})')
+        if got != (want.plan, want.slots):
+            raise RuntimeError(f'the core launched {got} at {widths}, '
+                               f'core_plan says {want}')
+
+    GE.record_launch = record
+    return seen
+
+
+def repeat_bitwise(label, fn, args, n):
+    """``fn(*args)`` n times on one set of inputs: every output equal, bit
+    for bit, to the first call's (a stale read of the f rows the consumers
+    store in the scratch would show as a difference)."""
+    import torch
+    first = fn(*args)
+    for i in range(1, n):
+        again = fn(*args)
+        for a, b in zip(first, again):
+            if not torch.equal(a, b):
+                raise RuntimeError(f'{label}: call {i + 1} of {n} differs '
+                                   'from the first')
+    torch.cuda.synchronize()
+    log(f'{label}: {n} calls on one set of inputs, bit for bit, plan '
+        f'{fn.last_plan!r}, {fn.last_launch[1] // 2} stage slots a ring')
+    return n
 
 
 def small_agreement(label, RM, make_scene, dev, counted=None, small=SMALL,
@@ -1707,6 +1760,13 @@ ABLATION_SMALL = (
 )
 
 
+# The paths whose core call (the 'resident' plan's) is repeated on one set
+# of inputs, bit for bit: K4 at the U-Net's widths (phase 24), K3 at S = 6
+# (phase 28).
+REPEATED = ('U-Net V=2 fused render', 'V=6')
+REPEATS = 20
+
+
 def unfused_twin(model):
     """``model`` on its unfused route: a shallow copy (the same weights)
     with the fused epilogues, the fused render, K1 and K9 off, as the
@@ -1796,6 +1856,9 @@ def ablations(RM, EA, GE, FR, FM, PG, SG, BG, make_scene, dev, counted,
         del twin, rgb, rgb_ref
         for name, entry in checked.items():
             result = checks[name](f'{label}', captured[name][0])
+            if label in REPEATED:
+                result['repeats'] = repeat_bitwise(
+                    label, counted[name], captured[name][0], REPEATS)
             numbers.setdefault(entry, {})[label] = result
         del captured, scene
         torch.cuda.empty_cache()
@@ -2570,6 +2633,7 @@ def parallel_rank(argv) -> int:
     from cross_attention_renderer_torch.train import trainer as T
     initialize(f'localhost:{port}', 2, rank, local_device_ids=[0],
                backend='gloo')
+    watch_core_plans(GE)    # the rank's core launches, as the script's
     try:
         dev = torch.device('cuda', 0)
         scene = make_scene(0, batch=BT.BATCH, n_view=2, H=H, W=W,
@@ -2804,6 +2868,7 @@ VIEW_PATHS = (
 VIEWS_UNFUSED_BLOCKS = 16
 VIEWS_TIMED = ('V=5', 'V=6')        # the paths whose image is timed
 K3_STREAMS = 8                      # K3 is also checked at S = 8
+K3_TYPED = (4, 6, K3_STREAMS)       # S checked in f32 and int8 on a block
 QUICK = (3, 1)      # the calls timed of the modes on no image path (kernel,
                     # plain version): the plain version at S = 8 is 0.6-1.6 s
 
@@ -2875,6 +2940,10 @@ def views(RM, EA, GE, FM, SG, make_scene, dev, counted):
                 label, captured[name][0])
             if name == 'fused_exchange_epilogue_multi':
                 plans[entry] = GE.fused_exchange_epilogue_multi.last_plan
+            if name == 'fused_exchange_epilogue_multi' and label in REPEATED:
+                numbers[entry][label]['repeats'] = repeat_bitwise(
+                    label, GE.fused_exchange_epilogue_multi,
+                    captured[name][0], REPEATS)
         if q8:      # the int8 tables beside f32 slot weights as well
             entry = f'{checked["fused_exchange_epilogue_multi"]}_f32'
             numbers[entry] = {label: k3(f'{label} f32 slot weights', as_f32(
@@ -2884,43 +2953,48 @@ def views(RM, EA, GE, FM, SG, make_scene, dev, counted):
         del captured, scene, rgb, model
         torch.cuda.empty_cache()
 
-    # K3 at S = 8: the first block of a V=8 flagship, bf16, f32 and int8
-    V = K3_STREAMS
-    model = flagship(RM, dev, n_view=V)
-    scene = make_scene(0, n_view=V, H=H, W=W, n_rays=RAY_BLOCK, device=dev)
-    args = first_call(model, scene, RM, 'fused_exchange_epilogue_multi')
-    s8 = f'fused_exchange_epilogue_multi_s{V}'
-    numbers[s8] = {f'V={V}': k3(f'K3 S = {V} bf16', args, *QUICK)}
-    plans[s8] = GE.fused_exchange_epilogue_multi.last_plan
-    f32 = (tuple(t.float() for t in args[0]), args[1],
-           tuple(a.float() for a in args[2]), args[3])
-    numbers[f'{s8}_f32'] = {f'V={V}': k3(f'K3 S = {V} f32', f32, *QUICK)}
-    plans[f'{s8}_f32'] = GE.fused_exchange_epilogue_multi.last_plan
-    del f32
-    seen = []
-    fn = RM.fused_exchange_epilogue_multi
+    # K3 on the first block of a V=4, 6 and 8 flagship in f32 and int8 (S
+    # = 8 in bf16 too: it is on no image path)
+    for V in K3_TYPED:
+        model = flagship(RM, dev, n_view=V)
+        scene = make_scene(0, n_view=V, H=H, W=W, n_rays=RAY_BLOCK,
+                           device=dev)
+        args = first_call(model, scene, RM, 'fused_exchange_epilogue_multi')
+        sv = f'fused_exchange_epilogue_multi_s{V}'
+        if V == K3_STREAMS:
+            numbers[sv] = {f'V={V}': k3(f'K3 S = {V} bf16', args, *QUICK)}
+            plans[sv] = GE.fused_exchange_epilogue_multi.last_plan
+        f32 = (tuple(t.float() for t in args[0]), args[1],
+               tuple(a.float() for a in args[2]), args[3])
+        numbers[f'{sv}_f32'] = {f'V={V}': k3(f'K3 S = {V} f32', f32,
+                                             *QUICK)}
+        plans[f'{sv}_f32'] = GE.fused_exchange_epilogue_multi.last_plan
+        del f32
+        seen = []
+        fn = RM.fused_exchange_epilogue_multi
 
-    def recorder(*a):
-        if not seen:
-            seen.append(a)
-        return fn(*a)
+        def recorder(*a):
+            if not seen:
+                seen.append(a)
+            return fn(*a)
 
-    RM.fused_exchange_epilogue_multi = recorder
-    try:
-        with torch.inference_mode():
-            z = model.encode(scene)
-        make_fast_renderer(model, 1, q8=True)(scene, z, scene['query']['uv'])
-    finally:
-        RM.fused_exchange_epilogue_multi = fn
-    i8 = f'fused_exchange_epilogue_multi_i8_s{V}'
-    numbers[i8] = {f'V={V}': k3(f'K3 S = {V} int8', seen[0], *QUICK)}
-    numbers[f'{i8}_f32'] = {f'V={V}': k3(
-        f'K3 S = {V} int8 f32', as_f32('fused_exchange_epilogue_multi',
-                                        seen[0]), *QUICK)}
-    plans[i8] = plans[f'{i8}_f32'] = (
-        GE.fused_exchange_epilogue_multi.last_plan)
-    del model, scene, args, seen, z
-    torch.cuda.empty_cache()
+        RM.fused_exchange_epilogue_multi = recorder
+        try:
+            with torch.inference_mode():
+                z = model.encode(scene)
+            make_fast_renderer(model, 1, q8=True)(scene, z,
+                                                  scene['query']['uv'])
+        finally:
+            RM.fused_exchange_epilogue_multi = fn
+        i8 = f'fused_exchange_epilogue_multi_i8_s{V}'
+        numbers[i8] = {f'V={V}': k3(f'K3 S = {V} int8', seen[0], *QUICK)}
+        numbers[f'{i8}_f32'] = {f'V={V}': k3(
+            f'K3 S = {V} int8 f32', as_f32('fused_exchange_epilogue_multi',
+                                            seen[0]), *QUICK)}
+        plans[i8] = plans[f'{i8}_f32'] = (
+            GE.fused_exchange_epilogue_multi.last_plan)
+        del model, scene, args, seen, z
+        torch.cuda.empty_cache()
     log(f'views: K3 plans by entry {plans}')
     by_path['small_v5'] = small_agreement(
         'V=5', RM, make_scene, dev, counted={
@@ -3320,6 +3394,8 @@ def main() -> int:
     for source in ('row_gather', 'bilinear_gather'):
         for line in gather_ptxas(logs.get(source, '')):
             log(f'ptxas {source} {line}')
+    # every core launch from here on is held to core_plan's plan and slots
+    core_plans = watch_core_plans(GE)
 
     attention = ('epipolar_attention', EA.epipolar_attention)
     epilogue = ('fused_exchange_epilogue', GE.fused_exchange_epilogue)
@@ -3804,6 +3880,18 @@ def main() -> int:
          'K3 int8, S = 8 (on no image path)'),
         ('fused_exchange_epilogue_multi_i8_s8_f32',
          'K3 int8 with f32 slot weights, S = 8 (on no image path)'),
+        ('fused_exchange_epilogue_multi_s4_f32',
+         'K3 f32, S = 4 (a V=4 block; on no image path)'),
+        ('fused_exchange_epilogue_multi_i8_s4',
+         'K3 int8, S = 4 (a V=4 block; on no image path)'),
+        ('fused_exchange_epilogue_multi_i8_s4_f32',
+         'K3 int8 with f32 slot weights, S = 4 (on no image path)'),
+        ('fused_exchange_epilogue_multi_s6_f32',
+         'K3 f32, S = 6 (a V=6 block; on no image path)'),
+        ('fused_exchange_epilogue_multi_i8_s6',
+         'K3 int8, S = 6 (a V=6 block; on no image path)'),
+        ('fused_exchange_epilogue_multi_i8_s6_f32',
+         'K3 int8 with f32 slot weights, S = 6 (on no image path)'),
         ('fused_exchange_epilogue_multi_l4_s5',
          'K3, 4 pyramid levels, S = 5 (ResNet34 V=5)'),
         ('epipolar_attention_vp240',
@@ -3863,6 +3951,10 @@ def main() -> int:
             f'({kern["bound_by"]}), library {kern["library_ms"]} ms, '
             f'launches per image {kern["launches_by_path"]}')
     log(f'evaluation: {json.dumps(evaluation)}')
+    log(f'core plans: {len(core_plans)} widths launched, each on the plan '
+        f'and slots core_plan gives: ' + '; '.join(
+            f'{dict(k)["mode"]} S={dict(k)["S"]} F={dict(k)["F"]} '
+            f'O={dict(k)["O"]}: {p} {n}' for k, (p, n) in core_plans.items()))
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(card)

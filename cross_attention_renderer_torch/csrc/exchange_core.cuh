@@ -71,22 +71,29 @@
 // tile, which it no longer needs, so three streams fit in the shared memory
 // of two.
 //
-// Two plans (launch_core picks the first that fits a block's shared
-// memory; ops/gather_epilogue.py core_plan mirrors it). 'smem': comb and
-// the f rows are swizzled tiles in shared memory, read by wgmma as its
-// shared-memory A operand; the flagship's widths and every fusion_features
-// up to 320 in K2 and K3 (S = 3), 416 in K4 and 672 in K9 take it. K3 at
-// the flagship's widths takes it up to S = 4 streams: from S = 5 the f rows
-// of S - 1 streams no longer fit beside comb.
-// 'global' (kWide) for
-// wider tiles: comb and the f rows go to a per-block scratch in device
-// memory (L2), stored in the register A operand's fragment order so that
-// each thread reads a k-step's four words with one 16-byte load, and every
-// product that read them from shared memory takes them as its register A
-// operand instead. Only the stage ring, aux, the cells, the vectors and a
-// small reduction buffer stay in shared memory, so the plan has no
-// ceiling below widths whose vectors alone fill it (H1 in the tens of
-// thousands). The weight stream and the schedule are the same in both.
+// Three plans (template kPlan; launch_core takes the first that fits a
+// block's shared memory beside kMinStages stage slots, three a ring;
+// ops/gather_epilogue.py core_plan mirrors it). 'smem': comb and the f
+// rows are swizzled tiles in shared memory, read by wgmma as its
+// shared-memory A operand; the flagship's widths (K3 at S = 3) take it.
+// 'resident', for tiles whose f rows do not fit beside comb (K3 from S = 4
+// at the flagship's widths, the U-Net's): comb stays in shared memory, so
+// layer 1 reads it by descriptor as in 'smem' (H1 / 64 times a stream), and
+// only the f rows go to a per-block scratch in device memory (L2), stored
+// in the register A operand's fragment order so that each thread reads a
+// k-step's four words with one 16-byte load. jl and kh take them as their
+// register A operand, each k-block's words loaded while the previous
+// k-block's products run (frag_products), so no product waits for L2.
+// 'global', where even comb does not fit beside the slots (F above ~1,000,
+// K9's input rows): comb goes to the scratch too, and layer 1 reads it
+// there (load_frags before each k-block). Only the stage ring, aux, the
+// cells, the vectors and a small reduction buffer stay in shared memory,
+// so that plan has no ceiling below widths whose vectors alone fill it (H1
+// in the tens of thousands). The weight stream and the schedule are the
+// same in all three. K9 keeps no f rows, so its 'resident' plan would be
+// its 'smem' one: it takes 'smem' down to two slots (one a ring), else
+// 'global', since at fusion_features 512 its 'global' plan measured 1.8x
+// the time of 'smem' with two slots a ring.
 //
 // Element types (template kF32). The bf16 instantiation reads and writes
 // bf16. The f32 one takes f32 tables, aux, x, x2 and local coordinates and
@@ -101,8 +108,8 @@
 // layout cache of ops/gather_epilogue.py); the outputs are written as f32
 // straight from the accumulators, and K4 keeps its softmax weights in f32.
 // Its internal rows (K4's jl and ce scratch, the f rows) stay bf16. So the
-// shared-memory plans are the same for both types ('smem' or 'global' at
-// the same widths); only the cell rows' gather moves twice the bytes (a
+// shared-memory plans are the same for both types (the same plan at the
+// same widths); only the cell rows' gather moves twice the bytes (a
 // 16-byte chunk of comb is two 16-byte loads of each corner's row, 4C f32
 // being 16 C bytes, a multiple of 128 for C % 8 == 0).
 //
@@ -140,6 +147,8 @@ using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 enum Mode : int { kPair = 0, kStreams = 1, kMlp = 2, kRender = 3 };
+// Where comb and the f rows live (see "Three plans" above).
+enum Plan : int { kSmem = 0, kGlobal = 1, kResident = 2 };
 
 constexpr int kMaxLevels = 4;
 constexpr int kRows = 64;              // samples per tile: wgmma's M
@@ -152,6 +161,7 @@ constexpr int kMaxKT = 4;              // K <= 256: kh stays in registers
 constexpr int kSmallStage = kNC * 128;  // 8 KB: W1, km, k2, query stages
 constexpr int kLargeStage = kNO * 128;  // 12 KB: W2, lv stages (the slot)
 constexpr int kMaxStages = 8;          // slots of both rings
+constexpr int kMinStages = 6;          // a plan needs three a ring (K9: 2)
 constexpr int kWG = 128;               // threads of a warpgroup
 constexpr int kConsumers = 2 * kWG;    // warps 0-7
 constexpr int kProducerWarp = 8;       // the first of warpgroup 2
@@ -196,7 +206,8 @@ struct CoreArgs {
   unsigned char* scratch;        // per block (scr_stride bytes): kRender
                                  // the ray's jl (2P, O) then its ce (2P,
                                  // K); then, with the 'global' plan, comb
-                                 // and the f rows in fragment order
+                                 // and the f rows in fragment order, with
+                                 // the 'resident' one the f rows
   int S, M, F, H1, O, K, rp;      // F: comb's width; O: the f rows' (the
                                  // core's) width, see fill_sizes
   int O_out;                     // columns of jl, z and K9's out (their
@@ -207,10 +218,10 @@ struct CoreArgs {
   int n_units;                   // tiles, or rays (kRender)
   // Derived by fill_sizes: tile counts of each product and where things sit.
   int nch, nkbF, OT, osplit, KT, nkbf, nkbK, nkb_fbuf, n_stages;
-  int wide;                      // the 'global' plan
+  int plan;                      // Plan
   int nkb_tiles;                 // k-blocks of shared memory for tiles
-  long long scr_stride, scr_wide0;  // scratch bytes a block; the 'global'
-                                    // plan's tiles' offset in them
+  long long scr_stride, scr_wide0;  // scratch bytes a block; the offset of
+                                    // the tiles in device memory in them
   int chunk_bytes;               // one hidden chunk's W1 and W2 stages
   int jl_split;                  // O tiles [0, jl_split) go to WG 0
   long long jl0, kh0, kv0, qe0, qe20, qr0, qr20;  // stage offsets
@@ -439,6 +450,24 @@ __device__ __forceinline__ void load_frags(const uint32_t* g, int kb,
     af[ks][1] = v.y;
     af[ks][2] = v.z;
     af[ks][3] = v.w;
+  }
+}
+
+// product(af) for k-blocks 0 .. nkb - 1 of a tile in fragment order, each
+// k-block's words loaded while the previous k-block's products run (two
+// fragment buffers, one k-block ahead), so that a product waits for L2
+// only at the first k-block.
+template <typename Product>
+__device__ __forceinline__ void frag_products(const uint32_t* g, int nkb,
+                                              Product product) {
+  uint32_t fa[4][4], fb[4][4];
+  load_frags(g, 0, fa);
+  for (int kb = 0; kb < nkb; kb += 2) {
+    if (kb + 1 < nkb) load_frags(g, kb + 1, fb);
+    product(fa);
+    if (kb + 1 == nkb) break;
+    if (kb + 2 < nkb) load_frags(g, kb + 2, fa);
+    product(fb);
   }
 }
 
@@ -811,8 +840,8 @@ template <int kMode>
 struct Smem {
   unsigned char* comb;   // (64, F) tile; then the last stream's f rows
   unsigned char* fbuf;   // the other f rows
-  uint32_t* gcomb;       // kWide: comb in device memory, fragment order
-  uint32_t* gf;          // kWide: all f rows there
+  uint32_t* gcomb;       // 'global': comb in device memory, fragment order
+  uint32_t* gf;          // 'global', 'resident': all f rows there
   bf16* aux;             // (64, aux_w)
   int* cell;             // (level_slots, 64)
   const Vec<kMode>* vsm;
@@ -958,12 +987,14 @@ __device__ __forceinline__ void store_logits(float (&lg)[2], int j0,
 
 // One tile of warpgroup w: rows m0 + r, r < n_live. K4 (view: the tile's
 // view; j0: the ray's joint index of row 0) keeps jl and ce in the block's
-// scratch (scr_jl, scr_ce) and writes the tile's round-1 logits. kF32:
-// f32 inputs and outputs; kI8: int8 tables.
-template <int kMode, bool kWide, bool kF32, bool kI8>
+// scratch (scr_jl, scr_ce) and writes the tile's round-1 logits. kPlan:
+// where comb (kWide: 'global') and the f rows (kFG) live. kF32: f32 inputs
+// and outputs; kI8: int8 tables.
+template <int kMode, int kPlan, bool kF32, bool kI8>
 __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
                          Ring& ring, int w, int m0, int n_live, int view,
                          int j0, bf16* scr_jl, bf16* scr_ce) {
+  constexpr bool kWide = kPlan == kGlobal, kFG = kPlan != kSmem;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tw = threadIdx.x & (kWG - 1);
   const int r0 = (warp & 3) * 16 + (lane >> 2), tq = 2 * (lane & 3);
@@ -993,8 +1024,8 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
         // stay behind: read as bf16 they can be Inf or NaN, and k-block
         // 0's columns past F (F < 64) or past S*O (the last stream's f rows
         // ending there) are read again by products whose weights are zero
-        // there. (kWide: the first 8 KB of shared memory for tiles, which
-        // no product reads.)
+        // there. ('global': the first 8 KB of shared memory for tiles,
+        // which no product reads.)
         bar_sync(kPairBar, kConsumers);  // comb is no longer read
         float4* xbuf = reinterpret_cast<float4*>(sm.comb);  // (4, 128)
 #pragma unroll
@@ -1052,7 +1083,7 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
                     store_cols<kF32, kOddOutput>(
                         p.jl, (size_t)(m0 + row) * p.O_out, col, p.O_out, f0,
                         f1);
-                } else if (kWide) {
+                } else if (kFG) {
                   __stcg(sm.gf + frag_word(row, slot * p.O + col), v);
                 } else {
                   const int fc = slot * p.O + col;
@@ -1079,10 +1110,8 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
     for (int nt = 0; nt < kMaxOT; ++nt)
 #pragma unroll
       for (int i = 0; i < kNO / 2; ++i) acc[nt][i] = 0.f;
-    for (int kb = 0; kb < p.nkbf; ++kb) {
-      if (kWide) {
-        uint32_t af[4][4];
-        load_frags(sm.gf, kb, af);
+    if (kFG)
+      frag_products(sm.gf, p.nkbf, [&](const uint32_t(&af)[4][4]) {
 #pragma unroll
         for (int nt = 0; nt < kMaxOT; ++nt) {
           if (g0 + nt < g1) {
@@ -1096,8 +1125,8 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
             ring.release();
           }
         }
-        continue;
-      }
+      });
+    for (int kb = 0; kb < (kFG ? 0 : p.nkbf); ++kb) {
       const uint64_t da =
           wgmma_desc(smem_u32(f_block(p, sm.fbuf, sm.comb, kb)));
 #pragma unroll
@@ -1149,10 +1178,8 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
     for (int nt = 0; nt < kMaxKT; ++nt)
 #pragma unroll
       for (int i = 0; i < kNK / 2; ++i) ak[nt][i] = 0.f;
-    for (int kb = 0; kb < p.nkbf; ++kb) {
-      if (kWide) {
-        uint32_t af[4][4];
-        load_frags(sm.gf, kb, af);
+    if (kFG)
+      frag_products(sm.gf, p.nkbf, [&](const uint32_t(&af)[4][4]) {
 #pragma unroll
         for (int nt = 0; nt < kMaxKT; ++nt) {
           if (nt < p.KT) {
@@ -1166,8 +1193,8 @@ __device__ void run_tile(const CoreArgs& p, const Smem<kMode>& sm,
             ring.release();
           }
         }
-        continue;
-      }
+      });
+    for (int kb = 0; kb < (kFG ? 0 : p.nkbf); ++kb) {
       const uint64_t da =
           wgmma_desc(smem_u32(f_block(p, sm.fbuf, sm.comb, kb)));
 #pragma unroll
@@ -1466,7 +1493,7 @@ __device__ void ray_tail(const CoreArgs& p, const Smem<kMode>& sm,
   fence_proxy_async();
 }
 
-template <int kMode, bool kWide, bool kF32, bool kI8>
+template <int kMode, int kPlan, bool kF32, bool kI8>
 __global__ void __launch_bounds__(kThreads, 1)
     exchange_core_kernel(const CoreArgs p) {
   using V = Vec<kMode>;
@@ -1486,7 +1513,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t full = smem_u32(bars), empty = full + 8 * p.n_stages;
   unsigned char* scr = p.scratch + (size_t)blockIdx.x * p.scr_stride;
   sm.gcomb = reinterpret_cast<uint32_t*>(scr + p.scr_wide0);
-  sm.gf = sm.gcomb + (size_t)p.nkbF * kFragWords;
+  sm.gf = sm.gcomb + (kPlan == kGlobal ? (size_t)p.nkbF * kFragWords : 0);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
@@ -1504,8 +1531,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = threadIdx.x * 16; i < p.nkb_tiles * kKBlock;
        i += kThreads * 16)
     *reinterpret_cast<uint4*>(sm.comb + i) = make_uint4(0u, 0u, 0u, 0u);
-  if (kWide)  // the same for the block's tiles in device memory
-    for (int i = threadIdx.x; i < (p.nkbF + p.nkbf) * kKBlock / 16;
+  if (kPlan != kSmem)  // the same for the block's tiles in device memory
+    for (int i = threadIdx.x;
+         i < ((kPlan == kGlobal ? p.nkbF : 0) + p.nkbf) * kKBlock / 16;
          i += kThreads)
       __stcg(reinterpret_cast<uint4*>(sm.gcomb) + i,
              make_uint4(0u, 0u, 0u, 0u));
@@ -1539,7 +1567,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int b = unit / p.R, r = unit - b * p.R;
         for (int k = 0; k < 2 * p.tv; ++k) {
           const int v = k / p.tv, sub = k - v * p.tv;
-          run_tile<kMode, kWide, kF32, kI8>(
+          run_tile<kMode, kPlan, kF32, kI8>(
               p, sm, ring, w, ((b * 2 + v) * p.R + r) * p.P + sub * kRows,
               min(kRows, p.P - sub * kRows), v, v * p.P + sub * kRows,
               scr_jl, scr_ce);
@@ -1547,7 +1575,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         ray_tail<kMode, kF32>(p, sm, ring, w, unit, scr_jl, scr_ce);
       } else {
         const int m0 = unit * kRows;
-        run_tile<kMode, kWide, kF32, kI8>(p, sm, ring, w, m0,
+        run_tile<kMode, kPlan, kF32, kI8>(p, sm, ring, w, m0,
                                           min(kRows, p.M - m0), 0, 0,
                                           nullptr, nullptr);
       }
@@ -1668,13 +1696,15 @@ inline int fill_sizes(CoreArgs& a, int mode, int S, int M, int F, int H1,
 // Launches the kernel on `stream`: one block per SM (or per unit, if
 // fewer), as many stage slots as the shared memory holds (up to
 // kMaxStages), split between the two rings, clusters of one block. The
-// 'smem' plan where its tiles fit beside two stage slots, else the
-// 'global' one (kWide). The scratch (scratch_bytes at a.scratch) must hold
-// grid blocks of scr_stride bytes: K4's 2P * (O + K) * 2, plus with the
-// 'global' plan (nkbF + nkbf) * 8 KB. info receives the launch's (grid,
-// stage slots, shared bytes, threads a block, cluster x, y, z, plan:
-// 0 'smem', 1 'global'). kF32: the f32 instantiation (f32 inputs and
-// outputs, the same shared memory); kI8: int8 tables (K2, K3, K4).
+// first plan whose tiles fit beside kMinStages slots (K9: two): 'smem',
+// else 'resident' (not K9, whose tiles are comb alone), else 'global'. The
+// scratch (scratch_bytes at a.scratch) must hold grid blocks of scr_stride
+// bytes: K4's 2P * (O + K) * 2, plus with the 'resident' plan nkbf * 8 KB,
+// with the 'global' one (nkbF + nkbf) * 8 KB. info receives the launch's
+// (grid, stage slots, shared bytes, threads a block, cluster x, y, z,
+// plan: 0 'smem', 1 'global', 2 'resident'). kF32: the f32 instantiation
+// (f32 inputs and outputs, the same shared memory); kI8: int8 tables (K2,
+// K3, K4).
 template <int kMode, bool kF32, bool kI8 = false>
 int launch_core(CoreArgs& a, int* info, void* stream,
                 long long scratch_bytes) {
@@ -1687,30 +1717,42 @@ int launch_core(CoreArgs& a, int* info, void* stream,
   const size_t red = kMode == kRender ? (size_t)8 * 4 *
                          (a.OT * kNO > a.KT * kNK ? a.OT * kNO : a.KT * kNK)
                                       : 0;
+  const int nkb_red = (int)((red + kKBlock - 1) / kKBlock);
   const size_t common = 1024 + (size_t)kRows * a.aux_w * sizeof(bf16) +
                         (size_t)kRows * a.level_slots * sizeof(int) +
                         a.n_vecs * sizeof(Vec<kMode>) +
                         a.n_rsm * sizeof(float) + 16 * kMaxStages;
+  // k-blocks of tiles that fit beside the least slots a plan takes, and
+  // hold K4's sums
+  const size_t min_slots = kMode == kMlp ? 2 : kMinStages;
+  const auto fits = [&](int nkb) {
+    return nkb >= nkb_red && (size_t)optin >= common +
+                                 (size_t)nkb * kKBlock +
+                                 min_slots * kLargeStage;
+  };
   // The 'smem' plan. The last stream's f goes into the comb tile where the
   // slot order is the same for every row of a tile and, above O = 288,
   // each warpgroup has one group of O tiles (both then finish reading comb
   // first).
-  a.wide = 0;
+  a.plan = kSmem;
   a.nkb_fbuf = a.nkbf;
   if ((kMode == kStreams || kMode == kRender) && a.OT <= 2 * kMaxOT) {
     a.nkb_fbuf = ((a.S - 1) * a.O + 63) / 64;
     if (a.nkbf - a.nkb_fbuf > a.nkbF) a.nkb_fbuf = a.nkbf;
   }
   a.nkb_tiles = a.nkbF + a.nkb_fbuf;
-  if ((size_t)a.nkb_tiles * kKBlock < red ||
-      (size_t)optin < common + (size_t)a.nkb_tiles * kKBlock +
-                          2 * kLargeStage) {
-    // The 'global' plan: shared memory keeps one k-block (the partial-sum
-    // exchange), or K4's per-ray sums.
-    a.wide = 1;
+  if (!fits(a.nkb_tiles)) {
+    // 'resident': comb (or K4's per-ray sums, if larger) in shared memory,
+    // and nothing else; the f rows in the scratch
+    a.plan = kResident;
     a.nkb_fbuf = a.nkbf;
-    a.nkb_tiles = (int)((red + kKBlock - 1) / kKBlock);
-    if (a.nkb_tiles < 1) a.nkb_tiles = 1;
+    a.nkb_tiles = a.nkbF > nkb_red ? a.nkbF : nkb_red;
+  }
+  if (a.plan == kResident && (kMode == kMlp || !fits(a.nkb_tiles))) {
+    // 'global': shared memory keeps one k-block (the partial-sum
+    // exchange), or K4's per-ray sums
+    a.plan = kGlobal;
+    a.nkb_tiles = nkb_red > 1 ? nkb_red : 1;
   }
   const size_t fixed = common + (size_t)a.nkb_tiles * kKBlock;
   if ((size_t)optin < fixed + 2 * kLargeStage)
@@ -1720,13 +1762,19 @@ int launch_core(CoreArgs& a, int* info, void* stream,
   const size_t smem = fixed + (size_t)a.n_stages * kLargeStage;
   const int grid = a.n_units < n_sm ? a.n_units : n_sm;
   a.scr_wide0 = kMode == kRender ? (long long)2 * a.P * (a.O + a.K) * 2 : 0;
-  a.scr_stride =
-      a.scr_wide0 + (a.wide ? (long long)(a.nkbF + a.nkbf) * kKBlock : 0);
+  const int nkb_dev = a.plan == kGlobal     ? a.nkbF + a.nkbf
+                      : a.plan == kResident ? a.nkbf
+                                            : 0;
+  a.scr_stride = a.scr_wide0 + (long long)nkb_dev * kKBlock;
   if (scratch_bytes < (long long)grid * a.scr_stride)
     return (int)cudaErrorInvalidValue;
   static_assert(!(kI8 && kMode == kMlp), "K9 reads no table");
-  const auto kernel = a.wide ? exchange_core_kernel<kMode, true, kF32, kI8>
-                             : exchange_core_kernel<kMode, false, kF32, kI8>;
+  auto kernel = exchange_core_kernel<kMode, kSmem, kF32, kI8>;
+  if (a.plan == kGlobal)
+    kernel = exchange_core_kernel<kMode, kGlobal, kF32, kI8>;
+  if constexpr (kMode != kMlp)  // K9 has no 'resident' instantiation
+    if (a.plan == kResident)
+      kernel = exchange_core_kernel<kMode, kResident, kF32, kI8>;
   const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
@@ -1751,7 +1799,7 @@ int launch_core(CoreArgs& a, int* info, void* stream,
     info[4] = (int)cluster.val.clusterDim.x;
     info[5] = (int)cluster.val.clusterDim.y;
     info[6] = (int)cluster.val.clusterDim.z;
-    info[7] = a.wide;
+    info[7] = a.plan;
   }
   return launched ? launched : (int)cudaGetLastError();
 }

@@ -94,8 +94,9 @@ int launch_render(int n_levels, void* const* tables, void* const* cells,
 // (stage_bytes), vecs and mats: the prepared weights (layout_render in
 // ops/gather_epilogue.py);
 // scratch: scratch_bytes of device memory, at least grid * 2P * (O + K) *
-// 2 (grid: min(B * R, SMs)), and with the 'global' plan grid * (nkbF +
-// nkbf) * 8 KB more (launch_core). z: (B, R, O), wt: (B, 2, R, P) bf16.
+// 2 (grid: min(B * R, SMs)), and with the 'resident' plan grid * nkbf *
+// 8 KB more, with the 'global' one grid * (nkbF + nkbf) * 8 KB
+// (launch_core). z: (B, R, O), wt: (B, 2, R, P) bf16.
 // All contiguous. info (8 ints) receives the launch's shape and plan, as
 // launch_core gives them. Returns a cudaError_t code. fused_render_core_f32
 // takes the same with f32 tables, aux, lc, z and wt (exchange_core.cuh,

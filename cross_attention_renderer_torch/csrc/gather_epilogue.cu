@@ -69,7 +69,8 @@ int launch_pair(int n_levels, void* const* tables, void* const* cells,
 // prepared weights (layout_stages in ops/gather_epilogue.py). jl: (M, O),
 // kv: (M, K) bf16.
 // All contiguous. scratch: scratch_bytes of device memory, which the
-// 'global' plan needs (launch_core; null and 0 do for the 'smem' plan).
+// 'resident' and 'global' plans need (launch_core; null and 0 do for the
+// 'smem' plan).
 // info (8 ints) receives the launch's shape and plan, as launch_core gives
 // them. Returns a cudaError_t code. fused_exchange_epilogue_f32 takes the
 // same with f32 tables, aux, jl and kv (exchange_core.cuh, "Element

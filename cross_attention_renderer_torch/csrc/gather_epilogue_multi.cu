@@ -69,11 +69,12 @@ int launch_streams(int n_levels, void* const* tables, void* const* cells,
 // any S >= 2; stages
 // (stage_bytes) and vecs: the prepared weights (layout_stages in
 // ops/gather_epilogue.py). jl: (M, O), kv: (M, K) bf16. All contiguous.
-// scratch: scratch_bytes of device memory, which the 'global' plan needs
-// (launch_core; null and 0 do for the 'smem' plan). info (8 ints) receives
-// the launch's shape and plan, as launch_core gives them. Returns a
-// cudaError_t code. fused_exchange_epilogue_multi_f32 takes the same with
-// f32 tables, aux, jl and kv (exchange_core.cuh, "Element types");
+// scratch: scratch_bytes of device memory, which the 'resident' and
+// 'global' plans need (launch_core; null and 0 do for the 'smem' plan).
+// info (8 ints) receives the launch's shape and plan, as launch_core gives
+// them. Returns a cudaError_t code. fused_exchange_epilogue_multi_f32
+// takes the same with f32 tables, aux, jl and kv (exchange_core.cuh,
+// "Element types");
 // fused_exchange_epilogue_multi_i8_bf16 and _i8_f32 the same as _bf16 and
 // _f32 with int8 tables ("Table types"). Any O: an odd one only in the
 // library built with CORE_ODD_OUTPUT (exchange_core.cuh, "Output widths").

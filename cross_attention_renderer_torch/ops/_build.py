@@ -31,6 +31,13 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 VARIANTS = {f'{name}_odd': (name, ('-DCORE_ODD_OUTPUT=1',))
             for name in ('gather_epilogue', 'gather_epilogue_multi',
                          'fused_mlp')}
+# The exchange core's sources (4-12 instantiations of one large kernel
+# each) are optimized in parallel by nvcc's split compilation: half the
+# time of the longest build (143 -> 69 s, all sources at once on an
+# 8-core host, nvcc 12.9), the same SASS (compared with cuobjdump).
+SPLIT_SOURCES = ('gather_epilogue', 'gather_epilogue_multi', 'fused_mlp',
+                 'fused_render')
+SPLIT_FLAGS = ('-split-compile=0',)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -47,12 +54,20 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def source_flags(name: str) -> tuple[str, tuple[str, ...]]:
+    """The source of library ``name`` and the flags it builds with beyond
+    ``NVCC_FLAGS``: a variant's defines, the core's split compilation."""
     source, defines = VARIANTS.get(name, (name, ()))
+    return source, defines + (SPLIT_FLAGS if source in SPLIT_SOURCES
+                              else ())
+
+
+def library_path(name: str) -> Path:
+    source, extra = source_flags(name)
     h = hashlib.sha1((CSRC_DIR / f'{source}.cu').read_bytes())
     for header in sorted(CSRC_DIR.glob('*.cuh')):
         h.update(header.read_bytes())
-    h.update(' '.join(NVCC_FLAGS + defines).encode())
+    h.update(' '.join(NVCC_FLAGS + extra).encode())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f'lib{name}_{digest}.so'
 
@@ -70,8 +85,8 @@ def build(names=KERNELS) -> dict[str, str]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-        source, defines = VARIANTS.get(name, (name, ()))
-        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, '-o', str(tmp),
+        source, extra = source_flags(name)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, '-o', str(tmp),
                str(CSRC_DIR / f'{source}.cu')]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -66,9 +66,10 @@ def fused_mlp2(x1: Tensor, x2: Tensor, w1a: Tensor, w1b: Tensor, b1: Tensor,
 
 fused_mlp2.launches = 0   # kernel launches, for the chip smoke test
 # the last launch's (grid, stage slots, shared bytes, threads a block,
-# cluster x, y, z), and its plan ('smem' or 'global')
+# cluster x, y, z), its plan (gather_epilogue.core_plan) and its widths
 fused_mlp2.last_launch = None
 fused_mlp2.last_plan = None
+fused_mlp2.last_widths = None
 
 
 def _launch(x1, x2, w1a, w1b, b1, w2, b2):
@@ -106,5 +107,6 @@ def _launch(x1, x2, w1a, w1b, b1, w2, b2):
                         stages.numel() * 2, vecs.data_ptr(), out.data_ptr(),
                         M, K1, H, O, *GE._scratch_args(scratch), info,
                         stream), 'fused_mlp2')
-    GE.record_launch(fused_mlp2, info)
+    GE.record_launch(fused_mlp2, info, dict(mode='mlp', S=1, F=K1, H1=H,
+                                            O=O, K=0))
     return out

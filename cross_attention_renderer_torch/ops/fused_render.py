@@ -185,9 +185,10 @@ def fused_render_core(tables: Sequence[Tensor], cells: Sequence[Tensor],
 
 fused_render_core.launches = 0  # kernel launches, for the smoke test
 # the last launch's (grid, stage slots, shared bytes, threads a block,
-# cluster x, y, z), and its plan ('smem' or 'global')
+# cluster x, y, z), its plan (gather_epilogue.core_plan) and its widths
 fused_render_core.last_launch = None
 fused_render_core.last_plan = None
+fused_render_core.last_widths = None
 
 
 def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
@@ -216,8 +217,8 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
                          levels=len(tables))
     stages, vecs, mats = GE.prepared_render(params, bool(repeat), dev,
                                             channels)
-    # The ray's jl and ce rows (and the 'global' plan's tiles), per block
-    # of the persistent grid.
+    # The ray's jl and ce rows (and the 'resident' or 'global' plan's
+    # tiles), per block of the persistent grid.
     scratch = GE.core_scratch('render', 2, F, H1, O, K, B * R, dev, P,
                               levels=len(tables))
     z = torch.empty((B, R, O), dtype=dt, device=dev)
@@ -240,5 +241,6 @@ def _launch(tables, cells, aux_self, aux_cross, local_coords, params, B, R,
                         at_wt.data_ptr(),
                         B, R, P, F, H1, O, K, int(repeat), info, stream),
                      what)
-    GE.record_launch(fused_render_core, info)
+    GE.record_launch(fused_render_core, info, dict(
+        mode='render', S=2, F=F, H1=H1, O=O, K=K, P=P, levels=len(tables)))
     return z, at_wt

@@ -65,7 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 from torch.optim.optimizer import register_optimizer_step_post_hook
@@ -184,17 +184,22 @@ def fused_exchange_epilogue(tables: Sequence[Tensor],
 
 fused_exchange_epilogue.launches = 0  # kernel launches, for the smoke test
 # the last launch's (grid, stage slots, shared bytes, threads a block,
-# cluster x, y, z), and its plan ('smem' or 'global', see core_plan)
+# cluster x, y, z), its plan ('smem', 'resident' or 'global', see
+# core_plan) and its core_plan arguments
 fused_exchange_epilogue.last_launch = None
 fused_exchange_epilogue.last_plan = None
+fused_exchange_epilogue.last_widths = None
 
 
-def record_launch(wrapper, info) -> None:
+def record_launch(wrapper, info, widths: dict) -> None:
     """Counts a launch of an exchange-core kernel and keeps its shape and
-    plan from the launcher's 8 ints."""
+    plan from the launcher's 8 ints, and the widths it was launched at
+    (``widths``: :func:`core_plan`'s arguments), whose plan and slots
+    :func:`core_plan` mirrors."""
     wrapper.launches += 1
     wrapper.last_launch = tuple(info)[:7]
-    wrapper.last_plan = ('smem', 'global')[info[7]]
+    wrapper.last_plan = PLANS[info[7]]
+    wrapper.last_widths = widths
 
 
 # The kernels' weight stream (csrc/exchange_core.cuh): tiles of 64-deep
@@ -205,6 +210,12 @@ _NO = 96           # output columns per O tile (W2, lv)
 _NK = 64           # output columns per K tile (km, k2, query MLPs)
 MAX_K = 4 * _NK    # kh stays in registers
 SMEM_LIMIT = 232_448   # bytes of shared memory a block may use (H100)
+_KB_BYTES = 64 * 128       # a (64, 64) bf16 tile: comb's and the f rows'
+_STAGE_BYTES = _NO * 128   # a stage slot (the largest stage)
+MAX_STAGES = 8     # stage slots of both rings (kMaxStages)
+MIN_STAGES = 6     # the least a plan takes: three a ring (kMinStages)
+MIN_STAGES_MLP = 2     # K9's: one a ring, its 'smem' plan's rule
+PLANS = ('smem', 'global', 'resident')   # by launch_core's plan number
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -489,23 +500,36 @@ def prepared_render(params: Sequence[Tensor], repeat: bool, device,
                      lambda p: layout_render(_padded_render(p, key), repeat))
 
 
+class CorePlan(NamedTuple):
+    """The exchange core's launch for some widths (:func:`core_plan`)."""
+    plan: str       # 'smem', 'resident' or 'global'
+    smem: int       # bytes of shared memory a block with two stage slots
+    scratch: int    # bytes of device-memory scratch a block
+    slots: int      # weight stage slots a ring (0: the widths do not fit)
+
+
 def core_plan(mode: str, S: int, F: int, H1: int, O: int, K: int,
               P: int = 0, force: str | None = None, levels: int = 3
-              ) -> tuple[str, int, int]:
+              ) -> CorePlan:
     """The exchange core's plan for these widths, in mode 'pair' (K2),
     'streams' (K3), 'mlp' (K9) or 'render' (K4, P samples a view), with
     ``levels`` pyramid levels (K9: 3, it has none); mirrors
-    ``launch_core``. Returns (plan, bytes of shared memory a block with two
-    weight stage slots, bytes of device-memory scratch a block).
-    ``force='global'`` gives the 'global' plan's layout at any width (for a
-    core built to take that plan everywhere, as ``epilogue_ablation.py``
-    builds one).
+    ``launch_core``: the first plan whose tiles fit beside
+    :data:`MIN_STAGES` stage slots (three a ring; K9
+    :data:`MIN_STAGES_MLP`), as many slots as then fit, up to
+    :data:`MAX_STAGES`. ``force='global'`` gives the 'global'
+    plan's layout at any width (for a core built to take that plan
+    everywhere, as ``epilogue_ablation.py`` builds one).
 
-    'smem' keeps comb and the f rows in shared memory; where they do not
-    fit (from fusion_features 352 at S = 2 or 3, 448 in K4, 768 in K9),
-    'global' puts them in the scratch, in the register A operand's fragment
-    order, and keeps one 8 KB k-block (K4: its per-ray sums) in shared
-    memory.
+    'smem' keeps comb and the f rows in shared memory (the flagship's
+    widths, K3 to S = 3); 'resident' keeps comb there and puts the f rows
+    in the scratch, in the register A operand's fragment order (K3 from S
+    = 4 at the flagship's widths, the U-Net's; not K9, whose tiles are
+    comb alone: it keeps 'smem' down to one slot a ring, as before the
+    'resident' plan, its 'global' plan being 1.8x slower at
+    fusion_features 512); 'global', where even comb does not fit beside
+    the slots, puts comb there too and keeps one 8 KB k-block (K4: its
+    per-ray sums) in shared memory.
 
     Widths as the wrappers pass them: F the levels' channel sum, each level
     at :func:`table_width` (K9: its input width, rounded up to 8 here), O
@@ -530,15 +554,33 @@ def core_plan(mode: str, S: int, F: int, H1: int, O: int, K: int,
         n_rsm = (2 * P + 3) // 4 * 4 + 2 * OT * _NO + 2 * KT * _NK + 32
         red = 32 * max(OT * _NO, KT * _NK)
         scratch = 2 * P * (O + K) * 2
-    # the tile's aux rows and cell rows (aux_layout)
+    nkb_red = _cdiv(red, _KB_BYTES)
+    # the tile's aux rows and cell rows (aux_layout), the vectors, K4's
+    # per-ray vectors, the slots' barriers
     common = (1024 + 64 * aux_layout(levels)[1] * 2 + 64 * max(levels, 3) * 4
-              + n_vecs * (4 if mode == 'mlp' else 2) + n_rsm * 4 + 16 * 8
-              + 2 * 96 * 128)
-    tiles = (nkbF + nkb_fbuf) * 8192
-    if force != 'global' and tiles >= red and common + tiles <= SMEM_LIMIT:
-        return 'smem', common + tiles, scratch
-    return ('global', common + max(1, _cdiv(red, 8192)) * 8192,
-            scratch + (nkbF + nkbf) * 8192)
+              + n_vecs * (4 if mode == 'mlp' else 2) + n_rsm * 4
+              + 16 * MAX_STAGES)
+
+    def stages(nkb):    # the slots beside nkb k-blocks of tiles
+        free = SMEM_LIMIT - common - nkb * _KB_BYTES
+        return min(MAX_STAGES, max(free, 0) // _STAGE_BYTES // 2 * 2)
+
+    least = MIN_STAGES_MLP if mode == 'mlp' else MIN_STAGES
+
+    def fits(nkb):
+        return nkb >= nkb_red and stages(nkb) >= least
+
+    plan, nkb = 'smem', nkbF + nkb_fbuf
+    if force == 'global' or not fits(nkb):
+        plan, nkb = 'resident', max(nkbF, nkb_red)
+        scratch += nkbf * _KB_BYTES
+    if plan == 'resident' and (force == 'global' or mode == 'mlp'
+                               or not fits(nkb)):
+        plan, nkb = 'global', max(1, nkb_red)
+        scratch += nkbF * _KB_BYTES
+    n = stages(nkb)
+    return CorePlan(plan, common + nkb * _KB_BYTES + 2 * _STAGE_BYTES,
+                    scratch, n // 2 if n >= 2 else 0)
 
 
 def check_core_widths(what: str, mode: str, S: int, F: int, H1: int, O: int,
@@ -567,9 +609,10 @@ def check_core_widths(what: str, mode: str, S: int, F: int, H1: int, O: int,
 def core_scratch(mode: str, S: int, F: int, H1: int, O: int, K: int,
                  n_units: int, device, P: int = 0, levels: int = 3
                  ) -> Tensor | None:
-    """The device-memory scratch a launch of the core needs (the 'global'
-    plan's tiles, K4's ray rows), for the persistent grid of min(n_units,
-    SMs) blocks; None where it needs none."""
+    """The device-memory scratch a launch of the core needs (the
+    'resident' and 'global' plans' tiles, K4's ray rows), for the
+    persistent grid of min(n_units, SMs) blocks; None where it needs
+    none."""
     per_block = core_plan(mode, S, F, H1, O, K, P, levels=levels)[2]
     if per_block == 0:
         return None
@@ -670,6 +713,12 @@ def _core_args(what, mode, tables, cells, aux, params):
     return levels, sizes, stages, vecs, scratch
 
 
+def _widths(mode, S, sizes, levels):
+    """:func:`core_plan`'s arguments for K2 or K3 at ``sizes``."""
+    _, F, H1, O, K = sizes
+    return dict(mode=mode, S=S, F=F, H1=H1, O=O, K=K, levels=levels)
+
+
 def _outputs(aux, sizes):
     """Empty (jl (M, O), kv (M, K)) in aux's type for K2 and K3."""
     M, _, _, O, K = sizes
@@ -698,7 +747,8 @@ def _launch(tables, cells, aux_self, aux_cross, params, rp):
                         kv.data_ptr(), *sizes, rp, *_scratch_args(scratch),
                         info, stream),
                      'fused_exchange_epilogue')
-    record_launch(fused_exchange_epilogue, info)
+    record_launch(fused_exchange_epilogue, info,
+                  _widths('pair', 2, sizes, len(tables)))
     return jl, kv
 
 
@@ -771,9 +821,10 @@ def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
     CPU tensors take the plain version. CUDA tensors must be contiguous,
     aux bf16 or f32 and the tables in aux's type or int8 (cells int32),
     with any S >= 2 streams; they launch the kernel's instantiation of those
-    types, and anything else raises. From S = 5 at the flagship's widths
-    the f rows of S - 1 streams outgrow shared memory and the core takes
-    its 'global' plan (:func:`core_plan`)."""
+    types, and anything else raises. From S = 4 at the flagship's widths
+    the f rows of S - 1 streams do not fit beside comb and three stage
+    slots a ring, and the core takes its 'resident' plan
+    (:func:`core_plan`)."""
     if aux_list[0].device.type == 'cpu':
         return fused_exchange_epilogue_multi_reference(tables, cells,
                                                        aux_list, params)
@@ -784,6 +835,7 @@ def fused_exchange_epilogue_multi(tables: Sequence[Tensor],
 fused_exchange_epilogue_multi.launches = 0  # kernel launches
 fused_exchange_epilogue_multi.last_launch = None
 fused_exchange_epilogue_multi.last_plan = None
+fused_exchange_epilogue_multi.last_widths = None
 
 
 def _launch_multi(tables, cells, aux_list, params):
@@ -813,5 +865,6 @@ def _launch_multi(tables, cells, aux_list, params):
                         kv.data_ptr(), *sizes, *_scratch_args(scratch), info,
                         stream),
                      'fused_exchange_epilogue_multi')
-    record_launch(fused_exchange_epilogue_multi, info)
+    record_launch(fused_exchange_epilogue_multi, info,
+                  _widths('streams', S, sizes, len(tables)))
     return jl, kv

@@ -16,12 +16,12 @@ to), beside the kernel as it is:
               producer only signals them): the consumers' own time;
   global    - the 'global' plan (comb and the f rows in device memory,
               read as wgmma's register operand) where the kernel would
-              take the 'smem' one: what that plan costs;
+              take another: what that plan costs;
   and K4 as it is without its second attention round (round1_only). Then
-  the widths where the 'smem' plan fits with few stage slots (K4 at
-  fusion_features 384: 2 slots; K9 at 512: 4), as they are against the
-  'global' variant, on the first 4,096 rays of models with the ViT cut to
-  2 blocks (chip_smoke's wide-latent inputs).
+  K4 at fusion_features 384 ('resident' plan) and K9 at 512 ('smem' with
+  two stage slots a ring), as they are against the 'global' variant, on
+  the first 4,096 rays of models with the ViT cut to 2 blocks
+  (chip_smoke's wide-latent inputs).
 
 A variant's outputs are wrong by design; only its time is read. Prints the
 card line, one line per timing and a JSON object last. Needs a card and
@@ -51,11 +51,12 @@ NO_COPY = ('    mbar_expect_tx(full + 8 * idx, bytes);\n'
            '    bulk_copy(slots + idx * kLargeStage, p.stages + off, bytes,\n'
            '              full + 8 * idx);',
            '    mbar_arrive(full + 8 * idx);')
-FORCE_GLOBAL = ('  if ((size_t)a.nkb_tiles * kKBlock < red ||',
-                '  if (true ||')
+FORCE_GLOBAL = [('  if (!fits(a.nkb_tiles)) {', '  if (true) {'),
+                ('  if (a.plan == kResident && (kMode == kMlp ||',
+                 '  if (a.plan == kResident && (true ||')]
 VARIANTS = {'no_gather': [NO_GATHER, NO_GATHER_BF16, NO_ROWS],
             'no_copy': [NO_GATHER, NO_GATHER_BF16, NO_ROWS, NO_COPY],
-            'global': [FORCE_GLOBAL]}
+            'global': FORCE_GLOBAL}
 
 
 def build_variant(_build, name, patches):

@@ -120,7 +120,7 @@ def _epilogue_case(dev, channels, H1, O, K, n_img, hw, M, S=2, seed=0):
     # warpgroups, layer 1 computed by each
     ((288, 288, 64), 640, 320, 128, (16, 32, 64), 3 * 64 + 21, 100),
     # four levels (24-wide aux, tanh at 16): the ResNet34's widths
-    # ('smem'), the U-Net's ('global', O = 480 split between warpgroups)
+    # ('smem'), the U-Net's ('resident', O = 480 split between warpgroups)
     ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 2 * 8 * 64 + 40,
      8 * 64),
     ((64, 128, 256, 512), 960, 480, 128, (32, 16, 8, 4), 3 * 64 + 5, 100),
@@ -320,15 +320,17 @@ def test_fused_render_core_prepared_once(dev):
 
 
 @pytest.mark.parametrize('mode', ['pair', 'streams', 'mlp', 'render'])
-@pytest.mark.parametrize('ff', [320, 352, 384, 416, 448, 512, 640, 672,
-                                768])
+@pytest.mark.parametrize('ff', [256, 320, 352, 384, 416, 448, 480, 512,
+                                528, 640, 672, 768])
 def test_exchange_core_at_wide_fusion_widths(dev, mode, ff):
     """K2, K3 (S = 3), K9 and K4 at wide fusion_features (F = H1 = 2 ff +
     64, O = ff + 32, K = 128), widths whose tiles outgrow a block's shared
-    memory in some modes: each takes the plan ``core_plan`` names for it and
-    matches its plain version, as at the flagship. The widths include each
-    mode's last 'smem' width and first 'global' one (K2 and K3: 320 | 352;
-    K4: 416 | 448; K9: 640 | 672)."""
+    memory in some modes: each takes the plan and stage slots ``core_plan``
+    names for it and matches its plain version, as at the flagship. The
+    widths include each mode's last width of a plan and the first of the
+    next (K2 and K3: 'smem' 256 | 'resident' 320, 512 | 'global' 528; K4:
+    'smem' 320 | 'resident' 352, 480 | 'global' 512; K9: 'smem' 640 |
+    'global' 672)."""
     channels, F, O, K = (ff, ff, 64), 2 * ff + 64, ff + 32, 128
     hw = (8, 16, 32)
     if mode == 'pair':
@@ -336,13 +338,13 @@ def test_exchange_core_at_wide_fusion_widths(dev, mode, ff):
         case = (case[0], case[1], *case[2], case[3], 60)
         fn, plain = (GE.fused_exchange_epilogue,
                      GE.fused_exchange_epilogue_reference)
-        want_plan = GE.core_plan('pair', 2, F, F, O, K)[0]
+        want = GE.core_plan('pair', 2, F, F, O, K)
     elif mode == 'streams':
         case = _epilogue_case(dev, channels, F, O, K, 3, hw, 3 * 64 + 5,
                               S=3, seed=1)
         fn, plain = (GE.fused_exchange_epilogue_multi,
                      GE.fused_exchange_epilogue_multi_reference)
-        want_plan = GE.core_plan('streams', 3, F, F, O, K)[0]
+        want = GE.core_plan('streams', 3, F, F, O, K)
     elif mode == 'mlp':
         rng = np.random.default_rng(2)
         M = 64 * 3 + 9
@@ -353,15 +355,15 @@ def test_exchange_core_at_wide_fusion_widths(dev, mode, ff):
                 _bf(dev, w1[F:]), _bf(dev, 0.1 * rng.standard_normal(F)),
                 _bf(dev, lecun(F, O)), _bf(dev, 0.1 * rng.standard_normal(O)))
         fn, plain = FM.fused_mlp2, FM.fused_mlp2_reference
-        want_plan = GE.core_plan('mlp', 1, F, F, O, 0)[0]
+        want = GE.core_plan('mlp', 1, F, F, O, 0)
     else:
         case = _render_case(dev, channels, F, O, K, hw, 1, 5, 64) + (
             1, 5, 64, True)
         fn, plain = FR.fused_render_core, FR.fused_render_core_reference
-        want_plan = GE.core_plan('render', 2, F, F, O, K, 64)[0]
+        want = GE.core_plan('render', 2, F, F, O, K, 64)
     got = fn(*case)
     torch.cuda.synchronize()
-    assert fn.last_plan == want_plan
+    assert (fn.last_plan, fn.last_launch[1] // 2) == (want.plan, want.slots)
     want = plain(*case)
     if mode == 'render':        # at_wt within 2^-8, as K1's
         assert _max_err(got[1], want[1]) <= 2 ** -8
@@ -508,7 +510,8 @@ def test_kernels_refuse_f32(dev):
 # f32 throughout), where the plain version multiplies in f32, so the
 # tolerances are the bf16 tests' above. Shapes: the flagship widths
 # (fusion_features 256, 'smem' plan), and fusion_features 384 and 512,
-# where K2, K3 and K4 (at 512) take the 'global' plan.
+# where K2 and K3 take the 'resident' plan, and K4 the 'resident' (384)
+# and the 'global' one (512).
 def _f32_case(dev, key, ff):
     def f32(t):
         return tuple(f32(x) for x in t) if isinstance(t, tuple) else (
@@ -998,14 +1001,14 @@ def test_train_step_kernel_route_matches_default_route(dev):
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
                          ids=['bf16', 'f32'])
 @pytest.mark.parametrize('channels,H1,O,K,hw,M,S', [
-    # the flagship's widths: 'global' from S = 5
+    # the flagship's widths: 'resident' from S = 4
     ((256, 256, 64), 576, 288, 128, (16, 32, 64), 3 * 64 + 29, 5),
     ((256, 256, 64), 576, 288, 128, (16, 32, 64), 2 * 64 + 7, 6),
     ((256, 256, 64), 576, 288, 128, (16, 32, 64), 150, 8),
     # narrow widths keep 'smem' at S = 8; S*O not a multiple of 64
     ((32, 32, 16), 80, 48, 16, (4, 8, 16), 2 * 64 + 7, 7),
     ((32, 32, 16), 80, 40, 16, (4, 8, 16), 130, 8),
-    # four levels at the ResNet34's widths ('smem' at 5, 'global' at 6)
+    # four levels at the ResNet34's widths ('resident' at 5 and 6)
     ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 3 * 64 + 11, 5),
     ((256, 128, 64, 64), 512, 256, 128, (8, 16, 32, 32), 2 * 64 + 3, 6),
 ])
@@ -1044,8 +1047,8 @@ def test_exchange_epilogue_multi_any_stream_count(dev, channels, H1, O, K,
 # combine in it. The rows are integers in [-127, 127] and W1's feature rows
 # carry the 1/127-scale a quantization folds into them, so the products
 # have the float cases' magnitudes; the tolerances are the float cases'.
-# Shapes: fusion_features 256 ('smem' plan) and 512 ('global' for K2 and
-# K3, and for K4), K4 also at the pruned renderer's P = 8 and 24.
+# Shapes: fusion_features 256 ('smem' plan) and 512 ('resident' for K2 and
+# K3, 'global' for K4), K4 also at the pruned renderer's P = 8 and 24.
 def _int8_case(dev, key, ff, dtype, P=64):
     channels, H1, O, K = (ff, ff, 64), 2 * ff + 64, ff + 32, 128
     hw = (8, 16, 32)
@@ -1194,3 +1197,79 @@ def test_fast_renderer_layout_cache_stays_bounded(dev):
         torch.cuda.synchronize()
         sizes.append(len(GE._PREPARED))
     assert sizes[1:] == [sizes[1]] * 4, sizes
+
+
+# The 'resident' plan (comb in shared memory, the f rows in the scratch,
+# read one k-block ahead) at the rows it was made for: K3 at the
+# flagship's widths at S = 4 and 6 (bf16, f32, int8), K3 at the U-Net's and
+# the ResNet34's four levels, K2 and K4 at the U-Net's.
+RESIDENT_CASES = {
+    'K3 S=4': ('streams', (256, 256, 64), 576, 288, (16, 32, 64), 4),
+    'K3 S=6': ('streams', (256, 256, 64), 576, 288, (16, 32, 64), 6),
+    'K3 ResNet34 S=5': ('streams', (256, 128, 64, 64), 512, 256,
+                        (8, 16, 32, 32), 5),
+    'K3 U-Net V=3': ('streams', (64, 128, 256, 512), 960, 480,
+                     (32, 16, 8, 4), 3),
+    'K2 U-Net': ('pair', (64, 128, 256, 512), 960, 480, (32, 16, 8, 4), 2),
+    'K4 U-Net': ('render', (64, 128, 256, 512), 960, 480, (32, 16, 8, 4), 2),
+}
+
+
+@pytest.mark.parametrize('table', ['bf16', 'f32', 'int8'])
+@pytest.mark.parametrize('key', sorted(RESIDENT_CASES))
+def test_resident_plan_against_plain_and_repeatable(dev, key, table):
+    """Each case takes the 'resident' plan with the stage slots
+    ``core_plan`` names, matches its plain version within the stated
+    fraction, and gives the same bits on 5 more calls (the f rows the
+    consumers store are read back by the other warpgroup: a stale read
+    would show as a difference between calls)."""
+    mode, channels, H1, O, hw, S = RESIDENT_CASES[key]
+    K = 128
+    if mode == 'render':
+        case = _render_case(dev, channels, H1, O, K, hw, 1, 9, 64)
+        tables, cells, a_s, a_c, lc, params = case
+        aux = (a_s, a_c)
+        fn, plain = FR.fused_render_core, FR.fused_render_core_reference
+    else:
+        tables, cells, aux, params = _epilogue_case(
+            dev, channels, H1, O, K, 3, hw, 5 * 64 + 13, S=S, seed=S)
+        fn, plain = ((GE.fused_exchange_epilogue,
+                      GE.fused_exchange_epilogue_reference) if mode == 'pair'
+                     else (GE.fused_exchange_epilogue_multi,
+                           GE.fused_exchange_epilogue_multi_reference))
+    dtype = torch.float32 if table == 'f32' else torch.bfloat16
+    if table == 'int8':
+        rng = np.random.default_rng(5)
+        tables = tuple(torch.as_tensor(rng.integers(-127, 128, t.shape),
+                                       dtype=torch.int8).to(dev)
+                       for t in tables)
+        w1 = params[0].clone()
+        w1[:sum(channels)] *= 1.0 / 127
+        params = (w1,) + tuple(params[1:])
+    else:
+        tables = tuple(t.to(dtype) for t in tables)
+    params = tuple(p.to(dtype) for p in params)
+    aux = tuple(a.to(dtype) for a in aux)
+    if mode == 'render':
+        args = (tables, cells, *aux, lc.to(dtype), params, 1, 9, 64, True)
+    elif mode == 'pair':
+        args = (tables, cells, *aux, params, 100)
+    else:
+        args = (tables, cells, aux, params)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = GE.core_plan(mode, S, sum(channels), H1, O, K,
+                        64 if mode == 'render' else 0, levels=len(channels))
+    assert want.plan == 'resident'
+    assert (fn.last_plan, fn.last_launch[1] // 2) == (want.plan, want.slots)
+    for _ in range(5):
+        again = fn(*args)
+        for g, a in zip(got, again):
+            assert torch.equal(g, a)
+    ref = plain(*args)
+    for i, (g, w) in enumerate(zip(got, ref)):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        if mode == 'render' and i == 1:
+            assert _max_err(g, w) <= 2 ** -8
+        else:
+            assert _max_err(g, w) <= 2 ** -5 * _scale(w)

@@ -571,18 +571,24 @@ def test_core_takes_fusion_features_288():
                                     ('render', 2)])
 def test_core_takes_every_fusion_width(mode, S):
     """Every fusion_features from 32 to 768 in steps of 32 (F = H1 = 2 ff +
-    64, O = ff + 32, K = 128; K4 at 64 samples) is taken: the flagship's
-    and the narrower widths by the 'smem' plan, the widths whose tiles
-    outgrow shared memory by the 'global' one."""
+    64, O = ff + 32, K = 128; K4 at 64 samples) is taken, with at least
+    three stage slots a ring (K9: one): the flagship's and the narrower
+    widths by the 'smem' plan, the widths whose f rows do not fit beside
+    comb by the 'resident' one (not K9, which has no f rows), those where
+    even comb does not fit by the 'global' one."""
     plans = {}
     for ff in range(32, 769, 32):
         F, O = 2 * ff + 64, ff + 32
         GE.check_core_widths('k', mode, S, F, F, O, 128, 64)
-        plan, smem, scratch = GE.core_plan(mode, S, F, F, O, 128, 64)
-        assert smem <= GE.SMEM_LIMIT
-        assert (scratch > 0) == (plan == 'global' or mode == 'render')
-        plans[ff] = plan
+        got = GE.core_plan(mode, S, F, F, O, 128, 64)
+        assert got.smem <= GE.SMEM_LIMIT
+        assert got.slots >= (1 if mode == 'mlp' else 3)
+        assert (got.scratch > 0) == (got.plan != 'smem' or mode == 'render')
+        plans[ff] = got.plan
     assert plans[256] == 'smem' and plans[768] == 'global'
-    # once a width takes the 'global' plan, every wider one does
+    # the plans come in the order 'smem', 'resident', 'global' as the
+    # width grows
+    rank = {'smem': 0, 'resident': 1, 'global': 2}
     order = [plans[ff] for ff in sorted(plans)]
-    assert order == sorted(order, key=lambda p: p == 'global')
+    assert order == sorted(order, key=rank.get)
+    assert ('resident' in order) == (mode != 'mlp')

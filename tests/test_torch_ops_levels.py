@@ -147,34 +147,86 @@ def test_aux_layout():
         (16, 24)]
 
 
-# (mode, S, F, H1, O, P, levels) -> the plan the core takes
+# (mode, S, F, H1, O, P, levels) -> the plan the core takes and its stage
+# slots a ring: 'smem' where comb and the f rows fit beside three slots a
+# ring, else 'resident' (comb in shared memory, the f rows in the scratch)
 PLANS = {
-    'K2 resnet': (('pair', 2, 512, 512, 256, 0, 4), 'smem'),
-    'K3 resnet V=3': (('streams', 3, 512, 512, 256, 0, 4), 'smem'),
-    'K4 resnet': (('render', 2, 512, 512, 256, 64, 4), 'smem'),
-    'K2 unet': (('pair', 2, 960, 960, 480, 0, 4), 'global'),
-    'K3 unet V=3': (('streams', 3, 960, 960, 480, 0, 4), 'global'),
-    'K4 unet': (('render', 2, 960, 960, 480, 64, 4), 'global'),
-    'K3 dpt V=4': (('streams', 4, 576, 576, 288, 0, 3), 'smem'),
-    'K3 unet V=4': (('streams', 4, 960, 960, 480, 0, 4), 'global'),
+    'K2 resnet': (('pair', 2, 512, 512, 256, 0, 4), ('smem', 3)),
+    'K3 resnet V=3': (('streams', 3, 512, 512, 256, 0, 4), ('smem', 3)),
+    'K4 resnet': (('render', 2, 512, 512, 256, 64, 4), ('smem', 4)),
+    'K2 unet': (('pair', 2, 960, 960, 480, 0, 4), ('resident', 3)),
+    'K3 unet V=3': (('streams', 3, 960, 960, 480, 0, 4), ('resident', 3)),
+    'K4 unet': (('render', 2, 960, 960, 480, 64, 4), ('resident', 3)),
+    'K3 dpt V=4': (('streams', 4, 576, 576, 288, 0, 3), ('resident', 4)),
+    'K3 unet V=4': (('streams', 4, 960, 960, 480, 0, 4), ('resident', 3)),
 }
 
 
 @pytest.mark.parametrize('key', PLANS)
 def test_core_plan_at_encoder_widths(key):
-    (mode, S, F, H1, O, P, L), plan = PLANS[key]
-    got, smem, scratch = GE.core_plan(mode, S, F, H1, O, 128, P, levels=L)
-    assert got == plan
-    assert smem <= GE.SMEM_LIMIT
+    (mode, S, F, H1, O, P, L), (plan, slots) = PLANS[key]
+    got = GE.core_plan(mode, S, F, H1, O, 128, P, levels=L)
+    assert (got.plan, got.slots) == (plan, slots)
+    assert got.smem <= GE.SMEM_LIMIT
     GE.check_core_widths(key, mode, S, F, H1, O, 128, P, levels=L)
-    # the 'global' plan's tiles, and K4's ray rows, go to the scratch
-    assert (scratch > 0) == (plan == 'global' or mode == 'render')
+    # the 'resident' plan's f rows, and K4's ray rows, go to the scratch
+    assert (got.scratch > 0) == (plan == 'resident' or mode == 'render')
     # three levels take the shared memory they took before the 4-level
     # mode: 1 KB less, for 8 fewer aux columns and one fewer cell row
     if L == 4:
         three = GE.core_plan(mode, S, F, H1, O, 128, P, levels=3)
-        assert three[0] == plan
-        assert smem - three[1] == 64 * 8 * 2 + 64 * 4
+        assert three.plan == plan
+        assert got.smem - three.smem == 64 * 8 * 2 + 64 * 4
+
+
+# The wide-tile rows K3 and K4 run on (mode, S, F, H1, O, P, levels): each
+# takes the 'resident' plan with at least three stage slots a ring, in
+# every element and table type (the types share their shared memory).
+WIDE_TILE_ROWS = {
+    'K3 S=4 (DPT V=4)': ('streams', 4, 576, 576, 288, 0, 3),
+    'K3 S=5 (DPT V=5, also f32 and int8)': ('streams', 5, 576, 576, 288, 0,
+                                            3),
+    'K3 S=6 (DPT V=6)': ('streams', 6, 576, 576, 288, 0, 3),
+    'K3 S=8 (DPT V=8)': ('streams', 8, 576, 576, 288, 0, 3),
+    'K3 4-level ResNet34 S=5': ('streams', 5, 512, 512, 256, 0, 4),
+    'K3 4-level U-Net V=3': ('streams', 3, 960, 960, 480, 0, 4),
+    'K4 4-level U-Net': ('render', 2, 960, 960, 480, 64, 4),
+    'K2 4-level U-Net': ('pair', 2, 960, 960, 480, 0, 4),
+}
+
+
+@pytest.mark.parametrize('key', WIDE_TILE_ROWS)
+def test_wide_tile_rows_take_the_resident_plan(key):
+    mode, S, F, H1, O, P, L = WIDE_TILE_ROWS[key]
+    got = GE.core_plan(mode, S, F, H1, O, 128, P, levels=L)
+    assert got.plan == 'resident' and got.slots >= 3
+    # the scratch holds the f rows alone (S * O columns a tile), beside
+    # K4's ray rows
+    rays = 2 * P * (O + 128) * 2 if mode == 'render' else 0
+    assert got.scratch == rays + -(-S * O // 64) * 8192
+
+
+# (mode, S) at fusion_features ff (F = H1 = 2 ff + 64, O = ff + 32, K =
+# 128, K4 at P = 64) -> (plan, stage slots a ring). K9 keeps 'smem' with
+# fewer slots: its 'global' plan is slower (gather_epilogue.core_plan).
+WIDE_FF_PLANS = {
+    384: {('pair', 2): ('resident', 4), ('streams', 3): ('resident', 4),
+          ('render', 2): ('resident', 4), ('mlp', 1): ('smem', 4)},
+    512: {('pair', 2): ('resident', 3), ('streams', 3): ('resident', 3),
+          ('render', 2): ('global', 4), ('mlp', 1): ('smem', 2)},
+    768: {('pair', 2): ('global', 4), ('streams', 3): ('global', 4),
+          ('render', 2): ('global', 4), ('mlp', 1): ('global', 4)},
+}
+
+
+@pytest.mark.parametrize('mode,S', [('pair', 2), ('streams', 3),
+                                    ('render', 2), ('mlp', 1)])
+@pytest.mark.parametrize('ff', sorted(WIDE_FF_PLANS))
+def test_core_plan_at_wide_fusion_features(ff, mode, S):
+    F, O = 2 * ff + 64, ff + 32
+    got = GE.core_plan(mode, S, F, F, O, 128, 64)
+    assert (got.plan, got.slots) == WIDE_FF_PLANS[ff][(mode, S)]
+    GE.check_core_widths('k', mode, S, F, F, O, 128, 64)
 
 
 @pytest.mark.parametrize('V,P,C,plan', [(4, 48, 288, (288, 4, 5376)),
@@ -207,3 +259,20 @@ def test_refusals_name_the_shape():
         GE._checked_args('K2', tables[:4], cells[:4],
                          [torch.zeros((M, 16))] * 2,
                          (torch.zeros(4 * C + 3, 64),) + params[1:])
+
+
+@pytest.mark.parametrize('name', ['epipolar_attention', 'gather_epilogue',
+                                  'gather_epilogue_multi', 'fused_mlp',
+                                  'fused_render', 'bilinear_gather',
+                                  'row_gather', 'gather_epilogue_odd'])
+def test_core_sources_build_with_split_compilation(name):
+    """The exchange core's sources (and their odd-width builds) compile
+    with nvcc's split compilation, the other kernels without; the flags
+    are part of each library's name."""
+    from cross_attention_renderer_torch.ops import _build
+    source, extra = _build.source_flags(name)
+    core = source in ('gather_epilogue', 'gather_epilogue_multi',
+                      'fused_mlp', 'fused_render')
+    assert (set(_build.SPLIT_FLAGS) <= set(extra)) == core
+    assert ('-DCORE_ODD_OUTPUT=1' in extra) == name.endswith('_odd')
+    assert (_build.CSRC_DIR / f'{source}.cu').exists()

@@ -271,3 +271,34 @@ def test_bench_ondisk_reads_a_corpus(tmp_path):
              '--workers', '2', '--batch', '2', '--iter-batches', '2'])
         r = od.measure(opt, torch.device('cpu'), **TINY)
     assert r['scenes_per_s'] > 0 and np.isfinite(r['loss'])
+
+
+IMAGE_TIME_NEW = ('v4', 'v5', 'v6', 'v5_f32', 'v5_q8', 'resnet_v5', 'unet_v2',
+                  'unet_v2_fused', 'unet_v3')
+
+
+@pytest.mark.parametrize('name', IMAGE_TIME_NEW)
+def test_image_time_path_builds_and_renders_at_a_tiny_width(name):
+    """Each path ``image_time.py`` times on the wide-tile core builds its
+    model (the path's encoder, view count, type and route) at a tiny width
+    on the CPU and renders 16 rays of a 32x32 scene through the renderer
+    the tool gives it, finite."""
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models import renderer as RM
+    from cross_attention_renderer_torch.tools import image_time as IT
+    from cross_attention_renderer_torch.train.evaluation import (
+        make_fast_renderer, make_scan_renderer)
+    kw = IT.PATHS[name]
+    model, q8 = IT.path_model(RM, name, 'cpu', **TINY)
+    assert model.n_view == kw.get('n_view', 2) and q8 == kw.get('q8', False)
+    assert model.model == kw.get('model', 'midas_vit')
+    assert model.fused_render == kw.get('fused_render', False)
+    want = torch.float32 if kw.get('dtype') == 'float32' else torch.bfloat16
+    assert model.dtype == want
+    scene = make_scene(0, n_view=model.n_view, H=32, W=32, n_rays=16,
+                       device='cpu')
+    render = (make_fast_renderer(model, 1, q8=True) if q8
+              else make_scan_renderer(model, 1))
+    with torch.inference_mode():
+        rgb, _ = render(scene, model.encode(scene), scene['query']['uv'])
+    assert rgb.shape[-2:] == (16, 3) and torch.isfinite(rgb.float()).all()

@@ -259,7 +259,9 @@ def test_multi_reference_matches_jax_at_any_stream_count(S):
 def _counted_layout(S, F, H1, O, K, levels):
     """K3's layout counted from ``csrc/exchange_core.cuh`` (``fill_sizes``
     and ``launch_core``) on the H100's 232,448 bytes a block: (plan, shared
-    bytes with two 12 KB stage slots, scratch bytes a block)."""
+    bytes with two 12 KB stage slots, scratch bytes a block, stage slots a
+    ring). A plan is taken where its tiles leave six slots (three a ring),
+    the slots being as many more as fit, up to eight."""
     cdiv = lambda a, b: -(-a // b)
     slots = max(levels, 3)
     aux_w = cdiv(4 * slots + 3, 8) * 8
@@ -268,28 +270,36 @@ def _counted_layout(S, F, H1, O, K, levels):
     n_vecs = 3 * cdiv(H1, 64) * 64 + cdiv(H1, 64) * 64 + 2 * OT * 96 \
         + 2 * KT * 64
     common = 1024 + 64 * aux_w * 2 + 64 * slots * 4 + 2 * n_vecs + 16 * 8
+    ring = lambda nkb: min(8, (232_448 - common - nkb * 8192) // 12288
+                           // 2 * 2) // 2
     # 'smem': the first S - 1 streams' f rows beside comb, the last
     # stream's in comb (where they fit there)
     fbuf = cdiv((S - 1) * O, 64) if OT <= 6 else nkbf
     if nkbf - fbuf > nkbF:
         fbuf = nkbf
-    smem = common + (nkbF + fbuf) * 8192 + 2 * 12288
-    if smem <= 232_448:
-        return 'smem', smem, 0
-    return 'global', common + 8192 + 2 * 12288, (nkbF + nkbf) * 8192
+    if ring(nkbF + fbuf) >= 3:
+        return ('smem', common + (nkbF + fbuf) * 8192 + 2 * 12288, 0,
+                ring(nkbF + fbuf))
+    # 'resident': comb alone in shared memory, the f rows in the scratch
+    if ring(nkbF) >= 3:
+        return ('resident', common + nkbF * 8192 + 2 * 12288, nkbf * 8192,
+                ring(nkbF))
+    return ('global', common + 8192 + 2 * 12288, (nkbF + nkbf) * 8192,
+            ring(1))
 
 
 @pytest.mark.parametrize('S', range(2, 9))
 @pytest.mark.parametrize('widths', [
-    (576, 576, 288, 128, 3),     # the flagship ('global' from S = 5)
-    (512, 512, 256, 128, 4),     # ResNet34 ('smem' to S = 5)
-    (960, 960, 480, 128, 4),     # U-Net ('global' from S = 3)
+    (576, 576, 288, 128, 3),     # the flagship ('resident' from S = 4)
+    (512, 512, 256, 128, 4),     # ResNet34 ('resident' from S = 4)
+    (960, 960, 480, 128, 4),     # U-Net ('resident' from S = 2)
     (64, 80, 48, 16, 3),         # narrow ('smem' at every S)
 ], ids=['flagship', 'resnet', 'unet', 'narrow'])
 def test_core_layout_mirror_at_any_stream_count(monkeypatch, S, widths):
     F, H1_, O, K, levels = widths
     want = _counted_layout(S, F, H1_, O, K, levels)
     assert GE.core_plan('streams', S, F, H1_, O, K, levels=levels) == want
+    assert want[3] >= 3
     GE.check_core_widths('k3', 'streams', S, F, H1_, O, K, levels=levels)
 
     class Props:

@@ -269,8 +269,9 @@ def test_core_takes_every_fusion_width_at_any_stream_count(S):
         for mode, s in modes:
             f = 3 * base if mode == 'mlp' else F
             GE.check_core_widths('k', mode, s, f, base, O, 128, 64)
-            plan, smem, _ = GE.core_plan(mode, s, f, base, O, 128, 64)
-            assert plan in ('smem', 'global') and smem <= GE.SMEM_LIMIT
+            got = GE.core_plan(mode, s, f, base, O, 128, 64)
+            assert got.plan in GE.PLANS and got.smem <= GE.SMEM_LIMIT
+            assert got.slots >= (1 if mode == 'mlp' else 3)
             Oc = GE.core_out_width(mode, s, O)
             assert Oc >= O and (mode == 'mlp' or (s * Oc) % 16 == 0)
             if O % 8 == 0 and (s * O) % 16 == 0:
