@@ -1,0 +1,12 @@
+"""The whole request's share of the card's bf16 peak: the model's
+operations of an image with its scene's encode (``work/model.py``) times
+the images a second of the untraced window (host clock: the window of the
+run's end-to-end metrics; the profiler slows the host, so its window is
+not used)."""
+
+
+def read(ctx):
+    if ctx.rate <= 0:
+        return None
+    ops = ctx.work('model').render_ops(ctx.cfg)
+    return 100.0 * ops * ctx.rate / ctx.peak['bf16_flops']

@@ -1,0 +1,7 @@
+"""``render_latency_p90_ms`` of the timed window (host clock), in the
+cells where the host's speed spreads it too widely for an end-to-end
+bound."""
+
+
+def read(ctx):
+    return ctx.host.get('render_latency_p90_ms', (None,))[0]
