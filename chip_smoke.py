@@ -90,8 +90,6 @@ no result):
      from seeded random VGG weights written by ``convert_weights``; its
      PSNR, SSIM and LPIPS on the card (cuDNN's TF32 off) against the same
      metrics of the same image on the CPU in f32;
- 16. bench: one run of ``bench_torch.py``'s measurement, its JSON line
-     printed;
  17. training, the flagship stage-1 step (``tools/bench_train.py``'s
      setting: the 122M model in bf16 from seed 0, batch 12 of 256x256
      scenes, 192 query rays, ``TrainConfig()``) on both routes of
@@ -3607,13 +3605,6 @@ def main() -> int:
     build_dir.mkdir(parents=True, exist_ok=True)
     evaluation = check_evaluation(
         RM, make_scene, dev, random_lpips_npz(build_dir / 'lpips_random.npz'))
-    torch.cuda.empty_cache()
-
-    # -- 16. bench ---------------------------------------------------------
-    import bench_torch
-    bench = bench_torch.measure()
-    log(f'bench_torch encode: {bench.pop("encode_ms"):.3f} ms')
-    print(json.dumps(bench), flush=True)
     torch.cuda.empty_cache()
 
     # -- 17-19. training ---------------------------------------------------

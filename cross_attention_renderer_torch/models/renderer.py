@@ -101,6 +101,7 @@ from cross_attention_renderer_torch.ops.sorted_gather import (
     grid_sample_pyramid_sorted, grid_sample_sorted, sort_stream, unsort)
 from cross_attention_renderer_torch.parallel.mesh import param_spec, sharded_dim
 from cross_attention_renderer_torch.utils.image import normalize_imagenet
+from cross_attention_renderer_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -324,22 +325,25 @@ class CrossAttentionRenderer(nn.Module):
         """Feature pyramid, channel-last, (B * V, ...) each level
         (renderer.py:232-251): (path2, path1, z_conv) of the DPT encoder,
         whose poses are zeros under ``no_multiview`` and z_conv zeros under
-        ``no_high_freq``; the ResNet34 or U-Net encoder's four maps."""
-        ctx = scene['context']
-        rgb = ctx['rgb'].float()
-        B, V, H, W, _ = rgb.shape
-        rgb_norm = normalize_imagenet((rgb + 1.0) * 0.5).to(self.dtype)
-        if self.model != 'midas_vit':
-            return tuple(self.encoder(rgb_norm.reshape(B * V, H, W, 3)))
-        c2w = ctx['cam2world'].float()
-        rel16 = (torch.linalg.inv(c2w[:, 0])[:, None] @ c2w).reshape(B, V, 16)
-        if self.no_multiview:
-            rel16 = torch.zeros_like(rel16)
-        path2, path1 = self.encoder(rgb_norm, rel16)
-        z_conv = self.conv_map(rgb_norm.reshape(B * V, H, W, 3))
-        if self.no_high_freq:
-            z_conv = torch.zeros_like(z_conv)
-        return path2, path1, z_conv
+        ``no_high_freq``; the ResNet34 or U-Net encoder's four maps. Under
+        the ``car.encode`` span."""
+        with span('car.encode'):
+            ctx = scene['context']
+            rgb = ctx['rgb'].float()
+            B, V, H, W, _ = rgb.shape
+            rgb_norm = normalize_imagenet((rgb + 1.0) * 0.5).to(self.dtype)
+            if self.model != 'midas_vit':
+                return tuple(self.encoder(rgb_norm.reshape(B * V, H, W, 3)))
+            c2w = ctx['cam2world'].float()
+            rel16 = (torch.linalg.inv(c2w[:, 0])[:, None] @ c2w).reshape(
+                B, V, 16)
+            if self.no_multiview:
+                rel16 = torch.zeros_like(rel16)
+            path2, path1 = self.encoder(rgb_norm, rel16)
+            z_conv = self.conv_map(rgb_norm.reshape(B * V, H, W, 3))
+            if self.no_high_freq:
+                z_conv = torch.zeros_like(z_conv)
+            return path2, path1, z_conv
 
     @property
     def use_fused_epilogue(self) -> bool:
@@ -448,51 +452,56 @@ class CrossAttentionRenderer(nn.Module):
             z = self.encode(scene)
         zp = None
         if self.uses_packed_tables:
-            zp = tuple(z_packed) if z_packed is not None else pack_pyramid(z)
-
-        # Everything happens in each context camera's frame.
-        ctx_c2w = ctx['cam2world'].float()
-        ctx_intr_v = ctx['intrinsics'].float()
-        qry_c2w = qry['cam2world'].float()
-        query_cam2world = torch.linalg.inv(ctx_c2w) @ qry_c2w  # (B, V, 4, 4)
-
-        uv = qry['uv'][:, 0].float()[:, None].expand(B, V, R, 2)
-        q_intr = qry['intrinsics'].float().expand(B, V, 4, 4)
-        lf_coords = G.plucker_embedding(
-            query_cam2world.reshape(B * V, 4, 4), uv.reshape(B * V, R, 2),
-            q_intr.reshape(B * V, 4, 4))                   # (B*V, R, 6)
-        ctx_intr = ctx_intr_v.reshape(B * V, 4, 4)
-        origins = G.ray_origin(query_cam2world).reshape(B * V, 1, 3).expand(
-            B * V, R, 3)
-        ray_dir = lf_coords[..., :3]
-
-        if self.no_sample:
-            # Fixed depths along the query ray (renderer.py:295-306).
-            _, _, valid, pixel_val = E.volumetric_epipolar_lines(
-                lf_coords.reshape(B, V, R, 6), query_cam2world, ctx_intr_v,
-                H, W, P)
-            valid = valid.reshape(B * V, R)
-            pixel_val = pixel_val.reshape(B * V, R, P, 2)
-        else:
-            # Segment intrinsics are divided by H, not (W, H)
-            # (models.py:226).
-            intr_norm = torch.cat([ctx_intr[:, :2] / H, ctx_intr[:, 2:]],
-                                  dim=1)
-            start, end, valid = E.epipolar_segments_ndc(origins, ray_dir,
-                                                        intr_norm)
-            if t_vals is not None:
-                interval = t_vals.reshape(B * V, R, P).to(start.dtype)[
-                    ..., None]
+            if z_packed is not None:
+                zp = tuple(z_packed)
             else:
-                interval = torch.linspace(0.0, 1.0, P, dtype=start.dtype,
-                                          device=dev)[:, None]
-            pixel_val = (start[..., None, :] + (end - start)[..., None, :]
-                         * interval)                       # (B*V, R, P, 2)
+                with span('car.pack_pyramid'):
+                    zp = pack_pyramid(z)
 
-        eye = torch.eye(4, device=dev).expand(B * V, 4, 4)
-        pt, _, _ = G.epipolar_point_3d(lf_coords, pixel_val, eye, H, W,
-                                       ctx_intr)
-        pt_views = pt.reshape(B, V, R, P, 3)
+        with span('car.geometry'):
+            # Everything happens in each context camera's frame.
+            ctx_c2w = ctx['cam2world'].float()
+            ctx_intr_v = ctx['intrinsics'].float()
+            qry_c2w = qry['cam2world'].float()
+            query_cam2world = torch.linalg.inv(ctx_c2w) @ qry_c2w  # (B,V,4,4)
+
+            uv = qry['uv'][:, 0].float()[:, None].expand(B, V, R, 2)
+            q_intr = qry['intrinsics'].float().expand(B, V, 4, 4)
+            lf_coords = G.plucker_embedding(
+                query_cam2world.reshape(B * V, 4, 4), uv.reshape(B * V, R, 2),
+                q_intr.reshape(B * V, 4, 4))               # (B*V, R, 6)
+            ctx_intr = ctx_intr_v.reshape(B * V, 4, 4)
+            origins = G.ray_origin(query_cam2world).reshape(
+                B * V, 1, 3).expand(B * V, R, 3)
+            ray_dir = lf_coords[..., :3]
+
+            if self.no_sample:
+                # Fixed depths along the query ray (renderer.py:295-306).
+                _, _, valid, pixel_val = E.volumetric_epipolar_lines(
+                    lf_coords.reshape(B, V, R, 6), query_cam2world,
+                    ctx_intr_v, H, W, P)
+                valid = valid.reshape(B * V, R)
+                pixel_val = pixel_val.reshape(B * V, R, P, 2)
+            else:
+                # Segment intrinsics are divided by H, not (W, H)
+                # (models.py:226).
+                intr_norm = torch.cat([ctx_intr[:, :2] / H, ctx_intr[:, 2:]],
+                                      dim=1)
+                start, end, valid = E.epipolar_segments_ndc(origins, ray_dir,
+                                                            intr_norm)
+                if t_vals is not None:
+                    interval = t_vals.reshape(B * V, R, P).to(start.dtype)[
+                        ..., None]
+                else:
+                    interval = torch.linspace(0.0, 1.0, P, dtype=start.dtype,
+                                              device=dev)[:, None]
+                pixel_val = (start[..., None, :] + (end - start)[..., None, :]
+                             * interval)                   # (B*V, R, P, 2)
+
+            eye = torch.eye(4, device=dev).expand(B * V, 4, 4)
+            pt, _, _ = G.epipolar_point_3d(lf_coords, pixel_val, eye, H, W,
+                                           ctx_intr)
+            pt_views = pt.reshape(B, V, R, P, 3)
 
         geo = (zp, pixel_val, pt_views, ctx_c2w, ctx_intr_v, H, W)
         # The sorted stream takes precedence over every fused branch, so K4
@@ -500,88 +509,100 @@ class CrossAttentionRenderer(nn.Module):
         # latent exchange neither applies (renderer.py:333-334).
         sorted_stream = self.multiview and self.sorted_stream
         fused_render = self.fused_render and not sorted_stream
-        if sorted_stream and V == 2:
-            joint_latent, key_val = self._sorted_exchange_v2(z, *geo[1:])
-        elif fused_render:
-            # K4 takes local_coords as well, so it runs once they exist.
-            joint_latent = key_val = None
-        elif self.multiview and V == 2 and self.use_fused_epilogue:
-            joint_latent, key_val = self._fused_exchange_v2(*geo)
-        elif self.multiview and V == 2:
-            # [self, cross] for view 0, [cross, self] for view 1
-            # (models.py:335,342), by slicing the kernels.
-            fs, fc = self._latent_exchange_parts(*geo)
-            joint_latent = torch.stack(
-                [self.latent_value(fs[:, 0], fc[:, 0]),
-                 self.latent_value(fc[:, 1], fs[:, 1])], dim=1)
-            kh = torch.stack(
-                [torch.relu(self.key_map(fs[:, 0], fc[:, 0])),
-                 torch.relu(self.key_map(fc[:, 1], fs[:, 1]))], dim=1)
-            key_val = self.key_map_2(kh)
-        elif (self.multiview and self.use_fused_epilogue
-              and not self.reference_exchange_compat and not sorted_stream):
-            joint_latent, key_val = self._fused_exchange_multi(*geo)
-        else:
-            if sorted_stream:
-                interp_val = self._latent_exchange_sorted(z, *geo[1:])
+        with span('car.exchange'):
+            if sorted_stream and V == 2:
+                joint_latent, key_val = self._sorted_exchange_v2(z, *geo[1:])
+            elif fused_render:
+                # K4 runs the exchange with the attention rounds once
+                # local_coords exist; its stream takes are made here.
+                takes = self._stream_takes(*geo)
+                joint_latent = key_val = None
+            elif self.multiview and V == 2 and self.use_fused_epilogue:
+                joint_latent, key_val = self._fused_exchange_v2(*geo)
+            elif self.multiview and V == 2:
+                # [self, cross] for view 0, [cross, self] for view 1
+                # (models.py:335,342), by slicing the kernels.
+                fs, fc = self._latent_exchange_parts(*geo)
+                joint_latent = torch.stack(
+                    [self.latent_value(fs[:, 0], fc[:, 0]),
+                     self.latent_value(fc[:, 1], fs[:, 1])], dim=1)
+                kh = torch.stack(
+                    [torch.relu(self.key_map(fs[:, 0], fc[:, 0])),
+                     torch.relu(self.key_map(fc[:, 1], fs[:, 1]))], dim=1)
+                key_val = self.key_map_2(kh)
+            elif (self.multiview and self.use_fused_epilogue
+                  and not self.reference_exchange_compat
+                  and not sorted_stream):
+                joint_latent, key_val = self._fused_exchange_multi(*geo)
             else:
-                interp_val = self._sample_pyramid(
-                    z, zp, pixel_val.reshape(B * V, R * P, 2),
-                    'border').reshape(B, V, R, P, -1)
-                if self.multiview:
-                    interp_val = self._latent_exchange(
-                        interp_val, z, zp, pt_views, ctx_c2w, ctx_intr_v, H,
-                        W)
-                elif not self.no_latent_concat:
-                    # V=1: append the tanh-encoded point (models.py:
-                    # 479-485).
-                    pt_feat = torch.cat([torch.tanh(pt_views / 5.0),
-                                         torch.tanh(pt_views / 100.0)],
-                                        dim=-1)
-                    interp_val = self.update_val_merge(
-                        torch.cat([interp_val, pt_feat], dim=-1))
-            joint_latent = self.latent_value(interp_val)
-            key_val = self.key_map_2(torch.relu(self.key_map(interp_val)))
+                if sorted_stream:
+                    interp_val = self._latent_exchange_sorted(z, *geo[1:])
+                else:
+                    interp_val = self._sample_pyramid(
+                        z, zp, pixel_val.reshape(B * V, R * P, 2),
+                        'border').reshape(B, V, R, P, -1)
+                    if self.multiview:
+                        interp_val = self._latent_exchange(
+                            interp_val, z, zp, pt_views, ctx_c2w, ctx_intr_v,
+                            H, W)
+                    elif not self.no_latent_concat:
+                        # V=1: append the tanh-encoded point (models.py:
+                        # 479-485).
+                        pt_feat = torch.cat([torch.tanh(pt_views / 5.0),
+                                             torch.tanh(pt_views / 100.0)],
+                                            dim=-1)
+                        interp_val = self.update_val_merge(
+                            torch.cat([interp_val, pt_feat], dim=-1))
+                joint_latent = self.latent_value(interp_val)
+                key_val = self.key_map_2(torch.relu(self.key_map(
+                    interp_val)))
 
-        # Per-sample query features (models.py:494-528).
-        cam_rays = G.ray_directions_cam(pixel_val, ctx_intr[:, None], H,
-                                        W).reshape(B, V, R, P, 3)
-        ray_dir_e = ray_dir.reshape(B, V, R, 1, 3).expand_as(cam_rays)
-        q_orig = G.ray_origin(query_cam2world)             # (B, V, 3)
-        q_orig_e = q_orig[:, :, None, None, :].expand_as(cam_rays)
-        depth = torch.linalg.vector_norm(
-            pt_views - q_orig[:, :, None, None, :], dim=-1, keepdim=True)
-        depth = torch.where(torch.isfinite(depth), depth,
-                            torch.full_like(depth, 1e6))
-        depth_encode = torch.cat(
-            [torch.tanh(depth), torch.tanh(depth / 10.0),
-             torch.tanh(depth / 100.0), torch.tanh(depth / 1000.0)], dim=-1)
-        local_coords = torch.cat(
-            [cam_rays, torch.zeros_like(q_orig_e), ray_dir_e, depth_encode,
-             q_orig_e], dim=-1)                            # (B,V,R,P,16)
+        with span('car.geometry'):
+            # Per-sample query features (models.py:494-528).
+            cam_rays = G.ray_directions_cam(pixel_val, ctx_intr[:, None], H,
+                                            W).reshape(B, V, R, P, 3)
+            ray_dir_e = ray_dir.reshape(B, V, R, 1, 3).expand_as(cam_rays)
+            q_orig = G.ray_origin(query_cam2world)         # (B, V, 3)
+            q_orig_e = q_orig[:, :, None, None, :].expand_as(cam_rays)
+            depth = torch.linalg.vector_norm(
+                pt_views - q_orig[:, :, None, None, :], dim=-1, keepdim=True)
+            depth = torch.where(torch.isfinite(depth), depth,
+                                torch.full_like(depth, 1e6))
+            depth_encode = torch.cat(
+                [torch.tanh(depth), torch.tanh(depth / 10.0),
+                 torch.tanh(depth / 100.0), torch.tanh(depth / 1000.0)],
+                dim=-1)
+            local_coords = torch.cat(
+                [cam_rays, torch.zeros_like(q_orig_e), ray_dir_e,
+                 depth_encode, q_orig_e], dim=-1)          # (B,V,R,P,16)
 
-        if fused_render:
-            z_final, at_wt = self._fused_render_v2(*geo, local_coords)
-            z_local = z_final[:, None].expand(B, V, R, z_final.shape[-1])
-        else:
-            z_local, at_wt = self._attention_rounds(
-                local_coords, key_val, joint_latent)
+        with span('car.attention'):
+            if fused_render:
+                z_final, at_wt = self._fused_render_v2(zp, takes,
+                                                       local_coords, B, R, P)
+                z_local = z_final[:, None].expand(B, V, R, z_final.shape[-1])
+            else:
+                z_local, at_wt = self._attention_rounds(
+                    local_coords, key_val, joint_latent)
 
-        # Attention-derived depth from the round-1 weights (models.py:573-594).
-        pt_clamp = pt_views.clamp(-100.0, 100.0)
-        world_point = (at_wt[..., None] * pt_clamp).sum(dim=3).sum(dim=1)
-        cam_point = G.points_to_cam(world_point, qry_c2w[:, 0][:, None])
-        depth_ray = cam_point[..., 2].clamp(0.0, 10.0)[..., None]
+        with span('car.geometry'):
+            # Attention-derived depth from the round-1 weights (models.py:
+            # 573-594).
+            pt_clamp = pt_views.clamp(-100.0, 100.0)
+            world_point = (at_wt[..., None] * pt_clamp).sum(dim=3).sum(dim=1)
+            cam_point = G.points_to_cam(world_point, qry_c2w[:, 0][:, None])
+            depth_ray = cam_point[..., 2].clamp(0.0, 10.0)[..., None]
 
-        # Light-field decode (models.py:596-612) and whiteout (:615-617).
-        coords9 = torch.cat(
-            [lf_coords.reshape(B, V, R, 6),
-             q_orig[:, :, None, :].expand(B, V, R, 3)], dim=-1)
-        coords_flat = coords9.permute(0, 2, 1, 3).reshape(B, R, V * 9)
-        z_flat = z_local.permute(0, 2, 1, 3).reshape(B, R, -1)
-        rgb = self.phi(torch.cat([z_flat.float(), coords_flat], dim=-1))
-        valid_any = valid.reshape(B, V, R).amax(dim=1)[..., None]
-        rgb = rgb * valid_any + (1.0 - valid_any)
+        with span('car.phi'):
+            # Light-field decode (models.py:596-612) and whiteout (:615-617).
+            coords9 = torch.cat(
+                [lf_coords.reshape(B, V, R, 6),
+                 q_orig[:, :, None, :].expand(B, V, R, 3)], dim=-1)
+            coords_flat = coords9.permute(0, 2, 1, 3).reshape(B, R, V * 9)
+            z_flat = z_local.permute(0, 2, 1, 3).reshape(B, R, -1)
+            rgb = self.phi(torch.cat([z_flat.float(), coords_flat], dim=-1))
+            valid_any = valid.reshape(B, V, R).amax(dim=1)[..., None]
+            rgb = rgb * valid_any + (1.0 - valid_any)
         return {'rgb': rgb.reshape(B, 1, R, 3), 'depth_ray': depth_ray,
                 'valid_mask': valid_any, 'at_wt': at_wt,
                 'pixel_val': pixel_val.reshape(B, V, R, P, 2)}
@@ -645,46 +666,47 @@ class CrossAttentionRenderer(nn.Module):
         (cells: per-level (V*M,) int32, stream-major; aux: V arrays in the
         model type, the slot weights, tanh(pt/5) and a pad laid out by
         ``gather_epilogue.aux_layout``: (M, 16) for the DPT pyramid, (M, 24)
-        for a 4-level one)."""
-        B, V, R, P, _ = pt_views.shape
-        M = B * V * R * P
-        dev = pt_views.device
-        pt_in = self._exchange_points(pt_views, ctx_c2w)
-        others = [[k for k in range(V) if k != v] for v in range(V)]
-        pt_self = torch.stack([pt_in[:, v, v] for v in range(V)], dim=1)
-        streams = [(pixel_val.reshape(B * V, R * P, 2), None, 'border',
-                    pt_self)]
-        row = torch.arange(B * V, dtype=torch.int32, device=dev)[:, None]
-        for j in range(V - 1):
-            k_of = torch.tensor([others[v][j] for v in range(V)],
-                                dtype=torch.int32, device=dev)
-            pt_j = torch.stack([pt_in[:, others[v][j], v] for v in range(V)],
-                               dim=1)
-            intr_j = torch.stack([ctx_intr[:, others[v][j]]
-                                  for v in range(V)], dim=1)
-            proj = G.project_pinhole(pt_j.reshape(B, V, R * P, 3), intr_j)
-            pix = G.pixel_to_ndc(proj[..., :2], H, W)
-            # image row (b, v) of the coords samples image (b, k_of[v])
-            xid = (row // V) * V + k_of[(row % V).long()]
-            streams.append((pix.reshape(B * V, R * P, 2), xid, 'zeros',
-                            pt_j))
+        for a 4-level one). Under the ``car.address_math`` span."""
+        with span('car.address_math'):
+            B, V, R, P, _ = pt_views.shape
+            M = B * V * R * P
+            dev = pt_views.device
+            pt_in = self._exchange_points(pt_views, ctx_c2w)
+            others = [[k for k in range(V) if k != v] for v in range(V)]
+            pt_self = torch.stack([pt_in[:, v, v] for v in range(V)], dim=1)
+            streams = [(pixel_val.reshape(B * V, R * P, 2), None, 'border',
+                        pt_self)]
+            row = torch.arange(B * V, dtype=torch.int32, device=dev)[:, None]
+            for j in range(V - 1):
+                k_of = torch.tensor([others[v][j] for v in range(V)],
+                                    dtype=torch.int32, device=dev)
+                pt_j = torch.stack([pt_in[:, others[v][j], v]
+                                    for v in range(V)], dim=1)
+                intr_j = torch.stack([ctx_intr[:, others[v][j]]
+                                      for v in range(V)], dim=1)
+                proj = G.project_pinhole(pt_j.reshape(B, V, R * P, 3), intr_j)
+                pix = G.pixel_to_ndc(proj[..., :2], H, W)
+                # image row (b, v) of the coords samples image (b, k_of[v])
+                xid = (row // V) * V + k_of[(row % V).long()]
+                streams.append((pix.reshape(B * V, R * P, 2), xid, 'zeros',
+                                pt_j))
 
-        adt = self.dtype
-        t_col, aux_w = aux_layout(len(zp))     # t_col = 4 * levels (3 or 4)
-        pad = torch.zeros((M, aux_w - t_col - 3), dtype=adt, device=dev)
-        cells = [[] for _ in zp]
-        aux = []
-        for coords, xid, mode, pt in streams:
-            weights = []
-            for l, packed in enumerate(zp):
-                c, w = cell_rows_and_slot_weights(
-                    (packed.shape[1], packed.shape[2]), coords, mode,
-                    image_id=xid)
-                cells[l].append(c.reshape(-1))
-                weights.append(w.reshape(M, 4).to(adt))
-            t = torch.tanh(pt.reshape(M, 3) / 5.0).to(adt)
-            aux.append(torch.cat(weights + [t, pad], dim=-1))
-        return tuple(torch.cat(c) for c in cells), aux
+            adt = self.dtype
+            t_col, aux_w = aux_layout(len(zp))  # t_col = 4 * levels (3 or 4)
+            pad = torch.zeros((M, aux_w - t_col - 3), dtype=adt, device=dev)
+            cells = [[] for _ in zp]
+            aux = []
+            for coords, xid, mode, pt in streams:
+                weights = []
+                for l, packed in enumerate(zp):
+                    c, w = cell_rows_and_slot_weights(
+                        (packed.shape[1], packed.shape[2]), coords, mode,
+                        image_id=xid)
+                    cells[l].append(c.reshape(-1))
+                    weights.append(w.reshape(M, 4).to(adt))
+                t = torch.tanh(pt.reshape(M, 3) / 5.0).to(adt)
+                aux.append(torch.cat(weights + [t, pad], dim=-1))
+            return tuple(torch.cat(c) for c in cells), aux
 
     def _whole(self, name: str, attr: str) -> Tensor:
         """Parameter ``attr`` of layer ``name`` whole, for a kernel that
@@ -723,16 +745,15 @@ class CrossAttentionRenderer(nn.Module):
         return (jl.reshape(B, V, R, P, self.latent_dim),
                 kv.reshape(B, V, R, P, HIDDEN_DIM))
 
-    def _fused_render_v2(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr,
-                         H, W, local_coords) -> tuple[Tensor, Tensor]:
-        """V=2 takes -> exchange -> both attention rounds, one kernel K4
-        (renderer.py:769-819): everything :meth:`_fused_exchange_v2` does
-        plus the query MLP, round 1 and, with ``repeat_attention``,
+    def _fused_render_v2(self, zp, takes, local_coords: Tensor, B: int,
+                         R: int, P: int) -> tuple[Tensor, Tensor]:
+        """V=2 exchange -> both attention rounds, one kernel K4
+        (renderer.py:769-819) on the stream takes of :meth:`_stream_takes`:
+        everything :meth:`_fused_exchange_v2` does after them plus the
+        query MLP, round 1 and, with ``repeat_attention``,
         ``encode_latent``, the repeat-query MLP and round 2 (models.py:
         278-565). Returns (z_final (B, R, ld), at_wt (B, V, R, P))."""
-        B, V, R, P, _ = pt_views.shape
-        cells, (aux_self, aux_cross) = self._stream_takes(
-            zp, pixel_val, pt_views, ctx_c2w, ctx_intr, H, W)
+        cells, (aux_self, aux_cross) = takes
         # The parameters themselves (K4 lays them out once per set, as K2
         # does; its plain version casts them to the rows' type). Without
         # repeat attention no round-2 module exists and none is passed.

@@ -3,8 +3,8 @@
   python -m cross_attention_renderer_torch.tools.bench_blocks \\
       [--chunks 4,8,16,32] [--iters 4] [--device cuda]
 
-Port of the JAX repository's ``tools/bench_blocks.py`` on
-``bench_torch.py``'s protocol: the flagship V=2 model (bf16, seed-0
+Port of the JAX repository's ``tools/bench_blocks.py`` on its
+``bench.py``'s protocol: the flagship V=2 model (bf16, seed-0
 parameters), ``make_scene(0)`` at 256x256 with its pyramid encoded once;
 for each chunk count the 65,536-ray image rendered by
 ``make_scan_renderer`` in that many blocks, one warm-up image then

@@ -6,15 +6,14 @@ NVIDIA card.
       [--modes dense,pruned,narrow,q8,all] [--views 2] [--fused_render]
 
 The counterpart of the JAX repository's ``tools/bench_fast.py``, with
-``bench_torch.py``'s protocol: the flagship model (122M DPT-hybrid, bf16
+its ``bench.py``'s protocol: the flagship model (122M DPT-hybrid, bf16
 compute, random weights from seed 0) on ``make_scene(0)`` at 256x256, the
 encoder latent computed once, the full 65,536-ray image rendered in 8
 blocks of 8,192 rays; per mode one warm-up image (its time printed as the
 first call's), then ``--iters`` images between ``torch.cuda.synchronize()``
 calls. The modes (``train/evaluation.py``):
 
-  dense   the uniform 64-sample render (48 at ``--views 3``;
-          bench_torch.py's number)
+  dense   the uniform 64-sample render (48 at ``--views 3``)
   pruned  coarse-to-fine sampling at ``--pruned``
   narrow  per-scene PCA narrowing to ``--narrow``
   q8      int8 cell tables

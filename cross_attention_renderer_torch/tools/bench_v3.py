@@ -4,7 +4,7 @@ point, on one NVIDIA card.
   python -m cross_attention_renderer_torch.tools.bench_v3 [--iters 4] \\
       [--blocks 16] [--npoints 0] [--views 3] [--device cuda]
 
-Port of the JAX repository's ``tools/bench_v3.py`` on ``bench_torch.py``'s
+Port of the JAX repository's ``tools/bench_v3.py`` on its ``bench.py``'s
 protocol: the flagship model (bf16, seed-0 parameters) at ``--views``
 context views (3 by default; 48 samples above two views, models.py:47-54,
 unless ``--npoints``), ``make_scene(0)`` at 256x256, the pyramid encoded
@@ -43,7 +43,7 @@ def parser() -> argparse.ArgumentParser:
 
 def image_times(model, scene, n_chunks: int, iters: int, dev) -> tuple:
     """(first image s, mean ms an image over ``iters`` after it) of the
-    scan renderer, bench_torch.py's protocol."""
+    scan renderer, on bench.py's protocol."""
     from cross_attention_renderer_torch.train.evaluation import (
         make_scan_renderer)
     render = make_scan_renderer(model, n_chunks)

@@ -9,7 +9,9 @@ model (bf16, seed-0 parameters) on ``make_scene(0)`` at 256x256, the
 pyramid encoded once and packed once, then one 8,192-ray block rendered
 once as a warm-up and ``--blocks`` times (default 3) inside
 ``utils/profiling.py:trace``, which writes ``<out>/trace.json`` (a Chrome
-trace: chrome://tracing or Perfetto). ``--out`` defaults to
+trace: chrome://tracing or Perfetto; the model's ``car.*`` spans, such
+as ``car.geometry``, ``car.address_math`` and ``car.attention``, lie on
+the kernels' clock beside them). ``--out`` defaults to
 ``logs/trace_render`` under the working directory, which git ignores.
 ``--path sorted`` traces the sorted stream (K5) in place of the default
 path (K2 and K1). Prints the ten kernels of most device time, the trace's

@@ -13,11 +13,17 @@ where the model reads them, are still built once per image. The parameters live 
 where JAX hands a renderer per-scene parameters (a folded fuse kernel), the
 port hands it a sibling of the model (``CrossAttentionRenderer.clone``)
 that holds them and shares every other weight.
+
+Spans (``utils/profiling.py:span``, on only under a profiler): each
+whole-image renderer runs under ``car.render_image``, its packing of the
+cell tables under ``car.pack_pyramid`` and each ray block under
+``car.block``; the model's own spans nest inside them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -27,6 +33,7 @@ from cross_attention_renderer_torch.parallel.distributed import (
     all_gather_cat)
 from cross_attention_renderer_torch.parallel.mesh import axis_size
 from cross_attention_renderer_torch.utils.metrics import eval_image_metrics
+from cross_attention_renderer_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -54,18 +61,38 @@ def render_full_image(render_chunk: Callable, scene: dict, z,
                       ) -> tuple[Tensor, Tensor]:
     """All rays of ``uv_full`` (B, Q, n_rays, 2) in ``n_chunks`` equal
     chunks of ``render_chunk(scene, z, uv) -> (rgb, valid)``, with the
-    latent ``z`` cached."""
+    latent ``z`` cached; each chunk under the ``car.block`` span."""
     n_rays = uv_full.shape[2]
     if n_rays % n_chunks:
         raise ValueError(f'{n_chunks} chunks do not divide {n_rays} rays')
     size = n_rays // n_chunks
     rgbs, valids = [], []
     for i in range(n_chunks):
-        rgb, valid = render_chunk(scene, z,
-                                  uv_full[:, :, i * size:(i + 1) * size])
+        with span('car.block'):
+            rgb, valid = render_chunk(scene, z,
+                                      uv_full[:, :, i * size:(i + 1) * size])
         rgbs.append(rgb)
         valids.append(valid)
     return torch.cat(rgbs, dim=2), torch.cat(valids, dim=1)
+
+
+def _image_span(render_image: Callable) -> Callable:
+    """``render_image`` under the ``car.render_image`` span."""
+    @functools.wraps(render_image)
+    def spanned(*args):
+        with span('car.render_image'):
+            return render_image(*args)
+
+    return spanned
+
+
+def _packed_tables(model, z):
+    """The pyramid's cell tables, packed once an image where the model
+    reads them (evaluation.py:87-106), else None."""
+    if not model.uses_packed_tables:
+        return None
+    with span('car.pack_pyramid'):
+        return pack_pyramid(z)
 
 
 def make_scan_renderer(model, n_chunks: int) -> Callable:
@@ -75,8 +102,9 @@ def make_scan_renderer(model, n_chunks: int) -> Callable:
     blocks render in turn."""
 
     @torch.inference_mode()
+    @_image_span
     def render_image(scene, z, uv_full):
-        zp = pack_pyramid(z) if model.uses_packed_tables else None
+        zp = _packed_tables(model, z)
 
         def render_chunk(scene, z, uv):
             s = dict(scene)
@@ -104,19 +132,21 @@ def make_summary_renderer(model, n_chunks: int) -> Callable:
                 'pixel_val': 2}
 
     @torch.inference_mode()
+    @_image_span
     def render_image(scene, z, uv_full):
         n_rays = uv_full.shape[2]
         if n_rays % n_chunks:
             raise ValueError(f'{n_chunks} chunks do not divide {n_rays} '
                              'rays')
         size = n_rays // n_chunks
-        zp = pack_pyramid(z) if model.uses_packed_tables else None
+        zp = _packed_tables(model, z)
         parts = {k: [] for k in keys}
         for i in range(n_chunks):
             s = dict(scene)
             s['query'] = dict(scene['query'],
                               uv=uv_full[:, :, i * size:(i + 1) * size])
-            out = model(s, z=z, z_packed=zp)
+            with span('car.block'):
+                out = model(s, z=z, z_packed=zp)
             for k in keys:
                 parts[k].append(out[k])
         return {k: torch.cat(v, dim=ray_axis[k]) for k, v in parts.items()}
@@ -190,11 +220,12 @@ def make_pruned_renderer(model, n_chunks: int, n_coarse: int = 16,
     coarse_model = model.clone(repeat_attention=False)
 
     @torch.inference_mode()
+    @_image_span
     def render_image(scene, z, uv_full):
         B, _, n_rays, _ = uv_full.shape
         V = scene['context']['rgb'].shape[1]
         size = n_rays // n_chunks
-        zp = pack_pyramid(z) if model.uses_packed_tables else None
+        zp = _packed_tables(model, z)
         t_coarse = torch.linspace(
             0.0, 1.0, n_coarse, dtype=torch.float32,
             device=uv_full.device).expand(B, V, size, n_coarse)
@@ -335,6 +366,7 @@ def make_fast_renderer(model, n_chunks: int,
             'render K4, the take gathers); the sorted stream (K5) and the '
             'one-hot and banded gathers (K7, K8) have none')
 
+    @_image_span        # holds the folds and the inner renderer's span
     def render_image(scene, z, uv_full):
         m, zc = model, tuple(z)
         with torch.inference_mode(False), torch.no_grad():
@@ -371,6 +403,7 @@ def make_sharded_renderer(model, mesh) -> Callable:
     _, render_chunk = make_chunk_renderer(model)
 
     @torch.inference_mode()
+    @_image_span
     def sharded(scene, z, uv):
         if uv.shape[2] % n:
             raise ValueError(f'{uv.shape[2]} rays do not divide over '

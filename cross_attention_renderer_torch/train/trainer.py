@@ -39,6 +39,7 @@ from cross_attention_renderer_torch.parallel.distributed import (
     all_gather_cat, all_reduce_sum, global_scene, is_primary)
 from cross_attention_renderer_torch.parallel.mesh import (
     axis_size, param_shardings, shard_tensor, sharded_dim)
+from cross_attention_renderer_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -79,7 +80,10 @@ class ClippedAdam:
     Under tensor parallelism (:func:`shard_state` sets ``model_group`` and
     ``sharded``, one flag a parameter) the norm adds the squares of the
     sliced gradients over the model group and counts the replicated ones
-    once: optax's ``global_norm`` of the whole gradient."""
+    once: optax's ``global_norm`` of the whole gradient.
+
+    Spans (on only under a profiler): the norm and the scaling under
+    ``car.train.clip``, the Adam update under ``car.train.adam``."""
 
     def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig):
         self.params = [p for p in params if p.requires_grad]
@@ -98,30 +102,33 @@ class ClippedAdam:
     def step(self) -> Tensor:
         """Clips and applies the gradients; returns their global norm
         before the clip (0-dim f32, on the parameters' device)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norms = torch.stack([n.float() for n in torch._foreach_norm(grads)])
-        if self.model_group is None:
-            norm = torch.linalg.vector_norm(norms)
-        else:
-            sliced = torch.tensor(
-                [s for p, s in zip(self.params, self.sharded)
-                 if p.grad is not None], device=norms.device)
-            sq = norms.square()
-            zero = torch.zeros_like(sq)
-            norm = torch.sqrt(
-                torch.where(sliced, zero, sq).sum()
-                + all_reduce_sum(torch.where(sliced, sq, zero).sum(),
-                                 self.model_group))
-        below = norm < self.clip_norm
-        one = torch.ones_like(norm)
-        torch._foreach_div_(grads, torch.where(below, one, norm))
-        torch._foreach_mul_(grads, torch.where(below, one,
-                                               one * self.clip_norm))
-        if self.schedule is not None:
-            lr = float(self.schedule(self.count))
-            for group in self.adam.param_groups:
-                group['lr'] = lr
-        self.adam.step()
+        with span('car.train.clip'):
+            grads = [p.grad for p in self.params if p.grad is not None]
+            norms = torch.stack([n.float()
+                                 for n in torch._foreach_norm(grads)])
+            if self.model_group is None:
+                norm = torch.linalg.vector_norm(norms)
+            else:
+                sliced = torch.tensor(
+                    [s for p, s in zip(self.params, self.sharded)
+                     if p.grad is not None], device=norms.device)
+                sq = norms.square()
+                zero = torch.zeros_like(sq)
+                norm = torch.sqrt(
+                    torch.where(sliced, zero, sq).sum()
+                    + all_reduce_sum(torch.where(sliced, sq, zero).sum(),
+                                     self.model_group))
+            below = norm < self.clip_norm
+            one = torch.ones_like(norm)
+            torch._foreach_div_(grads, torch.where(below, one, norm))
+            torch._foreach_mul_(grads, torch.where(below, one,
+                                                   one * self.clip_norm))
+        with span('car.train.adam'):
+            if self.schedule is not None:
+                lr = float(self.schedule(self.count))
+                for group in self.adam.param_groups:
+                    group['lr'] = lr
+            self.adam.step()
         self.count += 1
         return norm
 
@@ -231,7 +238,12 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, mesh=None,
     not drift apart. On the kernel route (``CAR_TRAIN_KERNELS=1``) at
     ``model`` > 1 the fused exchange reads the sliced weights gathered
     over the model group, and each rank keeps its slice of their gradient
-    (``layers.gather_from_group``)."""
+    (``layers.gather_from_group``).
+
+    Spans (on only under a profiler): the step under ``car.train.step``,
+    the loss under ``car.train.forward``, the backward pass under
+    ``car.train.backward`` (the kernels autograd's thread launches while
+    it is open are its), the optimizer's under :class:`ClippedAdam`'s."""
     loss_fn = make_loss_fn(model, cfg, lpips_fn, loss_schedules)
     device = model_device(model)
     data_group = None if mesh is None else mesh.get_group('data')
@@ -242,29 +254,35 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, mesh=None,
         if state.mesh is not mesh:
             raise ValueError('the step was built for another mesh than the '
                              'state\'s: shard_state(state, mesh) first')
-        if mesh is not None:
-            scene = global_scene(scene, mesh)
-        state.optimizer.zero_grad()
-        tot, losses = loss_fn(to_device(scene, device), state.step)
-        tot.backward()
-        opt = state.optimizer
-        if model_group is not None:
-            _average_gradients([p for p, s in zip(opt.params, opt.sharded)
-                                if not s], model_group)
-        if data_group is not None:
-            _average_gradients(opt.params, data_group)
-        gnorm = opt.step()
-        state.step += 1
-        means = {'total_loss': tot.detach()}
-        means.update({k: v.detach().mean() for k, v in losses.items()})
-        if data_group is not None:
-            summed = all_reduce_sum(
-                torch.stack([v.float() for v in means.values()]), data_group)
-            means = dict(zip(means, (summed / dist.get_world_size(
-                data_group)).unbind()))
-        metrics = {'total_loss': means.pop('total_loss'), 'grad_norm': gnorm}
-        metrics.update(means)
-        return state, metrics
+        with span('car.train.step'):
+            if mesh is not None:
+                scene = global_scene(scene, mesh)
+            state.optimizer.zero_grad()
+            with span('car.train.forward'):
+                tot, losses = loss_fn(to_device(scene, device), state.step)
+            with span('car.train.backward'):
+                tot.backward()
+            opt = state.optimizer
+            if model_group is not None:
+                _average_gradients([p for p, s in zip(opt.params,
+                                                      opt.sharded)
+                                    if not s], model_group)
+            if data_group is not None:
+                _average_gradients(opt.params, data_group)
+            gnorm = opt.step()
+            state.step += 1
+            means = {'total_loss': tot.detach()}
+            means.update({k: v.detach().mean() for k, v in losses.items()})
+            if data_group is not None:
+                summed = all_reduce_sum(
+                    torch.stack([v.float() for v in means.values()]),
+                    data_group)
+                means = dict(zip(means, (summed / dist.get_world_size(
+                    data_group)).unbind()))
+            metrics = {'total_loss': means.pop('total_loss'),
+                       'grad_norm': gnorm}
+            metrics.update(means)
+            return state, metrics
 
     return step
 

@@ -98,8 +98,8 @@ def test_scan_renderer_matches_one_call():
 
 
 def test_port_imports_no_jax():
-    """Neither the port's modules nor chip_smoke.py and bench_torch.py pull
-    in JAX, Flax or the JAX package."""
+    """Neither the port's modules nor chip_smoke.py pull in JAX, Flax or
+    the JAX package."""
     code = '''
 import importlib, pathlib, sys
 pkg = pathlib.Path('cross_attention_renderer_torch')
@@ -107,7 +107,6 @@ for f in sorted(pkg.rglob('*.py')):
     importlib.import_module('.'.join(f.with_suffix('').parts).replace(
         '.__init__', ''))
 importlib.import_module('chip_smoke')
-importlib.import_module('bench_torch')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in (
     'jax', 'jaxlib', 'flax', 'cross_attention_renderer_tpu'))
 assert not bad, bad
