@@ -24,7 +24,8 @@ no result):
      range to check against) encodes two 256x256 views and renders the full
      65,536-ray image in 8 blocks of 8,192 rays, with the kernels' launch
      counters set to 0 just before and read just after (16 attention
-     launches and 8 epilogue launches per image); the image must be finite
+     launches, 8 epilogue launches and 8 stream takes launches, the
+     address math, per image); the image must be finite
      with RGB in [-1, 1.5] and some valid rays; then the encode and
      whole-image times and a profile of one image;
   4. V=2 kernel checks: each kernel against its plain PyTorch version, on
@@ -32,7 +33,10 @@ no result):
      below, and the times of both beside the least time the card could take
      (``bound_ms``); K2 is timed as its launch alone, its weights laid out
      once before the timed calls, and its launch shape (grid, block, cluster,
-     stage slots, shared memory) is printed;
+     stage slots, shared memory) is printed; the stream takes kernel's
+     cells and aux equal to its plain version's bit for bit, its launch
+     timed alone (in a CUDA graph) beside its bytes bound, its whole call
+     and the plain version beside it;
   5. V=2 small-input agreement: a narrow model renders a small scene with
      the kernels in bf16 on the card and with the plain versions in f32 on
      the CPU; the images must agree within the stated tolerance;
@@ -45,9 +49,10 @@ no result):
      block's attention weights and depth, against phase 3's staged render
      within the stated tolerance; then the small-input agreement;
   6. V=3 default path (Path A): the same as phase 3 for three views at 48
-     samples (16 attention and 8 multi-stream epilogue launches per image),
-     then K3 (timed as K2 in phase 4), and K1 at V*P = 144, against their
-     plain versions;
+     samples (16 attention, 8 multi-stream epilogue and 8 stream takes
+     launches per image), then K3 (timed as K2 in phase 4), K1 at V*P =
+     144 and the stream takes kernel at three streams (as in phase 4),
+     against their plain versions;
   7. V=3 reference-compatible path (Path B, ``reference_exchange_compat``
      with the fused MLP): the same image checks (16 attention and 72 fused
      MLP launches per image, 9 a block), then K9 against its plain version,
@@ -857,6 +862,61 @@ def launch_shape(name, kernel):
     return {'grid': grid, 'threads': threads, 'cluster': cluster,
             'stage_slots': stages, 'smem_bytes': smem,
             'plan': kernel.last_plan}
+
+
+def check_stream_takes(label, ST, args, calls=50, iters=10,
+                       plain_iters=3):
+    """The address math kernel (``ops/stream_takes.py``) against its plain
+    version on a path's first block (``stream_takes``' recorded
+    arguments): every cell equal and every aux value equal bit for bit.
+    Times the launch alone (``calls`` in one CUDA graph), the wrapper's
+    whole call (the relative transforms, allocations and launch) and the
+    plain version, beside the bytes bound: each sample's 20 input bytes
+    read once, its cells and aux rows of every stream written once."""
+    import torch
+    from cross_attention_renderer_torch.ops.gather_epilogue import (
+        aux_layout)
+    from cross_attention_renderer_torch.utils.profiling import graph_ms
+    level_hw, pixel_val, pt_views, c2w, intr, H_, W_, dtype, points = args
+    B, V, R, P, _ = pt_views.shape
+    M, L = B * V * R * P, len(level_hw)
+
+    def plain():
+        return ST.stream_takes_reference(level_hw, pixel_val,
+                                         points(pt_views, c2w), intr, H_, W_,
+                                         dtype)
+
+    cells, aux = ST.stream_takes(*args)
+    want_cells, want_aux = plain()
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    cells_differ = sum(int((a != b).sum())
+                       for a, b in zip(cells, want_cells))
+    aux_differ = sum(int((a.view(bits) != b.view(bits)).sum())
+                     for a, b in zip(aux, want_aux))
+    width = aux_layout(L)[1]
+    nbytes = M * 20 + V * M * (4 * L + width * aux[0].element_size())
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f'{label} stream_takes M={M:,} V={V} levels={L}: cells differing '
+        f'{cells_differ}, aux values differing {aux_differ}')
+    if cells_differ or aux_differ:
+        raise RuntimeError(f'{label}: stream_takes disagrees with its plain '
+                           'version')
+    out = torch.stack(aux)
+    rel = torch.linalg.inv_ex(c2w).inverse[:, :, None] @ c2w[:, None]
+    kernel_args = (level_hw, pixel_val.contiguous(), pt_views.contiguous(),
+                   rel.contiguous(), intr.contiguous(), cells, out, H_, W_)
+    numbers = {'M': M, 'V': V, 'levels': L,
+               'ms': graph_ms(lambda: ST.launch_kernel(*kernel_args), calls),
+               'call_ms': cuda_ms(lambda: ST.stream_takes(*args), iters),
+               'plain_ms': cuda_ms(plain, plain_iters),
+               'bound_ms': bound_ms, 'bound_by': 'bytes',
+               'bytes': nbytes, 'cells_differing': cells_differ,
+               'aux_values_differing': aux_differ}
+    log(f'{label} stream_takes: {numbers["ms"]:.4f} ms a launch (bound '
+        f'{bound_ms:.4f} ms, {nbytes / 1e6:.1f} MB), {numbers["call_ms"]:.4f}'
+        f' ms a call, plain {numbers["plain_ms"]:.3f} ms')
+    return numbers
 
 
 def watch_core_plans(GE) -> dict:
@@ -3368,6 +3428,7 @@ def main() -> int:
     from cross_attention_renderer_torch.ops import gather_epilogue as GE
     from cross_attention_renderer_torch.ops import pallas_gather as PG
     from cross_attention_renderer_torch.ops import sorted_gather as SG
+    from cross_attention_renderer_torch.ops import stream_takes as ST
     from cross_attention_renderer_torch.ops.experimental import (
         banded_gather as BG)
 
@@ -3405,6 +3466,7 @@ def main() -> int:
     windowed = ('windowed_gather', SG.windowed_gather)
     onehot = ('onehot_gather', PG.onehot_gather)
     banded = ('banded_gather', BG.banded_gather)
+    takes = ('stream_takes', ST.stream_takes)
     by_path = {}        # launches per image of every kernel on every path
 
     # -- 3. V=2 main path --------------------------------------------------
@@ -3412,9 +3474,9 @@ def main() -> int:
     scene = make_scene(0, H=H, W=W, n_rays=H * W, full_image=True,
                        device=dev)
     captured, launches, rgb_staged = drive(
-        'V=2', model_v2, scene, RM, dict([attention, epilogue]),
+        'V=2', model_v2, scene, RM, dict([attention, epilogue, takes]),
         {'epipolar_attention': 2 * N_BLOCKS,
-         'fused_exchange_epilogue': N_BLOCKS})
+         'fused_exchange_epilogue': N_BLOCKS, 'stream_takes': N_BLOCKS})
     by_path['v2'] = launches
     block_staged = first_block(model_v2, scene)
     staged_head = rgb_staged[:, :, :2 * RAY_BLOCK].float().clone()
@@ -3427,6 +3489,8 @@ def main() -> int:
                         GE.fused_exchange_epilogue,
                         GE.fused_exchange_epilogue_reference, args,
                         args[2:4], args[4], K2_TOL)
+    k_takes = {'V=2': check_stream_takes('V=2', ST,
+                                         captured['stream_takes'][0])}
     del captured, args
     torch.cuda.empty_cache()
 
@@ -3455,9 +3519,10 @@ def main() -> int:
                        full_image=True, device=dev)
     captured, launches, rgb_v3 = drive(
         'V=3 (Path A)', model_v3, scene, RM,
-        dict([attention, epilogue_multi]),
+        dict([attention, epilogue_multi, takes]),
         {'epipolar_attention': 2 * N_BLOCKS,
-         'fused_exchange_epilogue_multi': N_BLOCKS})
+         'fused_exchange_epilogue_multi': N_BLOCKS,
+         'stream_takes': N_BLOCKS})
     by_path['v3'] = launches
     k1['at_v3'] = check_attention('V=3', EA,
                                   *captured['epipolar_attention'][0])
@@ -3466,6 +3531,8 @@ def main() -> int:
                         GE.fused_exchange_epilogue_multi,
                         GE.fused_exchange_epilogue_multi_reference, args,
                         args[2], args[3], K3_TOL)
+    k_takes['V=3'] = check_stream_takes('V=3', ST,
+                                        captured['stream_takes'][0])
     del captured, args
     torch.cuda.empty_cache()
 
@@ -3935,6 +4002,15 @@ def main() -> int:
                          if '_i8' in entry else
                          'the plain version, recomputed (ops/_autograd.py)'),
             'library_ms': None, **n})
+    # the address math: no TPU kernel (XLA fused it in the JAX package)
+    kernels.append({
+        'name': 'stream_takes', 'route': 'cuda',
+        'source': 'cross_attention_renderer_torch/csrc/stream_takes.cu',
+        'replaces': None, 'launches': N_BLOCKS,
+        'launches_by_path': {'v2': by_path['v2']['stream_takes'],
+                             'v3': by_path['v3']['stream_takes']},
+        'backward': 'none: the address math takes no gradient',
+        'library_ms': None, **k_takes['V=2'], 'checked_on': k_takes})
     kernels += cap_kernels + probes
     for kern in kernels:
         log(f'{kern["name"]}: {kern["ms"]:.3f} ms, plain '

@@ -92,13 +92,14 @@ from cross_attention_renderer_torch.ops.epipolar_attention import (
 from cross_attention_renderer_torch.ops.fused_mlp import fused_mlp2
 from cross_attention_renderer_torch.ops.fused_render import fused_render_core
 from cross_attention_renderer_torch.ops.gather_epilogue import (
-    aux_layout, fused_exchange_epilogue, fused_exchange_epilogue_multi)
+    fused_exchange_epilogue, fused_exchange_epilogue_multi)
 from cross_attention_renderer_torch.ops.grid_sample import (
-    cell_rows_and_slot_weights, grid_sample_pyramid,
-    grid_sample_pyramid_packed, pack_pyramid)
+    grid_sample_pyramid, grid_sample_pyramid_packed, pack_pyramid)
 from cross_attention_renderer_torch.ops.pallas_gather import GATHERS
 from cross_attention_renderer_torch.ops.sorted_gather import (
     grid_sample_pyramid_sorted, grid_sample_sorted, sort_stream, unsort)
+from cross_attention_renderer_torch.ops.stream_takes import (
+    exchange_points, stream_takes)
 from cross_attention_renderer_torch.parallel.mesh import param_spec, sharded_dim
 from cross_attention_renderer_torch.utils.image import normalize_imagenet
 from cross_attention_renderer_torch.utils.profiling import span
@@ -646,67 +647,21 @@ class CrossAttentionRenderer(nn.Module):
     # ------------------------------------------------------------------
     def _exchange_points(self, pt_views: Tensor, ctx_c2w: Tensor) -> Tensor:
         """pt_in[:, k, v]: view-v samples expressed in frame k
-        (renderer.py:885-892)."""
-        rel = torch.linalg.inv(ctx_c2w)[:, :, None] @ ctx_c2w[:, None]
-        pt_in = G.transform_points(pt_views[:, None],
-                                   rel[:, :, :, None, None])
-        return torch.where(torch.isfinite(pt_in), pt_in,
-                           torch.zeros_like(pt_in))
+        (renderer.py:885-892; ``ops/stream_takes.py:exchange_points``)."""
+        return exchange_points(pt_views, ctx_c2w)
 
     def _stream_takes(self, zp, pixel_val, pt_views, ctx_c2w, ctx_intr, H,
                       W) -> tuple[tuple[Tensor, ...], list[Tensor]]:
         """Cell rows and aux arrays of the V exchange streams
-        (renderer.py:591-655 at V=2, :710-754 at V>=3).
-
-        Stream 0 is the self stream (each view's own maps on its segment,
-        border padding); stream j >= 1 holds, for the rays of every view v,
-        its j-th other view k in ascending frame order (the sample's 3D
-        point in frame k, projected with k's intrinsics, k's maps, zeros
-        padding). At V=2 that is the cross stream of view 1 - v. Returns
-        (cells: per-level (V*M,) int32, stream-major; aux: V arrays in the
-        model type, the slot weights, tanh(pt/5) and a pad laid out by
-        ``gather_epilogue.aux_layout``: (M, 16) for the DPT pyramid, (M, 24)
-        for a 4-level one). Under the ``car.address_math`` span."""
+        (renderer.py:591-655 at V=2, :710-754 at V>=3), in the layout of
+        ``ops/stream_takes.py``: per-level (V*M,) int32 cells,
+        stream-major, and V aux arrays in the model type. One kernel
+        launch on the card; on the CPU the plain version, on
+        :meth:`_exchange_points`. Under the ``car.address_math`` span."""
         with span('car.address_math'):
-            B, V, R, P, _ = pt_views.shape
-            M = B * V * R * P
-            dev = pt_views.device
-            pt_in = self._exchange_points(pt_views, ctx_c2w)
-            others = [[k for k in range(V) if k != v] for v in range(V)]
-            pt_self = torch.stack([pt_in[:, v, v] for v in range(V)], dim=1)
-            streams = [(pixel_val.reshape(B * V, R * P, 2), None, 'border',
-                        pt_self)]
-            row = torch.arange(B * V, dtype=torch.int32, device=dev)[:, None]
-            for j in range(V - 1):
-                k_of = torch.tensor([others[v][j] for v in range(V)],
-                                    dtype=torch.int32, device=dev)
-                pt_j = torch.stack([pt_in[:, others[v][j], v]
-                                    for v in range(V)], dim=1)
-                intr_j = torch.stack([ctx_intr[:, others[v][j]]
-                                      for v in range(V)], dim=1)
-                proj = G.project_pinhole(pt_j.reshape(B, V, R * P, 3), intr_j)
-                pix = G.pixel_to_ndc(proj[..., :2], H, W)
-                # image row (b, v) of the coords samples image (b, k_of[v])
-                xid = (row // V) * V + k_of[(row % V).long()]
-                streams.append((pix.reshape(B * V, R * P, 2), xid, 'zeros',
-                                pt_j))
-
-            adt = self.dtype
-            t_col, aux_w = aux_layout(len(zp))  # t_col = 4 * levels (3 or 4)
-            pad = torch.zeros((M, aux_w - t_col - 3), dtype=adt, device=dev)
-            cells = [[] for _ in zp]
-            aux = []
-            for coords, xid, mode, pt in streams:
-                weights = []
-                for l, packed in enumerate(zp):
-                    c, w = cell_rows_and_slot_weights(
-                        (packed.shape[1], packed.shape[2]), coords, mode,
-                        image_id=xid)
-                    cells[l].append(c.reshape(-1))
-                    weights.append(w.reshape(M, 4).to(adt))
-                t = torch.tanh(pt.reshape(M, 3) / 5.0).to(adt)
-                aux.append(torch.cat(weights + [t, pad], dim=-1))
-            return tuple(torch.cat(c) for c in cells), aux
+            return stream_takes(tuple(t.shape[1:3] for t in zp), pixel_val,
+                                pt_views, ctx_c2w, ctx_intr, H, W,
+                                self.dtype, self._exchange_points)
 
     def _whole(self, name: str, attr: str) -> Tensor:
         """Parameter ``attr`` of layer ``name`` whole, for a kernel that

@@ -23,7 +23,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / 'build'
 KERNELS = ('epipolar_attention', 'gather_epilogue', 'gather_epilogue_multi',
-           'fused_mlp', 'fused_render', 'bilinear_gather', 'row_gather')
+           'fused_mlp', 'fused_render', 'bilinear_gather', 'row_gather',
+           'stream_takes')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 # name -> (source, defines): K2, K3 and K9 at an odd output width

@@ -23,9 +23,11 @@ from cross_attention_renderer_torch.ops import fused_render as FR
 from cross_attention_renderer_torch.ops import gather_epilogue as GE
 from cross_attention_renderer_torch.ops import pallas_gather as PG
 from cross_attention_renderer_torch.ops import sorted_gather as SG
+from cross_attention_renderer_torch.ops import stream_takes as ST
 from cross_attention_renderer_torch.ops.experimental import (
     banded_gather as BG)
 from cross_attention_renderer_torch.ops.experimental import row_gather as RG
+from torch_stream_cases import stream_case
 
 pytestmark = pytest.mark.cuda
 
@@ -1273,3 +1275,86 @@ def test_resident_plan_against_plain_and_repeatable(dev, key, table):
             assert _max_err(g, w) <= 2 ** -8
         else:
             assert _max_err(g, w) <= 2 ** -5 * _scale(w)
+
+
+# --- the exchange streams' address math ------------------------------------
+
+# (V, levels, aux type, B, R, P): the 2-view flagship's and co3d's block
+# shapes cut to R rays, 4-level pyramids, f32 models, B = 4 (the batch4
+# evaluation), an odd P (the pruned renderer's fine pass), V = 5, and 40
+# scenes of 5 views, whose transforms exceed what the kernel stages in
+# shared memory
+STREAM_CASES = [(2, 3, torch.bfloat16, 1, 64, 64),
+                (2, 4, torch.float32, 4, 24, 48),
+                (3, 3, torch.bfloat16, 4, 24, 48),
+                (3, 4, torch.bfloat16, 1, 64, 7),
+                (5, 3, torch.float32, 1, 32, 48),
+                (5, 4, torch.bfloat16, 4, 16, 7),
+                (3, 3, torch.float32, 1, 32, 64),
+                (5, 4, torch.float32, 40, 4, 9)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize('V,levels,dtype,B,R,P', STREAM_CASES)
+def test_stream_takes_kernel(dev, V, levels, dtype, B, R, P):
+    """The address math kernel, one launch, against its plain version on
+    the card, on the planted samples of ``torch_stream_cases`` (NaN, inf
+    and huge points, points behind the camera, 1e10 sentinel projections,
+    coords on cell edges and image borders, dead 'zeros' samples): every
+    cell equal and every aux value equal bit for bit (no exception)."""
+    case = stream_case(V, levels, B, R, P, seed=100 * V + 10 * levels + B,
+                       device=dev)
+    args = (case['level_hw'], case['pixel_val'], case['pt_views'],
+            case['ctx_c2w'], case['ctx_intr'], case['H'], case['W'], dtype)
+    before = ST.stream_takes.launches
+    cells, aux = ST.stream_takes(*args)
+    assert ST.stream_takes.launches == before + 1
+    pt_in = ST.exchange_points(case['pt_views'], case['ctx_c2w'])
+    want_cells, want_aux = ST.stream_takes_reference(
+        case['level_hw'], case['pixel_val'], pt_in, case['ctx_intr'],
+        case['H'], case['W'], dtype)
+    torch.cuda.synchronize()
+    M = B * V * R * P
+    for l, (got, want) in enumerate(zip(cells, want_cells)):
+        diff = (got != want).reshape(V, M).sum(-1).tolist()
+        assert diff == [0] * V, f'level {l}: cells differ by stream {diff}'
+    t_col, width = GE.aux_layout(levels)
+    for s, (got, want) in enumerate(zip(aux, want_aux)):
+        assert got.dtype == dtype and got.shape == want.shape == (M, width)
+        diff = (_bits(got) != _bits(want)).sum(0).tolist()
+        assert diff == [0] * width, (f'stream {s}: aux bits differ by '
+                                     f'column {diff}')
+    # the planted branches were reached: dead cross samples on row 0, and
+    # samples with non-finite (NaN) self-stream weights
+    assert any(bool((a[:, :4 * levels] == 0).all(-1).any()) for a in aux[1:])
+    assert bool(torch.isnan(aux[0][:, :4 * levels].float()).any())
+
+
+def test_stream_takes_refuses_grad_and_renders_a_block_in_one_launch(dev):
+    """CUDA inputs that require a gradient are refused under grad mode (no
+    graph is cut silently); a forward of a V=2 and a V=3 model launches
+    the kernel once a block, under ``car.address_math``."""
+    from cross_attention_renderer_torch.data.synthetic import make_scene
+    from cross_attention_renderer_torch.models.renderer import (
+        CrossAttentionRenderer)
+    case = stream_case(2, 3, 1, 8, 16, device=dev)
+    args = [case['level_hw'], case['pixel_val'], case['pt_views'],
+            case['ctx_c2w'].clone().requires_grad_(), case['ctx_intr'],
+            case['H'], case['W'], torch.bfloat16]
+    with pytest.raises(ValueError, match='gradient'):
+        ST.stream_takes(*args)
+    with torch.no_grad():
+        ST.stream_takes(*args)
+    for n_view in (2, 3):
+        model = CrossAttentionRenderer(n_view=n_view, dtype=torch.bfloat16,
+                                       seed=1, device=dev, **NARROW)
+        scene = make_scene(1, n_view=n_view, H=64, W=64, n_rays=512,
+                           device=dev)
+        before = ST.stream_takes.launches
+        with torch.inference_mode():
+            model(scene)
+        torch.cuda.synchronize()
+        assert ST.stream_takes.launches == before + 1
