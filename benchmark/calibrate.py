@@ -9,10 +9,11 @@ compares for the program (the lower readings) and, on the first
 ``--control`` seeds, for the control: the reference in fp8 put in the
 program's place (the upper readings). On those seeds a train cell also
 reads the fault of half of each batch left out, and a render cell those
-of one residual branch dropped (``branch_faults``), each planted in the
-f32 reference put in the program's place. One JSON line a seed, then a
-summary line: the largest program reading and the smallest control
-reading of each number.
+of one residual branch or level of the encoder, or one of phi's
+branches, dropped (``branch_faults``), each planted in the f32 reference
+put in the program's place. One JSON line a seed, then a summary line:
+the largest program reading and the smallest control reading of each
+number.
 """
 
 import time
@@ -114,16 +115,27 @@ def readings(cell, first_seed: int, seeds: int, control: int,
 
 
 def branch_faults(cfg: dict) -> dict:
-    """Faults planted in the reference put in the program's place: one
-    residual branch dropped (its last product or norm zeroed) in the R50,
-    the ViT, the RefineNet and phi."""
-    last = len(cfg['resnet_layers']) - 1
-    r50 = (f'encoder.backbone.stage{last}_block'
-           f"{cfg['resnet_layers'][last] - 1}.norm3.GroupNorm_0")
-    vit = f"encoder.vit.block{cfg['vit_depth'] // 2}.mlp_fc2"
-    faults = {'r50_branch': r50, 'vit_branch': vit,
-              'refinenet_branch': 'encoder.refinenet2.rcu1.conv2',
-              'phi_branch': 'phi.block1.fc_1'}
+    """Faults planted in the reference put in the program's place, in
+    the configuration's encoder and in phi: in the DPT one residual branch
+    dropped (its last product or norm zeroed) in the R50, the ViT and the
+    RefineNet; in ResNet34 its last block's branch (the block's second
+    norm zeroed); in the U-Net its coarsest level (``down5`` zeroed); and
+    one of phi's branches."""
+    from reference import model as ref
+    model = ref.encoder(cfg)
+    if model == 'midas_vit':
+        last = len(cfg['resnet_layers']) - 1
+        r50 = (f'encoder.backbone.stage{last}_block'
+               f"{cfg['resnet_layers'][last] - 1}.norm3.GroupNorm_0")
+        vit = f"encoder.vit.block{cfg['vit_depth'] // 2}.mlp_fc2"
+        faults = {'r50_branch': r50, 'vit_branch': vit,
+                  'refinenet_branch': 'encoder.refinenet2.rcu1.conv2'}
+    elif model == 'resnet':
+        last = list(ref.resnet34_blocks())[-1][0]
+        faults = {'resnet_branch': f'{last}.norm2'}
+    else:
+        faults = {'unet_level': f'encoder.down{len(ref.UNET_DOWN) + 1}'}
+    faults['phi_branch'] = 'phi.block1.fc_1'
     return {k: (f'{v}.weight', f'{v}.bias') for k, v in faults.items()}
 
 

@@ -31,17 +31,22 @@ def build_kernels(cfg: dict, route: str) -> None:
 
 
 def make_model(cfg: dict, weights: dict, device):
-    """``CrossAttentionRenderer`` of ``cfg`` holding ``weights``."""
+    """``CrossAttentionRenderer`` of ``cfg`` holding ``weights``. Only the
+    DPT hybrid (``model`` ``midas_vit``) takes sizes of its own; the
+    ResNet34 and the U-Net have their published ones."""
     from cross_attention_renderer_torch.models.renderer import (
         CrossAttentionRenderer)
+    dpt = {}
+    if cfg['model'] == 'midas_vit':
+        dpt = dict(fusion_features=cfg['fusion_features'],
+                   vit_width=cfg['vit_width'], vit_depth=cfg['vit_depth'],
+                   vit_heads=cfg['vit_heads'],
+                   resnet_layers=tuple(cfg['resnet_layers']))
     with torch.device('meta'):
         model = CrossAttentionRenderer(
             n_view=cfg['n_view'], npoints=cfg['n_samples'],
-            model=cfg['model'], fusion_features=cfg['fusion_features'],
-            vit_width=cfg['vit_width'], vit_depth=cfg['vit_depth'],
-            vit_heads=cfg['vit_heads'],
-            resnet_layers=tuple(cfg['resnet_layers']),
-            dtype=DTYPES[cfg['dtype']], device='meta')
+            model=cfg['model'], dtype=DTYPES[cfg['dtype']], device='meta',
+            **dpt)
     model = model.to_empty(device=device)
     model.load_state_dict(weights)
     return model

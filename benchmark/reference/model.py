@@ -5,12 +5,28 @@ The architecture of Du et al., "Learning to Render Novel Views from
 Wide-Baseline Stereo Pairs" (CVPR 2023, arXiv 2304.08463; upstream
 ``models.py:42-626``), as one set of functions over a dict of parameters
 named as the program names them, so that one set of weights loads into
-both. Nothing here imports the program: the encoder (the DPT hybrid: an
-R50 stem, a multi-view ViT-B/16 over the views' tokens jointly, the
-RefineNet fusion cut at the two finest maps, and a 7x7 full-resolution
-conv), the epipolar geometry, the latent exchange between views, the two
-rounds of joint (view, sample) attention and the ResNet-FC decoder
-``phi`` are written out again from the description, channel-last.
+both. Nothing here imports the program: the encoder, the epipolar
+geometry, the latent exchange between views, the two rounds of joint
+(view, sample) attention and the ResNet-FC decoder ``phi`` are written out
+again from the description, channel-last. The configuration's ``model``
+names the encoder, one of the three upstream takes (models.py:63-99):
+
+* ``midas_vit``: the DPT hybrid (an R50 stem, a multi-view ViT-B/16 over
+  the views' tokens jointly, the RefineNet fusion cut at the two finest
+  maps) and a 7x7 full-resolution conv; 3 levels, 2 * fusion_features + 64
+  wide;
+* ``resnet``: ResNet34's conv1 .. layer3 without the first max-pool
+  (upstream encoder.py:12-104, pixelNeRF's ``SpatialEncoder``), its four
+  taps coarsest first; 4 levels, 512 wide;
+* ``unet``: the down path of upstream's ``UNetEncoder`` (encoder.py:
+  178-206), a 7x7 conv to 32 channels and a 2x2 max-pool, then conv + ReLU
+  to 64 (5x5), 128, 256 and 512 (3x3) with a pool between; 4 levels, 960
+  wide.
+
+One departure, the port's own (``DEVIATIONS.md``): ResNet34 normalises
+with GroupNorm(32, eps 1e-6) where upstream takes BatchNorm's running
+statistics. Every encoder sees the ImageNet-normalised image, as upstream
+normalises it for each (models.py:164-170).
 
 Every product and convolution takes its operands through ``nx.q`` (a
 :class:`Numerics`): the reference runs in f32 with TF32 off, and its
@@ -35,6 +51,12 @@ QUERY_FEAT = 16       # per-sample query features (models.py:528)
 ATTN_SCALE = 1.0 / 16.0
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+ENCODERS = ('midas_vit', 'resnet', 'unet')
+# ResNet34's (channels, blocks) of layer1 .. layer3, and its norms' eps
+RESNET34_LAYERS = ((64, 3), (128, 4), (256, 6))
+RESNET34_GN_EPS = 1e-6
+# the U-Net's (channels, kernel size) of down2 .. down5
+UNET_DOWN = ((64, 5), (128, 3), (256, 3), (512, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -90,45 +112,66 @@ def _stages(cfg: dict) -> list[tuple[int, int, int, int]]:
     return out
 
 
+def encoder(cfg: dict) -> str:
+    """The configuration's encoder, its ``model``; raises ValueError for
+    one the benchmark does not know, so that nothing reads another
+    encoder's parameters, arithmetic or work in its place."""
+    model = cfg.get('model')
+    if model not in ENCODERS:
+        raise ValueError(f'the configuration names the encoder {model!r}; '
+                         f'the benchmark knows {", ".join(ENCODERS)}')
+    return model
+
+
+def pyramid_levels(cfg: dict) -> list[tuple[int, int]]:
+    """(channels, downscale) of each level of the pyramid, in the order
+    :func:`encode` returns them and the exchange concatenates them."""
+    model = encoder(cfg)
+    if model == 'midas_vit':
+        ff = cfg['fusion_features']
+        return [(ff, 4), (ff, 2), (64, 1)]
+    if model == 'resnet':
+        return [(256, 8), (128, 4), (64, 2), (64, 2)]
+    return [(ch, 2 ** i) for i, (ch, _) in enumerate(UNET_DOWN, 1)]
+
+
 def pyramid_width(cfg: dict) -> int:
-    return 2 * cfg['fusion_features'] + 64
+    return sum(ch for ch, _ in pyramid_levels(cfg))
 
 
 def latent_width(cfg: dict) -> int:
     return pyramid_width(cfg) // 2
 
 
-def param_specs(cfg: dict) -> list[tuple[str, tuple[int, ...], str]]:
-    """Every parameter as (name, shape, draw): 'fan_in' (normal with
-    variance 1 / fan-in), 'branch' (the last product of a residual
-    branch: a tenth of that), 'embed' (normal, std 0.02), 'scale' (1 +
-    normal 0.1), 'branch_scale' (the last norm of a residual branch: a
-    tenth of that) or 'shift' (normal 0.1)."""
-    V, ff, w = cfg['n_view'], cfg['fusion_features'], cfg['vit_width']
-    base, ld = pyramid_width(cfg), latent_width(cfg)
-    specs = []
+class _Specs(list):
+    """(name, shape, draw) of parameters, in the order they are added."""
 
-    def add(name, shape, draw='fan_in'):
-        specs.append((name, tuple(shape), draw))
+    def add(self, name, shape, draw='fan_in'):
+        self.append((name, tuple(shape), draw))
 
-    def norm(name, c, draw='scale'):
-        add(f'{name}.weight', (c,), draw)
-        add(f'{name}.bias', (c,), 'shift')
+    def norm(self, name, c, draw='scale'):
+        self.add(f'{name}.weight', (c,), draw)
+        self.add(f'{name}.bias', (c,), 'shift')
 
-    def dense(name, d_in, d_out, bias=True, draw='fan_in'):
-        add(f'{name}.weight', (d_out, d_in), draw)
+    def dense(self, name, d_in, d_out, bias=True, draw='fan_in'):
+        self.add(f'{name}.weight', (d_out, d_in), draw)
         if bias:
-            add(f'{name}.bias', (d_out,), 'shift')
+            self.add(f'{name}.bias', (d_out,), 'shift')
 
-    def conv(name, d_in, d_out, k, bias=True, draw='fan_in'):
-        add(f'{name}.weight', (d_out, d_in, k, k), draw)
+    def conv(self, name, d_in, d_out, k, bias=True, draw='fan_in'):
+        self.add(f'{name}.weight', (d_out, d_in, k, k), draw)
         if bias:
-            add(f'{name}.bias', (d_out,), 'shift')
+            self.add(f'{name}.bias', (d_out,), 'shift')
 
-    def kernel(name, d_in, d_out):
-        add(f'{name}.kernel', (d_in, d_out))
-        add(f'{name}.bias', (d_out,), 'shift')
+    def kernel(self, name, d_in, d_out):
+        self.add(f'{name}.kernel', (d_in, d_out))
+        self.add(f'{name}.bias', (d_out,), 'shift')
 
+
+def _dpt_specs(specs: _Specs, cfg: dict) -> None:
+    """The DPT hybrid's parameters and the full-resolution conv's."""
+    ff, w = cfg['fusion_features'], cfg['vit_width']
+    conv, norm, dense = specs.conv, specs.norm, specs.dense
     e = 'encoder'
     conv(f'{e}.backbone.stem_conv', 3, 64, 7, bias=False)
     norm(f'{e}.backbone.stem_norm.GroupNorm_0', 64)
@@ -144,8 +187,8 @@ def param_specs(cfg: dict) -> list[tuple[str, tuple[int, ...], str]]:
             norm(f'{p}.norm{i}.GroupNorm_0', c,
                  'branch_scale' if i == 3 else 'scale')
     g = cfg['pretrain_grid']
-    add(f'{e}.vit.cls_token', (1, 1, w), 'embed')
-    add(f'{e}.vit.pos_embed', (1, 1 + g * g, w), 'embed')
+    specs.add(f'{e}.vit.cls_token', (1, 1, w), 'embed')
+    specs.add(f'{e}.vit.pos_embed', (1, 1 + g * g, w), 'embed')
     dense(f'{e}.vit.patch_proj', 1024, w)
     dense(f'{e}.vit.pose_embed', 16, w)
     for i in range(cfg['vit_depth']):
@@ -171,6 +214,59 @@ def param_specs(cfg: dict) -> list[tuple[str, tuple[int, ...], str]]:
             conv(f'{p}.{unit}.conv2', ff, ff, 3, draw='branch')
         conv(f'{p}.out_conv', ff, ff, 1)
     conv('conv_map', 3, 64, 7)
+
+
+def resnet34_blocks():
+    """(name, d_in, channels, stride, last of its layer) of every ResNet34
+    basic block."""
+    d_in = 64
+    for layer, (ch, n) in enumerate(RESNET34_LAYERS, 1):
+        for b in range(n):
+            yield (f'encoder.layer{layer}_b{b}', d_in, ch,
+                   2 if b == 0 and layer > 1 else 1, b == n - 1)
+            d_in = ch
+
+
+def _resnet34_specs(specs: _Specs, cfg: dict) -> None:
+    """ResNet34's; each block's second norm, the last of its residual
+    branch, drawn as such."""
+    specs.conv('encoder.conv1', 3, 64, 7, bias=False)
+    specs.norm('encoder.norm1', 64)
+    for p, d_in, ch, stride, _ in resnet34_blocks():
+        specs.conv(f'{p}.conv1', d_in, ch, 3, bias=False)
+        specs.norm(f'{p}.norm1', ch)
+        specs.conv(f'{p}.conv2', ch, ch, 3, bias=False)
+        specs.norm(f'{p}.norm2', ch, 'branch_scale')
+        if d_in != ch or stride != 1:
+            specs.conv(f'{p}.proj', d_in, ch, 1, bias=False)
+            specs.norm(f'{p}.proj_norm', ch)
+
+
+def _unet_specs(specs: _Specs, cfg: dict) -> None:
+    """The U-Net's down path: no residual branch."""
+    specs.conv('encoder.down1', 3, 32, 7)
+    d_in = 32
+    for i, (ch, k) in enumerate(UNET_DOWN, 2):
+        specs.conv(f'encoder.down{i}', d_in, ch, k)
+        d_in = ch
+
+
+_ENCODER_SPECS = {'midas_vit': _dpt_specs, 'resnet': _resnet34_specs,
+                  'unet': _unet_specs}
+
+
+def param_specs(cfg: dict) -> list[tuple[str, tuple[int, ...], str]]:
+    """Every parameter as (name, shape, draw): 'fan_in' (normal with
+    variance 1 / fan-in), 'branch' (the last product of a residual
+    branch: a tenth of that), 'embed' (normal, std 0.02), 'scale' (1 +
+    normal 0.1), 'branch_scale' (the last norm of a residual branch: a
+    tenth of that) or 'shift' (normal 0.1). The configuration's encoder,
+    then the renderer's."""
+    V = cfg['n_view']
+    base, ld = pyramid_width(cfg), latent_width(cfg)
+    specs = _Specs()
+    _ENCODER_SPECS[encoder(cfg)](specs, cfg)
+    kernel = specs.kernel
     kernel('query_encode_latent', base + 3, base)
     kernel('query_encode_latent_2', base, ld)
     kernel('latent_value', ld * V, ld)
@@ -182,13 +278,13 @@ def param_specs(cfg: dict) -> list[tuple[str, tuple[int, ...], str]]:
     kernel('query_repeat_embed', HIDDEN + QUERY_FEAT, HIDDEN)
     kernel('query_repeat_embed_2', HIDDEN, HIDDEN)
     h = PHI_HIDDEN
-    dense('phi.lin_in', 9 * V, h)
+    specs.dense('phi.lin_in', 9 * V, h)
     for i in range(PHI_BLOCKS):
-        dense(f'phi.lin_z{i}', ld * V, h)
-        dense(f'phi.block{i}.fc_0', h, h)
-        dense(f'phi.block{i}.fc_1', h, h, draw='branch')
-    dense('phi.lin_out', h, 3)
-    return specs
+        specs.dense(f'phi.lin_z{i}', ld * V, h)
+        specs.dense(f'phi.block{i}.fc_0', h, h)
+        specs.dense(f'phi.block{i}.fc_1', h, h, draw='branch')
+    specs.dense('phi.lin_out', h, 3)
+    return list(specs)
 
 
 def fan_in(name: str, shape: tuple[int, ...]) -> int:
@@ -355,18 +451,10 @@ def _fusion(nx, P, name, x, skip=None):
     return conv_p(nx, P, f'{name}.out_conv', x)
 
 
-def encode(P: dict, cfg: dict, rgb: Tensor, cam2world: Tensor,
-           nx: Numerics = F32) -> tuple[Tensor, Tensor, Tensor]:
-    """The feature pyramid of (B, V, H, W, 3) context images in [-1, 1]
-    with (B, V, 4, 4) poses: (B*V, H/4, W/4, ff), (B*V, H/2, W/2, ff) and
-    the (B*V, H, W, 64) full-resolution conv map."""
-    B, V, H, W, _ = rgb.shape
-    mean = torch.tensor(IMAGENET_MEAN, device=rgb.device)
-    std = torch.tensor(IMAGENET_STD, device=rgb.device)
-    x = ((rgb.float() + 1.0) * 0.5 - mean) / std
+def _dpt(nx, P, cfg, flat, cam2world, B, V):
+    """The DPT hybrid's two fused maps and the full-resolution conv's."""
     c2w = cam2world.float()
     rel16 = (torch.linalg.inv(c2w[:, 0])[:, None] @ c2w).reshape(B, V, 16)
-    flat = x.reshape(B * V, H, W, 3)
     s0, s1, s2 = _backbone(nx, P, cfg, flat)
     Hg, Wg = s2.shape[1], s2.shape[2]
     tap3, tap4 = _vit(nx, P, cfg, s2.reshape(B, V, Hg, Wg, -1), rel16)
@@ -391,6 +479,64 @@ def encode(P: dict, cfg: dict, rgb: Tensor, cam2world: Tensor,
     p1 = _fusion(nx, P, f'{e}.refinenet1', p2, rn[0])
     zc = conv_p(nx, P, 'conv_map', flat, pad=3)
     return p2, p1, zc
+
+
+def _resnet34(nx, P, x):
+    """The stem's map and layer1 .. layer3's, coarsest first."""
+    eps = RESNET34_GN_EPS
+    x = torch.relu(group_norm(P, 'encoder.norm1',
+                              conv_p(nx, P, 'encoder.conv1', x, 2, 3), eps))
+    taps = [x]
+    for p, _, _, stride, last in resnet34_blocks():
+        y = torch.relu(group_norm(P, f'{p}.norm1',
+                                  conv_p(nx, P, f'{p}.conv1', x, stride, 1),
+                                  eps))
+        y = group_norm(P, f'{p}.norm2', conv_p(nx, P, f'{p}.conv2', y, pad=1),
+                       eps)
+        if f'{p}.proj.weight' in P:
+            x = group_norm(P, f'{p}.proj_norm',
+                           conv_p(nx, P, f'{p}.proj', x, stride), eps)
+        x = torch.relu(y + x)
+        if last:
+            taps.append(x)
+    return tuple(reversed(taps))
+
+
+def _max_pool(x):
+    """2x2 max-pool, stride 2, NHWC."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+def _unet(nx, P, x):
+    """The four maps of the down path after down2 .. down5, finest
+    first."""
+    x = _max_pool(torch.relu(conv_p(nx, P, 'encoder.down1', x, pad=3)))
+    outs = []
+    for i, (_, k) in enumerate(UNET_DOWN, 2):
+        if outs:
+            x = _max_pool(x)
+        x = torch.relu(conv_p(nx, P, f'encoder.down{i}', x, pad=k // 2))
+        outs.append(x)
+    return tuple(outs)
+
+
+def encode(P: dict, cfg: dict, rgb: Tensor, cam2world: Tensor,
+           nx: Numerics = F32) -> tuple[Tensor, ...]:
+    """The feature pyramid of (B, V, H, W, 3) context images in [-1, 1]
+    with (B, V, 4, 4) poses, each level (B*V, H/s, W/s, C) as
+    :func:`pyramid_levels` lists them: for the DPT its H/4 and H/2 maps at
+    fusion_features and the (B*V, H, W, 64) full-resolution conv map."""
+    B, V, H, W, _ = rgb.shape
+    model = encoder(cfg)
+    mean = torch.tensor(IMAGENET_MEAN, device=rgb.device)
+    std = torch.tensor(IMAGENET_STD, device=rgb.device)
+    x = ((rgb.float() + 1.0) * 0.5 - mean) / std
+    flat = x.reshape(B * V, H, W, 3)
+    if model == 'resnet':
+        return _resnet34(nx, P, flat)
+    if model == 'unet':
+        return _unet(nx, P, flat)
+    return _dpt(nx, P, cfg, flat, cam2world, B, V)
 
 
 # ---------------------------------------------------------------------------

@@ -12,13 +12,17 @@ for p in (str(BENCH), str(BENCH.parent)):
 import pytest  # noqa: E402
 
 
-def tiny_config(n_view: int = 2, **kw) -> dict:
-    """The flagship's architecture at widths a CPU test holds."""
-    cfg = {'name': 'tiny', 'model': 'midas_vit', 'n_view': n_view,
-           'n_samples': 8, 'image_size': [32, 32], 'fusion_features': 32,
-           'vit_width': 64, 'vit_depth': 2, 'vit_heads': 2,
-           'resnet_layers': [1, 1, 1], 'pretrain_grid': 14,
-           'dtype': 'float32', 'ray_blocks': 2}
+def tiny_config(n_view: int = 2, model: str = 'midas_vit', **kw) -> dict:
+    """The flagship's architecture at widths a CPU test holds; the
+    ResNet34 and the U-Net (``model`` ``resnet``, ``unet``) at their
+    published widths, which a 32x32 image holds, with none of the DPT's
+    keys."""
+    cfg = {'name': 'tiny', 'model': model, 'n_view': n_view,
+           'n_samples': 8, 'image_size': [32, 32], 'dtype': 'float32',
+           'ray_blocks': 2}
+    if model == 'midas_vit':
+        cfg.update(fusion_features=32, vit_width=64, vit_depth=2,
+                   vit_heads=2, resnet_layers=[1, 1, 1], pretrain_grid=14)
     cfg.update(kw)
     return cfg
 

@@ -1,11 +1,14 @@
-"""A later change adds a traffic mix, a cell, its limits, a per-layer
-metric and a traffic kind as new files and new ``BENCHMARK.json``
-entries, and edits no file: the harness finds them all by name."""
+"""A later change adds a configuration (of any of the three encoders), a
+traffic mix, a cell, its limits, a per-layer metric and a traffic kind as
+new files and new ``BENCHMARK.json`` entries, and edits no file: the
+harness finds them all by name."""
 
 import json
+import re
 import shutil
 import time
 
+import pytest
 import torch
 
 from harness import bench, spec
@@ -70,3 +73,49 @@ def test_a_traffic_kind_added_as_a_file(tmp_path, tiny):
     r = bench.run(cell, 11, 0.2, False, torch.device('cpu'),
                   time.perf_counter())
     assert r['correct'] and r['attempted'] > 0
+
+
+def test_a_configuration_of_another_encoder_added_as_a_file(tmp_path, tiny,
+                                                            capsys):
+    """A U-Net configuration, with none of the DPT's keys, added as a
+    file and a ``configs`` entry, runs as a traced render cell: correct,
+    and its share of the peak counts the U-Net's own operations."""
+    root = spec.ROOT
+    shutil.copytree(root / 'benchmark', tmp_path / 'benchmark',
+                    ignore=shutil.ignore_patterns('__pycache__'))
+    b = tmp_path / 'benchmark'
+    s = json.loads((root / 'BENCHMARK.json').read_text())
+    cfg = dict(tiny(2, 'unet'), name='unet_tiny')
+    assert not {'fusion_features', 'vit_width', 'vit_depth', 'vit_heads',
+                'resnet_layers', 'pretrain_grid'} & set(cfg)
+    (b / 'configs' / 'unet_tiny.json').write_text(json.dumps(cfg))
+    s['configs'].append({'name': 'unet_tiny',
+                         'source': 'https://arxiv.org/abs/2304.08463',
+                         'file': 'benchmark/configs/unet_tiny.json',
+                         'reduced': ['image_size', 'n_samples'],
+                         'why': 'the U-Net encoder, 4 levels 960 wide'})
+    s['workloads'].append({'name': 'unet_tiny.scenes', 'config': 'unet_tiny',
+                           'traffic': 'scenes', 'chips': 1,
+                           'why': 'scene requests through the U-Net'})
+    (b / 'limits' / 'unet_tiny.scenes.json').write_text(
+        (b / 'limits' / 're10k_v2.scenes.json').read_text())
+    for m in s['end_to_end'] + s['per_layer']:
+        if m['name'] in ('render_images_per_s', 'mfu.render'):
+            m['workloads'].append('unet_tiny.scenes')
+    (tmp_path / 'BENCHMARK.json').write_text(json.dumps(s))
+
+    cell = spec.cell('unet_tiny.scenes', root=tmp_path)
+    assert cell.config == cfg
+    cell.traffic = dict(cell.traffic, pool_scenes=16)
+    r = bench.run(cell, 2 ** 33 + 17, 0.2, True, torch.device('cpu'),
+                  time.perf_counter())
+    assert r['correct'], r['checks']
+    rate = float(re.search(r'^window render_images_per_s (\S+) images/s$',
+                           capsys.readouterr().err, re.M).group(1))
+    model = bench.load_module(b / 'work' / 'model.py')
+    c = model.conv
+    assert model.encode_ops(cell.config) == 2 * (
+        c(7, 3, 32, 32, 32) + c(5, 32, 64, 16, 16) + c(3, 64, 128, 8, 8)
+        + c(3, 128, 256, 4, 4) + c(3, 256, 512, 2, 2))
+    assert r['metrics']['mfu.render']['value'] == pytest.approx(
+        100 * model.render_ops(cell.config) * rate / 989e12, rel=1e-12)

@@ -9,14 +9,15 @@ import time
 import pytest
 import torch
 
+import calibrate
 from harness import bench, program, scenes, spec
 
 CPU = torch.device('cpu')
 
 
-def tiny_cell(name, tiny):
+def tiny_cell(name, tiny, model='midas_vit'):
     cell = spec.cell(name)
-    cell.config = tiny(cell.config['n_view'])
+    cell.config = tiny(cell.config['n_view'], model)
     if cell.traffic['kind'] == 'train':
         cell.traffic = dict(cell.traffic, batch=2, rays=16)
     else:
@@ -81,6 +82,34 @@ def test_a_dropped_encoder_branch_is_caught(tiny, name, branch,
 
     monkeypatch.setattr(program, 'make_model', broken)
     r = run(tiny_cell(name, tiny))
+    assert not r['correct']
+    c = r['checks']['pyramid_err']
+    assert c['value'] > c['limit']
+
+
+@pytest.mark.parametrize('name', ['re10k_v2.scenes', 'co3d_v3.scenes'])
+@pytest.mark.parametrize('model, fault', [('resnet', 'resnet_branch'),
+                                          ('unet', 'unet_level')])
+def test_a_dropped_branch_or_level_of_another_encoder_is_caught(
+        tiny, name, model, fault, monkeypatch):
+    """The fault ``calibrate.branch_faults`` plants in a ResNet34 or U-Net
+    configuration's encoder, planted in the program's forward instead:
+    the last ResNet34 block's branch (its second norm zeroed), the
+    U-Net's coarsest level (``down5`` zeroed)."""
+    cell = tiny_cell(name, tiny, model)
+    zeroed = calibrate.branch_faults(cell.config)[fault]
+    make = program.make_model
+
+    def broken(cfg, weights, device):
+        model = make(cfg, weights, device)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in zeroed:
+                    p.zero_()
+        return model
+
+    monkeypatch.setattr(program, 'make_model', broken)
+    r = run(cell)
     assert not r['correct']
     c = r['checks']['pyramid_err']
     assert c['value'] > c['limit']

@@ -15,9 +15,9 @@ def load(name):
 def small(**kw):
     # fusion_features 1: the pyramid is 2 x 1 + 64 = 66 wide, the latent
     # 33; the attention width (128) and phi (3 blocks of 128) are fixed
-    cfg = {'image_size': [2, 2], 'n_view': 2, 'n_samples': 3,
-           'fusion_features': 1, 'vit_width': 8, 'vit_depth': 1,
-           'resnet_layers': [1, 1, 1]}
+    cfg = {'model': 'midas_vit', 'image_size': [2, 2], 'n_view': 2,
+           'n_samples': 3, 'fusion_features': 1, 'vit_width': 8,
+           'vit_depth': 1, 'resnet_layers': [1, 1, 1]}
     cfg.update(kw)
     return cfg
 
@@ -26,6 +26,45 @@ def test_sizes_follow_fusion_features():
     s = load('shapes').sizes(small(fusion_features=100))
     assert (s['F'], s['O'], s['K']) == (264, 132, 128)
     assert (s['phi_hidden'], s['phi_blocks']) == (128, 3)
+
+
+def test_sizes_of_the_other_encoders():
+    """ResNet34 and the U-Net: the pyramid's width and levels are their
+    own, and no DPT size is carried."""
+    shapes = load('shapes')
+    for model, F, levels in (
+            ('resnet', 512, [(256, 8), (128, 4), (64, 2), (64, 2)]),
+            ('unet', 960, [(64, 2), (128, 4), (256, 8), (512, 16)])):
+        cfg = {'model': model, 'image_size': [32, 32], 'n_view': 3,
+               'n_samples': 4}
+        s = shapes.sizes(cfg)
+        assert (s['F'], s['O'], s['K']) == (F, F // 2, 128)
+        assert not {'ff', 'w', 'depth'} & set(s)
+        assert shapes.ref.pyramid_levels(cfg) == levels
+        assert shapes.pyramid_bytes(cfg) == 2 * sum(
+            (32 // d) ** 2 * ch for ch, d in levels)
+
+
+def test_encoder_counts_by_hand():
+    """ResNet34 (no first pool: 64 @ H/2, 128 @ H/4, 256 @ H/8) and the
+    U-Net (32 @ H, then 64, 128, 256, 512 at H/2 .. H/16) at 32x32, two
+    views; a multiply-add is two operations."""
+    model = load('model')
+    c = model.conv
+    resnet = c(7, 3, 64, 16, 16) + 6 * c(3, 64, 64, 16, 16)
+    resnet += (c(3, 64, 128, 8, 8) + c(1, 64, 128, 8, 8)
+               + 7 * c(3, 128, 128, 8, 8))
+    resnet += (c(3, 128, 256, 4, 4) + c(1, 128, 256, 4, 4)
+               + 11 * c(3, 256, 256, 4, 4))
+    unet = (c(7, 3, 32, 32, 32) + c(5, 32, 64, 16, 16)
+            + c(3, 64, 128, 8, 8) + c(3, 128, 256, 4, 4)
+            + c(3, 256, 512, 2, 2))
+    for name, ops in (('resnet', resnet), ('unet', unet)):
+        cfg = {'model': name, 'image_size': [32, 32], 'n_view': 2,
+               'n_samples': 4}
+        assert model.encode_ops(cfg) == 2 * ops
+        assert model.render_ops(cfg) == 2 * ops + 32 * 32 * model.ray_ops(
+            cfg)
 
 
 def test_exchange_counts_by_hand():

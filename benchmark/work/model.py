@@ -1,8 +1,9 @@
 """The model's operations (products and convolutions, multiply-add as two)
-from the configuration's shapes: the encode of one scene, the render of
-one whole image, and one stage-1 train step (forward and backward, taken
-as three forwards). Elementwise work (norms, softmax, interpolation,
-geometry) is not counted."""
+from the configuration's shapes: the encode of one scene by the
+configuration's encoder (``model``), the render of one whole image, and
+one stage-1 train step (forward and backward, taken as three forwards).
+Elementwise work (norms, pooling, softmax, interpolation, geometry) is
+not counted."""
 
 import importlib.util
 from pathlib import Path
@@ -19,6 +20,42 @@ def conv(k, cin, cout, h, w):
 
 def encode_ops(cfg: dict) -> float:
     """The pyramid of one scene (all its views)."""
+    return {'midas_vit': _dpt_ops, 'resnet': _resnet34_ops,
+            'unet': _unet_ops}[shapes.ref.encoder(cfg)](cfg)
+
+
+def _resnet34_ops(cfg: dict) -> float:
+    """ResNet34's conv1 .. layer3 (the 7x7 stem and the 3x3 convs of
+    stride 2 round their output up)."""
+    s = shapes.sizes(cfg)
+    h, w = -(-s['H'] // 2), -(-s['W'] // 2)
+    ops = conv(7, 3, 64, h, w)
+    for _, d_in, ch, stride, _ in shapes.ref.resnet34_blocks():
+        if stride == 2:
+            h, w = -(-h // 2), -(-w // 2)
+        ops += conv(3, d_in, ch, h, w) + conv(3, ch, ch, h, w)
+        if d_in != ch or stride != 1:
+            ops += conv(1, d_in, ch, h, w)
+    return float(s['V'] * ops)
+
+
+def _unet_ops(cfg: dict) -> float:
+    """The U-Net's down path: down1 at full resolution, each later conv
+    after a 2x2 pool."""
+    s = shapes.sizes(cfg)
+    h, w = s['H'], s['W']
+    ops = conv(7, 3, 32, h, w)
+    d_in = 32
+    for ch, k in shapes.ref.UNET_DOWN:
+        h, w = h // 2, w // 2
+        ops += conv(k, d_in, ch, h, w)
+        d_in = ch
+    return float(s['V'] * ops)
+
+
+def _dpt_ops(cfg: dict) -> float:
+    """The R50 stem, the joint ViT, the DPT fusion and the
+    full-resolution conv."""
     s = shapes.sizes(cfg)
     H, W, V, ff, w = s['H'], s['W'], s['V'], s['ff'], s['w']
     ops = conv(7, 3, 64, H // 2, W // 2)                 # R50 stem
