@@ -17,8 +17,9 @@
   video writer raising without imageio.
 * ``build_model`` building each encoder, ablation flag and view count 1-4
   on the CPU, and refusing ``--views 5``; a 2-step ``cli/train.py`` run of
-  the ResNet34 model at one view, and ``cli/eval.py`` of the ResNet34
-  model at two views with ``--no_sample``.
+  the ResNet34 model at one view, ``cli/eval.py`` of the ResNet34
+  model at two views with ``--no_sample``, and of the U-Net at two views
+  in bf16.
 """
 
 import sys
@@ -348,6 +349,29 @@ def test_eval_cli_resnet_no_sample(dataset, tmp_path):
     scene = C.scene_batch(PR.RealEstate10kVis(img_root, pose_root)[0],
                           'cpu')
     want = E.evaluate_scene(model, scene, 64, 64, n_chunks=8)
+    for k in ('mse', 'psnr', 'ssim'):
+        assert np.isfinite(res['scenes'][0][k])
+        np.testing.assert_allclose(res['scenes'][0][k], float(want[k]),
+                                   rtol=1e-6, err_msg=k)
+
+
+def test_eval_cli_unet_bf16(dataset, tmp_path):
+    """``cli/eval.py --model unet`` at two views in bf16 (the benchmark's
+    ``unet_v2``): the whole-image renderer's metrics, equal to
+    ``evaluate_scene``'s on the same model and scene."""
+    from cross_attention_renderer_torch.cli import eval as eval_cli
+    img_root, pose_root = dataset
+    argv = ['--img_root', str(img_root), '--pose_root', str(pose_root),
+            '--logging_root', str(tmp_path), '--max_scenes', '1',
+            '--model', 'unet', '--dtype', 'bfloat16', *TINY_FLAGS]
+    res = eval_cli.main(argv)
+    opt = C.base_parser('x').parse_known_args(argv)[0]
+    model = C.build_model(opt).eval()
+    assert model.model == 'unet' and model.n_view == 2
+    scene = C.scene_batch(PR.RealEstate10kVis(img_root, pose_root)[0],
+                          'cpu')
+    want = E.evaluate_scene(model, scene, 64, 64, n_chunks=8,
+                            renderer=E.make_image_renderer(model, 8))
     for k in ('mse', 'psnr', 'ssim'):
         assert np.isfinite(res['scenes'][0][k])
         np.testing.assert_allclose(res['scenes'][0][k], float(want[k]),
